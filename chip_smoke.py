@@ -1,0 +1,470 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card (built for H100).
+
+    python3 chip_smoke.py [--layers N] [--seed S]
+
+1. Prints the card (nvidia-smi name and power limit), builds the three
+   hand-written CUDA kernels from src/repro_torch/kernels/csrc with nvcc
+   (sm_90a) and prints the build time.
+2. Holds each kernel against its plain PyTorch version at Qwen2-7B shapes,
+   in bf16 and f32, with ragged counts, kv_valid holes and a part-filled
+   ring; prints the max error beside the tolerance, and times the kernel,
+   the plain version and (attention) one SDPA call with CUDA events.
+3. Serves 6 staggered mixed-budget requests through ``ServingEngine`` at
+   Qwen2-7B full width (random bf16 weights from --seed; --layers cuts depth
+   only) and fails unless budget-1.0 requests equal a mode="base" engine
+   bit for bit, a request served alone equals its staggered tokens, and
+   every kernel launched during the run. Prints prefill and decode rates of
+   the main run and of the (warm) teacher run, and the device kernel time
+   of the solo run under torch.profiler.
+4. Prints one JSON line of per-kernel results, the card line again, and as
+   the last line {"ok": true, "device": {...}}.
+
+Any failed phase raises and the script exits non-zero before that line.
+TF32 is off for matmuls and cuDNN (both set below): f32 means f32.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}   # H100 SXM dense; f32 off tensor cores
+PEAK_BYTES = 3.35e12                          # H100 SXM HBM3
+TOL = {"bf16": (1e-2, 1e-2), "f32": (1e-4, 1e-4)}   # (atol, rtol), per element
+L2_BYTES = 50 * 2 ** 20                       # H100 SXM L2
+SOURCES = {
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:124"),
+    "fused_mlp": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
+                  "src/repro/kernels/fused_mlp.py:140"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:104"),
+}
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, reps: int = 5, warmup: int = 5) -> list:
+    """Mean ms per call of ``fn`` over ``iters`` back-to-back calls,
+    measured with CUDA events ``reps`` times after ``warmup`` calls; returns
+    the ``reps`` means, sorted (median is the reported time, the ends are
+    its spread)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / iters)
+    return sorted(out)
+
+
+def cycling(fn, n: int):
+    """A no-argument callable that calls ``fn(i)`` with i = 0, 1, ..., n-1,
+    0, ... in turn (rotates over n input sets)."""
+    state = [0]
+
+    def call():
+        i = state[0]
+        state[0] = (i + 1) % n
+        return fn(i)
+    return call
+
+
+def bound_ms(flops: float, nbytes: float, kind: str):
+    t_ops, t_bytes = flops / PEAK_FLOPS[kind], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+class Results:
+    """Per-kernel comparison errors and main-case timings."""
+
+    def __init__(self):
+        self.rows = {n: {"max_abs_err": 0.0} for n in SOURCES}
+
+    def compare(self, name, case, got, want, kind):
+        """Per element: |got - want| <= atol + rtol * |want|."""
+        import torch
+        diff = (got.float() - want.float()).abs()
+        atol, rtol = TOL[kind]
+        tol = atol + rtol * want.float().abs()
+        err = float(diff.max())
+        worst = float((diff / tol).max())       # <= 1 everywhere to pass
+        ok = bool(torch.isfinite(got.float()).all()) and worst <= 1.0
+        print(f"  {name:17s} {case:44s} max_abs_err {err:.3e}  worst "
+              f"err/tol {worst:.3f} (tol atol {atol:g} + rtol {rtol:g} * "
+              f"|plain| per element)  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{name} {case}: kernel disagrees with its plain version")
+        row = self.rows[name]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    def timing(self, name, ms, plain_ms, flops, nbytes, kind, library_ms):
+        """Each time is the sorted list from ``cuda_ms``; the median goes
+        into the result line, the spread is printed."""
+        b, by = bound_ms(flops, nbytes, kind)
+        med = lambda ts: None if ts is None else ts[len(ts) // 2]
+        self.rows[name].update(ms=med(ms), plain_ms=med(plain_ms), bound_ms=b,
+                               bound_by=by, library_ms=med(library_ms))
+        fmt = lambda ts: ("n/a" if ts is None else f"{med(ts):.4f} ms "
+                          f"[{ts[0]:.4f}-{ts[-1]:.4f}]")
+        print(f"  {name:17s} median [min-max] of {len(ms)}: kernel {fmt(ms)}"
+              f"  plain {fmt(plain_ms)}  library {fmt(library_ms)}  bound "
+              f"{b:.4f} ms ({by})")
+
+
+# ----------------------------- kernel checks ---------------------------------
+
+def _attention_mask(B, S, valid, causal, count):
+    """(B, S, S) attendable (query, key) pairs, by array index."""
+    import torch
+    i = torch.arange(S, device=valid.device)
+    m = (i[None, :] <= i[:, None]) if causal else torch.ones(
+        S, S, dtype=torch.bool, device=valid.device)
+    m = m[None] & valid[:, None, :]
+    return m & (i[None, None, :] < count[:, None, None]) & (
+        i[None, :, None] < count[:, None, None])
+
+
+def check_flash(res: Results, rng, dev, H, K, Dh):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    cases = [  # (dtype, B, S, keep fraction, counts, timed)
+        ("bf16", 1, 512, 0.6, None, True),
+        ("f32", 2, 384, 0.7, [384, 200], False),
+        ("bf16", 2, 256, 0.5, [256, 77], False),
+    ]
+    for kind, B, S, keep, counts, timed in cases:
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        q = torch.randn(B, S, H, Dh, device=dev).to(dt)
+        k = torch.randn(B, S, K, Dh, device=dev).to(dt)
+        v = torch.randn(B, S, K, Dh, device=dev).to(dt)
+        valid = torch.from_numpy(rng.random((B, S)) < keep).to(dev)
+        cnt = None if counts is None else torch.tensor(counts, device=dev,
+                                                       dtype=torch.int32)
+        kw = dict(kv_valid=valid, kv_count=cnt, causal=True)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ops.flash_attention(q, k, v, backend="ref", **kw)
+        res.compare("flash_attention", f"{kind} B={B} S={S} H={H} K={K} "
+                    f"keep={keep} cnt={counts}", got, want, kind)
+        if not timed:
+            continue
+        cvec = torch.full((B,), S, device=dev) if cnt is None else cnt
+        mask = _attention_mask(B, S, valid, True, cvec)
+        pairs = float(mask.sum()) * H
+        # bytes the function needs: q rows inside the count, the K/V rows of
+        # keys that are valid and inside the count, every output row, and
+        # the validity mask
+        live = torch.arange(S, device=dev)[None, :] < cvec[:, None]
+        q_rows, kv_rows = int(live.sum()), int((valid & live).sum())
+        esz = q.element_size()
+        nbytes = ((q_rows + B * S) * H * Dh + 2 * kv_rows * K * Dh) * esz \
+            + valid.numel()
+        kx = k.repeat_interleave(H // K, dim=2).transpose(1, 2)
+        vx = v.repeat_interleave(H // K, dim=2).transpose(1, 2)
+        qt = q.transpose(1, 2)
+        res.timing(
+            "flash_attention",
+            cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 20),
+            cuda_ms(lambda: ops.flash_attention(q, k, v, backend="ref", **kw),
+                    5),
+            4 * Dh * pairs, nbytes, kind,
+            cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kx, vx, attn_mask=mask[:, None]), 20))
+
+
+def check_fused_mlp(res: Results, dev, D, Fd):
+    import torch
+    from repro_torch.kernels import ops
+    cases = [  # (dtype, x shape, D, F, act, gated, token weights, counts, timed)
+        ("bf16", (1, 512), D, Fd, "swiglu", True, False, None, True),
+        ("f32", (2, 96), D, Fd, "swiglu", True, True, [96, 41], False),
+        ("f32", (1, 70), 256, 512, "gelu", False, True, [70], False),
+    ]
+    for kind, xs, d, f, act, gated, weighted, counts, timed in cases:
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        x = torch.randn(*xs, d, device=dev).to(dt)
+        w = lambda a, b: (torch.randn(a, b, device=dev) / a ** 0.5).to(dt)
+        wi, wo = w(d, f), w(f, d)
+        wg = w(d, f) if gated else None
+        tw = torch.rand(*xs, device=dev) if weighted else None
+        cnt = None if counts is None else torch.tensor(counts, device=dev,
+                                                       dtype=torch.int32)
+        run = lambda backend=None: ops.fused_mlp(
+            x, wi, wo, wg, tw, cnt, act=act, backend=backend)
+        res.compare("fused_mlp", f"{kind} x={tuple(x.shape)} F={f} {act} "
+                    f"cnt={counts}", run(), run("ref"), kind)
+        if not timed:
+            continue
+        rows = xs[0] * xs[1]
+        n_mats = 3 if gated else 2
+        esz = x.element_size()
+        nbytes = (n_mats * d * f + 2 * x.numel()) * esz
+        res.timing("fused_mlp", cuda_ms(run, 5), cuda_ms(
+            lambda: run("ref"), 3), 2 * rows * d * f * n_mats, nbytes, kind,
+            None)
+
+
+def _ring(rng, B, L, t, keep):
+    """Ring-cache positions written up to per-slot t (slot = pos % L), -1
+    for never-written slots, and a routing validity mask."""
+    slots = np.arange(L)[None, :]
+    tt = np.asarray(t)[:, None]
+    pos = np.where(slots <= tt % L, tt - tt % L, tt - tt % L - L) + slots
+    pos = np.where(pos >= 0, pos, -1).astype(np.int32)
+    return pos, rng.random((B, L)) < keep
+
+
+def check_decode(res: Results, rng, dev, H, K, Dh, L):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    B = 4
+    t = np.asarray([63, 300, L - 1, L + 476], np.int32)   # last one wrapped
+    cases = [("bf16", 0, True), ("f32", 256, False)]      # (dtype, window)
+    for kind, window, timed in cases:
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        pos_np, valid_np = _ring(rng, B, L, t, 0.8)
+        q = torch.randn(B, 1, H, Dh, device=dev).to(dt)
+        k = torch.randn(B, L, K, Dh, device=dev).to(dt)
+        v = torch.randn(B, L, K, Dh, device=dev).to(dt)
+        pos, valid = (torch.from_numpy(a).to(dev) for a in (pos_np, valid_np))
+        tv = torch.from_numpy(t).to(dev)
+        run = lambda backend=None: ops.decode_attention(
+            q, k, v, pos, tv, valid, window=window, backend=backend)
+        res.compare("decode_attention", f"{kind} B={B} L={L} H={H} K={K} "
+                    f"window={window} ring holes", run(), run("ref"), kind)
+        if not timed:
+            continue
+        att = (pos_np >= 0) & (pos_np <= t[:, None]) & valid_np
+        if window:
+            att &= (t[:, None] - pos_np) < window
+        esz = q.element_size()
+        nbytes = (2 * q.numel() + 2 * int(att.sum()) * K * Dh) * esz \
+            + pos.numel() * 4 + valid.numel() + B * 4
+        # On the serving path every layer has its own ring cache, so decode
+        # finds K/V cold in HBM. Time it that way: rotate over enough K/V
+        # sets (same masks) that their total is twice the L2 cache.
+        n_sets = 1 + 2 * L2_BYTES // (k.numel() * esz * 2)
+        ks = [k] + [torch.randn_like(k) for _ in range(n_sets - 1)]
+        vs = [v] + [torch.randn_like(v) for _ in range(n_sets - 1)]
+        mask = torch.from_numpy(att).to(dev)[:, None, None, :]
+        qt = q.transpose(1, 2)
+        kxs = [a.repeat_interleave(H // K, dim=2).transpose(1, 2) for a in ks]
+        vxs = [a.repeat_interleave(H // K, dim=2).transpose(1, 2) for a in vs]
+        dec = lambda backend: cycling(lambda i: ops.decode_attention(
+            q, ks[i], vs[i], pos, tv, valid, window=window,
+            backend=backend), n_sets)
+        mib = lambda ts: sum(a.numel() for a in ts) * esz / 2 ** 20
+        print(f"  decode_attention  timed L2-cold: rotating over {n_sets} "
+              f"K/V sets ({mib(ks + vs):.0f} MiB; SDPA's K/V repeated to "
+              f"{H} heads: {mib(kxs + vxs):.0f} MiB)")
+        res.timing("decode_attention", cuda_ms(dec(None), 50),
+                   cuda_ms(dec("ref"), 10),
+                   4 * Dh * H * float(att.sum()), nbytes, kind,
+                   cuda_ms(cycling(lambda i: F.scaled_dot_product_attention(
+                       qt, kxs[i], vxs[i], attn_mask=mask), n_sets), 50))
+        del ks, vs, kxs, vxs
+
+
+# ------------------------------- serving -------------------------------------
+
+def serve(engine, requests, stagger: bool):
+    """Submit two requests, step twice, submit the rest, run to the end."""
+    from repro_torch.training import GenRequest
+    first = 2 if stagger else len(requests)
+    handles = [engine.submit(GenRequest(p, n, budget=b))
+               for p, n, b in requests[:first]]
+    if stagger:
+        for _ in range(2):
+            engine.step()
+        handles += [engine.submit(GenRequest(p, n, budget=b))
+                    for p, n, b in requests[first:]]
+    while not all(h.done for h in handles):
+        if engine.step() == 0:
+            fail("serving engine stalled")
+    return [list(h.output) for h in handles]
+
+
+def print_timing(label, tm, device_line):
+    print(f"{label} prefill: {tm['prefill_tokens']} tokens in "
+          f"{tm['prefill_s'] * 1e3:.1f} ms = "
+          f"{tm['prefill_tokens'] / tm['prefill_s']:.1f} tok/s [{device_line}]")
+    print(f"{label} decode: {tm['decode_steps']} steps, {tm['decode_tokens']} "
+          f"tokens in {tm['decode_s'] * 1e3:.1f} ms = "
+          f"{tm['decode_s'] * 1e3 / tm['decode_steps']:.2f} ms/step, "
+          f"{tm['decode_tokens'] / tm['decode_s']:.1f} tok/s [{device_line}]")
+
+
+def print_device_time(prof, wall_s, top=8):
+    """Kernel time on the device by name, from a torch.profiler run, beside
+    the host wall time of the same window (device busy share)."""
+    from torch.autograd import DeviceType
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    print(f"profiled window: wall {wall_s * 1e3:.1f} ms, kernels "
+          f"{busy_ms:.1f} ms on the device ({100 * busy_ms / (wall_s * 1e3):.1f}"
+          f" % busy, profiler on)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  "
+              f"{e.key[:100]}")
+
+
+def check_serving(args, dev, device_line):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticSpec
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import ServingEngine
+
+    full = get_config("qwen2-7b")
+    cfg = dataclasses.replace(full, n_layers=args.layers)
+    print(f"model: {cfg.name} d={cfg.d_model} H={cfg.n_heads} K="
+          f"{cfg.n_kv_heads} Dh={cfg.d_head} F={cfg.d_ff} V={cfg.vocab_size} "
+          f"{cfg.dtype}, depth {cfg.n_layers} of {full.n_layers} layers"
+          + ("" if cfg.n_layers == full.n_layers else " (depth cut)"))
+    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                       mha_head_routed=True, lora_rank=1)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model_init(gen, cfg, spec, device=dev)
+    rp = router_init(gen, cfg, spec, device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for layer in params["layers"] for d in layer.values()
+            for p in d.values()) + params["embed"].numel() + \
+        params["lm_head"].numel()
+    print(f"init: {n / 1e9:.3f} B params in {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(args.seed)
+    lens = [64, 512, 200, 333, 128, 450]
+    budgets = [1.0, 0.75, 0.5, 1.0, 0.5, 0.75]
+    requests = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 16, b)
+                for n, b in zip(lens, budgets)]
+    mk = lambda mode: ServingEngine(params, rp, cfg, spec, mode=mode,
+                                    batch_size=4, max_seq=1024, device=dev)
+
+    engine = mk("infer")
+    ops.reset_launch_counts()
+    tokens = serve(engine, requests, stagger=True)    # the main path
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"main path launches: {launches}")
+    missing = [k for k, c in launches.items() if c == 0]
+    if missing:
+        fail(f"kernels never launched on the main path: {missing}")
+    print_timing("main path (first run, cold)", engine.timing, device_line)
+    for toks in tokens:
+        if len(toks) != 16 or not all(0 <= x < cfg.vocab_size for x in toks):
+            fail(f"bad generated tokens {toks}")
+
+    base = mk("base")
+    teacher = serve(base, requests, stagger=True)
+    print_timing("teacher, mode='base' (warm)", base.timing, device_line)
+    for i, b in enumerate(budgets):
+        if b == 1.0 and tokens[i] != teacher[i]:
+            fail(f"budget-1.0 request {i} differs from the teacher: "
+                 f"{tokens[i]} vs {teacher[i]}")
+    print("budget 1.0 == mode='base' teacher, bit for bit: ok "
+          f"({sum(b == 1.0 for b in budgets)} requests; "
+          f"{sum(tokens[i] != teacher[i] for i in range(6))} of 6 differ "
+          f"from the teacher in all)")
+    solo_i = 4                       # budget 0.5, admitted mid-decode
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solo = serve(mk("infer"), [requests[solo_i]], stagger=False)[0]
+        torch.cuda.synchronize()
+    print_device_time(prof, time.perf_counter() - t0)
+    if solo != tokens[solo_i]:
+        fail(f"request {solo_i} alone {solo} != staggered {tokens[solo_i]}")
+    print(f"staggered == solo (request {solo_i}, budget "
+          f"{budgets[solo_i]}): ok")
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--layers", type=int, default=28,
+                    help="depth of the served Qwen2-7B (width stays full)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs on an NVIDIA card", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    device_line = card_line()
+    print(f"device: {device_line}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
+          f"cudnn {torch.backends.cudnn.allow_tf32}")
+    t_build = build.build()
+    print(f"kernel build (nvcc sm_90a, {len(build.KERNELS)} sources in "
+          f"parallel): {t_build:.1f} s")
+    for name, log in build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    dev = torch.device("cuda")
+    torch.manual_seed(0)
+    rng = np.random.default_rng(0)
+    cfg = get_config("qwen2-7b")
+    H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    print(f"kernel checks at {cfg.name} shapes [{device_line}]:")
+    res = Results()
+    check_flash(res, rng, dev, H, K, Dh)
+    check_fused_mlp(res, dev, cfg.d_model, cfg.d_ff)
+    check_decode(res, rng, dev, H, K, Dh, 1024)
+    torch.cuda.synchronize()
+
+    launches = check_serving(args, dev, device_line)
+    kernels = [dict(name=n, route="cuda", source=SOURCES[n][0],
+                    replaces=SOURCES[n][1], launches=launches[n],
+                    **res.rows[n]) for n in SOURCES]
+    print(json.dumps({"kernels": kernels}))
+    print(device_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

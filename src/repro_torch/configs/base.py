@@ -1,0 +1,123 @@
+"""Model and elastic configs for the PyTorch port.
+
+An own copy of what serving needs from the JAX package's
+``configs/base.py`` (the two packages share no code). The one deliberate
+difference is head padding: ``get_config`` keeps ``head_pad=1`` unless the
+caller asks for more, because one card has no tensor-parallel axis to pad
+for, and padded heads would turn the attention kernels off.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Backbone architecture description (decoder-only attention slice).
+
+    ``mixer_pattern`` is the repeating period of temporal-mixer kinds and
+    ``window_pattern`` the per-position attention window (0 = global).
+    """
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 128
+    norm: str = "rmsnorm"           # rmsnorm | layernorm
+    act: str = "swiglu"             # swiglu | geglu | gelu
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    eos_id: Optional[int] = None
+    rope_theta: float = 10_000.0
+    max_seq_len: int = 131_072
+    window_pattern: Tuple[int, ...] = (0,)
+    mixer_pattern: Tuple[str, ...] = ("attn",)
+    dtype: str = "bfloat16"
+    head_pad: int = 1
+
+    @property
+    def padded_vocab(self) -> int:
+        return _round_up(self.vocab_size, 256)
+
+    @property
+    def n_heads_p(self) -> int:
+        """q-heads padded to a multiple of ``head_pad``."""
+        return _round_up(self.n_heads, self.head_pad)
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        p = self.mixer_pattern
+        return tuple(p[i % len(p)] for i in range(self.n_layers))
+
+    @property
+    def layer_windows(self) -> Tuple[int, ...]:
+        w = self.window_pattern
+        return tuple(w[i % len(w)] for i in range(self.n_layers))
+
+    def n_params(self) -> int:
+        """Approximate parameter count (embedding + attention blocks + head)."""
+        D, F, V = self.d_model, self.d_ff, self.padded_vocab
+        n = V * D
+        if not self.tie_embeddings:
+            n += D * V
+        qo = D * self.n_heads * self.d_head + self.n_heads * self.d_head * D
+        kv = 2 * D * self.n_kv_heads * self.d_head
+        n_mlp = (3 if self.act in ("swiglu", "geglu") else 2) * D * F
+        for _ in self.layer_kinds:
+            n += qo + kv + n_mlp + 2 * D
+        return n
+
+
+@dataclass(frozen=True)
+class ElasticConfig:
+    """Legacy elastic configuration; ``policy.as_spec_policy`` converts it
+    to the (ElasticSpec, ElasticPolicy) pair the model consumes."""
+    mlp_token_capacity: Optional[float] = 0.8
+    mha_token_capacity: Optional[float] = None
+    depth_capacity: Optional[float] = None
+    mha_head_topk: Optional[int] = None
+    mlp_n_experts: Optional[int] = None
+    mlp_expert_topk: Optional[int] = None
+    vlm_token_capacity: Optional[float] = None
+    vlm_router: str = "linear"
+    vlm_router_hidden: int = 0
+    lora_rank: int = 0
+    layers: str = "all"
+    router_dtype: str = "float32"
+    distill_loss: str = "topk_kl"
+    distill_topk: int = 50
+    distill_temp: float = 1.0
+    lambda_load: float = 1.0
+    lambda_topk: float = 1.0
+    routing_impl: str = "ragged"
+    kernel_backend: str = "auto"
+    kv_dtype: str = "fp32"
+    weight_dtype: str = "fp32"
+
+    def applies_to_layer(self, idx: int) -> bool:
+        return self.layers == "all" or idx % 2 == 0
+
+
+REGISTRY: dict = {}
+
+
+def register(name: str, full_fn, smoke_fn):
+    REGISTRY[name] = {"full": full_fn, "smoke": smoke_fn}
+
+
+def get_config(name: str, variant: str = "full",
+               head_pad: int = 1) -> ModelConfig:
+    cfg = REGISTRY[name][variant]()
+    if head_pad != cfg.head_pad:
+        cfg = dataclasses.replace(cfg, head_pad=head_pad)
+    return cfg

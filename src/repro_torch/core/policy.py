@@ -1,0 +1,284 @@
+"""ElasticSpec / ElasticPolicy: one model, many compute budgets.
+
+* ``ElasticSpec`` — static description of which elastic machinery exists
+  (routers, LoRA rank, layers, kernel backend). Frozen and hashable.
+* ``ElasticPolicy`` — runtime knobs: token capacities, head/expert top-k,
+  the decode threshold theta and a teacher/student flag. Leaves are Python
+  numbers (static: trace-time constants in the JAX package) or float32
+  tensors of shape ``()`` or ``(B,)`` (one leaf per serving slot).
+
+Budget semantics: any capacity ``>= 1`` (or top-k ``>= n``) is the exact
+frozen-teacher computation, so ``ElasticPolicy.uniform(1.0)`` reproduces
+the teacher bit for bit. ``solve_budget`` maps a FLOP budget to a policy
+with the JAX package's analytic roofline model.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+from typing import Optional, Sequence, Union
+
+import torch
+
+FULL_TOPK = 1 << 30   # a top-k meaning "all submodules"
+
+Scalar = Union[float, int, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class ElasticSpec:
+    """What elastic machinery exists (shapes the params; static)."""
+    mlp_token_routed: bool = True
+    mha_token_routed: bool = False
+    mha_head_routed: bool = False
+    depth_routed: bool = False
+    mlp_n_experts: Optional[int] = None
+    expert_routed: bool = False
+    vlm_routed: bool = False
+    vlm_router: str = "linear"
+    vlm_router_hidden: int = 0
+    lora_rank: int = 0
+    layers: str = "all"                # all | even  (paper §5.2)
+    router_dtype: str = "float32"
+    distill_loss: str = "topk_kl"
+    distill_topk: int = 50
+    distill_temp: float = 1.0
+    lambda_load: float = 1.0
+    lambda_topk: float = 1.0
+    routing_impl: str = "ragged"
+    # auto = kernels on CUDA tensors, plain versions on CPU ones; cuda =
+    # kernels only; ref = plain versions (see kernels/ops.py)
+    kernel_backend: str = "auto"
+    kv_dtype: str = "fp32"
+    weight_dtype: str = "fp32"
+
+    def applies_to_layer(self, idx: int) -> bool:
+        return self.layers == "all" or idx % 2 == 0
+
+
+def _leaf(v, static: bool):
+    return v if static else torch.tensor(float(v), dtype=torch.float32)
+
+
+def _map(fn, *pols: "ElasticPolicy") -> "ElasticPolicy":
+    """Apply fn leaf-wise over policies of the same structure."""
+    return ElasticPolicy(**{
+        f.name: fn(*(getattr(p, f.name) for p in pols))
+        for f in dataclasses.fields(ElasticPolicy)})
+
+
+@dataclass
+class ElasticPolicy:
+    """Runtime compute budget. Capacities are fractions in (0, 1]; top-k
+    values are absolute counts (``FULL_TOPK`` = all). ``student <= 0``
+    disables all routing (exact teacher), per slot when shaped (B,)."""
+    mlp_token_capacity: Scalar = 1.0
+    mha_token_capacity: Scalar = 1.0
+    depth_capacity: Scalar = 1.0
+    mha_head_topk: Scalar = FULL_TOPK
+    mlp_expert_topk: Scalar = FULL_TOPK
+    vlm_token_capacity: Scalar = 1.0
+    theta: Scalar = 0.5
+    student: Scalar = 1.0
+
+    @classmethod
+    def uniform(cls, budget: float, *, n_heads: Optional[int] = None,
+                n_experts: Optional[int] = None, theta: float = 0.5,
+                static: bool = False) -> "ElasticPolicy":
+        """Same fractional budget on every knob; head/expert top-k resolved
+        when the counts are given, else left at "all"."""
+        topk = lambda n: (max(1, min(n, int(math.ceil(budget * n - 1e-9))))
+                          if n else FULL_TOPK)
+        return cls(
+            mlp_token_capacity=_leaf(budget, static),
+            mha_token_capacity=_leaf(budget, static),
+            depth_capacity=_leaf(budget, static),
+            mha_head_topk=_leaf(topk(n_heads), static),
+            mlp_expert_topk=_leaf(topk(n_experts), static),
+            vlm_token_capacity=_leaf(budget, static),
+            theta=_leaf(theta, static),
+            student=_leaf(1.0, static),
+        )
+
+    @classmethod
+    def teacher(cls, *, static: bool = False) -> "ElasticPolicy":
+        """Exact frozen-teacher pass-through (routers bypassed)."""
+        return cls.uniform(1.0, static=static).replace(
+            student=_leaf(0.0, static))
+
+    @classmethod
+    def stack(cls, policies: Sequence["ElasticPolicy"]) -> "ElasticPolicy":
+        """Batch per-request policies into one: every leaf becomes (B,)."""
+        return _map(lambda *ls: torch.stack(
+            [torch.as_tensor(l, dtype=torch.float32) for l in ls]), *policies)
+
+    def to(self, device) -> "ElasticPolicy":
+        """Tensor leaves (static ones become f32 tensors) on ``device``."""
+        return _map(lambda v: torch.as_tensor(v, dtype=torch.float32)
+                    .to(device), self)
+
+    def broadcast_rows(self, batch: int) -> "ElasticPolicy":
+        """Every leaf as a fresh (B,) float32 tensor: the live slot policy a
+        continuous-batching engine splices admissions into."""
+        return _map(lambda v: torch.as_tensor(v, dtype=torch.float32)
+                    .expand(batch).clone(), self)
+
+    def set_row(self, i: int, row: "ElasticPolicy") -> "ElasticPolicy":
+        """A copy of this (B,)-leaf policy with slot ``i`` set to ``row``'s
+        scalar leaves (the admission splice; the JAX package's functional
+        update, so the caller's policy is left as it was). The SLO
+        controller's capacity ``floor`` arrives with it (ROADMAP Queue A
+        item 10)."""
+        def upd(live, r):
+            out = live.clone()
+            out[i] = torch.as_tensor(r, dtype=torch.float32,
+                                     device=live.device)
+            return out
+        return _map(upd, self, row)
+
+    def replace(self, **kw) -> "ElasticPolicy":
+        return dataclasses.replace(self, **kw)
+
+
+# ------------------------ legacy ElasticConfig shim ---------------------------
+
+def spec_from_config(ecfg) -> ElasticSpec:
+    """Map a legacy ``ElasticConfig`` onto the static half of the API."""
+    return ElasticSpec(
+        mlp_token_routed=ecfg.mlp_token_capacity is not None,
+        mha_token_routed=ecfg.mha_token_capacity is not None,
+        mha_head_routed=ecfg.mha_head_topk is not None,
+        depth_routed=ecfg.depth_capacity is not None,
+        mlp_n_experts=ecfg.mlp_n_experts,
+        expert_routed=bool(ecfg.mlp_expert_topk),
+        vlm_routed=ecfg.vlm_token_capacity is not None,
+        vlm_router=ecfg.vlm_router,
+        vlm_router_hidden=ecfg.vlm_router_hidden,
+        lora_rank=ecfg.lora_rank,
+        layers=ecfg.layers,
+        router_dtype=ecfg.router_dtype,
+        distill_loss=ecfg.distill_loss,
+        distill_topk=ecfg.distill_topk,
+        distill_temp=ecfg.distill_temp,
+        lambda_load=ecfg.lambda_load,
+        lambda_topk=ecfg.lambda_topk,
+        routing_impl=ecfg.routing_impl,
+        kernel_backend=ecfg.kernel_backend,
+        kv_dtype=ecfg.kv_dtype,
+        weight_dtype=ecfg.weight_dtype,
+    )
+
+
+def policy_from_config(ecfg) -> ElasticPolicy:
+    """Runtime half of the shim: static (Python-number) leaves."""
+    return ElasticPolicy(
+        mlp_token_capacity=(1.0 if ecfg.mlp_token_capacity is None
+                            else float(ecfg.mlp_token_capacity)),
+        mha_token_capacity=(1.0 if ecfg.mha_token_capacity is None
+                            else float(ecfg.mha_token_capacity)),
+        depth_capacity=(1.0 if ecfg.depth_capacity is None
+                        else float(ecfg.depth_capacity)),
+        mha_head_topk=(FULL_TOPK if ecfg.mha_head_topk is None
+                       else int(ecfg.mha_head_topk)),
+        mlp_expert_topk=(FULL_TOPK if not ecfg.mlp_expert_topk
+                         else int(ecfg.mlp_expert_topk)),
+        vlm_token_capacity=(1.0 if ecfg.vlm_token_capacity is None
+                            else float(ecfg.vlm_token_capacity)),
+        theta=0.5,
+        student=1.0,
+    )
+
+
+def as_spec_policy(elastic, policy: Optional[ElasticPolicy] = None):
+    """Coerce ``ElasticConfig | ElasticSpec | None`` (+ optional policy)
+    into a (spec, policy) pair."""
+    if elastic is None:
+        return None, None
+    if isinstance(elastic, ElasticSpec):
+        return elastic, (policy if policy is not None
+                         else ElasticPolicy.uniform(1.0, static=True))
+    spec = spec_from_config(elastic)
+    return spec, (policy if policy is not None else policy_from_config(elastic))
+
+
+# ------------------------- budget -> capacity solver --------------------------
+
+def stack_flops_per_token(cfg, spec: ElasticSpec, *, ctx: int = 1024):
+    """Analytic per-token forward FLOPs, split into (fixed, routed) parts:
+    parameter matmuls at 2 FLOPs/MAC plus the quadratic attention term at
+    average context ``ctx``, decomposed per elastic knob. ``routed`` maps
+    knob name -> FLOPs that scale with that knob's fraction."""
+    D, F = cfg.d_model, cfg.d_ff
+    H, K, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    fixed = 2 * cfg.padded_vocab * D * (1 if cfg.tie_embeddings else 2)
+    attn_head = attn_kv = mlp = mixer = 0.0
+    n_gate = 3 if cfg.act in ("swiglu", "geglu") else 2
+    for i, kind in enumerate(cfg.layer_kinds):
+        elastic_l = spec.applies_to_layer(i)
+        if kind in ("attn", "xattn"):
+            w = cfg.layer_windows[i]
+            c = min(ctx, w) if (w and w > 0) else ctx
+            qo = 2 * 2 * D * H * Dh
+            kv = 2 * 2 * D * K * Dh
+            quad = 2 * 2 * c * H * Dh
+            if kind == "xattn":
+                qo, kv, quad = 2 * qo, 2 * kv, 2 * quad
+            if elastic_l:
+                attn_head += qo + quad
+                attn_kv += kv
+            else:
+                fixed += qo + kv + quad
+        if kind != "ssm":
+            c_mlp = n_gate * 2 * D * F
+            if elastic_l:
+                mlp += c_mlp
+            else:
+                fixed += c_mlp
+    routed = {"attn_head": attn_head, "attn_kv": attn_kv,
+              "mlp": mlp, "mixer": mixer}
+    return fixed, routed
+
+
+def _active_fraction(cfg, spec: ElasticSpec, s: float, *, ctx: int) -> float:
+    """FLOP fraction of the full model when every enabled knob is set to
+    fraction ``s`` (top-k values rounded to real integer counts)."""
+    fixed, routed = stack_flops_per_token(cfg, spec, ctx=ctx)
+    frac_depth = s if spec.depth_routed else 1.0
+    cap_tok_mha = (s if spec.mha_token_routed else 1.0) * frac_depth
+    cap_tok_mlp = (s if spec.mlp_token_routed else 1.0) * frac_depth
+    frac_head = 1.0
+    if spec.mha_head_routed:
+        frac_head = max(1, math.ceil(s * cfg.n_heads - 1e-9)) / cfg.n_heads
+    frac_exp = 1.0
+    if spec.expert_routed and spec.mlp_n_experts:
+        n_e = spec.mlp_n_experts
+        frac_exp = max(1, math.ceil(s * n_e - 1e-9)) / n_e
+    active = (fixed
+              + routed["attn_head"] * cap_tok_mha * frac_head
+              + routed["attn_kv"] * cap_tok_mha
+              + routed["mixer"] * cap_tok_mha
+              + routed["mlp"] * cap_tok_mlp * frac_exp)
+    total = fixed + sum(routed.values())
+    return active / max(total, 1.0)
+
+
+def solve_budget(cfg, spec: ElasticSpec, budget: float, *, ctx: int = 1024,
+                 theta: float = 0.5, static: bool = False,
+                 iters: int = 40) -> ElasticPolicy:
+    """Bisect the shared knob fraction ``s`` so the model's active-FLOP
+    fraction hits ``budget``; budget >= 1 is exactly the teacher."""
+    if budget >= 1.0:
+        return ElasticPolicy.uniform(1.0, theta=theta, static=static)
+    lo, hi = 1e-3, 1.0
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        if _active_fraction(cfg, spec, mid, ctx=ctx) > budget:
+            hi = mid
+        else:
+            lo = mid
+    s = 0.5 * (lo + hi)
+    return ElasticPolicy.uniform(
+        s, n_heads=cfg.n_heads if spec.mha_head_routed else None,
+        n_experts=spec.mlp_n_experts if spec.expert_routed else None,
+        theta=theta, static=static)

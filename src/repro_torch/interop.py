@@ -1,0 +1,120 @@
+"""Weight interop with the JAX package's checkpoint layout.
+
+The JAX checkpointer flattens a tree to ``{keystr: np.ndarray}``, with keys
+such as ``"['params']['scan'][0]['attn']['wq']"``. Its layer stack is stored
+per pattern position: ``scan[j]`` leaves carry a leading period dimension P
+and hold layer ``i = p * period_len + j``; ``tail[r]`` is layer
+``P * period_len + r``. The port keeps one dict per layer
+(``params["layers"][i]``); these functions convert between the two, leaf
+names and layouts unchanged.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.model import build_pattern, stack_layers, unstack_layers
+
+_KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+
+
+def _parse(key: str) -> list:
+    path = [m.group(1) if m.group(1) is not None else int(m.group(2))
+            for m in _KEY.finditer(key)]
+    if "".join(m.group(0) for m in _KEY.finditer(key)) != key or not path:
+        raise ValueError(f"not a keystr path: {key!r}")
+    return path
+
+
+def _listify(node):
+    """Dicts keyed 0..n-1 (the flattened lists) back into lists."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _listify(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return [out[i] for i in range(len(out))]
+    return out
+
+
+def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes bf16: reinterpret the bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _tree_to_torch(node, device):
+    if isinstance(node, dict):
+        return {k: _tree_to_torch(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_to_torch(v, device) for v in node]
+    return _to_tensor(node, device)
+
+
+def _layers_from(tree: dict, P: int) -> list:
+    return unstack_layers(tree.get("scan", []), tree.get("tail", []), P)
+
+
+def params_from_numpy(flat: dict, cfg, spec=None, *, device=None):
+    """``flat``: the checkpointer's ``_flatten`` of ``{"params": params,
+    "routers": routers}`` (or of the params tree alone). Returns the port's
+    (params, routers); routers is None when ``flat`` has none. bf16 leaves
+    keep their bits."""
+    device = resolve_device(device)
+    root = {}
+    for key, arr in flat.items():
+        path = _parse(key)
+        node = root
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = arr
+    tree = _tree_to_torch(_listify(root), device)
+    if "params" in tree:
+        ptree, rtree = tree["params"], tree.get("routers")
+    else:
+        ptree, rtree = tree, None
+    _, P, _ = build_pattern(cfg, spec)
+    params = {k: v for k, v in ptree.items() if k not in ("scan", "tail")}
+    params["layers"] = _layers_from(ptree, P)
+    routers = None if rtree is None else {"layers": _layers_from(rtree, P)}
+    return params, routers
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:     # numpy has no bf16: widen exactly
+        t = t.float()
+    return t.numpy()
+
+
+def _flatten_into(out: dict, prefix: str, node) -> None:
+    if isinstance(node, dict):
+        for k, v in node.items():
+            _flatten_into(out, f"{prefix}['{k}']", v)
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            _flatten_into(out, f"{prefix}[{i}]", v)
+    else:
+        out[prefix] = _to_numpy(node)
+
+
+def params_to_numpy(params: dict, routers, cfg, spec=None) -> dict:
+    """Inverse of ``params_from_numpy``: the JAX layout of
+    ``{"params": params, "routers": routers}`` as ``{keystr: ndarray}``
+    (bf16 leaves widened to f32, exactly)."""
+    period, _, _ = build_pattern(cfg, spec)
+    out: dict = {}
+
+    def put(name, tree):
+        scan, tail = stack_layers(tree["layers"], len(period))
+        rest = {k: v for k, v in tree.items() if k != "layers"}
+        _flatten_into(out, f"['{name}']", {**rest, "scan": scan,
+                                           "tail": tail})
+    put("params", params)
+    if routers is not None:
+        put("routers", routers)
+    return out

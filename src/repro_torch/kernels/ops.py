@@ -1,0 +1,207 @@
+"""Public wrappers of the port's hand-written CUDA kernels.
+
+One wrapper per kernel, with the signature of its counterpart in the JAX
+package's ``kernels/ops.py``. ``backend``:
+
+  * ``"auto"``/None — the tensors' device decides: a CPU tensor goes to the
+    kernel's plain PyTorch version (``kernels/ref.py``), a CUDA tensor
+    launches the kernel or raises;
+  * ``"cuda"``      — the kernel; a CPU tensor raises;
+  * ``"ref"``       — the plain version on any device.
+
+There is no fallback: a build failure, a refused launch or an unsupported
+shape raises. Each wrapper adds one to its count in ``launch_counts()``
+exactly when it launches its kernel. The int8/bf16 scale operands wait for
+the quantisation slice and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import (_counts, decode_attention_ref,
+                                     flash_attention_ref, fused_mlp_ref)
+
+BACKENDS = ("auto", "cuda", "ref")
+KERNELS = build.KERNELS
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # rt::DT_F32 / rt::DT_BF16
+_launches = {name: 0 for name in KERNELS}
+
+QUANT_TODO = ("int8/bf16 scale operands arrive with the quantisation slice "
+              "(ROADMAP Queue A item 9)")
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last ``reset_launch_counts``."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def use_kernel(backend, t: torch.Tensor) -> bool:
+    """Resolve ``backend`` for tensor ``t``: True = launch the CUDA kernel."""
+    if backend in (None, "auto"):
+        return t.is_cuda
+    if backend == "ref":
+        return False
+    if backend == "cuda":
+        if not t.is_cuda:
+            raise ValueError("backend='cuda' needs CUDA tensors")
+        return True
+    raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def _dtype_code(*ts) -> int:
+    dt = ts[0].dtype
+    if dt not in _DTYPES or any(t.dtype != dt for t in ts):
+        raise TypeError(f"kernels take matching float32 or bfloat16 tensors, "
+                        f"got {[t.dtype for t in ts]}")
+    return _DTYPES[dt]
+
+
+def _counts_vec(count, batch: int, limit: int, device) -> torch.Tensor:
+    """None | scalar | (B,) -> contiguous (B,) int32 clipped to [0, limit]."""
+    return _counts(count, batch, limit, device).to(torch.int32).contiguous()
+
+
+def _mask_ptr(mask, shape, device):
+    """Optional bool mask broadcast to ``shape`` -> (keep-alive, pointer)."""
+    if mask is None:
+        return None, None
+    m = mask.to(device=device, dtype=torch.bool).expand(shape).contiguous()
+    return m, m.data_ptr()
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
+    _launches[name] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ----------------------------- flash attention -------------------------------
+#
+# Replaces kernels/flash_attention.py::flash_attention (TPU). Bound on the
+# H100 at the serving shapes: FLOPs (tensor-core rate); the kernel keeps the
+# score tile and softmax state on chip and skips dead key tiles, but
+# multiplies on the CUDA cores (csrc/flash_attention.cu).
+
+def flash_attention(q, k, v, kv_valid=None, kv_count=None, *, causal=True,
+                    window=0, backend=None):
+    """q: (B,Sq,H,Dh); k, v: (B,Sk,K,Dh); kv_valid: (B,Sk) or (Sk,) bool;
+    kv_count: None, scalar or (B,) count of real leading rows. Returns
+    (B,Sq,H,Dh) in q's dtype; query rows with no attendable key are 0."""
+    if not use_kernel(backend, q):
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   kv_valid=kv_valid, kv_count=kv_count)
+    B, Sq, H, Dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if Dh not in (16, 32, 64, 128) or H % K or k.shape != v.shape:
+        raise ValueError(f"flash_attention kernel: unsupported shapes q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    dt = _dtype_code(q, k, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    valid, valid_ptr = _mask_ptr(kv_valid, (B, Sk), q.device)
+    cnt = _counts_vec(kv_count, B, max(Sq, Sk), q.device)
+    lib = build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_launch(
+            dt, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            valid_ptr, cnt.data_ptr(), B, Sq, Sk, H, K, int(bool(causal)),
+            int(window or 0), float(Dh ** -0.5), _stream(q))
+    _check(rc, "flash_attention")
+    return out
+
+
+# -------------------------------- fused MLP ----------------------------------
+#
+# Replaces kernels/fused_mlp.py::fused_mlp (TPU). Bound on the H100 at a
+# prefill: FLOPs (tensor-core rate). Two phases without atomics, weight tiles
+# staged through shared memory per 64-token tile, hidden in an f32 scratch
+# (csrc/fused_mlp.cu).
+
+def fused_mlp(x, wi, wo, wg=None, token_weights=None, valid_count=None,
+              wi_scale=None, wo_scale=None, wg_scale=None, *, act="swiglu",
+              backend=None):
+    """x: (T, D) or (B, T, D); wi/wg: (D, F); wo: (F, D); token_weights:
+    (T,) or (B, T); valid_count: None, scalar or (B,) count of real leading
+    rows (rows past it are 0). Returns x-shaped output in x's dtype."""
+    if wi_scale is not None or wo_scale is not None or wg_scale is not None:
+        raise NotImplementedError(QUANT_TODO)
+    if not use_kernel(backend, x):
+        return fused_mlp_ref(x, wi, wo, wg, token_weights, act=act,
+                             valid_count=valid_count)
+    squeeze = x.dim() == 2
+    x3 = x[None] if squeeze else x
+    B, T, D = x3.shape
+    F = wi.shape[1]
+    if wi.shape != (D, F) or wo.shape != (F, D) or (
+            wg is not None and wg.shape != (D, F)):
+        raise ValueError("fused_mlp kernel: weight shapes do not match x")
+    dt = _dtype_code(x3, wi, wo, *([wg] if wg is not None else []))
+    x3, wi, wo = x3.contiguous(), wi.contiguous(), wo.contiguous()
+    wg = wg.contiguous() if wg is not None else None
+    tw = None
+    if token_weights is not None:
+        tw = token_weights.to(device=x.device, dtype=torch.float32)
+        tw = tw.reshape(-1, T).expand(B, T).contiguous()
+    cnt = _counts_vec(valid_count, B, T, x.device)
+    hbuf = torch.empty((B, T, F), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, T, D), dtype=x.dtype, device=x.device)
+    act_code = (0 if act == "swiglu" else 1) if wg is not None else \
+        (1 if act == "gelu" else 0)
+    lib = build.load("fused_mlp")
+    with torch.cuda.device(x.device):
+        rc = lib.fused_mlp_launch(
+            dt, x3.data_ptr(), wi.data_ptr(),
+            wg.data_ptr() if wg is not None else None, wo.data_ptr(),
+            tw.data_ptr() if tw is not None else None, cnt.data_ptr(),
+            hbuf.data_ptr(), out.data_ptr(), B, T, D, F, act_code,
+            _stream(x))
+    _check(rc, "fused_mlp")
+    return out[0] if squeeze else out
+
+
+# ----------------------------- decode attention ------------------------------
+#
+# Replaces kernels/decode_attention.py::decode_attention (TPU). Bound on the
+# H100: bytes (the attended K/V rows); a masked ring slot is skipped before
+# its K/V row is read (csrc/decode_attention.cu).
+
+def decode_attention(q, k, v, kv_pos, t, kv_valid=None, kscale=None,
+                     vscale=None, *, window=0, backend=None):
+    """q: (B,1,H,Dh); k, v: (B,L,K,Dh) ring caches; kv_pos: (B,L) absolute
+    positions (-1 = empty); t: (B,) per-slot positions; kv_valid: (B,L)
+    bool. Returns (B,1,H,Dh); slots with no attendable key get zeros."""
+    if kscale is not None or vscale is not None:
+        raise NotImplementedError(QUANT_TODO)
+    if not use_kernel(backend, q):
+        return decode_attention_ref(q, k, v, kv_pos, t, window=window,
+                                    kv_valid=kv_valid)
+    B, Sq, H, Dh = q.shape
+    L, K = k.shape[1], k.shape[2]
+    if Sq != 1 or Dh not in (32, 64, 128) or H % K or k.shape != v.shape:
+        raise ValueError(f"decode_attention kernel: unsupported shapes q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    dt = _dtype_code(q, k, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    pos = kv_pos.to(device=q.device, dtype=torch.int32).contiguous()
+    tv = torch.as_tensor(t, device=q.device).to(torch.int32).reshape(-1)
+    tv = tv.expand(B).contiguous()
+    valid, valid_ptr = _mask_ptr(kv_valid, (B, L), q.device)
+    out = torch.empty_like(q)
+    lib = build.load("decode_attention")
+    with torch.cuda.device(q.device):
+        rc = lib.decode_attention_launch(
+            dt, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            pos.data_ptr(), tv.data_ptr(), valid_ptr, B, L, H, K,
+            int(window or 0), float(Dh ** -0.5), _stream(q))
+    _check(rc, "decode_attention")
+    return out

@@ -1,0 +1,132 @@
+"""Plain PyTorch versions of the three kernels on the serving path.
+
+Each has the contract of its oracle in the JAX package's ``kernels/ref.py``.
+The CPU path and the tests run them; on the card ``chip_smoke.py`` holds
+each hand-written kernel against them, and nothing on the card's main path
+calls them. The int8/bf16 scale operands wait for the quantisation slice.
+
+One deliberate difference: a flash-attention query row with NO attendable
+key is undefined in the JAX oracle (uniform softmax over every key) and in
+the Pallas kernel (uniform over the blocks it visits). Here, as in the CUDA
+kernel, such rows are exact zeros — the decode oracle's rule. On the serving
+path those rows belong to tokens the router dropped, whose output the block
+multiplies by a token weight of 0.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def _counts(count, batch: int, limit: int, device) -> torch.Tensor:
+    """None | int | () / (B,) tensor -> (B,) int64 clipped to [0, limit]."""
+    if count is None:
+        return torch.full((batch,), limit, dtype=torch.int64, device=device)
+    c = torch.as_tensor(count, device=device).to(torch.int64).reshape(-1)
+    return c.expand(batch).clamp(0, limit)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, kv_valid=None,
+                        sm_scale=None, kv_count=None):
+    """q: (B,Sq,H,Dh); k,v: (B,Sk,K,Dh) -> (B,Sq,H,Dh). Masks by array
+    index; kv_valid (B,Sk) bool; kv_count: None, scalar or (B,) count of
+    real leading q/kv rows (rows past it are zeros)."""
+    B, Sq, H, Dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    sm_scale = Dh ** -0.5 if sm_scale is None else sm_scale
+    qg = q.reshape(B, Sq, K, G, Dh).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * sm_scale
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window and window > 0:
+        mask = mask & ((qpos - kpos) < window)
+    mask = mask.expand(B, 1, 1, Sq, Sk)
+    if kv_valid is not None:
+        mask = mask & kv_valid.bool()[:, None, None, None, :]
+    cnt = _counts(kv_count, B, max(Sq, Sk), q.device)
+    mask = mask & (kpos < cnt[:, None, None, None, None])
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    a = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bkgqs,bskd->bqkgd", a, v.float())
+    ctx = ctx.reshape(B, Sq, H, Dh)
+    any_key = mask.any(-1).expand(B, K, G, Sq)
+    any_key = any_key.permute(0, 3, 1, 2).reshape(B, Sq, H)
+    live = any_key & (torch.arange(Sq, device=q.device)[None, :, None]
+                      < cnt[:, None, None])
+    ctx = torch.where(live[..., None], ctx, torch.zeros_like(ctx))
+    return ctx.to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, kv_pos, t, *, window=0, kv_valid=None,
+                         sm_scale=None):
+    """Ring-cache decode attention. q: (B,1,H,Dh); k,v: (B,L,K,Dh);
+    kv_pos: (B,L) absolute positions (-1 = empty); t: (B,) per-slot decode
+    positions. Masks by the cache's position array, not by slot index;
+    rows with no attendable key are exact zeros."""
+    B, Sq, H, Dh = q.shape
+    L, K = k.shape[1], k.shape[2]
+    G = H // K
+    sm_scale = Dh ** -0.5 if sm_scale is None else sm_scale
+    t = torch.as_tensor(t, device=q.device).to(torch.int64).reshape(-1)
+    t = t.expand(B)
+    qg = q.reshape(B, Sq, K, G, Dh).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * sm_scale
+    pos = kv_pos.to(torch.int64)
+    mask = (pos >= 0) & (pos <= t[:, None])
+    if window and window > 0:
+        mask = mask & ((t[:, None] - pos) < window)
+    if kv_valid is not None:
+        mask = mask & kv_valid.bool()
+    s = torch.where(mask[:, None, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    a = torch.softmax(s, dim=-1)
+    # masked rows of v are zeroed before the product (0 * NaN guard)
+    vz = torch.where(mask[:, :, None, None], v.float(),
+                     torch.zeros((), device=v.device))
+    ctx = torch.einsum("bkgqs,bskd->bqkgd", a, vz)
+    ctx = ctx.reshape(B, Sq, H, Dh)
+    ctx = torch.where(mask.any(-1)[:, None, None, None], ctx,
+                      torch.zeros_like(ctx))
+    return ctx.to(q.dtype)
+
+
+def gelu_tanh(x):
+    """The tanh-approximate GELU (the JAX default, not torch's exact one)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _act(name):
+    return F.silu if name == "swiglu" else gelu_tanh
+
+
+def fused_mlp_ref(x, wi, wo, wg=None, token_weights=None, *, act="swiglu",
+                  valid_count=None):
+    """y = w * (act(x Wg) * (x Wi)) Wo in f32. x: (T, D) or (B, T, D);
+    valid_count: None | scalar | (B,) count of real leading rows (rows past
+    it are zeros)."""
+    xf = x.float()
+    h = xf @ wi.float()
+    if wg is not None:
+        h = _act(act)(xf @ wg.float()) * h
+    else:
+        h = gelu_tanh(h) if act == "gelu" else F.silu(h)
+    y = h @ wo.float()
+    if token_weights is not None:
+        y = y * token_weights.float()[..., None]
+    if valid_count is not None:
+        rows = torch.arange(x.shape[-2], device=x.device)
+        if x.dim() == 3:
+            cnt = _counts(valid_count, x.shape[0], x.shape[-2], x.device)
+            y = torch.where(rows[None, :, None] < cnt[:, None, None], y,
+                            torch.zeros((), device=x.device))
+        else:
+            cnt = torch.as_tensor(valid_count, device=x.device)
+            y = torch.where(rows[:, None] < cnt, y,
+                            torch.zeros((), device=x.device))
+    return y.to(x.dtype)

@@ -1,0 +1,8 @@
+"""Model assembly of the port."""
+from repro_torch.models.model import (build_pattern, cache_init, cache_insert,
+                                      decode_step, forward, model_init,
+                                      prefill, prefill_into_slot, router_init)
+
+__all__ = ["build_pattern", "cache_init", "cache_insert", "decode_step",
+           "forward", "model_init", "prefill", "prefill_into_slot",
+           "router_init"]

@@ -1,0 +1,159 @@
+"""Grouped-query self-attention with RoPE, ring KV caches, and the
+ElastiFormer hooks (head-routing weights, LoRA on q/v).
+
+Prefill runs the flash-attention kernel and decode the ring-cache decode
+kernel (``kernels/ops.py``: the CUDA kernels on the card, their plain
+versions on the CPU). Both keep f32 probabilities where the JAX package's
+``sdpa`` twin casts them to v's dtype; the port follows the kernels. Head
+padding (``cfg.n_heads_p != cfg.n_heads``) waits for the multi-GPU slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.lora import lora_apply
+from repro_torch.kernels import ops as OPS
+from repro_torch.models.layers import dense_init, dtype_of, rope_apply, rope_tables
+
+
+def check_kernel_ok(cfg) -> None:
+    """The attention kernels serve every config of this slice; padded
+    q-heads would skew their head -> kv-group mapping."""
+    if cfg.n_heads_p != cfg.n_heads:
+        raise NotImplementedError(
+            f"head_pad={cfg.head_pad} pads {cfg.n_heads} q-heads to "
+            f"{cfg.n_heads_p}; padded heads arrive with the multi-GPU slice "
+            f"(ROADMAP Queue A item 11)")
+
+
+def attn_init(gen, cfg, device=None) -> dict:
+    check_kernel_ok(cfg)
+    D, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dt = dtype_of(cfg)
+    p = {
+        "wq": dense_init(gen, D, H * Dh, dt, device=device).reshape(D, H, Dh),
+        "wk": dense_init(gen, D, K * Dh, dt, device=device).reshape(D, K, Dh),
+        "wv": dense_init(gen, D, K * Dh, dt, device=device).reshape(D, K, Dh),
+        "wo": dense_init(gen, H * Dh, D, dt, device=device).reshape(H, Dh, D),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H, Dh), dtype=dt, device=device)
+        p["bk"] = torch.zeros((K, Dh), dtype=dt, device=device)
+        p["bv"] = torch.zeros((K, Dh), dtype=dt, device=device)
+    return p
+
+
+def _lora_scale(lora, d: int):
+    """Optional tensor on/off multiplier ((), or (B,)) set by the policy:
+    0 disables the adapter (full-budget / teacher rows stay lossless)."""
+    s = lora.get("scale")
+    return None if s is None else s.reshape(tuple(s.shape) + (1,) * (d - s.dim()))
+
+
+def _rope(positions, cfg):
+    cos, sin = rope_tables(positions, cfg.d_head, cfg.rope_theta)
+    if cos.dim() == 2:               # (S, half) -> broadcast over batch
+        cos, sin = cos[None], sin[None]
+    return cos, sin
+
+
+def _project_q(p, x, positions, cfg, lora):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if lora is not None and "q" in lora:
+        dq = lora_apply(lora["q"], x).reshape(
+            x.shape[0], x.shape[1], cfg.n_heads, cfg.d_head)
+        s = _lora_scale(lora, dq.dim())
+        if s is not None:
+            dq = dq * s.to(dq.dtype)
+        q = q + dq
+    if "bq" in p:
+        q = q + p["bq"]
+    return rope_apply(q, *_rope(positions, cfg))
+
+
+def _project_kv(p, x, positions, cfg, lora):
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if lora is not None and "v" in lora:
+        K, Dh = p["wv"].shape[1], p["wv"].shape[2]
+        dv = lora_apply(lora["v"], x).reshape(x.shape[0], x.shape[1], K, Dh)
+        s = _lora_scale(lora, dv.dim())
+        if s is not None:
+            dv = dv * s.to(dv.dtype)
+        v = v + dv
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return rope_apply(k, *_rope(positions, cfg)), v
+
+
+def _out_proj(p, ctx, head_weights):
+    if head_weights is not None:
+        ctx = ctx * head_weights[..., None].to(ctx.dtype)
+    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"])
+
+
+def attn_apply(p, x, *, cfg, positions, causal: bool = True, window: int = 0,
+               kv_valid=None, head_weights=None, lora=None, backend=None):
+    """Full-sequence self-attention (prefill) through the flash-attention
+    op; masks by array index, so ``positions`` must be the ascending
+    positions of the rows (the prefill layout). head_weights: (B,Sq,H) f32
+    head-routing weights applied to each head's context before the output
+    projection. Returns (out (B,Sq,D), k, v) — k/v for the cache."""
+    q = _project_q(p, x, positions, cfg, lora)
+    k, v = _project_kv(p, x, positions, cfg, lora)
+    if kv_valid is not None and kv_valid.dim() == 1:
+        kv_valid = kv_valid.expand(k.shape[:2])
+    ctx = OPS.flash_attention(q, k, v, kv_valid=kv_valid, causal=causal,
+                              window=window or 0, backend=backend)
+    return _out_proj(p, ctx, head_weights), k, v
+
+
+def attn_decode(p, x, cache, t, *, cfg, window: int = 0, head_weights=None,
+                lora=None, write: Optional[torch.Tensor] = None,
+                backend=None):
+    """One decode step. x: (B,1,D); cache: {'k','v': (B,L,K,Dh), 'valid':
+    (B,L) bool, 'pos': (B,L) int32}; t: (B,) int32 per-row positions (or a
+    scalar: every row at the same position).
+
+    The cache is a RING: position p lives at slot p % L, ``pos`` holds the
+    absolute positions (-1 = empty). Each row writes its own slot IN PLACE
+    (the JAX package scatters functionally); ``write`` (B,) bool is the
+    token gate — a skipped token leaves the old k/v but still consumes the
+    slot (``pos`` = t, ``valid`` = False). Returns (out (B,1,D), cache)."""
+    B = x.shape[0]
+    L = cache["k"].shape[1]
+    t = torch.as_tensor(t, device=x.device).to(torch.int32).reshape(-1)
+    t = t.expand(B)
+    pos = t[:, None]
+    q = _project_q(p, x, pos, cfg, lora)
+    k_new, v_new = _project_kv(p, x, pos, cfg, lora)
+    wr = torch.ones((B,), dtype=torch.bool, device=x.device) \
+        if write is None else write
+    slots = torch.remainder(t, L).long()
+    bi = torch.arange(B, device=x.device)
+    for name, new in (("k", k_new), ("v", v_new)):
+        c = cache[name]
+        old = c[bi, slots]                                    # (B, K, Dh)
+        c[bi, slots] = torch.where(wr[:, None, None], new[:, 0].to(c.dtype),
+                                   old)
+    cache["valid"][bi, slots] = wr
+    cache["pos"][bi, slots] = t
+    ctx = OPS.decode_attention(q, cache["k"], cache["v"], cache["pos"], t,
+                               cache["valid"], window=window or 0,
+                               backend=backend)
+    return _out_proj(p, ctx, head_weights), cache
+
+
+def attn_cache_init(cfg, batch: int, max_seq: int, window: int = 0,
+                    device=None) -> dict:
+    """Ring cache of length window (local layers) or max_seq (global)."""
+    L = min(max_seq, window) if window and window > 0 else max_seq
+    K, Dh, dt = cfg.n_kv_heads, cfg.d_head, dtype_of(cfg)
+    return {
+        "k": torch.zeros((batch, L, K, Dh), dtype=dt, device=device),
+        "v": torch.zeros((batch, L, K, Dh), dtype=dt, device=device),
+        "valid": torch.zeros((batch, L), dtype=torch.bool, device=device),
+        "pos": torch.full((batch, L), -1, dtype=torch.int32, device=device),
+    }

@@ -1,0 +1,290 @@
+"""Transformer blocks with ElastiFormer routing woven in (serving slice).
+
+Block kind ``attn``: [token-route] GQA self-attention [head-route] [LoRA]
++ [token-route] MLP, pre-norm residual.
+
+Modes:
+  base  : the frozen pretrained model (the distillation teacher): routers off.
+  infer : the student at inference: each token router thresholds its
+          sigmoid at theta (§B.1), head routing keeps the top-k heads.
+
+The train-mode top-k ``RoutingPlan`` and the ragged bucket wait for the
+training slice; depth and expert routing for their own slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import routing as R
+from repro_torch.core.lora import lora_init
+from repro_torch.kernels import ops as OPS
+from repro_torch.models import attention as A
+from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
+
+
+def _only_attn(kind: str) -> None:
+    if kind != "attn":
+        raise NotImplementedError(
+            f"layer kind {kind!r}: the port serves 'attn' blocks; other "
+            f"families arrive with ROADMAP Queue A item 12")
+
+
+def _check_spec(spec, mode: str) -> None:
+    if mode == "train":
+        raise NotImplementedError(
+            "train mode (top-k RoutingPlan, ragged bucket) arrives with the "
+            "training slice (ROADMAP Queue A items 3-4)")
+    if spec is None:
+        return
+    if spec.depth_routed:
+        raise NotImplementedError(
+            "depth routing arrives with ROADMAP Queue A item 7")
+    if spec.mlp_n_experts or spec.expert_routed:
+        raise NotImplementedError(
+            "expert routing arrives with ROADMAP Queue A item 6")
+
+
+# ------------------------------ init ---------------------------------------
+
+def block_init(gen, kind: str, cfg, device=None) -> dict:
+    _only_attn(kind)
+    return {"norm1": norm_init(cfg.d_model, cfg.norm, device=device),
+            "attn": A.attn_init(gen, cfg, device=device),
+            "norm2": norm_init(cfg.d_model, cfg.norm, device=device),
+            "mlp": mlp_init(gen, cfg, device=device)}
+
+
+def block_router_init(gen, kind: str, cfg, spec, device=None) -> dict:
+    """Trainable ElastiFormer params for one layer; ``spec`` alone decides
+    which routers exist."""
+    _only_attn(kind)
+    _check_spec(spec, "infer")
+    D = cfg.d_model
+    rp = {}
+    if spec.mha_token_routed:
+        rp["tok_mixer"] = R.token_router_init(gen, D, device=device)
+    if spec.mha_head_routed:
+        rp["head"] = R.param_router_init(gen, D, cfg.n_heads, device=device)
+    if spec.lora_rank:
+        rp["lora"] = {
+            "q": lora_init(gen, D, cfg.n_heads * cfg.d_head, spec.lora_rank,
+                           device=device),
+            "v": lora_init(gen, D, cfg.n_kv_heads * cfg.d_head,
+                           spec.lora_rank, device=device),
+        }
+    if spec.mlp_token_routed:
+        rp["tok_mlp"] = R.token_router_init(gen, D, device=device)
+    return rp
+
+
+# ------------------------- helpers ------------------------------------------
+
+def _lora_gate(lora, cap, student):
+    """Turn the LoRA adapters off exactly when there is nothing to rescue:
+    mha token budget full, or the policy in teacher mode — budget-1.0 rows
+    stay bit-lossless with trained adapters. ``cap`` is the (student-gated)
+    mha token capacity or None."""
+    if lora is None:
+        return None
+    if cap is not None:
+        full = R.is_full(cap)
+    elif student is None or R.is_static(student):
+        full = student is not None and student <= 0
+    else:
+        full = student <= 0
+    if R.is_static(full):
+        return None if full else lora
+    return {**lora, "scale": 1.0 - full.float()}
+
+
+def _head_weights(rp, h, spec, pol, cfg, auxes):
+    """(B,S,H) head weights w * topk-mask; exactly 1 on full rows."""
+    if rp is None or spec is None or "head" not in rp \
+            or not spec.mha_head_routed:
+        return None
+    k = R.gate_topk(pol.mha_head_topk, pol.student, cfg.n_heads)
+    w, m, a = R.param_route_weights(rp["head"], h, k)
+    auxes.append(a)
+    hw = w * m
+    full = R.is_full(k, cfg.n_heads)
+    if R.is_static(full):
+        return torch.ones_like(hw) if full else hw
+    return torch.where(R.bcast_to(full, hw.dim()), torch.ones_like(hw), hw)
+
+
+def _mlp_fn(p, cfg, backend):
+    """f(h, positions) for the dense MLP sub-block: the fused_mlp kernel."""
+    def f(h, _pos):
+        mp = p["mlp"]
+        return OPS.fused_mlp(h, mp["wi"], mp["wo"], mp.get("wg"),
+                             act=cfg.act, backend=backend)
+    return f
+
+
+# --------------------- full-sequence block apply ----------------------------
+
+def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
+                elastic_on: bool, window: int = 0, positions=None,
+                causal: bool = True, collect_cache: bool = False,
+                max_cache_len: int = 0):
+    """x: (B,S,D) -> (x', aux[, cache]). Pre-norm residual block, base and
+    infer modes. In infer mode each token router gates with its threshold:
+    dropped tokens are invalid keys of the attention and their outputs are
+    weighted by 0; the MLP runs densely and its output is gate-weighted."""
+    _only_attn(kind)
+    _check_spec(spec, mode)
+    B, S, _ = x.shape
+    auxes = [R.RouteAux.zero(x.device)]
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    routed = elastic_on and mode != "base"
+    backend = spec.kernel_backend if spec is not None else None
+    cache = {}
+
+    cap_mha = cap_mlp = None
+    if routed and spec is not None and rp:
+        if spec.mha_token_routed and "tok_mixer" in rp:
+            cap_mha = R.gate_capacity(pol.mha_token_capacity, pol.student)
+        if spec.mlp_token_routed and "tok_mlp" in rp:
+            cap_mlp = R.gate_capacity(pol.mlp_token_capacity, pol.student)
+
+    # ---- attention ----
+    h = norm_apply(p["norm1"], x, cfg.norm)
+    lora = rp.get("lora") if (routed and rp) else None
+    lora = _lora_gate(lora, cap_mha,
+                      pol.student if (routed and pol is not None) else None)
+    hw = _head_weights(rp, h, spec, pol, cfg, auxes) if routed else None
+    if cap_mha is None:
+        y, k, v = A.attn_apply(p["attn"], h, cfg=cfg, positions=positions,
+                               causal=causal, window=window, head_weights=hw,
+                               lora=lora, backend=backend)
+        delta = y
+        keep = torch.ones((B, S), dtype=torch.bool, device=x.device)
+    else:
+        logits = R.token_logits(rp["tok_mixer"], h)
+        keep, wtok = R.token_gate(logits, torch.sigmoid(logits), cap_mha,
+                                  mode, theta=pol.theta)
+        auxes.append(R.RouteAux.of(keep=keep))
+        y, k, v = A.attn_apply(p["attn"], h, cfg=cfg, positions=positions,
+                               causal=causal, window=window, kv_valid=keep,
+                               head_weights=hw, lora=lora, backend=backend)
+        delta = y * wtok[..., None].to(y.dtype)
+    if collect_cache:
+        cache["attn"] = _pad_cache(k, v, keep, max_cache_len or S, window)
+    x = x + delta
+
+    # ---- MLP ----
+    h = norm_apply(p["norm2"], x, cfg.norm)
+    f = _mlp_fn(p, cfg, backend)
+    if cap_mlp is None:
+        delta = f(h, positions)
+    else:
+        delta, a = R.route_tokens(rp["tok_mlp"], h, f, cap_mlp, mode,
+                                  positions=positions, theta=pol.theta)
+        auxes.append(a)
+    x = x + delta
+
+    aux = auxes[0]
+    for a in auxes[1:]:
+        aux = aux + a
+    return (x, aux, cache) if collect_cache else (x, aux)
+
+
+def _pad_cache(k, v, keep, max_len: int, window: int = 0) -> dict:
+    """Lay prefill k/v into the ring-cache format (slot = pos % L)."""
+    B, S = k.shape[:2]
+    L = min(max_len, window) if window and window > 0 else max_len
+    dev = k.device
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    if S <= L:
+        kc = torch.zeros((B, L) + k.shape[2:], dtype=k.dtype, device=dev)
+        vc = torch.zeros_like(kc)
+        kc[:, :S], vc[:, :S] = k, v
+        valid = torch.zeros((B, L), dtype=torch.bool, device=dev)
+        valid[:, :S] = keep
+        cpos = torch.full((B, L), -1, dtype=torch.int32, device=dev)
+        cpos[:, :S] = pos
+        return {"k": kc, "v": vc, "valid": valid, "pos": cpos}
+    # keep the last L positions, at their ring slots
+    k, v, keep, pos = k[:, -L:], v[:, -L:], keep[:, -L:], pos[:, -L:]
+    slots = (pos % L).long()
+    bi = torch.arange(B, device=dev)[:, None]
+    out = {"k": torch.zeros_like(k), "v": torch.zeros_like(v),
+           "valid": torch.zeros_like(keep), "pos": torch.full_like(pos, -1)}
+    out["k"][bi, slots] = k
+    out["v"][bi, slots] = v
+    out["valid"][bi, slots] = keep
+    out["pos"][bi, slots] = pos
+    return out
+
+
+# ------------------------------ decode --------------------------------------
+
+def _decode_token_gate(rp, name, h, cap, pol):
+    """Threshold gate for one decode token: (keep (B,), weight (B,)).
+    capacity >= 1 or student off forces (keep all, weight 1) per row."""
+    logits = R.token_logits(rp[name], h)[:, 0]
+    keep = logits > R.threshold_logit(pol.theta)
+    w = keep * torch.sigmoid(logits)
+    full = R.is_full(R.gate_capacity(cap, pol.student))
+    if R.is_static(full):
+        if full:
+            return torch.ones_like(keep), torch.ones_like(w)
+        return keep, w
+    full = full.expand(keep.shape)
+    return keep | full, torch.where(full, torch.ones_like(w), w)
+
+
+def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
+                 mode: str, elastic_on: bool, window: int = 0):
+    """One token per row. x: (B,1,D); the ring cache is updated in place.
+    Returns (x', cache)."""
+    _only_attn(kind)
+    _check_spec(spec, mode)
+    routed = elastic_on and mode != "base" and rp is not None
+    backend = spec.kernel_backend if spec is not None else None
+
+    h = norm_apply(p["norm1"], x, cfg.norm)
+    keep, w1 = None, None
+    if routed and spec.mha_token_routed and "tok_mixer" in rp:
+        keep, w1 = _decode_token_gate(rp, "tok_mixer", h,
+                                      pol.mha_token_capacity, pol)
+    lora = rp.get("lora") if routed else None
+    if lora is not None:
+        dcap = R.gate_capacity(pol.mha_token_capacity, pol.student) \
+            if spec.mha_token_routed else None
+        lora = _lora_gate(lora, dcap, pol.student)
+    hw = _head_weights(rp, h, spec, pol, cfg, []) if routed else None
+    y, cache["attn"] = A.attn_decode(p["attn"], h, cache["attn"], t, cfg=cfg,
+                                     window=window, head_weights=hw,
+                                     lora=lora, write=keep, backend=backend)
+    if keep is not None:
+        y = y * w1[:, None, None].to(y.dtype)
+    x = x + y
+
+    h = norm_apply(p["norm2"], x, cfg.norm)
+    keep2, w2 = None, None
+    if routed and spec.mlp_token_routed and "tok_mlp" in rp:
+        keep2, w2 = _decode_token_gate(rp, "tok_mlp", h,
+                                       pol.mlp_token_capacity, pol)
+    y = mlp_apply(p["mlp"], h, cfg.act)
+    if keep2 is not None:
+        y = y * w2[:, None, None].to(y.dtype)
+    return x + y, cache
+
+
+def cache_row_insert(full: dict, row: dict, slot: int) -> None:
+    """Copy a single-request block cache (batch dim 1) into row ``slot`` of
+    a live slot-array cache, in place."""
+    for name, leaf in full.items():
+        if isinstance(leaf, dict):
+            cache_row_insert(leaf, row[name], slot)
+        else:
+            leaf[slot] = row[name][0].to(leaf.dtype)
+
+
+def block_cache_init(kind: str, cfg, batch: int, max_seq: int,
+                     window: int = 0, device=None) -> dict:
+    _only_attn(kind)
+    return {"attn": A.attn_cache_init(cfg, batch, max_seq, window,
+                                      device=device)}

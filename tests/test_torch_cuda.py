@@ -1,0 +1,177 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions,
+and the toy-lm engine on the card. Every test here needs a CUDA device and
+nvcc, and skips without them (the kernels have no CPU mode).
+
+This file imports no JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+(``--noconftest`` skips tests/conftest.py, which imports JAX.) The input
+cases are shared with tests/test_torch_kernels.py, which holds the plain
+versions to the JAX Pallas kernels.
+
+Tolerance on the card: f32 rtol=atol=1e-4 (the kernels sum up to F=512
+terms in their own order) and bf16 rtol=atol=2e-2 (both sides round an f32
+result to bf16, so they may differ by one bf16 ulp).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops  # noqa: E402
+
+CUDA_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+FLASH_CASES = [
+    # B, Sq, Sk, H, K, Dh, causal, window, p_valid, count
+    (1, 128, 128, 4, 4, 64, True, 0, 1.0, None),       # MHA, all valid
+    (2, 256, 256, 8, 2, 64, True, 0, 0.7, None),       # GQA 4:1 + holes
+    (2, 128, 128, 4, 2, 32, True, 48, 0.8, None),      # window + holes
+    (1, 64, 192, 4, 1, 128, False, 0, 0.9, None),      # MQA, non-causal
+    (2, 256, 256, 4, 2, 32, True, 0, 0.6, 100),        # scalar count
+    (3, 256, 256, 4, 4, 32, True, 96, 0.7, [7, 130, 256]),  # per-row count
+]
+
+MLP_CASES = [
+    # shape of x, F, act, gated, token weights, count
+    ((256, 128), 512, "swiglu", True, True, None),
+    ((100, 128), 384, "geglu", True, True, None),        # tanh-GELU gate
+    ((128, 64), 256, "gelu", False, False, None),        # ungated
+    ((300, 64), 256, "swiglu", True, True, 100),         # scalar count
+    ((2, 160, 64), 256, "swiglu", True, True, [160, 37]),  # per-row count
+]
+
+
+def as_t(a, **kw):
+    t = torch.from_numpy(np.asarray(a))
+    return t.to(**kw) if kw else t
+
+
+def attn_inputs(seed, B, Sq, Sk, H, K, Dh, p_valid):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, Dh), dtype=np.float32)
+    k = rng.standard_normal((B, Sk, K, Dh), dtype=np.float32)
+    v = rng.standard_normal((B, Sk, K, Dh), dtype=np.float32)
+    valid = rng.random((B, Sk)) < p_valid
+    return q, k, v, valid
+
+
+def ring(seed, B, L, K, Dh, t):
+    """Ring cache rows written up to per-slot position t (slot = pos % L),
+    with never-written (-1) slots and a routing validity mask."""
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((B, L, K, Dh), dtype=np.float32)
+    v = rng.standard_normal((B, L, K, Dh), dtype=np.float32)
+    slots = np.arange(L)[None, :]
+    tt = np.asarray(t)[:, None]
+    pos = np.where(slots <= tt % L, tt - tt % L, tt - tt % L - L) + slots
+    pos = np.where(pos >= 0, pos, -1).astype(np.int32)
+    valid = rng.random((B, L)) < 0.8
+    return k, v, pos, valid
+
+
+def mlp_inputs(case, seed, **to):
+    shape, Fd, act, gated, weighted, count = case
+    D = shape[-1]
+    rng = np.random.default_rng(seed)
+    w = lambda *s: as_t(rng.standard_normal(s, dtype=np.float32) * 0.05,
+                        **to)
+    x = as_t(rng.standard_normal(shape, dtype=np.float32), **to)
+    wi, wo = w(D, Fd), w(Fd, D)
+    wg = w(D, Fd) if gated else None
+    dev = {"device": to["device"]} if "device" in to else {}
+    tw = as_t(rng.random(shape[:-1]).astype(np.float32), **dev) \
+        if weighted else None
+    cnt = None if count is None else as_t(np.asarray(count, np.int32), **dev)
+    return x, wi, wo, wg, tw, cnt, act
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (the kernels have no CPU "
+                    "mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    B, Sq, Sk, H, K, Dh, causal, window, p_valid, count = case
+    q, k, v, valid = attn_inputs(5, B, Sq, Sk, H, K, Dh, p_valid)
+    args = [as_t(a, device=cuda, dtype=dtype) for a in (q, k, v)]
+    kw = dict(kv_valid=as_t(valid, device=cuda), causal=causal,
+              window=window, kv_count=None if count is None else as_t(
+                  np.asarray(count, np.int32), device=cuda))
+    n0 = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == n0 + 1
+    want = ops.flash_attention(*args, backend="ref", **kw)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 24])
+def test_decode_kernel_matches_plain(cuda, dtype, window):
+    B, L, H, K, Dh = 4, 64, 8, 2, 32
+    t = np.asarray([0, 5, 63, 150], np.int32)   # fresh, partial, full, wrapped
+    k, v, pos, valid = ring(6, B, L, K, Dh, t)
+    valid[0] = False                            # slot 0: no attendable key
+    q = np.random.default_rng(7).standard_normal((B, 1, H, Dh),
+                                                 dtype=np.float32)
+    args = [as_t(a, device=cuda, dtype=dtype) for a in (q, k, v)] + [
+        as_t(pos, device=cuda), as_t(t, device=cuda), as_t(valid, device=cuda)]
+    got = ops.decode_attention(*args, window=window)
+    want = ops.decode_attention(*args, window=window, backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLP_CASES)
+def test_fused_mlp_kernel_matches_plain(cuda, case, dtype):
+    x, wi, wo, wg, tw, cnt, act = mlp_inputs(case, 8, device=cuda,
+                                             dtype=dtype)
+    got = ops.fused_mlp(x, wi, wo, wg, tw, cnt, act=act)
+    want = ops.fused_mlp(x, wi, wo, wg, tw, cnt, act=act, backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    # a fixed summation order: the same inputs give the same bits
+    assert torch.equal(got, ops.fused_mlp(x, wi, wo, wg, tw, cnt, act=act))
+
+
+@pytest.mark.cuda
+def test_toy_engine_on_the_card(cuda):
+    """toy-lm served on the card: every kernel launches, budget 1.0 equals
+    the teacher and a request alone equals its staggered run, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticSpec
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = dataclasses.replace(get_config("toy-lm"), dtype="bfloat16")
+    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                       mha_head_routed=True, lora_rank=1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model_init(gen, cfg, spec, device=cuda)
+    rp = router_init(gen, cfg, spec, device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [GenRequest(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                       6, budget=b)
+            for n, b in zip((9, 33, 17, 70), (1.0, 0.5, 0.75, 1.0))]
+    mk = lambda mode: ServingEngine(params, rp, cfg, spec, mode=mode,
+                                    batch_size=2, max_seq=128, device=cuda)
+    ops.reset_launch_counts()
+    out = mk("infer").generate(reqs)
+    assert all(c > 0 for c in ops.launch_counts().values())
+    base = mk("base").generate(reqs)
+    assert [list(o) for o in out[::3]] == [list(o) for o in base[::3]]
+    assert list(mk("infer").generate([reqs[2]])[0]) == list(out[2])
