@@ -1,23 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (built for H100).
 
-    python3 chip_smoke.py [--layers N] [--seed S]
+    python3 chip_smoke.py [--layers N] [--train-layers N] [--seed S]
 
-1. Prints the card (nvidia-smi name and power limit), builds the three
+1. Prints the card (nvidia-smi name and power limit), builds the
    hand-written CUDA kernels from src/repro_torch/kernels/csrc with nvcc
-   (sm_90a) and prints the build time.
+   (sm_90a, one process per source, in parallel) and prints the build time.
 2. Holds each kernel against its plain PyTorch version at Qwen2-7B shapes,
-   in bf16 and f32, with ragged counts, kv_valid holes and a part-filled
-   ring; prints the max error beside the tolerance, and times the kernel,
-   the plain version and (attention) one SDPA call with CUDA events.
-3. Serves 6 staggered mixed-budget requests through ``ServingEngine`` at
+   in bf16 and f32, with ragged counts, kv_valid holes, a part-filled ring
+   and a routed selection; prints the max error beside the tolerance, and
+   times the kernel, the plain version and (attention) one SDPA call with
+   CUDA events.
+3. Serving: 6 staggered mixed-budget requests through ``ServingEngine`` at
    Qwen2-7B full width (random bf16 weights from --seed; --layers cuts depth
    only) and fails unless budget-1.0 requests equal a mode="base" engine
    bit for bit, a request served alone equals its staggered tokens, and
-   every kernel launched during the run. Prints prefill and decode rates of
-   the main run and of the (warm) teacher run, and the device kernel time
-   of the solo run under torch.profiler.
-4. Prints one JSON line of per-kernel results, the card line again, and as
+   every serving kernel launched during the run. Prints prefill and decode
+   rates of the main run and of the (warm) teacher run, and the device
+   kernel time of the solo run under torch.profiler.
+4. Gradients: the router gradients of one distillation loss at full width,
+   2 layers, f32, through the kernels against the same through the plain
+   versions.
+5. Training: 4 router self-distillation steps through
+   ``repro_torch.launch.train`` at Qwen2-7B full width and depth (the
+   serving weights; --train-layers cuts depth), seq 512, batch 2, budget
+   annealed 1.0 -> 0.5 over 3 steps. Fails unless budget 1.0 gives the
+   teacher's hidden states bit for bit and a distillation loss of exactly
+   0, a plan step run twice gives the same bits, every loss is finite and
+   every training kernel launched. Prints each step's losses, bucket,
+   teacher and student times, tokens/s and peak memory.
+6. Prints one JSON line of per-kernel results, the card line again, and as
    the last line {"ok": true, "device": {...}}.
 
 Any failed phase raises and the script exits non-zero before that line.
@@ -26,6 +38,7 @@ TF32 is off for matmuls and cuDNN (both set below): f32 means f32.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -46,9 +59,15 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:124"),
     "fused_mlp": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
                   "src/repro/kernels/fused_mlp.py:140"),
+    "fused_mlp_routed": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
+                         "src/repro/kernels/fused_mlp.py:261"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:104"),
 }
+
+
+SERVING_KERNELS = ("flash_attention", "fused_mlp", "decode_attention")
+TRAINING_KERNELS = ("flash_attention", "fused_mlp", "fused_mlp_routed")
 
 
 def fail(msg: str):
@@ -232,6 +251,59 @@ def check_fused_mlp(res: Results, dev, D, Fd):
             None)
 
 
+def check_fused_mlp_routed(res: Results, rng, dev, D, Fd):
+    """The routed MLP at a training step's shapes: B=2, S=512, a 256-row
+    bucket with counts (256, 200); plus a small ungated case whose bucket
+    is the whole sequence. Rows outside the live selection must be exactly
+    zero."""
+    import torch
+    from repro_torch.kernels import ops
+    cases = [  # (dtype, B, S, Kb, D, F, act, gated, counts, timed)
+        ("bf16", 2, 512, 256, D, Fd, "swiglu", True, [256, 200], True),
+        ("f32", 2, 512, 256, D, Fd, "swiglu", True, [256, 200], False),
+        ("f32", 2, 96, 96, 256, 512, "gelu", False, [96, 0], False),
+    ]
+    for kind, B, S, Kb, d, f, act, gated, counts, timed in cases:
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        x = torch.randn(B, S, d, device=dev).to(dt)
+        w = lambda a, b: (torch.randn(a, b, device=dev) / a ** 0.5).to(dt)
+        wi, wo = w(d, f), w(f, d)
+        wg = w(d, f) if gated else None
+        # a RoutingPlan's layout: the selection ascending, then the rest
+        idx_np = np.stack([np.concatenate([np.sort(p[:c]), np.sort(p[c:Kb])])
+                           for p, c in ((rng.permutation(S), c)
+                                        for c in counts)])
+        idx = torch.from_numpy(idx_np.astype(np.int64)).to(dev)
+        tw = torch.rand(B, Kb, device=dev)
+        cnt = torch.tensor(counts, device=dev, dtype=torch.int32)
+        run = lambda backend=None: ops.fused_mlp_routed(
+            x, idx, wi, wo, wg, tw, cnt, act=act, backend=backend)
+        got = run()
+        res.compare("fused_mlp_routed", f"{kind} x={tuple(x.shape)} Kb={Kb} "
+                    f"F={f} {act} cnt={counts}", got, run("ref"), kind)
+        live = torch.zeros(B, S, dtype=torch.bool, device=dev)
+        for b, c in enumerate(counts):
+            live[b, idx[b, :c]] = True
+        n_dead = int((~live).sum())
+        if got[~live].count_nonzero() != 0:
+            fail(f"fused_mlp_routed {kind}: a row outside the selection is "
+                 f"not zero")
+        print(f"  fused_mlp_routed  {n_dead} rows outside the selection: all "
+              f"exactly zero")
+        if not timed:
+            continue
+        rows = sum(counts)
+        n_mats = 3 if gated else 2
+        esz = x.element_size()
+        # each weight once, the selected x rows, the whole (B, S, D) delta,
+        # idx and token weights (4 bytes each) and the counts
+        nbytes = (n_mats * d * f + rows * d + B * S * d) * esz \
+            + B * Kb * 8 + B * 4
+        res.timing("fused_mlp_routed", cuda_ms(run, 5),
+                   cuda_ms(lambda: run("ref"), 3), 2 * rows * d * f * n_mats,
+                   nbytes, kind, None)
+
+
 def _ring(rng, B, L, t, keep):
     """Ring-cache positions written up to per-slot t (slot = pos % L), -1
     for never-written slots, and a routing validity mask."""
@@ -337,27 +409,28 @@ def print_device_time(prof, wall_s, top=8):
               f"{e.key[:100]}")
 
 
-def check_serving(args, dev, device_line):
+def check_serving(args, dev, device_line, spec):
     import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.policy import ElasticSpec
     from repro_torch.kernels import ops
     from repro_torch.models import model_init, router_init
     from repro_torch.training import ServingEngine
 
     full = get_config("qwen2-7b")
     cfg = dataclasses.replace(full, n_layers=args.layers)
+    # the weights cover the deeper of the serving and training depths;
+    # serving runs the first --layers of them
+    init_cfg = dataclasses.replace(
+        full, n_layers=max(args.layers, args.train_layers))
     print(f"model: {cfg.name} d={cfg.d_model} H={cfg.n_heads} K="
           f"{cfg.n_kv_heads} Dh={cfg.d_head} F={cfg.d_ff} V={cfg.vocab_size} "
           f"{cfg.dtype}, depth {cfg.n_layers} of {full.n_layers} layers"
           + ("" if cfg.n_layers == full.n_layers else " (depth cut)"))
-    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
-                       mha_head_routed=True, lora_rank=1)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = model_init(gen, cfg, spec, device=dev)
-    rp = router_init(gen, cfg, spec, device=dev)
+    params = model_init(gen, init_cfg, spec, device=dev)
+    rp = router_init(gen, init_cfg, spec, device=dev)
     torch.cuda.synchronize()
     n = sum(p.numel() for layer in params["layers"] for d in layer.values()
             for p in d.values()) + params["embed"].numel() + \
@@ -377,10 +450,10 @@ def check_serving(args, dev, device_line):
     tokens = serve(engine, requests, stagger=True)    # the main path
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    print(f"main path launches: {launches}")
-    missing = [k for k, c in launches.items() if c == 0]
+    print(f"serving path launches: {launches}")
+    missing = [k for k in SERVING_KERNELS if launches[k] == 0]
     if missing:
-        fail(f"kernels never launched on the main path: {missing}")
+        fail(f"kernels never launched on the serving path: {missing}")
     print_timing("main path (first run, cold)", engine.timing, device_line)
     for toks in tokens:
         if len(toks) != 16 or not all(0 <= x < cfg.vocab_size for x in toks):
@@ -409,6 +482,190 @@ def check_serving(args, dev, device_line):
         fail(f"request {solo_i} alone {solo} != staggered {tokens[solo_i]}")
     print(f"staggered == solo (request {solo_i}, budget "
           f"{budgets[solo_i]}): ok")
+    return launches, params, rp
+
+
+def _f32_cut(params, rp, n_layers):
+    """The first ``n_layers`` layers (and embedding, head, final norm) of
+    the model and routers, as f32 copies."""
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [cast(v) for v in t]
+        return t.float()
+    p = cast({k: v for k, v in params.items() if k != "layers"})
+    p["layers"] = cast(params["layers"][:n_layers])
+    return p, {"layers": cast(rp["layers"][:n_layers])}
+
+
+def check_gradients(params, rp, spec, dev, seed, n_layers=2, budget=0.5,
+                    rel_tol=2e-3):
+    """Router gradients of one distillation loss at Qwen2-7B full width,
+    ``n_layers`` layers, f32: the kernel path (backend "cuda") against the
+    plain path (backend "ref") on the same batch and policy. A leaf passes
+    when max |g_kernel - g_plain| <= rel_tol * max |g_plain|. A leaf whose
+    kernel-path gradient is all zero while the plain one is not fails (the
+    mark of a kernel whose autograd plumbing is missing)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticPolicy, ragged_bucket
+    from repro_torch.data import LMDataPipeline
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.training import make_loss_fn
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=n_layers,
+                              dtype="float32")
+    p32, r32 = _f32_cut(params, rp, n_layers)
+    S, B = 512, 2
+    # the budget on every knob directly: at 2 layers the FLOP solver would
+    # cut far deeper (the embedding and LM head dominate the 2-layer model)
+    pol = ElasticPolicy.uniform(budget, n_heads=cfg.n_heads).to(dev)
+    bucket = ragged_bucket(pol, S)
+    tokens = torch.from_numpy(LMDataPipeline(
+        vocab=cfg.vocab_size, seq_len=S, global_batch=B,
+        seed=seed).batch_at(0)).to(dev)
+    out = {}
+    for backend in ("cuda", "ref"):
+        sp = dataclasses.replace(spec, kernel_backend=backend)
+        leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          r32)
+        loss, m = make_loss_fn(cfg, sp)(leaves, p32, {"tokens": tokens}, pol,
+                                        bucket)
+        flat = tree_leaves(leaves)
+        gs = torch.autograd.grad(loss, flat, allow_unused=True)
+        out[backend] = (float(loss.detach()), float(m["sel_rate"]),
+                        [torch.zeros_like(t) if g is None else g
+                         for g, t in zip(gs, flat)])
+        torch.cuda.synchronize()
+    (lk, sk, gk), (lr_, sr, gr) = out["cuda"], out["ref"]
+    print(f"gradient check: qwen2-7b width, {n_layers} layers, f32, B={B} "
+          f"S={S}, budget {budget} (bucket {bucket}): loss kernel {lk:.6f} "
+          f"plain {lr_:.6f}, sel_rate {sk:.6f} / {sr:.6f}")
+    if sk != sr:
+        fail("the kernel and plain paths selected different tokens")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(gk, gr)):
+        scale = float(b.abs().max())
+        if scale > 0 and float(a.abs().max()) == 0.0:
+            fail(f"router leaf {i}: all-zero gradient on the kernel path, "
+                 f"non-zero on the plain path")
+        rel = float((a - b).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if rel > rel_tol:
+            fail(f"router leaf {i}: kernel vs plain gradient {rel:.3e} of "
+                 f"its largest element (tolerance {rel_tol:g})")
+    print(f"  {len(gk)} router leaves: worst max|g_kernel - g_plain| / "
+          f"max|g_plain| = {worst:.3e} (tolerance {rel_tol:g}); no leaf "
+          f"zero on one path only: ok")
+
+
+def check_training(args, params, rp, spec, dev, device_line):
+    """The training path: 4 steps at Qwen2-7B full width, --train-layers
+    deep, bf16, through launch.train's build_trainer and step function.
+    Returns the kernels' launches during the 4 steps."""
+    import torch
+    from repro_torch.core import routing as R
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+    from repro_torch.models import forward
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.training import make_loss_fn
+    steps, S, B = 4, 512, 2
+    n = args.train_layers
+    cfg, ecfg, params, state, step_fn, pipe = T.build_trainer(
+        "qwen2-7b", lr=1e-4, total_steps=steps, seq_len=S, global_batch=B,
+        seed=args.seed, ecfg=spec, device=dev, n_layers=n,
+        params={**params, "layers": params["layers"][:n]},
+        routers={"layers": rp["layers"][:n]})
+    anneal = dict(budget=0.5, anneal_from=1.0, anneal_steps=3)
+    policy_at = T.policy_schedule(cfg, ecfg, seq_len=S, total_steps=steps,
+                                  device=dev, **anneal)
+    budget_at = T.capacity_anneal(1.0, 0.5, 3)
+    print(f"training: {cfg.name} width, depth {n} layers, {cfg.dtype}, "
+          f"B={B} S={S}, AdamW on "
+          f"{T.router_param_count(state.router_params)} router params, "
+          f"remat, budget 1.0 -> 0.5 over 3 steps [{device_line}]")
+    batches = [{"tokens": torch.as_tensor(pipe.batch_at(i), device=dev)}
+               for i in range(steps)]
+    states = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for i in range(steps):
+        pol, bucket = policy_at(i)
+        states.append(state)
+        torch.cuda.reset_peak_memory_stats()
+        timing = {}
+        t0 = time.perf_counter()
+        state, m = step_fn(state, params, batches[i], pol, bucket,
+                           timing=timing)
+        wall = time.perf_counter() - t0
+        m = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"training step {i}: non-finite metrics {m}")
+        print(f"  step {i} budget {budget_at(i):.4f} "
+              f"bucket {bucket}: loss {m['loss']:.6f} distill "
+              f"{m['distill']:.6e} aux_load {m['aux_load']:.6f} aux_topk "
+              f"{m['aux_topk']:.6f} sel_rate {m['sel_rate']:.4f} grad_norm "
+              f"{m['grad_norm']:.6f} | teacher fwd "
+              f"{timing['teacher_s'] * 1e3:.1f} ms, student fwd+bwd+update "
+              f"{timing['student_s'] * 1e3:.1f} ms, step {wall * 1e3:.1f} ms "
+              f"= {B * S / wall:.1f} tok/s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+              f"[{device_line}]")
+        if i == 0 and (bucket != R.IDENTITY_BUCKET or m["distill"] != 0.0):
+            fail(f"budget-1.0 step: bucket {bucket}, distill {m['distill']}"
+                 f" (want the identity bucket and exactly 0)")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"training path launches: {launches}")
+    missing = [k for k in TRAINING_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the training path: {missing}")
+
+    # budget 1.0: the student's final hidden states are the teacher's
+    pol, bucket = policy_at(0)
+    with torch.no_grad():
+        h_s, _ = forward(params, states[0].router_params, batches[0], cfg,
+                         ecfg, mode="train", return_hidden=True, policy=pol,
+                         bucket=bucket)
+        h_t, _ = forward(params, None, batches[0], cfg, ecfg, mode="base",
+                         return_hidden=True)
+    if not torch.equal(h_s, h_t):
+        fail("budget-1.0 student hidden states differ from the teacher's")
+    print("budget 1.0 student == mode='base' teacher hidden states, bit for "
+          "bit; distill == 0.0 exactly: ok")
+
+    # a plan step twice from the same state: the same bits
+    i = steps - 1
+    pol, bucket = policy_at(i)
+    loss_fn = make_loss_fn(cfg, ecfg, remat=True)
+    runs = []
+    for _ in range(2):
+        leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          states[i].router_params)
+        loss, _ = loss_fn(leaves, params, batches[i], pol, bucket)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves),
+                                    allow_unused=True)
+        runs.append((loss.detach(), grads))
+    same = torch.equal(runs[0][0], runs[1][0]) and all(
+        (a is None and b is None) or torch.equal(a, b)
+        for a, b in zip(runs[0][1], runs[1][1]))
+    if not same:
+        fail(f"plan step {i} (bucket {bucket}) run twice differs")
+    print(f"plan step {i} (bucket {bucket}) twice from the same state: "
+          f"loss and {len(runs[0][1])} router gradients bit-identical: ok")
+
+    # where a plan step's time goes on the device
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_fn(states[i], params, batches[i], pol, bucket)
+        torch.cuda.synchronize()
+    print(f"plan step {i} under torch.profiler:")
+    print_device_time(prof, time.perf_counter() - t0, top=12)
     return launches
 
 
@@ -416,6 +673,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="depth of the served Qwen2-7B (width stays full)")
+    ap.add_argument("--train-layers", type=int, default=28,
+                    help="depth of the trained Qwen2-7B (width stays full)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -427,6 +686,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticSpec
     from repro_torch.kernels import build
 
     device_line = card_line()
@@ -434,8 +694,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}")
+    t_start = time.perf_counter()
     t_build = build.build()
-    print(f"kernel build (nvcc sm_90a, {len(build.KERNELS)} sources in "
+    print(f"kernel build (nvcc sm_90a, {len(build.SOURCES)} sources in "
           f"parallel): {t_build:.1f} s")
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
@@ -451,13 +712,26 @@ def main() -> int:
     res = Results()
     check_flash(res, rng, dev, H, K, Dh)
     check_fused_mlp(res, dev, cfg.d_model, cfg.d_ff)
+    check_fused_mlp_routed(res, rng, dev, cfg.d_model, cfg.d_ff)
     check_decode(res, rng, dev, H, K, Dh, 1024)
     torch.cuda.synchronize()
 
-    launches = check_serving(args, dev, device_line)
+    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                       mha_head_routed=True, lora_rank=1)
+    serving, params, rp = check_serving(args, dev, device_line, spec)
+    gc.collect()                 # the engines and their caches are gone
+    torch.cuda.empty_cache()
+    check_gradients(params, rp, spec, dev, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = check_training(args, params, rp, spec, dev, device_line)
     kernels = [dict(name=n, route="cuda", source=SOURCES[n][0],
-                    replaces=SOURCES[n][1], launches=launches[n],
+                    replaces=SOURCES[n][1],
+                    launches=serving[n] + training[n],
+                    launches_by_path={"serving": serving[n],
+                                      "training": training[n]},
                     **res.rows[n]) for n in SOURCES]
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(device_line)
     print(json.dumps({"ok": True, "device": {

@@ -202,6 +202,49 @@ def as_spec_policy(elastic, policy: Optional[ElasticPolicy] = None):
     return spec, (policy if policy is not None else policy_from_config(elastic))
 
 
+# ----------------------- ragged bucket resolution ----------------------------
+
+def ragged_bucket(policy: Optional[ElasticPolicy], s: int,
+                  *, n_buckets: Optional[int] = None,
+                  align: Optional[int] = None,
+                  spec: Optional[ElasticSpec] = None) -> Optional[int]:
+    """Host-side bucket solver: the smallest static capacity bucket that
+    covers the policy's token capacities at sequence length ``s``, to pass
+    as ``bucket=`` beside a tensor policy. Returns a bucket ``b < s``;
+    ``routing.IDENTITY_BUCKET`` when every row is at full budget (or in
+    teacher mode), so the identity path runs; or ``None`` when rows mix
+    full and partial budgets or the covering bucket would be the whole
+    sequence (the dense rank-masked path). With ``spec``, knobs that are
+    not routed drop out and depth composes multiplicatively."""
+    from repro_torch.core import routing as R
+    if policy is None:
+        return None
+    vals = [torch.as_tensor(c, dtype=torch.float32) for c in (
+        policy.mha_token_capacity, policy.mlp_token_capacity,
+        policy.student, policy.depth_capacity)]
+    if spec is not None:
+        one = torch.ones((), dtype=torch.float32, device=vals[0].device)
+        cap_rows = torch.maximum(
+            vals[0] if spec.mha_token_routed else one,
+            vals[1] if spec.mlp_token_routed else one)
+        if spec.depth_routed:
+            cap_rows = cap_rows * torch.clamp(vals[3], max=1.0)
+    else:
+        cap_rows = torch.maximum(vals[0], vals[1])
+    eff = torch.where(vals[2] <= 0.0, torch.ones_like(cap_rows), cap_rows)
+    if float(eff.min()) >= 1.0:
+        return R.IDENTITY_BUCKET
+    if float(eff.max()) >= 1.0:
+        return None
+    kw = {}
+    if n_buckets is not None:
+        kw["n_buckets"] = n_buckets
+    if align is not None:
+        kw["align"] = align
+    b = R.bucket_for(R.capacity_k(float(eff.max()), s, mxu=True), s, **kw)
+    return b if b < s else None
+
+
 # ------------------------- budget -> capacity solver --------------------------
 
 def stack_flops_per_token(cfg, spec: ElasticSpec, *, ctx: int = 1024):
@@ -282,3 +325,16 @@ def solve_budget(cfg, spec: ElasticSpec, budget: float, *, ctx: int = 1024,
         s, n_heads=cfg.n_heads if spec.mha_head_routed else None,
         n_experts=spec.mlp_n_experts if spec.expert_routed else None,
         theta=theta, static=static)
+
+
+# ------------------------------ schedules ------------------------------------
+
+def capacity_anneal(start: float, end: float, steps: int):
+    """Linear budget schedule for distillation: step -> budget, from
+    ``start`` down to ``end`` over ``steps`` steps."""
+    def at(step: int) -> float:
+        if steps <= 0:
+            return end
+        t = min(1.0, max(0.0, step / steps))
+        return start + (end - start) * t
+    return at

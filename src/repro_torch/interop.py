@@ -59,12 +59,7 @@ def _layers_from(tree: dict, P: int) -> list:
     return unstack_layers(tree.get("scan", []), tree.get("tail", []), P)
 
 
-def params_from_numpy(flat: dict, cfg, spec=None, *, device=None):
-    """``flat``: the checkpointer's ``_flatten`` of ``{"params": params,
-    "routers": routers}`` (or of the params tree alone). Returns the port's
-    (params, routers); routers is None when ``flat`` has none. bf16 leaves
-    keep their bits."""
-    device = resolve_device(device)
+def _tree_from_flat(flat: dict, device):
     root = {}
     for key, arr in flat.items():
         path = _parse(key)
@@ -72,7 +67,16 @@ def params_from_numpy(flat: dict, cfg, spec=None, *, device=None):
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = arr
-    tree = _tree_to_torch(_listify(root), device)
+    return _tree_to_torch(_listify(root), device)
+
+
+def params_from_numpy(flat: dict, cfg, spec=None, *, device=None):
+    """``flat``: the checkpointer's ``_flatten`` of ``{"params": params,
+    "routers": routers}`` (or of the params tree alone). Returns the port's
+    (params, routers); routers is None when ``flat`` has none. bf16 leaves
+    keep their bits."""
+    device = resolve_device(device)
+    tree = _tree_from_flat(flat, device)
     if "params" in tree:
         ptree, rtree = tree["params"], tree.get("routers")
     else:
@@ -102,19 +106,51 @@ def _flatten_into(out: dict, prefix: str, node) -> None:
         out[prefix] = _to_numpy(node)
 
 
-def params_to_numpy(params: dict, routers, cfg, spec=None) -> dict:
-    """Inverse of ``params_from_numpy``: the JAX layout of
-    ``{"params": params, "routers": routers}`` as ``{keystr: ndarray}``
-    (bf16 leaves widened to f32, exactly)."""
+def layered_to_numpy(out: dict, cfg, spec, trees: dict) -> dict:
+    """Flatten ``{name: port tree with "layers"}`` into ``out`` in the JAX
+    layout (``['name']['scan'][j]...`` keys)."""
     period, _, _ = build_pattern(cfg, spec)
-    out: dict = {}
-
-    def put(name, tree):
+    for name, tree in trees.items():
         scan, tail = stack_layers(tree["layers"], len(period))
         rest = {k: v for k, v in tree.items() if k != "layers"}
         _flatten_into(out, f"['{name}']", {**rest, "scan": scan,
                                            "tail": tail})
-    put("params", params)
-    if routers is not None:
-        put("routers", routers)
     return out
+
+
+def params_to_numpy(params: dict, routers, cfg, spec=None) -> dict:
+    """Inverse of ``params_from_numpy``: the JAX layout of
+    ``{"params": params, "routers": routers}`` as ``{keystr: ndarray}``
+    (bf16 leaves widened to f32, exactly)."""
+    trees = {"params": params}
+    if routers is not None:
+        trees["routers"] = routers
+    return layered_to_numpy({}, cfg, spec, trees)
+
+
+# The JAX trainer checkpoints {"router": routers, "opt_m": m, "opt_v": v}
+# with the optimizer step beside them (launch/train.py ``save``).
+TRAIN_TREES = ("router", "opt_m", "opt_v")
+
+
+def train_state_from_numpy(flat: dict, opt_step: int, cfg, spec=None, *,
+                           device=None):
+    """A JAX training state as the port's ``TrainState``: ``flat`` is the
+    checkpointer's ``_flatten`` of ``{"router": routers, "opt_m": m,
+    "opt_v": v}`` (the AdamWState's moment trees), ``opt_step`` its step.
+    Bit-exact."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.training import TrainState
+    device = resolve_device(device)
+    tree = _tree_from_flat(flat, device)
+    _, P, _ = build_pattern(cfg, spec)
+    rp, m, v = ({"layers": _layers_from(tree[n], P)} for n in TRAIN_TREES)
+    step = torch.tensor(int(opt_step), dtype=torch.int32, device=device)
+    return TrainState(rp, AdamWState(step, m, v), None)
+
+
+def train_state_to_numpy(state, cfg, spec=None):
+    """Inverse of ``train_state_from_numpy``: (flat, opt_step)."""
+    trees = dict(zip(TRAIN_TREES, (state.router_params, state.opt.m,
+                                   state.opt.v)))
+    return layered_to_numpy({}, cfg, spec, trees), int(state.opt.step)

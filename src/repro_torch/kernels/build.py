@@ -22,19 +22,23 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-KERNELS = ("flash_attention", "fused_mlp", "decode_attention")
+SOURCES = ("flash_attention", "fused_mlp", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of the entry points (see each .cu file)
-SIGNATURES = {
-    "flash_attention_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _I, _F, _P],
-    "fused_mlp_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _P],
-    "decode_attention_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _F, _P],
+# C entry points: name -> (source, signature) (see each .cu file)
+ENTRIES = {
+    "flash_attention_launch": ("flash_attention", [
+        _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+        _P]),
+    "fused_mlp_launch": ("fused_mlp", [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "fused_mlp_routed_launch": ("fused_mlp", [
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+        _P]),
+    "decode_attention_launch": ("decode_attention", [
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
 }
 
 _lock = threading.Lock()
@@ -62,7 +66,7 @@ def _build_all(out_dir: Path) -> None:
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for name in KERNELS:
+    for name in SOURCES:
         tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
@@ -81,25 +85,25 @@ def _build_all(out_dir: Path) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, building every kernel first if
-    the current sources have not been built yet."""
+    """The loaded library of source ``name``, building every source first
+    if the current sources have not been built yet."""
     with _lock:
         if name in _libs:
             return _libs[name]
         out_dir = BUILD_ROOT / source_hash()
-        if not all((out_dir / f"lib{n}.so").exists() for n in KERNELS):
+        if not all((out_dir / f"lib{n}.so").exists() for n in SOURCES):
             _build_all(out_dir)
-        for n in KERNELS:
-            lib = ctypes.CDLL(str(out_dir / f"lib{n}.so"))
-            fn = getattr(lib, f"{n}_launch")
-            fn.argtypes = SIGNATURES[f"{n}_launch"]
+        for n in SOURCES:
+            _libs[n] = ctypes.CDLL(str(out_dir / f"lib{n}.so"))
+        for entry, (src, sig) in ENTRIES.items():
+            fn = getattr(_libs[src], entry)
+            fn.argtypes = sig
             fn.restype = ctypes.c_int
-            _libs[n] = lib
         return _libs[name]
 
 
 def build() -> float:
-    """Build (or find) and load every kernel; returns the seconds taken."""
+    """Build (or find) and load every source; returns the seconds taken."""
     t0 = time.perf_counter()
-    load(KERNELS[0])
+    load(SOURCES[0])
     return time.perf_counter() - t0

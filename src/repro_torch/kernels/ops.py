@@ -13,6 +13,13 @@ There is no fallback: a build failure, a refused launch or an unsupported
 shape raises. Each wrapper adds one to its count in ``launch_counts()``
 exactly when it launches its kernel. The int8/bf16 scale operands wait for
 the quantisation slice and raise ``NotImplementedError``.
+
+Autograd cannot see a launch through ``ctypes``, so every kernel that
+training crosses (``flash_attention``, ``fused_mlp``, ``fused_mlp_routed``)
+runs inside ``KernelOp``, a ``torch.autograd.Function`` whose forward is the
+kernel and whose backward replays the plain version: the counterpart of the
+JAX package's custom VJPs, which replay its jnp oracles (there are no
+backward kernels to port). ``decode_attention`` serves only.
 """
 from __future__ import annotations
 
@@ -20,15 +27,48 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (_counts, decode_attention_ref,
-                                     flash_attention_ref, fused_mlp_ref)
+                                     flash_attention_ref, fused_mlp_ref,
+                                     fused_mlp_routed_ref)
 
 BACKENDS = ("auto", "cuda", "ref")
-KERNELS = build.KERNELS
+KERNELS = ("flash_attention", "fused_mlp", "fused_mlp_routed",
+           "decode_attention")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # rt::DT_F32 / rt::DT_BF16
 _launches = {name: 0 for name in KERNELS}
 
 QUANT_TODO = ("int8/bf16 scale operands arrive with the quantisation slice "
               "(ROADMAP Queue A item 9)")
+
+
+class KernelOp(torch.autograd.Function):
+    """``KernelOp.apply(kernel, plain, *args)``: the forward returns
+    ``kernel(*args)``; the backward replays ``plain(*args)`` under
+    ``enable_grad`` and returns the gradients of the floating-point tensor
+    arguments that ``ctx.needs_input_grad`` asks for (frozen weights ask
+    for none), and ``None`` for the rest (integer and bool tensors, None)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *args):
+        ctx.plain = plain
+        ctx.save_for_backward(*args)
+        return kernel(*args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        args = ctx.saved_tensors
+        want = [i for i, a in enumerate(args)
+                if a is not None and a.is_floating_point()
+                and ctx.needs_input_grad[2 + i]]
+        grads = [None] * len(args)
+        if want:
+            with torch.enable_grad():
+                ins = [a.detach().requires_grad_(True) if i in want else a
+                       for i, a in enumerate(args)]
+                out = ctx.plain(*ins)
+                for i, g in zip(want, torch.autograd.grad(
+                        out, [ins[i] for i in want], grad)):
+                    grads[i] = g
+        return (None, None, *grads)
 
 
 def launch_counts() -> dict:
@@ -75,6 +115,12 @@ def _mask_ptr(mask, shape, device):
     return m, m.data_ptr()
 
 
+def _as_tensor(v):
+    """A Python count becomes a tensor: ``KernelOp`` saves its tensor
+    arguments for the backward replay."""
+    return v if v is None or torch.is_tensor(v) else torch.as_tensor(v)
+
+
 def _check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
@@ -97,27 +143,36 @@ def flash_attention(q, k, v, kv_valid=None, kv_count=None, *, causal=True,
     """q: (B,Sq,H,Dh); k, v: (B,Sk,K,Dh); kv_valid: (B,Sk) or (Sk,) bool;
     kv_count: None, scalar or (B,) count of real leading rows. Returns
     (B,Sq,H,Dh) in q's dtype; query rows with no attendable key are 0."""
-    if not use_kernel(backend, q):
+    def plain(q, k, v, kv_valid, kv_count):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    kv_valid=kv_valid, kv_count=kv_count)
+
+    if not use_kernel(backend, q):
+        return plain(q, k, v, kv_valid, kv_count)
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     if Dh not in (16, 32, 64, 128) or H % K or k.shape != v.shape:
         raise ValueError(f"flash_attention kernel: unsupported shapes q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
     dt = _dtype_code(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    valid, valid_ptr = _mask_ptr(kv_valid, (B, Sk), q.device)
-    cnt = _counts_vec(kv_count, B, max(Sq, Sk), q.device)
-    lib = build.load("flash_attention")
-    with torch.cuda.device(q.device):
-        rc = lib.flash_attention_launch(
-            dt, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            valid_ptr, cnt.data_ptr(), B, Sq, Sk, H, K, int(bool(causal)),
-            int(window or 0), float(Dh ** -0.5), _stream(q))
-    _check(rc, "flash_attention")
-    return out
+
+    def kernel(q, k, v, kv_valid, kv_count):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out = torch.empty_like(q)
+        valid, valid_ptr = _mask_ptr(kv_valid, (B, Sk), q.device)
+        cnt = _counts_vec(kv_count, B, max(Sq, Sk), q.device)
+        lib = build.load("flash_attention")
+        with torch.cuda.device(q.device):
+            rc = lib.flash_attention_launch(
+                dt, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), valid_ptr, cnt.data_ptr(), B, Sq, Sk, H, K,
+                int(bool(causal)), int(window or 0), float(Dh ** -0.5),
+                _stream(q))
+        _check(rc, "flash_attention")
+        return out
+
+    return KernelOp.apply(kernel, plain, q, k, v, _as_tensor(kv_valid),
+                          _as_tensor(kv_count))
 
 
 # -------------------------------- fused MLP ----------------------------------
@@ -127,6 +182,25 @@ def flash_attention(q, k, v, kv_valid=None, kv_count=None, *, causal=True,
 # staged through shared memory per 64-token tile, hidden in an f32 scratch
 # (csrc/fused_mlp.cu).
 
+def _mlp_weights(x3, wi, wo, wg):
+    D, F = x3.shape[-1], wi.shape[1]
+    if wi.shape != (D, F) or wo.shape != (F, D) or (
+            wg is not None and wg.shape != (D, F)):
+        raise ValueError("fused_mlp kernel: weight shapes do not match x")
+    return F, _dtype_code(x3, wi, wo, *([wg] if wg is not None else []))
+
+
+def _act_code(act, gated: bool) -> int:
+    """rt act codes: 0 = silu, 1 = tanh-GELU (the gate's, when gated)."""
+    if gated:
+        return 0 if act == "swiglu" else 1
+    return 1 if act == "gelu" else 0
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
 def fused_mlp(x, wi, wo, wg=None, token_weights=None, valid_count=None,
               wi_scale=None, wo_scale=None, wg_scale=None, *, act="swiglu",
               backend=None):
@@ -135,38 +209,95 @@ def fused_mlp(x, wi, wo, wg=None, token_weights=None, valid_count=None,
     rows (rows past it are 0). Returns x-shaped output in x's dtype."""
     if wi_scale is not None or wo_scale is not None or wg_scale is not None:
         raise NotImplementedError(QUANT_TODO)
+
+    def plain(x, wi, wo, wg, tw, cnt):
+        return fused_mlp_ref(x, wi, wo, wg, tw, act=act, valid_count=cnt)
+
     if not use_kernel(backend, x):
-        return fused_mlp_ref(x, wi, wo, wg, token_weights, act=act,
-                             valid_count=valid_count)
+        return plain(x, wi, wo, wg, token_weights, valid_count)
     squeeze = x.dim() == 2
-    x3 = x[None] if squeeze else x
-    B, T, D = x3.shape
-    F = wi.shape[1]
-    if wi.shape != (D, F) or wo.shape != (F, D) or (
-            wg is not None and wg.shape != (D, F)):
-        raise ValueError("fused_mlp kernel: weight shapes do not match x")
-    dt = _dtype_code(x3, wi, wo, *([wg] if wg is not None else []))
-    x3, wi, wo = x3.contiguous(), wi.contiguous(), wo.contiguous()
-    wg = wg.contiguous() if wg is not None else None
-    tw = None
-    if token_weights is not None:
-        tw = token_weights.to(device=x.device, dtype=torch.float32)
-        tw = tw.reshape(-1, T).expand(B, T).contiguous()
-    cnt = _counts_vec(valid_count, B, T, x.device)
-    hbuf = torch.empty((B, T, F), dtype=torch.float32, device=x.device)
-    out = torch.empty((B, T, D), dtype=x.dtype, device=x.device)
-    act_code = (0 if act == "swiglu" else 1) if wg is not None else \
-        (1 if act == "gelu" else 0)
-    lib = build.load("fused_mlp")
-    with torch.cuda.device(x.device):
-        rc = lib.fused_mlp_launch(
-            dt, x3.data_ptr(), wi.data_ptr(),
-            wg.data_ptr() if wg is not None else None, wo.data_ptr(),
-            tw.data_ptr() if tw is not None else None, cnt.data_ptr(),
-            hbuf.data_ptr(), out.data_ptr(), B, T, D, F, act_code,
-            _stream(x))
-    _check(rc, "fused_mlp")
-    return out[0] if squeeze else out
+    B, T, D = (x[None] if squeeze else x).shape
+    F, dt = _mlp_weights(x, wi, wo, wg)
+
+    def kernel(x, wi, wo, wg, tw, cnt):
+        x3 = (x[None] if squeeze else x).contiguous()
+        wi, wo = wi.contiguous(), wo.contiguous()
+        wg = wg.contiguous() if wg is not None else None
+        if tw is not None:
+            tw = tw.to(device=x.device, dtype=torch.float32)
+            tw = tw.reshape(-1, T).expand(B, T).contiguous()
+        cnt = _counts_vec(cnt, B, T, x.device)
+        hbuf = torch.empty((B, T, F), dtype=torch.float32, device=x.device)
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        lib = build.load("fused_mlp")
+        with torch.cuda.device(x.device):
+            rc = lib.fused_mlp_launch(
+                dt, x3.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
+                _ptr(tw), cnt.data_ptr(), hbuf.data_ptr(), out.data_ptr(), B,
+                T, D, F, _act_code(act, wg is not None), _stream(x))
+        _check(rc, "fused_mlp")
+        return out
+
+    return KernelOp.apply(kernel, plain, x, wi, wo, wg, token_weights,
+                          _as_tensor(valid_count))
+
+
+# ---------------------------- routed fused MLP -------------------------------
+#
+# Replaces kernels/fused_mlp.py::fused_mlp_routed (TPU). The same two phases
+# as fused_mlp (csrc/fused_mlp.cu, routed mode): the tile loads gather x
+# rows through idx and the tile stores scatter the weighted rows back, into
+# an output zero-filled first. The TPU kernel's resident (S, D) output slab
+# and its VMEM limit have no counterpart here. Bound on the H100 at a
+# training step: FLOPs (tensor-core rate), as for fused_mlp.
+
+def fused_mlp_routed(x, idx, wi, wo, wg=None, token_weights=None,
+                     valid_count=None, wi_scale=None, wo_scale=None,
+                     wg_scale=None, *, act="swiglu", backend=None):
+    """x: (B, S, D) full residual stream; idx: (B, Kb) RoutingPlan gather
+    indices (no duplicates in a row); token_weights: (B, Kb); valid_count:
+    None, scalar or (B,) selected count. Returns the (B, S, D) delta in x's
+    dtype: row idx[b, i] with i < count[b] gets token_weights[b, i] *
+    MLP(x[b, idx[b, i]]), every other row is exactly zero."""
+    if wi_scale is not None or wo_scale is not None or wg_scale is not None:
+        raise NotImplementedError(QUANT_TODO)
+
+    def plain(x, idx, wi, wo, wg, tw, cnt):
+        return fused_mlp_routed_ref(x, idx, wi, wo, wg, tw, act=act,
+                                    valid_count=cnt)
+
+    if not use_kernel(backend, x):
+        return plain(x, idx, wi, wo, wg, token_weights, valid_count)
+    B, S, D = x.shape
+    Kb = idx.shape[-1]
+    if idx.shape != (B, Kb) or Kb > S:
+        raise ValueError(f"fused_mlp_routed kernel: idx {tuple(idx.shape)} "
+                         f"does not index x {tuple(x.shape)}")
+    F, dt = _mlp_weights(x, wi, wo, wg)
+
+    def kernel(x, idx, wi, wo, wg, tw, cnt):
+        x = x.contiguous()
+        ix = idx.to(device=x.device, dtype=torch.int32).contiguous()
+        wi, wo = wi.contiguous(), wo.contiguous()
+        wg = wg.contiguous() if wg is not None else None
+        if tw is not None:
+            tw = tw.to(device=x.device, dtype=torch.float32)
+            tw = tw.expand(B, Kb).contiguous()
+        cnt = _counts_vec(cnt, B, Kb, x.device)
+        hbuf = torch.empty((B, Kb, F), dtype=torch.float32, device=x.device)
+        out = torch.empty_like(x)
+        lib = build.load("fused_mlp")
+        with torch.cuda.device(x.device):
+            rc = lib.fused_mlp_routed_launch(
+                dt, x.data_ptr(), ix.data_ptr(), wi.data_ptr(), _ptr(wg),
+                wo.data_ptr(), _ptr(tw), cnt.data_ptr(), hbuf.data_ptr(),
+                out.data_ptr(), B, S, Kb, D, F,
+                _act_code(act, wg is not None), _stream(x))
+        _check(rc, "fused_mlp_routed")
+        return out
+
+    return KernelOp.apply(kernel, plain, x, idx, wi, wo, wg, token_weights,
+                          _as_tensor(valid_count))
 
 
 # ----------------------------- decode attention ------------------------------

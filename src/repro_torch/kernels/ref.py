@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the three kernels on the serving path.
+"""Plain PyTorch versions of the port's kernels.
 
 Each has the contract of its oracle in the JAX package's ``kernels/ref.py``.
 The CPU path and the tests run them; on the card ``chip_smoke.py`` holds
-each hand-written kernel against them, and nothing on the card's main path
-calls them. The int8/bf16 scale operands wait for the quantisation slice.
+each hand-written kernel against them, and the kernels' backward passes
+replay them (``kernels/ops.py``). They compute in f32 (f64 inputs stay f64,
+for ``gradcheck``). The int8/bf16 scale operands wait for the quantisation
+slice.
 
 One deliberate difference: a flash-attention query row with NO attendable
 key is undefined in the JAX oracle (uniform softmax over every key) and in
@@ -18,6 +20,11 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+def _f(t):
+    """The compute type: f32, or f64 for f64 inputs."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def _counts(count, batch: int, limit: int, device) -> torch.Tensor:
@@ -37,8 +44,8 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, kv_valid=None,
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
     sm_scale = Dh ** -0.5 if sm_scale is None else sm_scale
-    qg = q.reshape(B, Sq, K, G, Dh).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * sm_scale
+    qg = _f(q.reshape(B, Sq, K, G, Dh))
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, _f(k)) * sm_scale
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -53,7 +60,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, kv_valid=None,
     mask = mask & (kpos < cnt[:, None, None, None, None])
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     a = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bkgqs,bskd->bqkgd", a, v.float())
+    ctx = torch.einsum("bkgqs,bskd->bqkgd", a, _f(v))
     ctx = ctx.reshape(B, Sq, H, Dh)
     any_key = mask.any(-1).expand(B, K, G, Sq)
     any_key = any_key.permute(0, 3, 1, 2).reshape(B, Sq, H)
@@ -110,15 +117,15 @@ def fused_mlp_ref(x, wi, wo, wg=None, token_weights=None, *, act="swiglu",
     """y = w * (act(x Wg) * (x Wi)) Wo in f32. x: (T, D) or (B, T, D);
     valid_count: None | scalar | (B,) count of real leading rows (rows past
     it are zeros)."""
-    xf = x.float()
-    h = xf @ wi.float()
+    xf = _f(x)
+    h = xf @ _f(wi)
     if wg is not None:
-        h = _act(act)(xf @ wg.float()) * h
+        h = _act(act)(xf @ _f(wg)) * h
     else:
         h = gelu_tanh(h) if act == "gelu" else F.silu(h)
-    y = h @ wo.float()
+    y = h @ _f(wo)
     if token_weights is not None:
-        y = y * token_weights.float()[..., None]
+        y = y * _f(token_weights)[..., None]
     if valid_count is not None:
         rows = torch.arange(x.shape[-2], device=x.device)
         if x.dim() == 3:
@@ -130,3 +137,15 @@ def fused_mlp_ref(x, wi, wo, wg=None, token_weights=None, *, act="swiglu",
             y = torch.where(rows[:, None] < cnt, y,
                             torch.zeros((), device=x.device))
     return y.to(x.dtype)
+
+
+def fused_mlp_routed_ref(x, idx, wi, wo, wg=None, token_weights=None, *,
+                         act="swiglu", valid_count=None):
+    """Gather / MLP / scatter: x (B, S, D), idx (B, Kb) gather indices (no
+    duplicates in a row), token_weights (B, Kb), valid_count None | scalar
+    | (B,). Returns the (B, S, D) delta: row idx[b, i] with i < count[b]
+    gets tw[b, i] * MLP(x[b, idx[b, i]]), every other row is zero."""
+    ix = idx.long()[..., None].expand(idx.shape + (x.shape[-1],))
+    y = fused_mlp_ref(torch.gather(x, 1, ix), wi, wo, wg, token_weights,
+                      act=act, valid_count=valid_count)
+    return torch.zeros_like(x).scatter(1, ix, y)

@@ -1,0 +1,161 @@
+"""ElastiFormer self-distillation trainer of the port: a plain loop.
+
+Wires the config registry, the frozen base model and the router tree
+(random weights from ``--seed``), the distillation step with AdamW on the
+routers, the deterministic data pipeline and the budget schedule
+(``--budget``, ``--anneal-from``, ``--anneal-steps``: the roofline budget
+solver per step, and its ragged bucket; a full-budget step takes the
+identity path). Runs on the CUDA card unless ``--device cpu`` is given:
+
+    python -m repro_torch.launch.train --arch qwen2-7b --variant full \\
+        --steps 4 --seq-len 512 --batch 2 --budget 0.5 --anneal-from 1.0
+    python -m repro_torch.launch.train --arch toy-lm --device cpu --steps 3
+
+Checkpointing, resume, the straggler watchdog and the fault-tolerant loop of
+the JAX trainer arrive with ROADMAP Queue A items 10 and 13.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.policy import (ElasticSpec, as_spec_policy,
+                                     capacity_anneal, ragged_bucket,
+                                     solve_budget)
+from repro_torch.data import LMDataPipeline
+from repro_torch.device import resolve_device
+from repro_torch.models import model_init, router_init, router_param_count
+from repro_torch.optim import cosine_schedule
+from repro_torch.optim.optimizer import tree_leaves
+from repro_torch.training import init_train_state, make_train_step
+
+log = logging.getLogger("repro_torch.train")
+
+# The slice's elastic machinery: token routing around attention and the
+# MLP, head top-k, LoRA rank 1 (no experts, no depth routing).
+DEFAULT_SPEC = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                           mha_head_routed=True, lora_rank=1)
+
+
+def build_trainer(arch: str, *, variant: str = "full", lr: float = 1e-4,
+                  total_steps: int = 1000, seq_len: int = 512,
+                  global_batch: int = 32, remat: bool = True, seed: int = 0,
+                  ecfg=None, device=None, params=None, routers=None,
+                  n_layers=None):
+    """Returns (cfg, ecfg, params, state, step_fn, pipe). ``params`` /
+    ``routers`` reuse weights the caller already holds; otherwise both are
+    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``.
+    ``n_layers`` cuts the depth (the width stays the config's)."""
+    device = resolve_device(device)
+    cfg = get_config(arch, variant)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    ecfg = ecfg or DEFAULT_SPEC
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if params is None:
+        params = model_init(gen, cfg, ecfg, device=device)
+    rp = routers if routers is not None else router_init(gen, cfg, ecfg,
+                                                         device=device)
+    n_base = sum(t.numel() for t in tree_leaves(params))
+    log.info("base params: %.3fM frozen; router params: %d (%.5f%%)",
+             n_base / 1e6, router_param_count(rp),
+             100 * router_param_count(rp) / max(1, n_base))
+    state = init_train_state(rp)
+    step_fn = make_train_step(cfg, ecfg, lr=cosine_schedule(lr, total_steps),
+                              remat=remat, chunked=cfg.vocab_size > 0)
+    pipe = LMDataPipeline(vocab=cfg.vocab_size, seq_len=seq_len,
+                          global_batch=global_batch, seed=seed)
+    return cfg, ecfg, params, state, step_fn, pipe
+
+
+def policy_schedule(cfg, ecfg, *, seq_len: int, budget: float,
+                    anneal_from=None, anneal_steps=None, total_steps: int,
+                    device=None):
+    """step -> (policy, bucket): the budget solver's policy (tensor leaves
+    on ``device``) for the annealed budget of that step, and its ragged
+    bucket (``routing.IDENTITY_BUCKET`` at full budget)."""
+    spec, _ = as_spec_policy(ecfg)
+    sched = capacity_anneal(
+        anneal_from if anneal_from is not None else budget, budget,
+        anneal_steps if anneal_steps is not None else total_steps)
+    cache = {}
+
+    def at(step: int):
+        b = round(sched(step), 4)
+        if b not in cache:
+            pol = solve_budget(cfg, spec, b)
+            bkt = (ragged_bucket(pol, seq_len, spec=spec)
+                   if spec.routing_impl == "ragged" else None)
+            cache[b] = (pol.to(device) if device is not None else pol, bkt)
+        return cache[b]
+    return at
+
+
+def train(arch: str, *, variant: str = "smoke", total_steps: int = 100,
+          seq_len: int = 128, global_batch: int = 8, lr: float = 1e-3,
+          seed: int = 0, budget=None, anneal_from=None, anneal_steps=None,
+          device=None, log_every: int = 10):
+    """Runs ``total_steps`` distillation steps; returns (state, the metrics
+    of every step as floats)."""
+    if budget is None and (anneal_from is not None
+                           or anneal_steps is not None):
+        raise ValueError("--anneal-from/--anneal-steps require --budget "
+                         "(the anneal target)")
+    device = resolve_device(device)
+    cfg, ecfg, params, state, step_fn, pipe = build_trainer(
+        arch, variant=variant, lr=lr, total_steps=total_steps,
+        seq_len=seq_len, global_batch=global_batch, seed=seed,
+        device=device)
+    policy_at = None if budget is None else policy_schedule(
+        cfg, ecfg, seq_len=seq_len, budget=budget, anneal_from=anneal_from,
+        anneal_steps=anneal_steps, total_steps=total_steps, device=device)
+    history = []
+    for step in range(total_steps):
+        batch = {"tokens": torch.as_tensor(pipe.batch_at(step),
+                                           device=device)}
+        pol, bkt = (None, None) if policy_at is None else policy_at(step)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, params, batch, pol, bucket=bkt)
+        m = {k: float(v) for k, v in m.items()}
+        m["step_s"] = time.perf_counter() - t0
+        m["bucket"] = bkt
+        history.append(m)
+        if step % log_every == 0 or step == total_steps - 1:
+            log.info("step %d %s", step, m)
+    return state, history
+
+
+def main():
+    logging.basicConfig(level=logging.INFO)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="toy-lm")
+    ap.add_argument("--variant", default="smoke")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--budget", type=float, default=None,
+                    help="target compute budget in (0,1]; capacities from "
+                         "the roofline budget solver")
+    ap.add_argument("--anneal-from", type=float, default=None,
+                    help="start budget of the linear capacity anneal")
+    ap.add_argument("--anneal-steps", type=int, default=None)
+    ap.add_argument("--device", default=None,
+                    help="'cpu' to run on the CPU (default: the CUDA card)")
+    args = ap.parse_args()
+    _, history = train(
+        args.arch, variant=args.variant, total_steps=args.steps,
+        seq_len=args.seq_len, global_batch=args.batch, lr=args.lr,
+        seed=args.seed, budget=args.budget, anneal_from=args.anneal_from,
+        anneal_steps=args.anneal_steps, device=args.device, log_every=1)
+    print("final:", history[-1])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
 """Model assembly of the port."""
 from repro_torch.models.model import (build_pattern, cache_init, cache_insert,
                                       decode_step, forward, model_init,
-                                      prefill, prefill_into_slot, router_init)
+                                      prefill, prefill_into_slot, router_init,
+                                      router_param_count)
 
 __all__ = ["build_pattern", "cache_init", "cache_insert", "decode_step",
            "forward", "model_init", "prefill", "prefill_into_slot",
-           "router_init"]
+           "router_init", "router_param_count"]

@@ -95,18 +95,29 @@ def _out_proj(p, ctx, head_weights):
 
 
 def attn_apply(p, x, *, cfg, positions, causal: bool = True, window: int = 0,
-               kv_valid=None, head_weights=None, lora=None, backend=None):
-    """Full-sequence self-attention (prefill) through the flash-attention
-    op; masks by array index, so ``positions`` must be the ascending
-    positions of the rows (the prefill layout). head_weights: (B,Sq,H) f32
-    head-routing weights applied to each head's context before the output
-    projection. Returns (out (B,Sq,D), k, v) — k/v for the cache."""
+               kv_valid=None, kv_count=None, head_weights=None, lora=None,
+               backend=None, gathered: bool = False):
+    """Full-sequence self-attention (training, prefill) through the
+    flash-attention op, which masks by array index: ``positions`` ((S,), or
+    (B, S) per row for RoPE) must ascend along the rows. ``gathered``
+    declares a RoutingPlan buffer (a position-ascending subset, ragged
+    ``kv_count``): index-causal is position-causal there, but a sliding
+    window measures position distance, so windowed gathered attention
+    raises. head_weights: (B,Sq,H) f32 head-routing weights applied to each
+    head's context before the output projection. Returns (out (B,Sq,D),
+    k, v) — k/v for the cache."""
+    if gathered and window and window > 0:
+        raise NotImplementedError(
+            "windowed attention over a gathered RoutingPlan buffer: the "
+            "kernel masks the window by index; it arrives with ROADMAP "
+            "Queue A item 3 (windowed gathered attention)")
     q = _project_q(p, x, positions, cfg, lora)
     k, v = _project_kv(p, x, positions, cfg, lora)
     if kv_valid is not None and kv_valid.dim() == 1:
         kv_valid = kv_valid.expand(k.shape[:2])
-    ctx = OPS.flash_attention(q, k, v, kv_valid=kv_valid, causal=causal,
-                              window=window or 0, backend=backend)
+    ctx = OPS.flash_attention(q, k, v, kv_valid=kv_valid, kv_count=kv_count,
+                              causal=causal, window=window or 0,
+                              backend=backend)
     return _out_proj(p, ctx, head_weights), k, v
 
 

@@ -1,15 +1,21 @@
-"""Transformer blocks with ElastiFormer routing woven in (serving slice).
+"""Transformer blocks with ElastiFormer routing woven in.
 
 Block kind ``attn``: [token-route] GQA self-attention [head-route] [LoRA]
 + [token-route] MLP, pre-norm residual.
 
 Modes:
   base  : the frozen pretrained model (the distillation teacher): routers off.
+  train : the student in distillation: top-k token routing (capacity c,
+          Alg. 2), planned ONCE per block (``routing.make_plan``, one sort)
+          and shared by the attention and MLP students; each weights the
+          shared token set with its own router and BCE-trains it toward the
+          shared membership. Full budget on every row takes the identity
+          path: no sort, gather or scatter, the teacher's math bit for bit,
+          the routers' aux losses still emitted.
   infer : the student at inference: each token router thresholds its
           sigmoid at theta (§B.1), head routing keeps the top-k heads.
 
-The train-mode top-k ``RoutingPlan`` and the ragged bucket wait for the
-training slice; depth and expert routing for their own slices.
+Depth and expert routing wait for their own slices.
 """
 from __future__ import annotations
 
@@ -29,11 +35,7 @@ def _only_attn(kind: str) -> None:
             f"families arrive with ROADMAP Queue A item 12")
 
 
-def _check_spec(spec, mode: str) -> None:
-    if mode == "train":
-        raise NotImplementedError(
-            "train mode (top-k RoutingPlan, ragged bucket) arrives with the "
-            "training slice (ROADMAP Queue A items 3-4)")
+def _check_spec(spec) -> None:
     if spec is None:
         return
     if spec.depth_routed:
@@ -58,7 +60,7 @@ def block_router_init(gen, kind: str, cfg, spec, device=None) -> dict:
     """Trainable ElastiFormer params for one layer; ``spec`` alone decides
     which routers exist."""
     _only_attn(kind)
-    _check_spec(spec, "infer")
+    _check_spec(spec)
     D = cfg.d_model
     rp = {}
     if spec.mha_token_routed:
@@ -97,13 +99,14 @@ def _lora_gate(lora, cap, student):
     return {**lora, "scale": 1.0 - full.float()}
 
 
-def _head_weights(rp, h, spec, pol, cfg, auxes):
-    """(B,S,H) head weights w * topk-mask; exactly 1 on full rows."""
+def _head_weights(rp, h, spec, pol, cfg, auxes, valid=None):
+    """(B,S,H) head weights w * topk-mask; exactly 1 on full rows.
+    ``valid`` keeps rows out of the load-balance statistics."""
     if rp is None or spec is None or "head" not in rp \
             or not spec.mha_head_routed:
         return None
     k = R.gate_topk(pol.mha_head_topk, pol.student, cfg.n_heads)
-    w, m, a = R.param_route_weights(rp["head"], h, k)
+    w, m, a = R.param_route_weights(rp["head"], h, k, valid=valid)
     auxes.append(a)
     hw = w * m
     full = R.is_full(k, cfg.n_heads)
@@ -123,21 +126,42 @@ def _mlp_fn(p, cfg, backend):
 
 # --------------------- full-sequence block apply ----------------------------
 
+def _combine_caps(cap_a, cap_b):
+    """Block-level plan capacity: the elementwise max of the components'
+    (student-gated) token capacities; the budget solver sets them equal."""
+    if cap_a is None:
+        return cap_b
+    if cap_b is None:
+        return cap_a
+    if R.is_static(cap_a) and R.is_static(cap_b):
+        return max(cap_a, cap_b)
+    return torch.maximum(torch.as_tensor(cap_a, dtype=torch.float32),
+                         torch.as_tensor(cap_b, dtype=torch.float32))
+
+
 def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
                 elastic_on: bool, window: int = 0, positions=None,
                 causal: bool = True, collect_cache: bool = False,
-                max_cache_len: int = 0):
-    """x: (B,S,D) -> (x', aux[, cache]). Pre-norm residual block, base and
-    infer modes. In infer mode each token router gates with its threshold:
-    dropped tokens are invalid keys of the attention and their outputs are
-    weighted by 0; the MLP runs densely and its output is gate-weighted."""
+                max_cache_len: int = 0, bucket=None):
+    """x: (B,S,D) -> (x', aux[, cache]). Pre-norm residual block.
+
+    Train mode plans the block's token routing ONCE: a ``RoutingPlan``
+    (one sort) from the mixer's token router when attention is routed,
+    else from the MLP's. ``bucket`` is the static plan-buffer hint for
+    tensor capacities (``policy.ragged_bucket``): ``IDENTITY_BUCKET``
+    asserts every row is at full budget (the identity path), ``None`` takes
+    the dense rank-masked path (full shapes, the same token set). Infer
+    mode gates each router with its threshold: dropped tokens are invalid
+    keys of the attention and their outputs are weighted by 0; the MLP runs
+    densely and its output is gate-weighted."""
     _only_attn(kind)
-    _check_spec(spec, mode)
+    _check_spec(spec)
     B, S, _ = x.shape
     auxes = [R.RouteAux.zero(x.device)]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     routed = elastic_on and mode != "base"
+    train = mode == "train"
     backend = spec.kernel_backend if spec is not None else None
     cache = {}
 
@@ -147,27 +171,86 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
             cap_mha = R.gate_capacity(pol.mha_token_capacity, pol.student)
         if spec.mlp_token_routed and "tok_mlp" in rp:
             cap_mlp = R.gate_capacity(pol.mlp_token_capacity, pol.student)
+    cap_plan = _combine_caps(cap_mha, cap_mlp)
+    impl = spec.routing_impl if spec is not None else "gather"
+    kb = None
+    if train and cap_plan is not None and (
+            impl == "ragged" or (impl == "gather" and R.is_static(cap_plan)
+                                 and R.is_static(pol.theta))):
+        kb = R.resolve_bucket(cap_plan, S, bucket, impl=impl)
+    identity = kb == S              # full budget everywhere: no routing work
+    k_plan = None if (kb is None or identity) else \
+        R.capacity_k(cap_plan, S, mxu=True)
+    plan = None                     # built by the first routed component
+    dense_keep = None               # the mixer's keep on the dense path
+
+    def bce_aux(logits, keep):
+        auxes.append(R.RouteAux.of(topk=R.bce_topk_loss(logits, keep),
+                                   keep=keep))
+
+    def gate(name, h_src):
+        logits = R.token_logits(rp[name], h_src)
+        return logits, torch.sigmoid(logits)
 
     # ---- attention ----
     h = norm_apply(p["norm1"], x, cfg.norm)
     lora = rp.get("lora") if (routed and rp) else None
     lora = _lora_gate(lora, cap_mha,
                       pol.student if (routed and pol is not None) else None)
-    hw = _head_weights(rp, h, spec, pol, cfg, auxes) if routed else None
+
+    def attn(hh, pos, **kw):
+        return A.attn_apply(p["attn"], hh, cfg=cfg, positions=pos,
+                            causal=causal, window=window, lora=lora,
+                            backend=backend, **kw)
+
     if cap_mha is None:
-        y, k, v = A.attn_apply(p["attn"], h, cfg=cfg, positions=positions,
-                               causal=causal, window=window, head_weights=hw,
-                               lora=lora, backend=backend)
+        hw = _head_weights(rp, h, spec, pol, cfg, auxes) if routed else None
+        y, k, v = attn(h, positions, head_weights=hw)
         delta = y
         keep = torch.ones((B, S), dtype=torch.bool, device=x.device)
-    else:
-        logits = R.token_logits(rp["tok_mixer"], h)
-        keep, wtok = R.token_gate(logits, torch.sigmoid(logits), cap_mha,
-                                  mode, theta=pol.theta)
+    elif not train:                 # inference threshold (§B.1)
+        hw = _head_weights(rp, h, spec, pol, cfg, auxes)
+        logits, scores = gate("tok_mixer", h)
+        keep, wtok = R.token_gate(logits, scores, cap_mha, mode,
+                                  theta=pol.theta)
         auxes.append(R.RouteAux.of(keep=keep))
-        y, k, v = A.attn_apply(p["attn"], h, cfg=cfg, positions=positions,
-                               causal=causal, window=window, kv_valid=keep,
-                               head_weights=hw, lora=lora, backend=backend)
+        y, k, v = attn(h, positions, kv_valid=keep, head_weights=hw)
+        delta = y * wtok[..., None].to(y.dtype)
+    elif identity:
+        keep = torch.ones((B, S), dtype=torch.bool, device=x.device)
+        bce_aux(gate("tok_mixer", h)[0], keep)
+        hw = _head_weights(rp, h, spec, pol, cfg, auxes)
+        y, k, v = attn(h, positions, head_weights=hw)
+        delta = y
+    elif kb is not None:
+        # the shared plan: selected tokens gathered valid-first (a
+        # position-ascending prefix of the bucket), the tail masked
+        logits, scores = gate("tok_mixer", h)
+        plan = R.make_plan(scores, k_plan, kb)
+        h_sel = R.plan_gather(h, plan)
+        pos_sel = R.gather_tokens(positions.expand(B, S), plan.idx)
+        hw = _head_weights(rp, h_sel, spec, pol, cfg, auxes,
+                           valid=plan.valid)
+        y_sel, k, v = attn(h_sel, pos_sel, kv_valid=plan.valid,
+                           kv_count=plan.count, head_weights=hw,
+                           gathered=True)
+        w_sel = R.gather_tokens(scores, plan.idx) * plan.valid
+        bce_aux(logits, plan.keep)
+        delta = R.plan_scatter(
+            plan, x, y_sel * w_sel[..., None].to(y_sel.dtype))
+        keep = plan.keep
+        if collect_cache:
+            raise NotImplementedError(
+                "a train-mode prefill (the plan's k/v scattered into a "
+                "cache) has no caller yet; serving prefills in infer mode")
+    else:                           # dense train path: rank masking
+        logits, scores = gate("tok_mixer", h)
+        keep, wtok = R.token_gate(logits, scores, cap_plan, mode,
+                                  theta=pol.theta, mxu=True)
+        bce_aux(logits, keep)
+        dense_keep = keep
+        hw = _head_weights(rp, h, spec, pol, cfg, auxes, valid=keep)
+        y, k, v = attn(h, positions, kv_valid=keep, head_weights=hw)
         delta = y * wtok[..., None].to(y.dtype)
     if collect_cache:
         cache["attn"] = _pad_cache(k, v, keep, max_cache_len or S, window)
@@ -178,10 +261,48 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
     f = _mlp_fn(p, cfg, backend)
     if cap_mlp is None:
         delta = f(h, positions)
-    else:
+    elif not train:
         delta, a = R.route_tokens(rp["tok_mlp"], h, f, cap_mlp, mode,
                                   positions=positions, theta=pol.theta)
         auxes.append(a)
+    elif identity:
+        bce_aux(gate("tok_mlp", h)[0],
+                torch.ones((B, S), dtype=torch.bool, device=x.device))
+        delta = f(h, positions)
+    elif kb is not None:
+        logits, scores = gate("tok_mlp", h)
+        if plan is None:            # the block's one sort, on this router
+            plan = R.make_plan(scores, k_plan, kb)
+        w_sel = R.gather_tokens(scores, plan.idx) * plan.valid
+        bce_aux(logits, plan.keep)
+        # The routed kernel gathers the plan's rows from h and scatters the
+        # weighted outputs back. The JAX package gates its TPU kernel on a
+        # resident (S, D) VMEM slab (ROUTED_MLP_SLAB_BYTES); the Hopper
+        # kernel keeps no such slab, so every dense-MLP plan takes it on
+        # the card (the plain version on the CPU: the same math as the
+        # gather + fused_mlp branch there).
+        mp = p["mlp"]
+        delta = OPS.fused_mlp_routed(h, plan.idx, mp["wi"], mp["wo"],
+                                     mp.get("wg"), w_sel,
+                                     valid_count=plan.count, act=cfg.act,
+                                     backend=backend)
+    else:                           # dense train path
+        logits, scores = gate("tok_mlp", h)
+        if dense_keep is not None:  # the mixer's selection is the block's
+            keep = dense_keep
+            w = keep.float() * scores
+            full = R.is_full(cap_plan)
+            if R.is_static(full):
+                wtok = torch.ones_like(w) if full else w
+            else:
+                wtok = torch.where(R.bcast_to(full, keep.dim()),
+                                   torch.ones_like(w), w)
+        else:
+            keep, wtok = R.token_gate(logits, scores, cap_plan, mode,
+                                      theta=pol.theta, mxu=True)
+        y = f(h, positions)
+        delta = y * wtok[..., None].to(y.dtype)
+        bce_aux(logits, keep)
     x = x + delta
 
     aux = auxes[0]
@@ -240,7 +361,7 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
     """One token per row. x: (B,1,D); the ring cache is updated in place.
     Returns (x', cache)."""
     _only_attn(kind)
-    _check_spec(spec, mode)
+    _check_spec(spec)
     routed = elastic_on and mode != "base" and rp is not None
     backend = spec.kernel_backend if spec is not None else None
 

@@ -16,6 +16,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.policy import as_spec_policy
 from repro_torch.device import resolve_device
@@ -105,6 +106,15 @@ def router_init(gen: torch.Generator, cfg, elastic, device=None) -> dict:
                        for kind in cfg.layer_kinds]}
 
 
+def router_param_count(rp) -> int:
+    """Number of trainable router parameters (routers, head router, LoRA)."""
+    if isinstance(rp, dict):
+        return sum(router_param_count(v) for v in rp.values())
+    if isinstance(rp, (list, tuple)):
+        return sum(router_param_count(v) for v in rp)
+    return rp.numel()
+
+
 # ------------------------------ forward --------------------------------------
 
 def _embed(params, tokens):
@@ -123,18 +133,27 @@ def _logits(params, cfg, x):
 
 
 def _run(params, rparams, x, *, cfg, spec, pol, mode, collect_cache=False,
-         max_cache_len=0):
-    """The layer loop (the JAX pattern scan)."""
+         max_cache_len=0, bucket=None, remat=False):
+    """The layer loop (the JAX pattern scan). ``remat``: each layer under
+    ``torch.utils.checkpoint`` (its activations recomputed in the backward
+    pass; the recomputed RoutingPlan is the same plan, the sort being
+    stable and the kernels deterministic)."""
     has_rp = rparams is not None and mode != "base"
     aux = RouteAux.zero(x.device)
     caches = []
     for i, ent in enumerate(layer_entries(cfg, spec)):
-        out = block_apply(
-            ent.kind, params["layers"][i],
-            rparams["layers"][i] if has_rp else None, x, cfg=cfg, spec=spec,
-            pol=pol, mode=mode, elastic_on=ent.elastic, window=ent.window,
-            causal=True, collect_cache=collect_cache,
-            max_cache_len=max_cache_len)
+        def layer(x, i=i, ent=ent):
+            return block_apply(
+                ent.kind, params["layers"][i],
+                rparams["layers"][i] if has_rp else None, x, cfg=cfg,
+                spec=spec, pol=pol, mode=mode, elastic_on=ent.elastic,
+                window=ent.window, causal=True, collect_cache=collect_cache,
+                max_cache_len=max_cache_len, bucket=bucket)
+        if remat:
+            out = torch.utils.checkpoint.checkpoint(layer, x,
+                                                    use_reentrant=False)
+        else:
+            out = layer(x)
         x, a = out[0], out[1]
         aux = aux + a
         if collect_cache:
@@ -143,12 +162,16 @@ def _run(params, rparams, x, *, cfg, spec, pol, mode, collect_cache=False,
 
 
 def forward(params, rparams, batch, cfg, ecfg=None, mode: str = "base",
-            return_hidden: bool = False, policy=None):
-    """Full-sequence forward. Returns (logits | hidden, aux)."""
+            return_hidden: bool = False, remat: bool = False, policy=None,
+            bucket=None):
+    """Full-sequence forward. Returns (logits | hidden, aux).
+    ``bucket``: the static ragged bucket hint for a tensor policy in train
+    mode (``policy.ragged_bucket``; ``routing.IDENTITY_BUCKET`` for an
+    all-full policy); ``remat``: recompute each layer in the backward."""
     spec, pol = as_spec_policy(ecfg, policy)
     x = _embed(params, batch["tokens"])
     x, aux, _ = _run(params, rparams, x, cfg=cfg, spec=spec, pol=pol,
-                     mode=mode)
+                     mode=mode, bucket=bucket, remat=remat)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     if return_hidden:
         return x, aux

@@ -1,0 +1,7 @@
+"""The router optimizer of the port."""
+from repro_torch.optim.optimizer import (AdamWState, adamw_init, adamw_update,
+                                         clip_by_global_norm, cosine_schedule,
+                                         global_norm)
+
+__all__ = ["AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm",
+           "cosine_schedule", "global_norm"]

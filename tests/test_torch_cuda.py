@@ -12,7 +12,8 @@ versions to the JAX Pallas kernels.
 
 Tolerance on the card: f32 rtol=atol=1e-4 (the kernels sum up to F=512
 terms in their own order) and bf16 rtol=atol=2e-2 (both sides round an f32
-result to bf16, so they may differ by one bf16 ulp).
+result to bf16, so they may differ by one bf16 ulp). The training tests
+run toy-lm on the card in f32.
 """
 import dataclasses
 
@@ -149,6 +150,125 @@ def test_fused_mlp_kernel_matches_plain(cuda, case, dtype):
     assert torch.equal(got, ops.fused_mlp(x, wi, wo, wg, tw, cnt, act=act))
 
 
+ROUTED_CASES = [
+    # B, S, Kb, D, F, act, gated, counts
+    (2, 96, 48, 64, 256, "swiglu", True, [0, 30]),     # empty and partial
+    (2, 128, 64, 64, 192, "swiglu", True, [64, 64]),   # full buckets
+    (1, 80, 80, 32, 128, "gelu", False, [77]),         # Kb == S, ungated
+    (3, 64, 64, 64, 256, "geglu", True, [64, 1, 40]),  # Kb == S, mixed
+]
+
+
+def routed_inputs(case, seed, device, dtype):
+    B, S, Kb, D, Fd, act, gated, counts = case
+    rng = np.random.default_rng(seed)
+    w = lambda *s: as_t(rng.standard_normal(s, dtype=np.float32) * 0.05,
+                        device=device, dtype=dtype)
+    x = as_t(rng.standard_normal((B, S, D), dtype=np.float32), device=device,
+             dtype=dtype)
+    # a RoutingPlan's layout: the selected rows ascending, then the rest
+    idx = np.stack([np.concatenate([np.sort(p[:c]), np.sort(p[c:Kb])])
+                    for p, c in ((rng.permutation(S), c) for c in counts)])
+    wi, wo = w(D, Fd), w(Fd, D)
+    wg = w(D, Fd) if gated else None
+    tw = as_t(rng.random((B, Kb)).astype(np.float32), device=device)
+    cnt = as_t(np.asarray(counts, np.int32), device=device)
+    return x, as_t(idx, device=device), wi, wo, wg, tw, cnt, act
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ROUTED_CASES)
+def test_fused_mlp_routed_kernel_matches_plain(cuda, case, dtype):
+    x, idx, wi, wo, wg, tw, cnt, act = routed_inputs(case, 9, cuda, dtype)
+    n0 = ops.launch_counts()["fused_mlp_routed"]
+    got = ops.fused_mlp_routed(x, idx, wi, wo, wg, tw, cnt, act=act)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_mlp_routed"] == n0 + 1
+    want = ops.fused_mlp_routed(x, idx, wi, wo, wg, tw, cnt, act=act,
+                                backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    # rows outside the live selection are exactly zero
+    live = torch.zeros(x.shape[:2], dtype=torch.bool, device=cuda)
+    for b, c in enumerate(cnt.tolist()):
+        live[b, idx[b, :c]] = True
+    assert got[~live].count_nonzero() == 0
+    assert torch.equal(got, ops.fused_mlp_routed(x, idx, wi, wo, wg, tw, cnt,
+                                                 act=act))
+
+
+def _toy_train_setup(cuda, dtype="float32"):
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticSpec
+    from repro_torch.models import model_init, router_init
+    cfg = dataclasses.replace(get_config("toy-lm"), dtype=dtype)
+    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                       mha_head_routed=True, lora_rank=1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model_init(gen, cfg, spec, device=cuda)
+    rp = router_init(gen, cfg, spec, device=cuda)
+    for layer in rp["layers"]:          # a LoRA that does work
+        for ab in layer["lora"].values():
+            ab["b"].normal_(0.0, 0.05, generator=gen)
+    return cfg, spec, params, rp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [0.75, 0.5])
+def test_kernel_path_router_grads_match_plain(cuda, budget):
+    """The router gradients through the kernels (autograd.Functions that
+    replay the plain versions) equal the plain path's, within 1e-3 of each
+    leaf's largest gradient (f32; the forward sums differ in order), and no
+    leaf is zero on one path only. Routed budgets only: at budget 1.0 the
+    head router's gradient is zero in exact arithmetic (every head is
+    kept), and both paths return f32 noise of ~1e-8 there."""
+    from repro_torch.core.policy import ElasticPolicy, ragged_bucket
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.training import make_loss_fn
+    cfg, spec, params, rp = _toy_train_setup(cuda)
+    pol = ElasticPolicy.uniform(budget, n_heads=cfg.n_heads).to(cuda)
+    bucket = ragged_bucket(pol, 64)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    grads = {}
+    for backend in ("cuda", "ref"):
+        leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          rp)
+        sp = dataclasses.replace(spec, kernel_backend=backend)
+        loss, _ = make_loss_fn(cfg, sp)(leaves, params, {"tokens": tokens},
+                                        pol, bucket)
+        grads[backend] = torch.autograd.grad(loss, tree_leaves(leaves),
+                                             allow_unused=True)
+    for a, b in zip(grads["cuda"], grads["ref"]):
+        if b is None:
+            assert a is None
+            continue
+        scale = float(b.abs().max())
+        assert (float(a.abs().max()) > 0) == (scale > 0)
+        assert float((a - b).abs().max()) <= 1e-3 * max(scale, 1e-12)
+
+
+@pytest.mark.cuda
+def test_toy_trainer_three_steps_on_the_card(cuda):
+    """launch.train on the card: three annealed steps, the first on the
+    identity path (distill exactly 0), all finite, every training kernel
+    launched."""
+    from repro_torch.core import routing as R
+    from repro_torch.launch.train import train
+    ops.reset_launch_counts()
+    state, hist = train("toy-lm", total_steps=3, seq_len=64, global_batch=2,
+                        budget=0.5, anneal_from=1.0, anneal_steps=2,
+                        device=cuda)
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("flash_attention", "fused_mlp",
+                                       "fused_mlp_routed")), counts
+    assert hist[0]["bucket"] == R.IDENTITY_BUCKET
+    assert hist[0]["distill"] == 0.0
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    assert int(state.opt.step) == 3
+
+
 @pytest.mark.cuda
 def test_toy_engine_on_the_card(cuda):
     """toy-lm served on the card: every kernel launches, budget 1.0 equals
@@ -171,7 +291,9 @@ def test_toy_engine_on_the_card(cuda):
                                     batch_size=2, max_seq=128, device=cuda)
     ops.reset_launch_counts()
     out = mk("infer").generate(reqs)
-    assert all(c > 0 for c in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("flash_attention", "fused_mlp",
+                                       "decode_attention")), counts
     base = mk("base").generate(reqs)
     assert [list(o) for o in out[::3]] == [list(o) for o in base[::3]]
     assert list(mk("infer").generate([reqs[2]])[0]) == list(out[2])
