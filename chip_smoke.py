@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (built for H100).
 
-    python3 chip_smoke.py [--layers N] [--train-layers N] [--seed S]
+    python3 chip_smoke.py [--layers N] [--train-layers N] [--moe-layers N]
+                          [--seed S]
 
 1. Prints the card (nvidia-smi name and power limit), builds the
    hand-written CUDA kernels from src/repro_torch/kernels/csrc with nvcc
@@ -10,7 +11,11 @@
    in bf16 and f32, with ragged counts, kv_valid holes, a part-filled ring
    and a routed selection; prints the max error beside the tolerance, and
    times the kernel, the plain version and (attention) one SDPA call with
-   CUDA events.
+   CUDA events. moe_gmm is held to its plain version after each expert
+   path (items 6, 8, 9) at the calls that path made: their shapes and
+   group counts are recorded during the path and replayed (random x and
+   weights in the path's weight layout, bf16 and f32, with and without
+   routing weights, exact zeros past every count), the largest timed.
 3. Serving: 6 staggered mixed-budget requests through ``ServingEngine`` at
    Qwen2-7B full width (random bf16 weights from --seed; --layers cuts depth
    only) and fails unless budget-1.0 requests equal a mode="base" engine
@@ -29,8 +34,22 @@
    0, a plan step run twice gives the same bits, every loss is finite and
    every training kernel launched. Prints each step's losses, bucket,
    teacher and student times, tokens/s and peak memory.
-6. Prints one JSON line of per-kernel results, the card line again, and as
-   the last line {"ok": true, "device": {...}}.
+6. Expert serving: the same six requests through the same weights with
+   the MLPs moefied into 8 routed experts (views of the dense weights,
+   fresh routers): staggered == solo bit for bit, moe_gmm launched; prints
+   the rates, and the budget-1.0-vs-teacher logit difference and token
+   agreement (reported, not gated: E partial products in bf16).
+7. Expert gradients: the check of item 4 for the expert spec, with the
+   expert routers' leaves and the same routing decisions on both paths.
+8. Expert training: item 5's anneal with the expert spec: finite losses,
+   a plan step twice gives the same bits, every expert router leaf gets a
+   non-zero gradient, moe_gmm launched.
+9. Native MoE serving: Qwen1.5-MoE-A2.7B at full width (qwen2-moe-a2.7b,
+   --moe-layers deep, random bf16 weights, its registered elastic config)
+   after the Qwen2-7B weights are freed: staggered == solo bit for bit,
+   moe_gmm launched; prints the rates.
+10. Prints one JSON line of per-kernel results (launches by path), the card
+   line again, and as the last line {"ok": true, "device": {...}}.
 
 Any failed phase raises and the script exits non-zero before that line.
 TF32 is off for matmuls and cuDNN (both set below): f32 means f32.
@@ -63,11 +82,18 @@ SOURCES = {
                          "src/repro/kernels/fused_mlp.py:261"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:104"),
+    "moe_gmm": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
+                "src/repro/kernels/moe_gmm.py:99"),
 }
 
-
-SERVING_KERNELS = ("flash_attention", "fused_mlp", "decode_attention")
-TRAINING_KERNELS = ("flash_attention", "fused_mlp", "fused_mlp_routed")
+# kernels each path must launch (the teacher of expert training is dense)
+PATH_KERNELS = {
+    "serving": ("flash_attention", "fused_mlp", "decode_attention"),
+    "training": ("flash_attention", "fused_mlp", "fused_mlp_routed"),
+    "expert_serving": ("flash_attention", "moe_gmm", "decode_attention"),
+    "expert_training": ("flash_attention", "fused_mlp", "moe_gmm"),
+    "native_serving": ("flash_attention", "moe_gmm", "decode_attention"),
+}
 
 
 def fail(msg: str):
@@ -136,9 +162,11 @@ class Results:
         err = float(diff.max())
         worst = float((diff / tol).max())       # <= 1 everywhere to pass
         ok = bool(torch.isfinite(got.float()).all()) and worst <= 1.0
+        n_diff = int((got != want).sum())
         print(f"  {name:17s} {case:44s} max_abs_err {err:.3e}  worst "
               f"err/tol {worst:.3f} (tol atol {atol:g} + rtol {rtol:g} * "
-              f"|plain| per element)  {'ok' if ok else 'FAIL'}")
+              f"|plain| per element; {n_diff} of {got.numel()} elements "
+              f"differ)  {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{name} {case}: kernel disagrees with its plain version")
         row = self.rows[name]
@@ -366,6 +394,126 @@ def check_decode(res: Results, rng, dev, H, K, Dh, L):
         del ks, vs, kxs, vxs
 
 
+class GmmCalls:
+    """Records the shape and group counts of every ``moe_gmm`` call made
+    while active. The model calls ``ops.moe_gmm`` through the module, so a
+    delegating wrapper put there sees each call; the kernel wrapper and its
+    launch count are untouched."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.calls, self._ops, self._orig = [], ops, ops.moe_gmm
+
+        def record(x, wi, wo, wg=None, weights=None, group_counts=None,
+                   *a, **kw):
+            self.calls.append((tuple(x.shape), group_counts.detach().clone()))
+            return self._orig(x, wi, wo, wg, weights, group_counts, *a, **kw)
+        ops.moe_gmm = record
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.moe_gmm = self._orig
+
+    def cases(self):
+        """The heaviest call (most dispatched rows) of each distinct shape
+        as (shape, (B, E) numpy counts), the largest shape first."""
+        best = {}
+        for shape, cnt in self.calls:
+            c = cnt.cpu().numpy().reshape(shape[0], shape[1])
+            if shape not in best or c.sum() > best[shape].sum():
+                best[shape] = c
+        return sorted(best.items(), key=lambda kv: (-np.prod(kv[0]),
+                                                    -kv[1].sum()))
+
+
+def check_moe_gmm(res, dev, label, cases, weights_of, timed):
+    """Replays a path's own ``moe_gmm`` calls on the card: each recorded
+    (shape, counts) with random x and routing weights and the layout's
+    expert weights ``weights_of(dtype) -> (wi, wg, wo)`` (strided moefied
+    views or contiguous native stacks), in bf16 and f32, with and without
+    routing weights, against the plain version; every slot at or past its
+    count must be exactly zero. The largest call in bf16 without weights
+    (the path's own call) is timed: ``timed`` makes it the row's timing,
+    else it is printed beside it."""
+    import torch
+    from repro_torch.kernels import ops
+    print(f"  moe_gmm {label}: {len(cases)} distinct call shapes, the "
+          f"heaviest call of each replayed")
+    for kind in ("bf16", "f32"):
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        wi, wg, wo = weights_of(dt)
+        Fe = wi.shape[-1]
+        for ci, (shape, counts) in enumerate(cases):
+            B, E, C, D = shape
+            x = torch.randn(shape, device=dev).to(dt)
+            cnt = torch.from_numpy(counts.astype(np.int32)).to(dev)
+            live = torch.arange(C, device=dev) < cnt[..., None]
+            for weighted in (False, True):
+                rw = torch.rand(B, E, C, device=dev) if weighted else None
+                run = lambda backend=None: ops.moe_gmm(
+                    x, wi, wo, wg, rw, cnt, act="swiglu", backend=backend)
+                got = run()
+                res.compare("moe_gmm", f"{kind} {label} {tuple(shape)} rows "
+                            f"{int(counts.sum())} w={'y' if weighted else 'n'}",
+                            got, run("ref"), kind)
+                if got[~live].count_nonzero() != 0:
+                    fail(f"moe_gmm {label} {kind} {shape}: a slot past its "
+                         f"count is not zero")
+            if kind == "bf16":
+                print(f"  moe_gmm           {label} {tuple(shape)}: counts "
+                      f"sum {int(counts.sum())}, {int((counts == 0).sum())} "
+                      f"empty group(s), {int((~live).sum())} slots past "
+                      f"their counts: all exactly zero")
+            if kind != "bf16" or ci != 0:
+                continue
+            rows = int(counts.sum())
+            live_e = int((counts.sum(0) > 0).sum())
+            # the live experts' weights once, the dispatched rows of x, the
+            # whole (B, E, C, D) output and the counts
+            nbytes = (3 * D * Fe * live_e + rows * D + x.numel()) \
+                * x.element_size() + B * E * 4
+            main = lambda backend=None: ops.moe_gmm(     # no weights
+                x, wi, wo, wg, None, cnt, act="swiglu", backend=backend)
+            args = (cuda_ms(main, 5), cuda_ms(lambda: main("ref"), 3),
+                    6 * D * Fe * rows, nbytes, kind, None)
+            if timed:
+                res.timing("moe_gmm", *args)
+                continue
+            b, by = bound_ms(*args[2:5])
+            med = lambda ts: ts[len(ts) // 2]
+            print(f"  moe_gmm           {label} {tuple(shape)} median "
+                  f"[min-max] of 5: kernel {med(args[0]):.4f} ms "
+                  f"[{args[0][0]:.4f}-{args[0][-1]:.4f}]  plain "
+                  f"{med(args[1]):.4f} ms [{args[1][0]:.4f}-"
+                  f"{args[1][-1]:.4f}]  bound {b:.4f} ms ({by})")
+        del wi, wg, wo
+
+
+def moefied_weights(dev, D, F, E):
+    """``weights_of`` for the moefied Qwen2-7B: random dense (D, F) / (F,
+    D) matrices and their expert views (core/moefy.py, no copy)."""
+    import torch
+    from repro_torch.core.moefy import moefy_mlp
+
+    def of(dt):
+        w = lambda *sh: (torch.randn(*sh, device=dev) / sh[0] ** 0.5).to(dt)
+        ep = moefy_mlp({"wi": w(D, F), "wg": w(D, F), "wo": w(F, D)}, E)
+        return ep["wi"], ep["wg"], ep["wo"]
+    return of
+
+
+def native_weights(dev, cfg):
+    """``weights_of`` for the native MoE: contiguous (E, D, Fe) / (E, Fe,
+    D) expert stacks, as ``moe_init`` lays them out."""
+    import torch
+    E, D, Fe = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
+
+    def of(dt):
+        w = lambda *sh: (torch.randn(*sh, device=dev) / sh[1] ** 0.5).to(dt)
+        return w(E, D, Fe), w(E, D, Fe), w(E, Fe, D)
+    return of
+
+
 # ------------------------------- serving -------------------------------------
 
 def serve(engine, requests, stagger: bool):
@@ -409,6 +557,21 @@ def print_device_time(prof, wall_s, top=8):
               f"{e.key[:100]}")
 
 
+def profiled(fn, top=8):
+    """``fn()`` under torch.profiler; prints the device kernel time by name
+    beside the wall time of the window. Returns fn's result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    print_device_time(prof, time.perf_counter() - t0, top=top)
+    return out
+
+
 def check_serving(args, dev, device_line, spec):
     import dataclasses
     import torch
@@ -450,10 +613,7 @@ def check_serving(args, dev, device_line, spec):
     tokens = serve(engine, requests, stagger=True)    # the main path
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    print(f"serving path launches: {launches}")
-    missing = [k for k in SERVING_KERNELS if launches[k] == 0]
-    if missing:
-        fail(f"kernels never launched on the serving path: {missing}")
+    check_launches("serving", launches)
     print_timing("main path (first run, cold)", engine.timing, device_line)
     for toks in tokens:
         if len(toks) != 16 or not all(0 <= x < cfg.vocab_size for x in toks):
@@ -471,18 +631,88 @@ def check_serving(args, dev, device_line, spec):
           f"{sum(tokens[i] != teacher[i] for i in range(6))} of 6 differ "
           f"from the teacher in all)")
     solo_i = 4                       # budget 0.5, admitted mid-decode
-    from torch.profiler import ProfilerActivity, profile
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        solo = serve(mk("infer"), [requests[solo_i]], stagger=False)[0]
-        torch.cuda.synchronize()
-    print_device_time(prof, time.perf_counter() - t0)
+    solo = profiled(lambda: serve(mk("infer"), [requests[solo_i]],
+                                  stagger=False))[0]
     if solo != tokens[solo_i]:
         fail(f"request {solo_i} alone {solo} != staggered {tokens[solo_i]}")
     print(f"staggered == solo (request {solo_i}, budget "
           f"{budgets[solo_i]}): ok")
-    return launches, params, rp
+    return launches, params, rp, requests, teacher
+
+
+def check_launches(path, launches):
+    print(f"{path} path launches: {launches}")
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the {path} path: {missing}")
+
+
+def expert_spec(spec):
+    """The slice's spec with every dense MLP moefied into 8 routed experts."""
+    import dataclasses
+    return dataclasses.replace(spec, mlp_n_experts=8, expert_routed=True)
+
+
+def check_expert_serving(args, dev, device_line, spec, params, requests,
+                         teacher):
+    """The serving path with the Qwen2-7B MLPs moefied into 8 routed
+    experts: the dense weights already on the card (moefied views, no
+    copy) and fresh routers; the same six staggered requests. Returns the
+    launches and the routers."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models import prefill, router_init
+    from repro_torch.training import ServingEngine
+    full = get_config("qwen2-7b")
+    cfg = dataclasses.replace(full, n_layers=args.layers)
+    espec = expert_spec(spec)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    rp = router_init(gen, dataclasses.replace(
+        full, n_layers=max(args.layers, args.train_layers)), espec, device=dev)
+    print(f"expert serving: {cfg.name} depth {cfg.n_layers}, MLPs moefied "
+          f"into {espec.mlp_n_experts} experts (views of the dense weights), "
+          f"fresh routers [{device_line}]")
+    mk = lambda: ServingEngine(params, rp, cfg, espec, mode="infer",
+                               batch_size=4, max_seq=1024, device=dev)
+    engine = mk()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tokens = serve(engine, requests, stagger=True)    # the main path
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("expert_serving", launches)
+    print_timing("expert serving (first run)", engine.timing, device_line)
+    for toks in tokens:
+        if len(toks) != 16 or not all(0 <= x < cfg.vocab_size for x in toks):
+            fail(f"bad generated tokens {toks}")
+    solo_i = 4
+    solo = profiled(lambda: serve(mk(), [requests[solo_i]], stagger=False))[0]
+    if solo != tokens[solo_i]:
+        fail(f"expert serving: request {solo_i} alone {solo} != staggered "
+             f"{tokens[solo_i]}")
+    print(f"expert serving staggered == solo (request {solo_i}, budget "
+          f"{requests[solo_i][2]}): ok")
+    # budget 1.0 against the teacher: E partial products in bf16, so
+    # reported, not gated
+    full_ids = [i for i, r in enumerate(requests) if r[2] == 1.0]
+    same = sum(tokens[i] == teacher[i] for i in full_ids)
+    pol = ElasticPolicy.uniform(1.0, n_heads=cfg.n_heads,
+                                n_experts=espec.mlp_n_experts).to(dev)
+    prompt = {"tokens": torch.as_tensor(requests[0][0][None], device=dev)}
+    with torch.no_grad():
+        ls, _ = prefill(params, rp, prompt, cfg, espec, mode="infer",
+                        policy=pol)
+        lt, _ = prefill(params, None, prompt, cfg, espec, mode="base")
+    diff = float((ls.float() - lt.float()).abs().max())
+    print(f"expert serving budget 1.0 vs the dense teacher (reported, not "
+          f"gated): {same} of {len(full_ids)} budget-1.0 requests give the "
+          f"teacher's tokens; last-token logits of request 0 "
+          f"({len(requests[0][0])} tokens) differ by at most {diff:.4e} "
+          f"(bf16)")
+    return launches, rp
 
 
 def _f32_cut(params, rp, n_layers):
@@ -506,7 +736,10 @@ def check_gradients(params, rp, spec, dev, seed, n_layers=2, budget=0.5,
     plain path (backend "ref") on the same batch and policy. A leaf passes
     when max |g_kernel - g_plain| <= rel_tol * max |g_plain|. A leaf whose
     kernel-path gradient is all zero while the plain one is not fails (the
-    mark of a kernel whose autograd plumbing is missing)."""
+    mark of a kernel whose autograd plumbing is missing). With expert
+    routing, every expert routing decision must also be the same on both
+    paths: which experts each token selects, and which (token, expert)
+    pairs each expert's capacity keeps (``expert_decisions``)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -520,18 +753,20 @@ def check_gradients(params, rp, spec, dev, seed, n_layers=2, budget=0.5,
     S, B = 512, 2
     # the budget on every knob directly: at 2 layers the FLOP solver would
     # cut far deeper (the embedding and LM head dominate the 2-layer model)
-    pol = ElasticPolicy.uniform(budget, n_heads=cfg.n_heads).to(dev)
+    pol = ElasticPolicy.uniform(budget, n_heads=cfg.n_heads,
+                                n_experts=spec.mlp_n_experts).to(dev)
     bucket = ragged_bucket(pol, S)
     tokens = torch.from_numpy(LMDataPipeline(
         vocab=cfg.vocab_size, seq_len=S, global_batch=B,
         seed=seed).batch_at(0)).to(dev)
-    out = {}
+    out, picks = {}, {}
     for backend in ("cuda", "ref"):
         sp = dataclasses.replace(spec, kernel_backend=backend)
         leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
                           r32)
-        loss, m = make_loss_fn(cfg, sp)(leaves, p32, {"tokens": tokens}, pol,
-                                        bucket)
+        with expert_decisions() as picks[backend]:
+            loss, m = make_loss_fn(cfg, sp)(leaves, p32, {"tokens": tokens},
+                                            pol, bucket)
         flat = tree_leaves(leaves)
         gs = torch.autograd.grad(loss, flat, allow_unused=True)
         out[backend] = (float(loss.detach()), float(m["sel_rate"]),
@@ -539,11 +774,24 @@ def check_gradients(params, rp, spec, dev, seed, n_layers=2, budget=0.5,
                          for g, t in zip(gs, flat)])
         torch.cuda.synchronize()
     (lk, sk, gk), (lr_, sr, gr) = out["cuda"], out["ref"]
-    print(f"gradient check: qwen2-7b width, {n_layers} layers, f32, B={B} "
-          f"S={S}, budget {budget} (bucket {bucket}): loss kernel {lk:.6f} "
-          f"plain {lr_:.6f}, sel_rate {sk:.6f} / {sr:.6f}")
+    label = "experts" if spec.expert_routed else "dense"
+    print(f"gradient check ({label}): qwen2-7b width, {n_layers} layers, f32,"
+          f" B={B} S={S}, budget {budget} (bucket {bucket}): loss kernel "
+          f"{lk:.6f} plain {lr_:.6f}, sel_rate {sk:.6f} / {sr:.6f}")
     if sk != sr:
         fail("the kernel and plain paths selected different tokens")
+    if spec.expert_routed:
+        (dk, ok), (dr, orr) = picks["cuda"].result(), picks["ref"].result()
+        if not dk or len(dk) != len(dr) or not all(
+                torch.equal(a, b) for a, b in zip(dk, dr)):
+            fail("the kernel and plain paths took different expert routing "
+                 "decisions")
+        moved = sum(int((a != b).sum()) for a, b in zip(ok, orr))
+        print(f"  expert routing decisions of {len(dk) // 2} dispatches "
+              f"(each token's experts, each expert's kept tokens) identical "
+              f"on both paths: ok ({moved} kept tokens sit in another slot "
+              f"of their expert's buffer: equal weights to f32 rounding, "
+              f"the slot does not change a token's result)")
     worst = 0.0
     for i, (a, b) in enumerate(zip(gk, gr)):
         scale = float(b.abs().max())
@@ -560,10 +808,58 @@ def check_gradients(params, rp, spec, dev, seed, n_layers=2, budget=0.5,
           f"zero on one path only: ok")
 
 
+class expert_decisions:
+    """Context manager that records the expert routing decisions of every
+    ``models.moe.moe_apply`` chunk run inside it: per chunk, the
+    (B, s, E) experts each token selected (the combine's finite top-k) and
+    the (B, E, s) tokens each expert's capacity kept (the dispatch's first
+    ``count`` slots). ``result()``: (decisions, slot orders)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+        self.real = (moe._top, moe._expert_ffn)
+
+        def top(scores, k):
+            v, i = self.real[0](scores, k)
+            self.calls.append(("top", v, i))
+            return v, i
+
+        def ffn(p, x_sel, act, backend=None, counts=None):
+            self.calls.append(("ffn", counts))
+            return self.real[1](p, x_sel, act, backend=backend, counts=counts)
+
+        moe._top, moe._expert_ffn = top, ffn
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._top, self.moe._expert_ffn = self.real
+        return False
+
+    def result(self):
+        import torch
+        decisions, orders = [], []
+        calls = iter(self.calls)
+        for (_, dv, di), (_, cnt), (_, cv, ci) in zip(calls, calls, calls):
+            B, E, C = di.shape
+            s = cv.shape[1]
+            slot = torch.arange(C, device=di.device)
+            kept = torch.zeros(B, E, s, dtype=torch.bool, device=di.device)
+            kept.scatter_(2, di, slot < cnt[..., None])
+            sel = torch.zeros(B, s, E, dtype=torch.bool, device=ci.device)
+            sel.scatter_(2, ci, torch.isfinite(cv))
+            decisions += [sel, kept]
+            orders.append(torch.where(slot < cnt[..., None], di, -1))
+        return decisions, orders
+
+
 def check_training(args, params, rp, spec, dev, device_line):
     """The training path: 4 steps at Qwen2-7B full width, --train-layers
     deep, bf16, through launch.train's build_trainer and step function.
-    Returns the kernels' launches during the 4 steps."""
+    Returns the kernels' launches during the 4 steps. With expert routing
+    the budget-1.0 student sums E partial products, so its difference from
+    the teacher is reported instead of held to 0, and every expert router
+    leaf must get a non-zero gradient in the repeated plan step."""
     import torch
     from repro_torch.core import routing as R
     from repro_torch.kernels import ops
@@ -573,6 +869,8 @@ def check_training(args, params, rp, spec, dev, device_line):
     from repro_torch.training import make_loss_fn
     steps, S, B = 4, 512, 2
     n = args.train_layers
+    experts = spec.expert_routed
+    path = "expert_training" if experts else "training"
     cfg, ecfg, params, state, step_fn, pipe = T.build_trainer(
         "qwen2-7b", lr=1e-4, total_steps=steps, seq_len=S, global_batch=B,
         seed=args.seed, ecfg=spec, device=dev, n_layers=n,
@@ -582,7 +880,7 @@ def check_training(args, params, rp, spec, dev, device_line):
     policy_at = T.policy_schedule(cfg, ecfg, seq_len=S, total_steps=steps,
                                   device=dev, **anneal)
     budget_at = T.capacity_anneal(1.0, 0.5, 3)
-    print(f"training: {cfg.name} width, depth {n} layers, {cfg.dtype}, "
+    print(f"{path}: {cfg.name} width, depth {n} layers, {cfg.dtype}, "
           f"B={B} S={S}, AdamW on "
           f"{T.router_param_count(state.router_params)} router params, "
           f"remat, budget 1.0 -> 0.5 over 3 steps [{device_line}]")
@@ -613,15 +911,13 @@ def check_training(args, params, rp, spec, dev, device_line):
               f"= {B * S / wall:.1f} tok/s, peak "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
               f"[{device_line}]")
-        if i == 0 and (bucket != R.IDENTITY_BUCKET or m["distill"] != 0.0):
+        if i == 0 and (bucket != R.IDENTITY_BUCKET or (
+                m["distill"] != 0.0 and not experts)):
             fail(f"budget-1.0 step: bucket {bucket}, distill {m['distill']}"
                  f" (want the identity bucket and exactly 0)")
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    print(f"training path launches: {launches}")
-    missing = [k for k in TRAINING_KERNELS if launches[k] == 0]
-    if missing:
-        fail(f"kernels never launched on the training path: {missing}")
+    check_launches(path, launches)
 
     # budget 1.0: the student's final hidden states are the teacher's
     pol, bucket = policy_at(0)
@@ -631,10 +927,15 @@ def check_training(args, params, rp, spec, dev, device_line):
                          bucket=bucket)
         h_t, _ = forward(params, None, batches[0], cfg, ecfg, mode="base",
                          return_hidden=True)
-    if not torch.equal(h_s, h_t):
+    if experts:
+        print(f"budget 1.0 student vs mode='base' teacher hidden states "
+              f"(reported, not gated: E partial products in bf16): max "
+              f"|diff| {float((h_s.float() - h_t.float()).abs().max()):.4e}")
+    elif not torch.equal(h_s, h_t):
         fail("budget-1.0 student hidden states differ from the teacher's")
-    print("budget 1.0 student == mode='base' teacher hidden states, bit for "
-          "bit; distill == 0.0 exactly: ok")
+    else:
+        print("budget 1.0 student == mode='base' teacher hidden states, bit "
+              "for bit; distill == 0.0 exactly: ok")
 
     # a plan step twice from the same state: the same bits
     i = steps - 1
@@ -645,9 +946,17 @@ def check_training(args, params, rp, spec, dev, device_line):
         leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
                           states[i].router_params)
         loss, _ = loss_fn(leaves, params, batches[i], pol, bucket)
-        grads = torch.autograd.grad(loss, tree_leaves(leaves),
-                                    allow_unused=True)
+        flat = tree_leaves(leaves)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
         runs.append((loss.detach(), grads))
+    if experts:
+        exp_ids = {id(layer["expert"]["w"]) for layer in leaves["layers"]}
+        dead = [j for j, (t, g) in enumerate(zip(flat, runs[0][1]))
+                if id(t) in exp_ids and (g is None or not bool(g.any()))]
+        if dead or not exp_ids:
+            fail(f"expert router leaves without a gradient: {dead}")
+        print(f"all {len(exp_ids)} expert router leaves get a non-zero "
+              f"gradient: ok")
     same = torch.equal(runs[0][0], runs[1][0]) and all(
         (a is None and b is None) or torch.equal(a, b)
         for a, b in zip(runs[0][1], runs[1][1]))
@@ -657,15 +966,70 @@ def check_training(args, params, rp, spec, dev, device_line):
           f"loss and {len(runs[0][1])} router gradients bit-identical: ok")
 
     # where a plan step's time goes on the device
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step_fn(states[i], params, batches[i], pol, bucket)
-        torch.cuda.synchronize()
     print(f"plan step {i} under torch.profiler:")
-    print_device_time(prof, time.perf_counter() - t0, top=12)
+    profiled(lambda: step_fn(states[i], params, batches[i], pol, bucket),
+             top=12)
+    return launches
+
+
+def check_native_serving(args, dev, device_line):
+    """Qwen1.5-MoE-A2.7B at its published widths (qwen2-moe-a2.7b,
+    --moe-layers deep, random bf16 weights from --seed) with its registered
+    elastic config: expert top-k over the 60 experts, token routing, head
+    top-k, LoRA. Five staggered requests of 64-512 tokens; the request
+    admitted mid-decode alone must give its staggered tokens. Returns the
+    launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_elastic
+    from repro_torch.core.policy import spec_from_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import ServingEngine
+    full = get_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(full, n_layers=args.moe_layers)
+    spec = spec_from_config(get_elastic("qwen2-moe-a2.7b", cfg))
+    m = cfg.moe
+    print(f"native MoE serving: {cfg.name} d={cfg.d_model} H={cfg.n_heads} "
+          f"K={cfg.n_kv_heads} Dh={cfg.d_head} experts {m.n_experts} top-"
+          f"{m.top_k} d_expert {m.d_expert} shared {m.d_shared} "
+          f"V={cfg.vocab_size} {cfg.dtype}, depth {cfg.n_layers} of "
+          f"{full.n_layers} layers"
+          + ("" if cfg.n_layers == full.n_layers else " (depth cut)"))
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model_init(gen, cfg, spec, device=dev)
+    rp = router_init(gen, cfg, spec, device=dev)
+    torch.cuda.synchronize()
+    print(f"init: {cfg.n_params() / 1e9:.3f} B params in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(args.seed + 2)
+    lens = [64, 512, 200, 333, 128]
+    budgets = [1.0, 0.75, 0.5, None, 0.5]
+    requests = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 16, b)
+                for n, b in zip(lens, budgets)]
+    mk = lambda: ServingEngine(params, rp, cfg, spec, mode="infer",
+                               batch_size=4, max_seq=1024, device=dev)
+    engine = mk()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tokens = serve(engine, requests, stagger=True)    # the main path
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("native_serving", launches)
+    print_timing("native MoE serving (first run)", engine.timing,
+                 device_line)
+    for toks in tokens:
+        if len(toks) != 16 or not all(0 <= x < cfg.vocab_size for x in toks):
+            fail(f"bad generated tokens {toks}")
+    for solo_i in (3, 4):
+        run = lambda: serve(mk(), [requests[solo_i]], stagger=False)
+        solo = (profiled(run) if solo_i == 4 else run())[0]
+        if solo != tokens[solo_i]:
+            fail(f"native MoE: request {solo_i} alone {solo} != staggered "
+                 f"{tokens[solo_i]}")
+    print("native MoE staggered == solo (requests 3 and 4, budgets None and "
+          "0.5): ok")
     return launches
 
 
@@ -675,6 +1039,9 @@ def main() -> int:
                     help="depth of the served Qwen2-7B (width stays full)")
     ap.add_argument("--train-layers", type=int, default=28,
                     help="depth of the trained Qwen2-7B (width stays full)")
+    ap.add_argument("--moe-layers", type=int, default=24,
+                    help="depth of the served Qwen1.5-MoE-A2.7B (width "
+                         "stays full)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -716,20 +1083,56 @@ def main() -> int:
     check_decode(res, rng, dev, H, K, Dh, 1024)
     torch.cuda.synchronize()
 
+    def free():                  # engines, caches and dropped weights
+        gc.collect()
+        torch.cuda.empty_cache()
+
     spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
                        mha_head_routed=True, lora_rank=1)
-    serving, params, rp = check_serving(args, dev, device_line, spec)
-    gc.collect()                 # the engines and their caches are gone
-    torch.cuda.empty_cache()
+    paths = {}
+    paths["serving"], params, rp, requests, teacher = check_serving(
+        args, dev, device_line, spec)
+    free()
     check_gradients(params, rp, spec, dev, args.seed)
-    gc.collect()
-    torch.cuda.empty_cache()
-    training = check_training(args, params, rp, spec, dev, device_line)
+    free()
+    paths["training"] = check_training(args, params, rp, spec, dev,
+                                       device_line)
+    free()
+    # moe_gmm is held to its plain version at the calls each expert path
+    # made (recorded during the path, replayed after it)
+    moefied = moefied_weights(dev, cfg.d_model, cfg.d_ff,
+                              expert_spec(spec).mlp_n_experts)
+    with GmmCalls() as rec:
+        paths["expert_serving"], rp_e = check_expert_serving(
+            args, dev, device_line, spec, params, requests, teacher)
+    free()
+    print(f"moe_gmm at the expert serving path's calls [{device_line}]:")
+    check_moe_gmm(res, dev, "moefied qwen2-7b serving", rec.cases(), moefied,
+                  timed=True)
+    free()
+    check_gradients(params, rp_e, expert_spec(spec), dev, args.seed)
+    free()
+    with GmmCalls() as rec:
+        paths["expert_training"] = check_training(
+            args, params, rp_e, expert_spec(spec), dev, device_line)
+    free()
+    print(f"moe_gmm at the expert training path's calls [{device_line}]:")
+    check_moe_gmm(res, dev, "moefied qwen2-7b training", rec.cases(),
+                  moefied, timed=False)
+    del params, rp, rp_e         # the Qwen2-7B weights leave the card
+    free()
+    with GmmCalls() as rec:
+        paths["native_serving"] = check_native_serving(args, dev,
+                                                       device_line)
+    free()
+    print(f"moe_gmm at the native MoE serving path's calls [{device_line}]:")
+    check_moe_gmm(res, dev, "native qwen1.5-moe serving", rec.cases(),
+                  native_weights(dev, get_config("qwen2-moe-a2.7b")),
+                  timed=False)
     kernels = [dict(name=n, route="cuda", source=SOURCES[n][0],
                     replaces=SOURCES[n][1],
-                    launches=serving[n] + training[n],
-                    launches_by_path={"serving": serving[n],
-                                      "training": training[n]},
+                    launches=sum(p[n] for p in paths.values()),
+                    launches_by_path={k: p[n] for k, p in paths.items()},
                     **res.rows[n]) for n in SOURCES]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,6 @@
 """Model and elastic configs for the PyTorch port.
 
-An own copy of what serving needs from the JAX package's
+An own copy of what the port needs from the JAX package's
 ``configs/base.py`` (the two packages share no code). The one deliberate
 difference is head padding: ``get_config`` keeps ``head_pad=1`` unless the
 caller asks for more, because one card has no tensor-parallel axis to pad
@@ -15,6 +15,18 @@ from typing import Optional, Tuple
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Native mixture-of-experts MLP config (qwen2-moe)."""
+    n_experts: int
+    top_k: int
+    d_expert: int                  # ffn dim per expert
+    n_shared_experts: int = 0      # shared (always-on) experts
+    d_shared: int = 0              # ffn dim of the shared expert path
+    capacity_factor: float = 1.25  # dispatch buffer slack
+    seq_chunk: int = 2048          # dispatch sequence chunk (bounds buffers)
 
 
 @dataclass(frozen=True)
@@ -42,6 +54,7 @@ class ModelConfig:
     max_seq_len: int = 131_072
     window_pattern: Tuple[int, ...] = (0,)
     mixer_pattern: Tuple[str, ...] = ("attn",)
+    moe: Optional[MoEConfig] = None
     dtype: str = "bfloat16"
     head_pad: int = 1
 
@@ -72,7 +85,13 @@ class ModelConfig:
             n += D * V
         qo = D * self.n_heads * self.d_head + self.n_heads * self.d_head * D
         kv = 2 * D * self.n_kv_heads * self.d_head
-        n_mlp = (3 if self.act in ("swiglu", "geglu") else 2) * D * F
+        if self.moe is not None:
+            m = self.moe
+            n_mlp = m.n_experts * 3 * D * m.d_expert + D * m.n_experts
+            if m.n_shared_experts:
+                n_mlp += 3 * D * m.d_shared
+        else:
+            n_mlp = (3 if self.act in ("swiglu", "geglu") else 2) * D * F
         for _ in self.layer_kinds:
             n += qo + kv + n_mlp + 2 * D
         return n
@@ -111,8 +130,11 @@ class ElasticConfig:
 REGISTRY: dict = {}
 
 
-def register(name: str, full_fn, smoke_fn):
-    REGISTRY[name] = {"full": full_fn, "smoke": smoke_fn}
+def register(name: str, full_fn, smoke_fn, elastic_fn=None):
+    """``elastic_fn``: the arch's own elastic config (None: the port's
+    default, see ``get_elastic``)."""
+    REGISTRY[name] = {"full": full_fn, "smoke": smoke_fn,
+                      "elastic": elastic_fn}
 
 
 def get_config(name: str, variant: str = "full",
@@ -121,3 +143,14 @@ def get_config(name: str, variant: str = "full",
     if head_pad != cfg.head_pad:
         cfg = dataclasses.replace(cfg, head_pad=head_pad)
     return cfg
+
+
+def get_elastic(name: str, cfg: Optional[ModelConfig] = None) -> ElasticConfig:
+    """The arch's registered elastic config. An arch that registered none
+    gets the port's default: token routing around attention and the MLP,
+    head top-k, LoRA rank 1 (no experts, no depth routing)."""
+    cfg = cfg or get_config(name)
+    if REGISTRY[name]["elastic"] is not None:
+        return REGISTRY[name]["elastic"](cfg)
+    return ElasticConfig(mlp_token_capacity=0.8, mha_token_capacity=0.8,
+                         mha_head_topk=max(1, cfg.n_heads // 2), lora_rank=1)

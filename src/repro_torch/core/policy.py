@@ -273,7 +273,13 @@ def stack_flops_per_token(cfg, spec: ElasticSpec, *, ctx: int = 1024):
             else:
                 fixed += qo + kv + quad
         if kind != "ssm":
-            c_mlp = n_gate * 2 * D * F
+            if cfg.moe is not None:
+                m = cfg.moe
+                c_mlp = m.top_k * n_gate * 2 * D * m.d_expert
+                if m.n_shared_experts:
+                    fixed += n_gate * 2 * D * m.d_shared
+            else:
+                c_mlp = n_gate * 2 * D * F
             if elastic_l:
                 mlp += c_mlp
             else:
@@ -294,9 +300,10 @@ def _active_fraction(cfg, spec: ElasticSpec, s: float, *, ctx: int) -> float:
     if spec.mha_head_routed:
         frac_head = max(1, math.ceil(s * cfg.n_heads - 1e-9)) / cfg.n_heads
     frac_exp = 1.0
-    if spec.expert_routed and spec.mlp_n_experts:
-        n_e = spec.mlp_n_experts
-        frac_exp = max(1, math.ceil(s * n_e - 1e-9)) / n_e
+    if spec.expert_routed:
+        n_e = cfg.moe.n_experts if cfg.moe is not None else spec.mlp_n_experts
+        if n_e:
+            frac_exp = max(1, math.ceil(s * n_e - 1e-9)) / n_e
     active = (fixed
               + routed["attn_head"] * cap_tok_mha * frac_head
               + routed["attn_kv"] * cap_tok_mha
@@ -321,9 +328,10 @@ def solve_budget(cfg, spec: ElasticSpec, budget: float, *, ctx: int = 1024,
         else:
             lo = mid
     s = 0.5 * (lo + hi)
+    n_e = cfg.moe.n_experts if cfg.moe is not None else spec.mlp_n_experts
     return ElasticPolicy.uniform(
         s, n_heads=cfg.n_heads if spec.mha_head_routed else None,
-        n_experts=spec.mlp_n_experts if spec.expert_routed else None,
+        n_experts=n_e if spec.expert_routed else None,
         theta=theta, static=static)
 
 

@@ -6,7 +6,11 @@ per pattern position: ``scan[j]`` leaves carry a leading period dimension P
 and hold layer ``i = p * period_len + j``; ``tail[r]`` is layer
 ``P * period_len + r``. The port keeps one dict per layer
 (``params["layers"][i]``); these functions convert between the two, leaf
-names and layouts unchanged.
+names and layouts unchanged, whatever the layer tree holds: a native MoE
+layer's ``mlp`` (``router``, ``wi``/``wg``/``wo`` as ``(E, ...)`` stacks,
+``shared.{wi,wg,wo}``) and the ``expert`` routers come over like any other
+leaf. A moefied spec adds no base weights (the experts are views of the
+dense MLP).
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> (source, signature) (see each .cu file)
 ENTRIES = {
     "flash_attention_launch": ("flash_attention", [
@@ -39,6 +40,9 @@ ENTRIES = {
         _P]),
     "decode_attention_launch": ("decode_attention", [
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+    "moe_gmm_launch": ("fused_mlp", [
+        _I, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I,
+        _I, _I, _P]),
 }
 
 _lock = threading.Lock()

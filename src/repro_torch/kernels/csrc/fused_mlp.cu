@@ -1,4 +1,4 @@
-// Fused gated MLP for Hopper (sm_90a), hand-written CUDA C++, in two modes.
+// Fused gated MLP for Hopper (sm_90a), hand-written CUDA C++, in three modes.
 //
 // Dense mode replaces the TPU kernel kernels/fused_mlp.py::fused_mlp of
 // the JAX package:  y[t] = w[t] * (act(x[t] Wg) * (x[t] Wi)) Wo,  x (B,T,D),
@@ -16,6 +16,22 @@
 // is exactly zero. The (B,Kb,D) gathered buffer never exists in memory.
 // The TPU kernel keeps one (S,D) output slab resident in VMEM; nothing
 // here depends on S, so no slab limit applies.
+//
+// Grouped-expert mode replaces kernels/moe_gmm.py::moe_gmm: x (B,E,C,D)
+// holds the capacity-dispatched token buffers of E experts, one group per
+// (b, e) with its own count cnt (B,E), and expert e = g % E of group g
+// reads wi/wg (E,D,Fe, one layout for both) and wo (E,Fe,D) through an
+// expert stride and a row stride (elements; the last dimension is
+// contiguous). So one kernel reads both layouts in place: the moefied
+// views of a dense (D,F) / (F,D) MLP (expert e of wi is columns
+// [e*Fe, (e+1)*Fe) of the dense matrix: expert stride Fe, row stride F)
+// and native contiguous expert stacks. No weight is copied. The dense mode
+// is the grouped mode with one expert (groups are batch rows), compiled
+// apart so that it keeps the index arithmetic of a plain matrix (runtime
+// strides cost it ~7 % on the H100). As in dense mode, tiles past a
+// group's count do no work and are written as zeros (the TPU kernel's
+// `_dead` branch), so the work follows the dispatched tokens, not the
+// capacity.
 //
 // The TPU kernel carries the down-projection sum across its SEQUENTIAL F
 // grid axis in VMEM. Hopper blocks run in parallel in no order, and a
@@ -47,35 +63,53 @@ constexpr int BK = 16;   // reduction depth per shared-memory stage
 constexpr int NT = 256;  // threads per block: 4 x 4 outputs each
 constexpr int PAD = 4;
 
+// Where expert e = g % E of group g finds its weights in grouped mode
+// (GROUPED = true): element strides between experts (es) and between rows
+// (rs) of wi and wg (one layout) and of wo. The dense and routed modes
+// compile with GROUPED = false: one expert, rows of F (wi, wg) and D (wo),
+// the index arithmetic of a plain (D,F) / (F,D) matrix.
+struct Experts {
+  int E;
+  long w_es, w_rs, wo_es, wo_rs;
+};
+
 // Row of x (up) or out (down) that buffer row m0 + r maps to: the gather
-// index in routed mode, the row itself in dense mode.
-__device__ __forceinline__ void load_rows(int* rows, const int* gidx, int b,
+// index in routed mode, the row itself otherwise.
+__device__ __forceinline__ void load_rows(int* rows, const int* gidx, int g,
                                           int m0, int T_, int S) {
   for (int r = threadIdx.x; r < BM; r += NT) {
     const int m = min(m0 + r, T_ - 1);
-    rows[r] = gidx != nullptr ? min(max(gidx[(long)b * T_ + m], 0), S - 1)
+    rows[r] = gidx != nullptr ? min(max(gidx[(long)g * T_ + m], 0), S - 1)
                               : m;
   }
 }
 
-// T_: buffer rows per batch row (T, or Kb in routed mode); S: rows of x and
-// out per batch row (T, or the sequence length in routed mode).
-template <typename T>
-__global__ void __launch_bounds__(NT) mlp_up(
+// g = blockIdx.z: the group (a batch row, or a (b, e) expert group). T_:
+// buffer rows per group (T, Kb in routed mode, C in grouped mode); S: rows
+// of x and out per group (T_, or the sequence length in routed mode).
+// At least 4 blocks per SM: the grouped mode's offsets would otherwise take
+// the compiler to 80 registers (3 blocks per SM) in the dense mode too,
+// ~2.5 % slower on the H100.
+template <typename T, bool GROUPED>
+__global__ void __launch_bounds__(NT, 4) mlp_up(
     const T* __restrict__ x, const int* __restrict__ gidx,
-    const T* __restrict__ wi, const T* __restrict__ wg,
+    const T* __restrict__ wi, const T* __restrict__ wg, Experts ex,
     float* __restrict__ hbuf, const int* __restrict__ cnt, int T_, int S,
     int D, int F, int act) {
   __shared__ float Xs[BK][BM + PAD];  // transposed x tile
   __shared__ float Wis[BK][BN + PAD];
   __shared__ float Wgs[BK][BN + PAD];
   __shared__ int rows[BM];
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, b = blockIdx.z;
-  if (m0 >= cnt[b]) return;  // dead tile: the down phase writes no rows of it
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, g = blockIdx.z;
+  if (m0 >= cnt[g]) return;  // dead tile: the down phase writes no rows of it
   const bool gated = wg != nullptr;
-  const T* xb = x + (long)b * S * D;
+  const T* xb = x + (long)g * S * D;
+  const long w_off = GROUPED ? (long)(g % ex.E) * ex.w_es : 0;
+  const long w_rs = GROUPED ? ex.w_rs : F;
+  const T* wie = wi + w_off;
+  const T* wge = gated ? wg + w_off : nullptr;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  load_rows(rows, gidx, b, m0, T_, S);
+  load_rows(rows, gidx, g, m0, T_, S);
   __syncthreads();
   float au[4][4], ag[4][4];
 #pragma unroll
@@ -92,9 +126,9 @@ __global__ void __launch_bounds__(NT) mlp_up(
     for (int idx = tid; idx < BK * BN; idx += NT) {
       const int kk = idx / BN, n = idx % BN;
       const bool in = k0 + kk < D && n0 + n < F;
-      const long off = (long)(k0 + kk) * F + n0 + n;
-      Wis[kk][n] = in ? rt::to_f(wi[off]) : 0.f;
-      if (gated) Wgs[kk][n] = in ? rt::to_f(wg[off]) : 0.f;
+      const long off = (long)(k0 + kk) * w_rs + n0 + n;
+      Wis[kk][n] = in ? rt::to_f(wie[off]) : 0.f;
+      if (gated) Wgs[kk][n] = in ? rt::to_f(wge[off]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -133,25 +167,25 @@ __global__ void __launch_bounds__(NT) mlp_up(
         hv = (act == 0 ? rt::silu(ag[i][j]) : rt::gelu_tanh(ag[i][j])) * au[i][j];
       else
         hv = act == 0 ? rt::silu(au[i][j]) : rt::gelu_tanh(au[i][j]);
-      hbuf[((long)b * T_ + r) * F + n] = hv;
+      hbuf[((long)g * T_ + r) * F + n] = hv;
     }
   }
 }
 
-template <typename T>
+template <typename T, bool GROUPED>
 __global__ void __launch_bounds__(NT) mlp_down(
     const float* __restrict__ hbuf, const int* __restrict__ gidx,
-    const T* __restrict__ wo, const float* __restrict__ tw,
+    const T* __restrict__ wo, Experts ex, const float* __restrict__ tw,
     const int* __restrict__ cnt, T* __restrict__ out, int T_, int S, int D,
     int F) {
   __shared__ float Hs[BK][BM + PAD];  // transposed hidden tile
   __shared__ float Ws[BK][BN + PAD];
   __shared__ int rows[BM];
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, b = blockIdx.z;
-  const int c = cnt[b];
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM, g = blockIdx.z;
+  const int c = cnt[g];
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  T* ob = out + (long)b * S * D;
-  if (m0 >= c) {  // dead tile: no compute; dense mode writes its zeros
+  T* ob = out + (long)g * S * D;
+  if (m0 >= c) {  // dead tile: no compute; unrouted modes write its zeros
     if (gidx != nullptr) return;  // routed: the zero fill covers them
     for (int i = 0; i < 4; ++i) {
       const int r = m0 + ty + 16 * i;
@@ -163,8 +197,10 @@ __global__ void __launch_bounds__(NT) mlp_down(
     }
     return;
   }
-  const float* hb = hbuf + (long)b * T_ * F;
-  load_rows(rows, gidx, b, m0, T_, S);
+  const float* hb = hbuf + (long)g * T_ * F;
+  const T* woe = GROUPED ? wo + (long)(g % ex.E) * ex.wo_es : wo;
+  const long wo_rs = GROUPED ? ex.wo_rs : D;
+  load_rows(rows, gidx, g, m0, T_, S);
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -180,7 +216,7 @@ __global__ void __launch_bounds__(NT) mlp_down(
     for (int idx = tid; idx < BK * BN; idx += NT) {
       const int kk = idx / BN, n = idx % BN;
       const bool in = k0 + kk < F && n0 + n < D;
-      Ws[kk][n] = in ? rt::to_f(wo[(long)(k0 + kk) * D + n0 + n]) : 0.f;
+      Ws[kk][n] = in ? rt::to_f(woe[(long)(k0 + kk) * wo_rs + n0 + n]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -202,7 +238,7 @@ __global__ void __launch_bounds__(NT) mlp_down(
   for (int i = 0; i < 4; ++i) {
     const int r = m0 + ty + 16 * i;
     if (r >= T_ || (gidx != nullptr && r >= c)) continue;
-    const float wr = tw != nullptr ? tw[(long)b * T_ + r] : 1.f;
+    const float wr = tw != nullptr ? tw[(long)g * T_ + r] : 1.f;
     const long orow = rows[ty + 16 * i];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -213,51 +249,54 @@ __global__ void __launch_bounds__(NT) mlp_down(
   }
 }
 
-template <typename T>
+// G groups (grid z), each with T_ buffer rows.
+template <typename T, bool GROUPED>
 int launch(const void* x, const int* gidx, const void* wi, const void* wg,
-           const void* wo, const float* tw, const int* cnt, float* hbuf,
-           void* out, int B, int T_, int S, int D, int F, int act,
-           cudaStream_t stream) {
+           const void* wo, const Experts& ex, const float* tw, const int* cnt,
+           float* hbuf, void* out, int G, int T_, int S, int D, int F,
+           int act, cudaStream_t stream) {
   const int mt = (T_ + BM - 1) / BM;
-  mlp_up<T><<<dim3((F + BN - 1) / BN, mt, B), NT, 0, stream>>>(
-      (const T*)x, gidx, (const T*)wi, (const T*)wg, hbuf, cnt, T_, S, D, F,
-      act);
+  if (G > 65535 || mt > 65535) return (int)cudaErrorInvalidConfiguration;
+  mlp_up<T, GROUPED><<<dim3((F + BN - 1) / BN, mt, G), NT, 0, stream>>>(
+      (const T*)x, gidx, (const T*)wi, (const T*)wg, ex, hbuf, cnt, T_, S, D,
+      F, act);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  mlp_down<T><<<dim3((D + BN - 1) / BN, mt, B), NT, 0, stream>>>(
-      hbuf, gidx, (const T*)wo, tw, cnt, (T*)out, T_, S, D, F);
+  mlp_down<T, GROUPED><<<dim3((D + BN - 1) / BN, mt, G), NT, 0, stream>>>(
+      hbuf, gidx, (const T*)wo, ex, tw, cnt, (T*)out, T_, S, D, F);
   return (int)cudaGetLastError();
 }
 
+template <bool GROUPED>
 int dispatch(int dtype, const void* x, const int* gidx, const void* wi,
-             const void* wg, const void* wo, const void* tw, const void* cnt,
-             void* hbuf, void* out, int B, int T_, int S, int D, int F,
-             int act, cudaStream_t s) {
+             const void* wg, const void* wo, const Experts& ex,
+             const void* tw, const void* cnt, void* hbuf, void* out, int G,
+             int T_, int S, int D, int F, int act, cudaStream_t s) {
   const float* w = (const float*)tw;
   const int* c = (const int*)cnt;
   float* h = (float*)hbuf;
   if (dtype == rt::DT_F32)
-    return launch<float>(x, gidx, wi, wg, wo, w, c, h, out, B, T_, S, D, F,
-                         act, s);
+    return launch<float, GROUPED>(x, gidx, wi, wg, wo, ex, w, c, h, out, G,
+                                  T_, S, D, F, act, s);
   if (dtype == rt::DT_BF16)
-    return launch<__nv_bfloat16>(x, gidx, wi, wg, wo, w, c, h, out, B, T_, S,
-                                 D, F, act, s);
+    return launch<__nv_bfloat16, GROUPED>(x, gidx, wi, wg, wo, ex, w, c, h,
+                                          out, G, T_, S, D, F, act, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C entry points bound with ctypes: both phases on `stream`; `hbuf` is the
-// caller's (B*T*F, or B*Kb*F) f32 scratch. act: 0 = silu, 1 = tanh-GELU;
-// wg == NULL for an ungated MLP; tw == NULL for unit token weights. Each
-// returns the launches' cudaError_t.
+// caller's (B*T*F, B*Kb*F or B*E*C*Fe) f32 scratch. act: 0 = silu, 1 =
+// tanh-GELU; wg == NULL for an ungated MLP; tw == NULL for unit token
+// weights. Each returns the launches' cudaError_t.
 extern "C" int fused_mlp_launch(int dtype, const void* x, const void* wi,
                                 const void* wg, const void* wo,
                                 const void* tw, const void* cnt, void* hbuf,
                                 void* out, int B, int T, int D, int F,
                                 int act, void* stream) {
-  return dispatch(dtype, x, nullptr, wi, wg, wo, tw, cnt, hbuf, out, B, T, T,
-                  D, F, act, (cudaStream_t)stream);
+  return dispatch<false>(dtype, x, nullptr, wi, wg, wo, Experts{}, tw, cnt,
+                         hbuf, out, B, T, T, D, F, act, (cudaStream_t)stream);
 }
 
 // Routed mode: x and out are (B,S,D), idx (B,Kb) int32; out is zero-filled
@@ -273,6 +312,20 @@ extern "C" int fused_mlp_routed_launch(int dtype, const void* x,
   const size_t esz = dtype == rt::DT_BF16 ? 2 : 4;
   cudaError_t e = cudaMemsetAsync(out, 0, (size_t)B * S * D * esz, s);
   if (e != cudaSuccess) return (int)e;
-  return dispatch(dtype, x, (const int*)idx, wi, wg, wo, tw, cnt, hbuf, out,
-                  B, Kb, S, D, F, act, s);
+  return dispatch<false>(dtype, x, (const int*)idx, wi, wg, wo, Experts{},
+                         tw, cnt, hbuf, out, B, Kb, S, D, F, act, s);
+}
+
+// Grouped-expert mode: x and out are (B,E,C,D); strides in elements (wg,
+// when given, has wi's); `cnt` (B*E) int32 counts clipped to [0, C]; w
+// (B*E*C) f32 or NULL.
+extern "C" int moe_gmm_launch(int dtype, const void* x, const void* wi,
+                              const void* wg, const void* wo, long long w_es,
+                              long long w_rs, long long wo_es,
+                              long long wo_rs, const void* w, const void* cnt,
+                              void* hbuf, void* out, int B, int E, int C,
+                              int D, int Fe, int act, void* stream) {
+  const Experts ex{E, w_es, w_rs, wo_es, wo_rs};
+  return dispatch<true>(dtype, x, nullptr, wi, wg, wo, ex, w, cnt, hbuf, out,
+                        B * E, C, C, D, Fe, act, (cudaStream_t)stream);
 }

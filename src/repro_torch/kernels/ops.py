@@ -15,11 +15,11 @@ exactly when it launches its kernel. The int8/bf16 scale operands wait for
 the quantisation slice and raise ``NotImplementedError``.
 
 Autograd cannot see a launch through ``ctypes``, so every kernel that
-training crosses (``flash_attention``, ``fused_mlp``, ``fused_mlp_routed``)
-runs inside ``KernelOp``, a ``torch.autograd.Function`` whose forward is the
-kernel and whose backward replays the plain version: the counterpart of the
-JAX package's custom VJPs, which replay its jnp oracles (there are no
-backward kernels to port). ``decode_attention`` serves only.
+training crosses (``flash_attention``, ``fused_mlp``, ``fused_mlp_routed``,
+``moe_gmm``) runs inside ``KernelOp``, a ``torch.autograd.Function`` whose
+forward is the kernel and whose backward replays the plain version: the
+counterpart of the JAX package's custom VJPs, which replay its jnp oracles
+(there are no backward kernels to port). ``decode_attention`` serves only.
 """
 from __future__ import annotations
 
@@ -28,11 +28,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (_counts, decode_attention_ref,
                                      flash_attention_ref, fused_mlp_ref,
-                                     fused_mlp_routed_ref)
+                                     fused_mlp_routed_ref, moe_gmm_ref)
 
 BACKENDS = ("auto", "cuda", "ref")
 KERNELS = ("flash_attention", "fused_mlp", "fused_mlp_routed",
-           "decode_attention")
+           "decode_attention", "moe_gmm")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # rt::DT_F32 / rt::DT_BF16
 _launches = {name: 0 for name in KERNELS}
 
@@ -298,6 +298,80 @@ def fused_mlp_routed(x, idx, wi, wo, wg=None, token_weights=None,
 
     return KernelOp.apply(kernel, plain, x, idx, wi, wo, wg, token_weights,
                           _as_tensor(valid_count))
+
+
+# --------------------------------- MoE GMM -----------------------------------
+#
+# Replaces kernels/moe_gmm.py::moe_gmm (TPU). The grouped-expert mode of
+# csrc/fused_mlp.cu: its two phases over one group per (b, e), 64-slot tiles
+# at or past a group's count do no work and are written as zeros, and the
+# expert weights are read through their strides, so the moefied views of a
+# dense MLP (core/moefy.py) and native expert stacks both go in without a
+# copy.
+
+def _expert_strides(w, shape, name):
+    """(expert stride, row stride) in elements of an (E, rows, cols)
+    weight whose last dimension is contiguous."""
+    if tuple(w.shape) != shape or w.stride(-1) != 1:
+        raise ValueError(f"moe_gmm kernel: {name} {tuple(w.shape)} strides "
+                         f"{w.stride()}, want {shape} with a contiguous "
+                         f"last dimension")
+    return w.stride(0), w.stride(1)
+
+
+def moe_gmm(x, wi, wo, wg=None, weights=None, group_counts=None,
+            wi_scale=None, wo_scale=None, wg_scale=None, *, act="swiglu",
+            backend=None):
+    """x: (E, C, D) or (B, E, C, D) dispatched tokens; wi/wg: (E, D, Fe)
+    and wo: (E, Fe, D), any strides with a contiguous last dimension (wg
+    with wi's);
+    weights: (E, C) / (B, E, C); group_counts: (E,) / (B, E) count of real
+    leading slots per group (None = C). Returns x's shape and dtype; slots
+    at or past their group's count are exactly zero."""
+    if wi_scale is not None or wo_scale is not None or wg_scale is not None:
+        raise NotImplementedError(QUANT_TODO)
+
+    def plain(x, wi, wo, wg, w, cnt):
+        return moe_gmm_ref(x, wi, wo, wg, w, act=act, group_counts=cnt)
+
+    if not use_kernel(backend, x):
+        return plain(x, wi, wo, wg, weights, group_counts)
+    squeeze = x.dim() == 3
+    B, E, C, D = (x[None] if squeeze else x).shape
+    Fe = wi.shape[-1]
+    dt = _dtype_code(x, wi, wo, *([wg] if wg is not None else []))
+
+    def kernel(x, wi, wo, wg, w, cnt):
+        strides = [*_expert_strides(wi, (E, D, Fe), "wi"),
+                   *_expert_strides(wo, (E, Fe, D), "wo")]
+        if wg is not None and _expert_strides(wg, (E, D, Fe), "wg") != \
+                tuple(strides[:2]):
+            raise ValueError(f"moe_gmm kernel: wg strides {wg.stride()} "
+                             f"differ from wi's {wi.stride()}")
+        x4 = (x[None] if squeeze else x).contiguous()
+        if w is not None:
+            w = w.to(device=x.device, dtype=torch.float32)
+            w = w.reshape(-1, E, C).expand(B, E, C).contiguous()
+        if cnt is None:
+            cnt = torch.full((B, E), C, dtype=torch.int32, device=x.device)
+        else:
+            cnt = torch.as_tensor(cnt, device=x.device).to(torch.int32)
+            cnt = cnt.reshape(-1, E).expand(B, E).clamp(0, C).contiguous()
+        hbuf = torch.empty((B, E, C, Fe), dtype=torch.float32,
+                           device=x.device)
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        lib = build.load("fused_mlp")
+        with torch.cuda.device(x.device):
+            rc = lib.moe_gmm_launch(
+                dt, x4.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
+                *strides, _ptr(w), cnt.data_ptr(), hbuf.data_ptr(),
+                out.data_ptr(), B, E, C, D, Fe,
+                _act_code(act, wg is not None), _stream(x))
+        _check(rc, "moe_gmm")
+        return out
+
+    return KernelOp.apply(kernel, plain, x, wi, wo, wg, weights,
+                          _as_tensor(group_counts))
 
 
 # ----------------------------- decode attention ------------------------------

@@ -149,3 +149,27 @@ def fused_mlp_routed_ref(x, idx, wi, wo, wg=None, token_weights=None, *,
     y = fused_mlp_ref(torch.gather(x, 1, ix), wi, wo, wg, token_weights,
                       act=act, valid_count=valid_count)
     return torch.zeros_like(x).scatter(1, ix, y)
+
+
+def moe_gmm_ref(x, wi, wo, wg=None, weights=None, *, act="swiglu",
+                group_counts=None):
+    """Grouped expert MLP: y[b,e,c] = w[b,e,c] * (act(x Wg[e]) * (x Wi[e]))
+    Wo[e] in f32. x: (E, C, D) or (B, E, C, D); wi/wg: (E, D, Fe); wo:
+    (E, Fe, D); weights: (E, C) / (B, E, C); group_counts: (E,) / (B, E)
+    count of real leading slots per group (slots at or past it are exact
+    zeros). Returns x's shape and dtype."""
+    xf = _f(x)
+    h = torch.einsum("...ecd,edf->...ecf", xf, _f(wi))
+    if wg is not None:
+        h = _act(act)(torch.einsum("...ecd,edf->...ecf", xf, _f(wg))) * h
+    else:
+        h = gelu_tanh(h) if act == "gelu" else F.silu(h)
+    y = torch.einsum("...ecf,efd->...ecd", h, _f(wo))
+    if weights is not None:
+        y = y * _f(weights)[..., None]
+    if group_counts is not None:
+        cnt = torch.as_tensor(group_counts, device=x.device).to(torch.int64)
+        slots = torch.arange(x.shape[-2], device=x.device)
+        y = torch.where(slots[:, None] < cnt[..., None, None], y,
+                        torch.zeros((), dtype=y.dtype, device=x.device))
+    return y.to(x.dtype)

@@ -10,6 +10,13 @@ identity path). Runs on the CUDA card unless ``--device cpu`` is given:
     python -m repro_torch.launch.train --arch qwen2-7b --variant full \\
         --steps 4 --seq-len 512 --batch 2 --budget 0.5 --anneal-from 1.0
     python -m repro_torch.launch.train --arch toy-lm --device cpu --steps 3
+    python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --variant smoke \
+        --device cpu --steps 3 --seq-len 64 --batch 2
+
+Each arch trains with ``configs.get_elastic``'s config: its registered
+one (the native MoE ``qwen2-moe-a2.7b``: expert top-k over its 60 experts,
+token routing, head top-k, LoRA), else the port's default (token routing
+around attention and the MLP, head top-k, LoRA rank 1).
 
 Checkpointing, resume, the straggler watchdog and the fault-tolerant loop of
 the JAX trainer arrive with ROADMAP Queue A items 10 and 13.
@@ -23,10 +30,9 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config
-from repro_torch.core.policy import (ElasticSpec, as_spec_policy,
-                                     capacity_anneal, ragged_bucket,
-                                     solve_budget)
+from repro_torch.configs import get_config, get_elastic
+from repro_torch.core.policy import (as_spec_policy, capacity_anneal,
+                                     ragged_bucket, solve_budget)
 from repro_torch.data import LMDataPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import model_init, router_init, router_param_count
@@ -35,12 +41,6 @@ from repro_torch.optim.optimizer import tree_leaves
 from repro_torch.training import init_train_state, make_train_step
 
 log = logging.getLogger("repro_torch.train")
-
-# The slice's elastic machinery: token routing around attention and the
-# MLP, head top-k, LoRA rank 1 (no experts, no depth routing).
-DEFAULT_SPEC = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
-                           mha_head_routed=True, lora_rank=1)
-
 
 def build_trainer(arch: str, *, variant: str = "full", lr: float = 1e-4,
                   total_steps: int = 1000, seq_len: int = 512,
@@ -55,7 +55,7 @@ def build_trainer(arch: str, *, variant: str = "full", lr: float = 1e-4,
     cfg = get_config(arch, variant)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    ecfg = ecfg or DEFAULT_SPEC
+    ecfg = ecfg or get_elastic(arch, cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     if params is None:
         params = model_init(gen, cfg, ecfg, device=device)

@@ -1,7 +1,7 @@
 """Transformer blocks with ElastiFormer routing woven in.
 
 Block kind ``attn``: [token-route] GQA self-attention [head-route] [LoRA]
-+ [token-route] MLP, pre-norm residual.
++ [token-route] MLP or MoE [expert-route], pre-norm residual.
 
 Modes:
   base  : the frozen pretrained model (the distillation teacher): routers off.
@@ -15,7 +15,13 @@ Modes:
   infer : the student at inference: each token router thresholds its
           sigmoid at theta (§B.1), head routing keeps the top-k heads.
 
-Depth and expert routing wait for their own slices.
+Expert routing (the paper's parameter-subset router for the MLP): a
+native MoE layer (``cfg.moe``) drives its experts with the learned
+``expert`` router in place of its own; a dense MLP under
+``spec.mlp_n_experts`` is split losslessly into experts (``core/moefy.py``,
+views of the dense weights) and routed the same way. Both dispatch through
+``models/moe.py`` and the ``moe_gmm`` kernel. Depth routing waits for its
+own slice.
 """
 from __future__ import annotations
 
@@ -23,9 +29,11 @@ import torch
 
 from repro_torch.core import routing as R
 from repro_torch.core.lora import lora_init
+from repro_torch.core.moefy import moefy_mlp
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import attention as A
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
+from repro_torch.models.moe import moe_apply, moe_decode, moe_init
 
 
 def _only_attn(kind: str) -> None:
@@ -41,9 +49,6 @@ def _check_spec(spec) -> None:
     if spec.depth_routed:
         raise NotImplementedError(
             "depth routing arrives with ROADMAP Queue A item 7")
-    if spec.mlp_n_experts or spec.expert_routed:
-        raise NotImplementedError(
-            "expert routing arrives with ROADMAP Queue A item 6")
 
 
 # ------------------------------ init ---------------------------------------
@@ -53,7 +58,8 @@ def block_init(gen, kind: str, cfg, device=None) -> dict:
     return {"norm1": norm_init(cfg.d_model, cfg.norm, device=device),
             "attn": A.attn_init(gen, cfg, device=device),
             "norm2": norm_init(cfg.d_model, cfg.norm, device=device),
-            "mlp": mlp_init(gen, cfg, device=device)}
+            "mlp": (moe_init(gen, cfg, device=device) if cfg.moe is not None
+                    else mlp_init(gen, cfg, device=device))}
 
 
 def block_router_init(gen, kind: str, cfg, spec, device=None) -> dict:
@@ -76,10 +82,23 @@ def block_router_init(gen, kind: str, cfg, spec, device=None) -> dict:
         }
     if spec.mlp_token_routed:
         rp["tok_mlp"] = R.token_router_init(gen, D, device=device)
+    n_exp = cfg.moe.n_experts if cfg.moe is not None else spec.mlp_n_experts
+    if n_exp and spec.expert_routed:
+        rp["expert"] = R.param_router_init(gen, D, n_exp, device=device)
     return rp
 
 
 # ------------------------- helpers ------------------------------------------
+
+def _expert_args(pol, n_experts: int) -> dict:
+    """moe_apply/moe_decode kwargs for the elastic expert budget: a static
+    top-k keeps the small-k buffers; a tensor one sizes them for all E and
+    masks (the same code and shapes for every budget)."""
+    k = R.gate_topk(pol.mlp_expert_topk, pol.student, n_experts)
+    if R.is_static(k):
+        return {"top_k": min(int(k), n_experts)}
+    return {"top_k": n_experts, "top_k_traced": k}
+
 
 def _lora_gate(lora, cap, student):
     """Turn the LoRA adapters off exactly when there is nothing to rescue:
@@ -115,13 +134,56 @@ def _head_weights(rp, h, spec, pol, cfg, auxes, valid=None):
     return torch.where(R.bcast_to(full, hw.dim()), torch.ones_like(hw), hw)
 
 
-def _mlp_fn(p, cfg, backend):
-    """f(h, positions) for the dense MLP sub-block: the fused_mlp kernel."""
-    def f(h, _pos):
+def _expert_routed(rp, elastic_on, mode) -> bool:
+    return bool(elastic_on and rp and "expert" in rp and mode != "base")
+
+
+def _mlp_fn(p, rp, cfg, spec, pol, elastic_on, mode, auxes, backend):
+    """f(h, positions[, token_valid, dispatch_frac, token_count]) for the
+    MLP sub-block: a native MoE (the learned expert router when it is on,
+    else the layer's own), a moefied dense MLP under the expert router, or
+    the dense MLP through the fused_mlp kernel. The dense rank-masked train
+    path hands in ``token_valid``/``dispatch_frac`` and the ragged plan
+    path ``token_valid``/``token_count``, so skipped tokens cannot evict
+    kept ones from expert capacity and the expert buffers match what a
+    per-budget gather would have used."""
+    def f(h, _pos, token_valid=None, dispatch_frac=None, token_count=None):
+        kw = dict(act=cfg.act, token_valid=token_valid,
+                  dispatch_frac=dispatch_frac, token_count=token_count,
+                  backend=backend)
+        routed = _expert_routed(rp, elastic_on, mode)
+        if cfg.moe is not None:
+            m = cfg.moe
+            kw.update(capacity_factor=m.capacity_factor, seq_chunk=m.seq_chunk)
+            if routed:
+                y, a = moe_apply(p["mlp"], h, router_w=rp["expert"]["w"],
+                                 normalize_to_m=True,
+                                 **_expert_args(pol, m.n_experts), **kw)
+            else:
+                y, a = moe_apply(p["mlp"], h, top_k=m.top_k, **kw)
+            auxes.append(a)
+            return y
+        if routed and spec.mlp_n_experts:
+            # seq_chunk 512 bounds the (B, E, C, D) dispatch buffers
+            y, a = moe_apply(moefy_mlp(p["mlp"], spec.mlp_n_experts), h,
+                             router_w=rp["expert"]["w"], normalize_to_m=True,
+                             seq_chunk=512,
+                             **_expert_args(pol, spec.mlp_n_experts), **kw)
+            auxes.append(a)
+            return y
         mp = p["mlp"]
         return OPS.fused_mlp(h, mp["wi"], mp["wo"], mp.get("wg"),
-                             act=cfg.act, backend=backend)
+                             valid_count=token_count, act=cfg.act,
+                             backend=backend)
     return f
+
+
+def _is_dense_mlp(rp, cfg, spec, elastic_on, mode) -> bool:
+    """True when the MLP sub-block is the plain dense MLP (no native MoE,
+    no moefied expert routing): the case ``fused_mlp_routed`` serves."""
+    if cfg.moe is not None:
+        return False
+    return not (_expert_routed(rp, elastic_on, mode) and spec.mlp_n_experts)
 
 
 # --------------------- full-sequence block apply ----------------------------
@@ -258,7 +320,7 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
 
     # ---- MLP ----
     h = norm_apply(p["norm2"], x, cfg.norm)
-    f = _mlp_fn(p, cfg, backend)
+    f = _mlp_fn(p, rp, cfg, spec, pol, elastic_on, mode, auxes, backend)
     if cap_mlp is None:
         delta = f(h, positions)
     elif not train:
@@ -275,17 +337,23 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
             plan = R.make_plan(scores, k_plan, kb)
         w_sel = R.gather_tokens(scores, plan.idx) * plan.valid
         bce_aux(logits, plan.keep)
-        # The routed kernel gathers the plan's rows from h and scatters the
-        # weighted outputs back. The JAX package gates its TPU kernel on a
-        # resident (S, D) VMEM slab (ROUTED_MLP_SLAB_BYTES); the Hopper
-        # kernel keeps no such slab, so every dense-MLP plan takes it on
-        # the card (the plain version on the CPU: the same math as the
-        # gather + fused_mlp branch there).
-        mp = p["mlp"]
-        delta = OPS.fused_mlp_routed(h, plan.idx, mp["wi"], mp["wo"],
-                                     mp.get("wg"), w_sel,
-                                     valid_count=plan.count, act=cfg.act,
-                                     backend=backend)
+        if _is_dense_mlp(rp, cfg, spec, elastic_on, mode):
+            # The routed kernel gathers the plan's rows from h and scatters
+            # the weighted outputs back. The JAX package gates its TPU
+            # kernel on a resident (S, D) VMEM slab (ROUTED_MLP_SLAB_BYTES);
+            # the Hopper kernel keeps no such slab, so every dense-MLP plan
+            # takes it on the card (the plain version on the CPU: the same
+            # math as the gather + fused_mlp branch there).
+            mp = p["mlp"]
+            delta = OPS.fused_mlp_routed(h, plan.idx, mp["wi"], mp["wo"],
+                                         mp.get("wg"), w_sel,
+                                         valid_count=plan.count, act=cfg.act,
+                                         backend=backend)
+        else:                       # expert layers: the bucket buffer
+            y_sel = f(R.plan_gather(h, plan), None, token_valid=plan.valid,
+                      token_count=plan.count)
+            delta = R.plan_scatter(
+                plan, x, y_sel * w_sel[..., None].to(y_sel.dtype))
     else:                           # dense train path
         logits, scores = gate("tok_mlp", h)
         if dense_keep is not None:  # the mixer's selection is the block's
@@ -300,7 +368,7 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
         else:
             keep, wtok = R.token_gate(logits, scores, cap_plan, mode,
                                       theta=pol.theta, mxu=True)
-        y = f(h, positions)
+        y = f(h, positions, token_valid=keep, dispatch_frac=cap_plan)
         delta = y * wtok[..., None].to(y.dtype)
         bce_aux(logits, keep)
     x = x + delta
@@ -388,7 +456,20 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
     if routed and spec.mlp_token_routed and "tok_mlp" in rp:
         keep2, w2 = _decode_token_gate(rp, "tok_mlp", h,
                                        pol.mlp_token_capacity, pol)
-    y = mlp_apply(p["mlp"], h, cfg.act)
+    if cfg.moe is not None:
+        if routed and "expert" in rp:
+            y, _ = moe_decode(p["mlp"], h, act=cfg.act,
+                              router_w=rp["expert"]["w"], normalize_to_m=True,
+                              **_expert_args(pol, cfg.moe.n_experts))
+        else:
+            y, _ = moe_decode(p["mlp"], h, act=cfg.act, top_k=cfg.moe.top_k)
+    elif routed and "expert" in rp and spec.mlp_n_experts:
+        y, _ = moe_decode(moefy_mlp(p["mlp"], spec.mlp_n_experts), h,
+                          act=cfg.act, router_w=rp["expert"]["w"],
+                          normalize_to_m=True,
+                          **_expert_args(pol, spec.mlp_n_experts))
+    else:
+        y = mlp_apply(p["mlp"], h, cfg.act)
     if keep2 is not None:
         y = y * w2[:, None, None].to(y.dtype)
     return x + y, cache

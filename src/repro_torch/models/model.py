@@ -107,7 +107,8 @@ def router_init(gen: torch.Generator, cfg, elastic, device=None) -> dict:
 
 
 def router_param_count(rp) -> int:
-    """Number of trainable router parameters (routers, head router, LoRA)."""
+    """Number of trainable router parameters (token, head and expert
+    routers, LoRA)."""
     if isinstance(rp, dict):
         return sum(router_param_count(v) for v in rp.values())
     if isinstance(rp, (list, tuple)):
