@@ -2,7 +2,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (built for H100).
 
     python3 chip_smoke.py [--layers N] [--train-layers N] [--moe-layers N]
-                          [--seed S]
+                          [--pages N] [--seed S]
+    python3 chip_smoke.py --ab PARENT_CHECKOUT
+
+``--ab`` runs only the ring decode kernel of another checkout (unpacked
+with ``git archive``) and of this one in turns, p c c p, one process each,
+on the same seeded inputs: L2-cold time per turn, and it fails unless the
+outputs of every turn are equal bit for bit. Without it:
 
 1. Prints the card (nvidia-smi name and power limit), builds the
    hand-written CUDA kernels from src/repro_torch/kernels/csrc with nvcc
@@ -11,11 +17,13 @@
    in bf16 and f32, with ragged counts, kv_valid holes, a part-filled ring
    and a routed selection; prints the max error beside the tolerance, and
    times the kernel, the plain version and (attention) one SDPA call with
-   CUDA events. moe_gmm is held to its plain version after each expert
-   path (items 6, 8, 9) at the calls that path made: their shapes and
-   group counts are recorded during the path and replayed (random x and
-   weights in the path's weight layout, bf16 and f32, with and without
-   routing weights, exact zeros past every count), the largest timed.
+   CUDA events (KV heads shared by enable_gqa; SDPA over K/V repeated to
+   the q-heads is printed beside it). moe_gmm is held to its plain
+   version after each expert path (items 6, 8, 9) at the calls that path
+   made: their shapes and group counts are recorded during the path and
+   replayed (random x and weights in the path's weight layout, bf16 and
+   f32, with and without routing weights, exact zeros past every count),
+   the largest timed.
 3. Serving: 6 staggered mixed-budget requests through ``ServingEngine`` at
    Qwen2-7B full width (random bf16 weights from --seed; --layers cuts depth
    only) and fails unless budget-1.0 requests equal a mode="base" engine
@@ -23,6 +31,26 @@
    every serving kernel launched during the run. Prints prefill and decode
    rates of the main run and of the (warm) teacher run, and the device
    kernel time of the solo run under torch.profiler.
+3b. Paged serving: the same weights and requests through
+   ``ServingEngine(kv_layout="paged")`` (page size 16, --pages pages,
+   default the ring-equivalent 4 * 64 + 1): fails unless staggered ==
+   solo and budget 1.0 == a mode="base" paged engine bit for bit, two
+   requests with a common 256-token prefix share its 16 pages and each
+   gives its solo tokens, a fork mid-decode and a pool small enough that
+   two 512-token requests collide (at least one preemption) complete, the
+   pool drains after every run, and paged_decode_attention and fused_mlp
+   launched. Prints the rates beside the ring's, paged-vs-ring token
+   agreement, whether the fork child and the preempted request match
+   their independent runs (reported, not gated: in bf16 K/V written by
+   decode and by a chunk may round differently), the solo run's device
+   time under torch.profiler, and warm decode of one request on a ring and
+   a paged engine in turns, each also profiled per step.
+   paged_decode_attention is held to its plain version at the path's
+   decode shape (4 slots, 64-entry table rows with -1 holes, an all -1
+   row, pvalid holes, shuffled pages), and at the path's own calls: the
+   staggered run's calls are recorded (table, t, pvalid) and the heaviest
+   decode-step call and prefill-chunk call (16 rows over one table row)
+   are replayed in bf16 and f32 and timed.
 4. Gradients: the router gradients of one distillation loss at full width,
    2 layers, f32, through the kernels against the same through the plain
    versions.
@@ -50,6 +78,10 @@
    moe_gmm launched; prints the rates.
 10. Prints one JSON line of per-kernel results (launches by path), the card
    line again, and as the last line {"ok": true, "device": {...}}.
+
+The kernel build prints ptxas's registers, shared memory and spills for
+every instantiation (the ring and paged modes of the decode kernel among
+them).
 
 Any failed phase raises and the script exits non-zero before that line.
 TF32 is off for matmuls and cuDNN (both set below): f32 means f32.
@@ -84,11 +116,15 @@ SOURCES = {
                          "src/repro/kernels/decode_attention.py:104"),
     "moe_gmm": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
                 "src/repro/kernels/moe_gmm.py:99"),
+    "paged_decode_attention": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/paged_decode_attention.py:108"),
 }
 
 # kernels each path must launch (the teacher of expert training is dense)
 PATH_KERNELS = {
     "serving": ("flash_attention", "fused_mlp", "decode_attention"),
+    "paged_serving": ("fused_mlp", "paged_decode_attention"),
     "training": ("flash_attention", "fused_mlp", "fused_mlp_routed"),
     "expert_serving": ("flash_attention", "moe_gmm", "decode_attention"),
     "expert_training": ("flash_attention", "fused_mlp", "moe_gmm"),
@@ -186,6 +222,32 @@ class Results:
               f"{b:.4f} ms ({by})")
 
 
+def mib(tensors) -> float:
+    return sum(a.numel() * a.element_size() for a in tensors) / 2 ** 20
+
+
+def sdpa_ms(name, qt, ks, vs, mask, iters):
+    """Library time of one ``scaled_dot_product_attention`` call on the
+    kernel's own inputs: q as (B, H, Sq, Dh), each K/V set of ``ks``/``vs``
+    ((B, S, K, Dh), rotated in turn) as (B, K, S, Dh) with its KV heads
+    shared by ``enable_gqa``. Printed beside it, not returned: the same
+    call over K/V repeated to the H q-heads first (H/K times the bytes)."""
+    import torch.nn.functional as F
+    H, K, n = qt.shape[1], ks[0].shape[2], len(ks)
+    gqa = cuda_ms(cycling(lambda i: F.scaled_dot_product_attention(
+        qt, ks[i].transpose(1, 2), vs[i].transpose(1, 2), attn_mask=mask,
+        enable_gqa=True), n), iters)
+    rep = lambda a: a.repeat_interleave(H // K, dim=2).transpose(1, 2)
+    kxs, vxs = [rep(a) for a in ks], [rep(a) for a in vs]
+    full = cuda_ms(cycling(lambda i: F.scaled_dot_product_attention(
+        qt, kxs[i], vxs[i], attn_mask=mask), n), iters)
+    med = lambda ts: f"{ts[len(ts) // 2]:.4f} ms [{ts[0]:.4f}-{ts[-1]:.4f}]"
+    print(f"  {name:17s} SDPA, KV heads shared (enable_gqa; the library "
+          f"time): {med(gqa)}; over K/V repeated to {H} heads first "
+          f"({mib(kxs + vxs):.0f} MiB): {med(full)}")
+    return gqa
+
+
 # ----------------------------- kernel checks ---------------------------------
 
 def _attention_mask(B, S, valid, causal, count):
@@ -201,7 +263,6 @@ def _attention_mask(B, S, valid, causal, count):
 
 def check_flash(res: Results, rng, dev, H, K, Dh):
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ops
     cases = [  # (dtype, B, S, keep fraction, counts, timed)
         ("bf16", 1, 512, 0.6, None, True),
@@ -234,17 +295,14 @@ def check_flash(res: Results, rng, dev, H, K, Dh):
         esz = q.element_size()
         nbytes = ((q_rows + B * S) * H * Dh + 2 * kv_rows * K * Dh) * esz \
             + valid.numel()
-        kx = k.repeat_interleave(H // K, dim=2).transpose(1, 2)
-        vx = v.repeat_interleave(H // K, dim=2).transpose(1, 2)
-        qt = q.transpose(1, 2)
         res.timing(
             "flash_attention",
             cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 20),
             cuda_ms(lambda: ops.flash_attention(q, k, v, backend="ref", **kw),
                     5),
             4 * Dh * pairs, nbytes, kind,
-            cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kx, vx, attn_mask=mask[:, None]), 20))
+            sdpa_ms("flash_attention", q.transpose(1, 2), [k], [v],
+                    mask[:, None], 20))
 
 
 def check_fused_mlp(res: Results, dev, D, Fd):
@@ -344,11 +402,11 @@ def _ring(rng, B, L, t, keep):
 
 def check_decode(res: Results, rng, dev, H, K, Dh, L):
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ops
     B = 4
     t = np.asarray([63, 300, L - 1, L + 476], np.int32)   # last one wrapped
     cases = [("bf16", 0, True), ("f32", 256, False)]      # (dtype, window)
+    outs = {}
     for kind, window, timed in cases:
         dt = torch.bfloat16 if kind == "bf16" else torch.float32
         pos_np, valid_np = _ring(rng, B, L, t, 0.8)
@@ -359,8 +417,10 @@ def check_decode(res: Results, rng, dev, H, K, Dh, L):
         tv = torch.from_numpy(t).to(dev)
         run = lambda backend=None: ops.decode_attention(
             q, k, v, pos, tv, valid, window=window, backend=backend)
+        outs[kind] = run()
         res.compare("decode_attention", f"{kind} B={B} L={L} H={H} K={K} "
-                    f"window={window} ring holes", run(), run("ref"), kind)
+                    f"window={window} ring holes", outs[kind], run("ref"),
+                    kind)
         if not timed:
             continue
         att = (pos_np >= 0) & (pos_np <= t[:, None]) & valid_np
@@ -376,22 +436,215 @@ def check_decode(res: Results, rng, dev, H, K, Dh, L):
         ks = [k] + [torch.randn_like(k) for _ in range(n_sets - 1)]
         vs = [v] + [torch.randn_like(v) for _ in range(n_sets - 1)]
         mask = torch.from_numpy(att).to(dev)[:, None, None, :]
-        qt = q.transpose(1, 2)
-        kxs = [a.repeat_interleave(H // K, dim=2).transpose(1, 2) for a in ks]
-        vxs = [a.repeat_interleave(H // K, dim=2).transpose(1, 2) for a in vs]
         dec = lambda backend: cycling(lambda i: ops.decode_attention(
             q, ks[i], vs[i], pos, tv, valid, window=window,
             backend=backend), n_sets)
-        mib = lambda ts: sum(a.numel() for a in ts) * esz / 2 ** 20
         print(f"  decode_attention  timed L2-cold: rotating over {n_sets} "
-              f"K/V sets ({mib(ks + vs):.0f} MiB; SDPA's K/V repeated to "
-              f"{H} heads: {mib(kxs + vxs):.0f} MiB)")
+              f"K/V sets ({mib(ks + vs):.0f} MiB)")
         res.timing("decode_attention", cuda_ms(dec(None), 50),
                    cuda_ms(dec("ref"), 10),
                    4 * Dh * H * float(att.sum()), nbytes, kind,
-                   cuda_ms(cycling(lambda i: F.scaled_dot_product_attention(
-                       qt, kxs[i], vxs[i], attn_mask=mask), n_sets), 50))
-        del ks, vs, kxs, vxs
+                   sdpa_ms("decode_attention", q.transpose(1, 2), ks, vs,
+                           mask, 50))
+        del ks, vs
+    return outs
+
+
+PAGE_SIZE = 16                 # the JAX engine's default page size
+
+
+def _paged_case(rng, B, N, ps, P):
+    """Page-table rows for B slots of P entries over a pool of N pages (the
+    last one the trash page), in shuffled pool order: row 0 mid-page with
+    a -1 hole, row 1 full, row 2 all -1 (an inactive slot: exact zeros),
+    row 3 at the first lane of a page. Returns (table, t)."""
+    pages = iter(rng.permutation(N - 1))
+    t = np.asarray([8 * ps + 4, P * ps - 1, 300, 16 * ps], np.int32)[:B]
+    table = np.full((B, P), -1, np.int32)
+    for b in (0, 1, 3):
+        for p in range(int(t[b]) // ps + 1):
+            table[b, p] = next(pages)
+    table[0, 5] = -1
+    return table, t
+
+
+def paged_attendable(table, t, pvalid, lanes=False):
+    """(R, P * ps) bool masks of one ``paged_decode_attention`` call's keys:
+    attendable (entry >= 0, j <= t, pvalid of its page lane) and visited
+    (entry >= 0, j <= t: the kernel reads their pvalid lanes), and with
+    ``lanes`` each key's pool lane (page * ps + lane). Leading batch
+    dimensions of table (R, P), t (R,) and pvalid (N, ps) carry over."""
+    import torch
+    ps, P = pvalid.shape[-1], table.shape[-1]
+    j = torch.arange(P * ps, device=table.device)
+    ent = table[..., j // ps].long()
+    visited = (ent >= 0) & (j <= t[..., None])
+    lane = ent.clamp(min=0) * ps + j % ps
+    pv = pvalid.flatten(-2).gather(-1, lane.flatten(-2)).reshape(ent.shape)
+    return (visited & pv, visited) + ((lane,) if lanes else ())
+
+
+def paged_work(q, kp, table, t, pvalid):
+    """(flops, bytes, attendable keys) of one ``paged_decode_attention`` call
+    on this data: q and out, the attended K/V rows and the pvalid lanes of
+    the visited keys, each once however many q rows share its page (the
+    rows of a prefill chunk share all of theirs), the table and t.
+    ``flops`` counts every (q row, attendable key) pair."""
+    K, Dh = kp.shape[2], kp.shape[3]
+    att, visited, lane = paged_attendable(table, t, pvalid, lanes=True)
+    keys = int(att.sum())
+    rows = lambda m: int(lane[m].unique().numel())
+    nbytes = (2 * q.numel() + 2 * rows(att) * K * Dh) * q.element_size() \
+        + table.numel() * 4 + t.numel() * 4 + rows(visited)
+    return 4 * Dh * q.shape[2] * keys, nbytes, keys
+
+
+def paged_cold(q, kp, vp, table, t, pvalid):
+    """Kernel and plain times of one ``paged_decode_attention`` call,
+    L2-cold: on the serving path every layer has its own pool, so rotate
+    over enough pools (same table, t and pvalid) that their total is twice
+    the L2 cache. Returns (kernel times, plain times, K pools, V pools)."""
+    import torch
+    from repro_torch.kernels import ops
+    n_sets = 1 + 2 * L2_BYTES // (kp.numel() * kp.element_size() * 2)
+    kps = [kp] + [torch.randn_like(kp) for _ in range(n_sets - 1)]
+    vps = [vp] + [torch.randn_like(vp) for _ in range(n_sets - 1)]
+    dec = lambda backend: cycling(lambda i: ops.paged_decode_attention(
+        q, kps[i], vps[i], table, t, pvalid, backend=backend), n_sets)
+    print(f"  paged_decode_attention timed L2-cold: rotating over {n_sets} "
+          f"pools ({mib(kps + vps):.0f} MiB)")
+    return cuda_ms(dec(None), 50), cuda_ms(dec("ref"), 10), kps, vps
+
+
+def check_paged_decode(res: Results, rng, dev, H, K, Dh, max_seq):
+    """paged_decode_attention against its plain version at the paged
+    serving path's shape (4 slots, page size 16, max_seq 1024: 64 entries
+    per row, the ring-equivalent pool of 4 * 64 + 1 pages), bf16 and f32,
+    with pvalid holes; timed L2-cold beside SDPA over the pre-gathered
+    buffer and the gather alone."""
+    import torch
+    from repro_torch.kernels import ops
+    B, ps = 4, PAGE_SIZE
+    P = max_seq // ps
+    N = B * P + 1
+    table_np, t = _paged_case(rng, B, N, ps, P)
+    for kind in ("bf16", "f32"):
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        pvalid_np = rng.random((N, ps)) < 0.8
+        q = torch.randn(B, 1, H, Dh, device=dev).to(dt)
+        kp = torch.randn(N, ps, K, Dh, device=dev).to(dt)
+        vp = torch.randn(N, ps, K, Dh, device=dev).to(dt)
+        table, tv, pvalid = (torch.from_numpy(a).to(dev)
+                             for a in (table_np, t, pvalid_np))
+        run = lambda backend=None: ops.paged_decode_attention(
+            q, kp, vp, table, tv, pvalid, backend=backend)
+        got = run()
+        res.compare("paged_decode_attention", f"{kind} B={B} P={P} ps={ps} "
+                    f"N={N} H={H} K={K} holes", got, run("ref"), kind)
+        if got[2].count_nonzero() != 0:
+            fail("paged_decode_attention: the all -1 row is not zero")
+        if kind != "bf16":
+            continue
+        flops, nbytes, keys = paged_work(q, kp, table, tv, pvalid)
+        print(f"  paged_decode_attention {keys} attendable keys of "
+              f"{B * P * ps}")
+        ms, plain, kps, vps = paged_cold(q, kp, vp, table, tv, pvalid)
+        pid = table.clamp(min=0).long()
+        gather = lambda i: (kps[i][pid].reshape(B, P * ps, K, Dh),
+                            vps[i][pid].reshape(B, P * ps, K, Dh))
+        kvs = [gather(i) for i in range(len(kps))]
+        mask = paged_attendable(table, tv, pvalid)[0][:, None, None, :]
+        res.timing("paged_decode_attention", ms, plain, flops, nbytes, kind,
+                   sdpa_ms("paged_decode_attention", q.transpose(1, 2),
+                           [k for k, _ in kvs], [v for _, v in kvs], mask,
+                           50))
+        g = cuda_ms(cycling(gather, len(kps)), 50)
+        print(f"  paged_decode_attention beside it: the page gather alone "
+              f"(K and V to (B, P*ps, K, Dh), what SDPA needs first) "
+              f"{g[len(g) // 2]:.4f} ms [{g[0]:.4f}-{g[-1]:.4f}]")
+        del kps, vps, kvs
+
+
+class PagedCalls:
+    """Records what decides the work of every ``paged_decode_attention``
+    call made while active: q's and the pool's shapes and copies of the
+    table rows, t and pvalid (the pool changes after the call). The model
+    calls the op through the module, so a delegating wrapper put there sees
+    each call; the kernel wrapper and its launch count are untouched."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import ops
+        self.calls, self._ops = [], ops
+        self._orig = ops.paged_decode_attention
+
+        def record(q, kp, vp, table, t, pvalid, *a, **kw):
+            self.calls.append((tuple(q.shape), tuple(kp.shape), table.clone(),
+                               torch.as_tensor(t).reshape(-1).clone(),
+                               pvalid.clone()))
+            return self._orig(q, kp, vp, table, t, pvalid, *a, **kw)
+        ops.paged_decode_attention = record
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.paged_decode_attention = self._orig
+
+    def cases(self, chunk=256):
+        """The heaviest call (most attendable keys) of each (q, pool) shape
+        as (q shape, pool shape, table, t, pvalid, calls of that shape),
+        the most q rows first."""
+        import torch
+        groups = {}
+        for c in self.calls:
+            groups.setdefault(c[:2], []).append(c[2:])
+        out = []
+        for (qs, ks), cs in groups.items():
+            keys = torch.cat([paged_attendable(
+                *(torch.stack([c[i] for c in cs[j:j + chunk]])
+                  for i in range(3)))[0].sum((1, 2))
+                for j in range(0, len(cs), chunk)])
+            out.append((qs, ks, *cs[int(keys.argmax())], len(cs)))
+        return sorted(out, key=lambda c: -c[0][0])
+
+
+def check_paged_calls(res: Results, dev, cases, labels):
+    """Replays the paged serving path's own ``paged_decode_attention``
+    calls: the heaviest of each shape (a decode step's slot rows, a prefill
+    chunk's rows: one table row repeated, t = pos0 + i) with its recorded
+    table, t and pvalid and a random q and pool, in bf16 and f32, against
+    the plain version; a row with no attendable key must be exact zeros.
+    Each is timed L2-cold in bf16 beside its bound (printed; the kernel's
+    row keeps check_paged_decode's time)."""
+    import torch
+    from repro_torch.kernels import ops
+    for qs, ks, table, t, pvalid, n in cases:
+        label = labels.get(qs[0], f"{qs[0]}-row")
+        dead = ~paged_attendable(table, t, pvalid)[0].any(1)
+        for kind in ("bf16", "f32"):
+            dt = torch.bfloat16 if kind == "bf16" else torch.float32
+            q = torch.randn(qs, device=dev).to(dt)
+            kp = torch.randn(ks, device=dev).to(dt)
+            vp = torch.randn(ks, device=dev).to(dt)
+            run = lambda backend=None: ops.paged_decode_attention(
+                q, kp, vp, table, t, pvalid, backend=backend)
+            got = run()
+            res.compare("paged_decode_attention", f"{kind} path {label} "
+                        f"q {qs[0]} rows, t {int(t.min())}-{int(t.max())}",
+                        got, run("ref"), kind)
+            if got[dead].count_nonzero() != 0:
+                fail(f"paged_decode_attention, the path's {label} call: a "
+                     f"row with no attendable key is not zero")
+            if kind != "bf16":
+                continue
+            flops, nbytes, keys = paged_work(q, kp, table, t, pvalid)
+            ms, plain, _, _ = paged_cold(q, kp, vp, table, t, pvalid)
+            b, by = bound_ms(flops, nbytes, kind)
+            med = lambda ts: f"{ts[len(ts) // 2]:.4f} ms [{ts[0]:.4f}-" \
+                f"{ts[-1]:.4f}]"
+            print(f"  paged_decode_attention path {label}, heaviest of {n} "
+                  f"calls ({keys} attendable keys, {int(dead.sum())} "
+                  f"row(s) with none): kernel {med(ms)}  plain "
+                  f"{med(plain)}  bound {b:.4f} ms ({by})")
 
 
 class GmmCalls:
@@ -551,21 +804,22 @@ def print_device_time(prof, wall_s, top=8):
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     print(f"profiled window: wall {wall_s * 1e3:.1f} ms, kernels "
           f"{busy_ms:.1f} ms on the device ({100 * busy_ms / (wall_s * 1e3):.1f}"
-          f" % busy, profiler on)")
+          f" % busy, device-activity profiler on)")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  "
               f"{e.key[:100]}")
 
 
 def profiled(fn, top=8):
-    """``fn()`` under torch.profiler; prints the device kernel time by name
-    beside the wall time of the window. Returns fn's result."""
+    """``fn()`` under torch.profiler, device activity only (host op
+    recording would slow the host-bound paths several times); prints the
+    device kernel time by name beside the wall time of the window. Returns
+    fn's result."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
     print_device_time(prof, time.perf_counter() - t0, top=top)
@@ -637,7 +891,269 @@ def check_serving(args, dev, device_line, spec):
         fail(f"request {solo_i} alone {solo} != staggered {tokens[solo_i]}")
     print(f"staggered == solo (request {solo_i}, budget "
           f"{budgets[solo_i]}): ok")
-    return launches, params, rp, requests, teacher
+    ring = {"tokens": tokens, "timing": dict(engine.timing)}
+    return launches, params, rp, requests, teacher, ring
+
+
+def decode_turns(engines, req, device_line, prof_tokens=7):
+    """Warm decode of one request on each of two engines (name -> engine)
+    in turns (a b b a), ms per step from ``engine.timing``; then the decode
+    steps of a ``prof_tokens``-token request after the step that admits it
+    (the prefill's token and one decode step) under torch.profiler,
+    device activity only: wall and device
+    time per step, device operations per step, and the operations whose
+    count per step differs between the two. Reported, not gated."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training import GenRequest
+    a, b = engines
+    turns = []
+    for name in (a, b, b, a):
+        tm = engines[name].timing
+        tm.update(decode_s=0.0, decode_steps=0)
+        serve(engines[name], [req], stagger=False)
+        turns.append(f"{name} {tm['decode_s'] * 1e3 / tm['decode_steps']:.2f}")
+    print(f"warm decode in turns, one request ({len(req[0])}-token prompt, "
+          f"{req[1]} new tokens, budget {req[2]}), ms/step: "
+          f"{' / '.join(turns)} [{device_line}]")
+    ops_by = {}
+    for name, eng in engines.items():
+        h = eng.submit(GenRequest(req[0], prof_tokens, budget=req[2]))
+        eng.step()                   # admission (prefill), first decode step
+        torch.cuda.synchronize()
+        steps = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            while not h.done:
+                eng.step()
+                steps += 1
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+        ops_by[name] = {e.key: (e.count / steps,
+                                e.self_device_time_total / 1e3 / steps)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA}
+        busy = sum(t for _, t in ops_by[name].values())
+        print(f"{name} decode under the profiler (device activity): "
+              f"{steps} steps, {wall:.2f} ms/step wall, {busy:.2f} "
+              f"ms/step on the device ({100 * busy / wall:.1f} % busy), "
+              f"{sum(c for c, _ in ops_by[name].values()):.0f} device "
+              f"operations per step")
+    get = lambda n, k: ops_by[n].get(k, (0.0, 0.0))
+    diff = sorted(set(ops_by[a]) | set(ops_by[b]),
+                  key=lambda k: -abs(get(b, k)[0] - get(a, k)[0]))
+    print(f"device operations per step, {b} minus {a} (count, ms):")
+    for k in diff[:8]:
+        dc = get(b, k)[0] - get(a, k)[0]
+        if dc:
+            print(f"  {dc:+6.0f}x {get(b, k)[1] - get(a, k)[1]:+7.3f} ms  "
+                  f"{k[:90]}")
+
+
+def check_paged_serving(args, res, dev, device_line, spec, params, rp,
+                        requests, ring):
+    """The paged serving path on the Qwen2-7B weights already on the card:
+    the six staggered requests (their paged_decode_attention calls recorded
+    and the heaviest decode and chunk call replayed against the plain
+    version), a mode="base" paged engine, a solo run, warm decode in turns
+    with a ring engine, prefix sharing, a fork and preemption. Returns the
+    launches of the staggered run."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=args.layers)
+
+    def mk(mode="infer", n_pages=args.pages):
+        return ServingEngine(params, rp, cfg, spec, mode=mode, batch_size=4,
+                             max_seq=1024, device=dev, kv_layout="paged",
+                             page_size=PAGE_SIZE, n_pages=n_pages)
+
+    def drained(eng, what):
+        st = eng.paged_stats()
+        if st["allocated"] != 0:
+            fail(f"paged serving, {what}: {st['allocated']} pages still "
+                 f"allocated after every request finished")
+        return st
+
+    engine = mk()
+    st = engine.pool.stats()
+    pool_mb = sum(t.numel() * t.element_size() for layer in
+                  engine._caches["layers"] for t in layer["attn"].values())
+    print(f"paged serving: {cfg.name} depth {cfg.n_layers}, page size "
+          f"{PAGE_SIZE}, {engine.pool.n_pages} pages ({st['usable']} usable "
+          f"+ trash), {pool_mb / 1e6:.1f} MB of pool over {cfg.n_layers} "
+          f"layers [{device_line}]")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with PagedCalls() as rec:
+        tokens = serve(engine, requests, stagger=True)    # the main path
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("paged_serving", launches)
+    st = drained(engine, "staggered run")
+    print(f"paged_decode_attention at the paged serving path's calls "
+          f"[{device_line}]:")
+    check_paged_calls(res, dev, rec.cases(), {4: "decode step",
+                                              PAGE_SIZE: "prefill chunk"})
+    del rec
+    print_timing("paged serving (first run)", engine.timing, device_line)
+    print_timing("ring serving, same call (first run)", ring["timing"],
+                 device_line)
+    print(f"paged pool peak: {st['peak_allocated']} of {st['usable']} pages")
+    for toks in tokens:
+        if len(toks) != 16 or not all(0 <= x < cfg.vocab_size for x in toks):
+            fail(f"bad generated tokens {toks}")
+    same = [i for i in range(len(tokens)) if tokens[i] == ring["tokens"][i]]
+    agree = sum(a == b for i in range(len(tokens))
+                for a, b in zip(tokens[i], ring["tokens"][i]))
+    print(f"paged vs ring (reported, not gated: chunked and one-shot "
+          f"prefills sum in other orders in bf16): {len(same)} of "
+          f"{len(tokens)} requests identical, {agree} of "
+          f"{sum(map(len, tokens))} tokens agree position by position")
+
+    base = mk("base")
+    teacher = serve(base, requests, stagger=True)
+    drained(base, "teacher run")
+    print_timing("paged teacher, mode='base' (warm)", base.timing,
+                 device_line)
+    for i, (_, _, b) in enumerate(requests):
+        if b == 1.0 and tokens[i] != teacher[i]:
+            fail(f"paged: budget-1.0 request {i} differs from the paged "
+                 f"teacher: {tokens[i]} vs {teacher[i]}")
+    print("paged budget 1.0 == mode='base' paged teacher, bit for bit: ok")
+    solo_i = 4
+    solo_eng = mk()
+    solo = profiled(lambda: serve(solo_eng, [requests[solo_i]],
+                                  stagger=False))[0]
+    drained(solo_eng, "solo run")
+    if solo != tokens[solo_i]:
+        fail(f"paged: request {solo_i} alone {solo} != staggered "
+             f"{tokens[solo_i]}")
+    print(f"paged staggered == solo (request {solo_i}): ok")
+    ring_eng = ServingEngine(params, rp, cfg, spec, mode="infer",
+                             batch_size=4, max_seq=1024, device=dev)
+    decode_turns({"ring": ring_eng, "paged": mk()},
+                 (requests[0][0], 16, 0.75), device_line)
+    del ring_eng
+
+    # prefix sharing: a common 256-token prefix = 16 full pages
+    rng = np.random.default_rng(args.seed + 3)
+    V = cfg.vocab_size
+    pre = rng.integers(0, V, 256).astype(np.int32)
+    pair = [np.concatenate([pre, rng.integers(0, V, 64).astype(np.int32)])
+            for _ in range(2)]
+    eng = mk()
+    hs = [eng.submit(GenRequest(pair[0], 16, budget=0.75))]
+    eng.step()
+    hs.append(eng.submit(GenRequest(pair[1], 16, budget=0.75)))
+    eng.step()
+    shared = eng.paged_stats()["shared"]
+    while not all(h.done for h in hs):
+        if eng.step() == 0:
+            fail("paged engine stalled (prefix sharing)")
+    drained(eng, "prefix sharing")
+    if shared != 256 // PAGE_SIZE:
+        fail(f"prefix sharing: {shared} shared pages, want "
+             f"{256 // PAGE_SIZE}")
+    for i, h in enumerate(hs):
+        alone = serve(mk(), [(pair[i], 16, 0.75)], stagger=False)[0]
+        if list(h.output) != alone:
+            fail(f"prefix sharing: request {i} {list(h.output)} != alone "
+                 f"{alone}")
+    print(f"prefix sharing: {shared} pages shared while both ran, each "
+          f"request == alone bit for bit, pool drained: ok")
+
+    # fork mid-decode (copy-on-write of the partial tail page)
+    p, n, b = requests[2]
+    eng = mk()
+    hp = eng.submit(GenRequest(p, n, budget=b))
+    for _ in range(6):
+        eng.step()
+    prefix = list(hp.output)
+    t_fork = int(eng._t[hp.slot])
+    hc = eng.fork(hp)
+    while not (hp.done and hc.done):
+        if eng.step() == 0:
+            fail("paged engine stalled (fork)")
+    drained(eng, "fork")
+    indep = serve(mk(), [(np.concatenate([p, np.asarray(prefix, np.int32)]),
+                          n - len(prefix), b)], stagger=False)[0]
+    print(f"fork at position {t_fork} ({t_fork % PAGE_SIZE} lanes of the "
+          f"tail page copied) after {len(prefix)} tokens: parent and child "
+          f"completed, pool drained: ok; child == independent run of prompt "
+          f"+ output (reported, not gated): {list(hc.output) == indep} "
+          f"({sum(x == y for x, y in zip(hc.output, indep))} of {len(indep)} "
+          f"tokens)")
+
+    # preemption: two 512-token requests on a pool too small for both to
+    # grow past their prompts (each needs 33 pages at full length)
+    need = -(-(512 + 16) // PAGE_SIZE)
+    small = 2 * need - 1 + 1                # one page short, plus trash
+    p2 = rng.integers(0, V, 512).astype(np.int32)
+    pre_reqs = [requests[1], (p2, 16, requests[1][2])]
+    eng = mk(n_pages=small)
+    hs = [eng.submit(GenRequest(p, n, budget=b)) for p, n, b in pre_reqs]
+    steps = 0
+    while not all(h.done for h in hs):
+        if eng.step() == 0 or steps > 500:
+            fail("paged engine stalled (preemption)")
+        steps += 1
+    drained(eng, "preemption")
+    if eng.n_preempted < 1:
+        fail(f"preemption: none on a {small}-page pool")
+    alone = [tokens[1], serve(mk(), [pre_reqs[1]], stagger=False)[0]]
+    print(f"preemption: {small}-page pool, {eng.n_preempted} preemption(s), "
+          f"both requests completed, pool drained: ok; each == its "
+          f"uninterrupted run (reported, not gated): "
+          f"{[list(h.output) == a for h, a in zip(hs, alone)]}")
+    check_chunked_prefill_f32(params, rp, spec, dev, requests[2][0])
+    return launches
+
+
+def check_chunked_prefill_f32(params, rp, spec, dev, prompt, n_layers=2,
+                              rel_tol=1e-3):
+    """The chunked paged prefill against the one-shot ring prefill at
+    Qwen2-7B full width, ``n_layers`` layers, f32, budget 0.5: the
+    last-token logits of ``prompt`` must agree within ``rel_tol`` of their
+    largest magnitude (the two paths sum attention and the projections in
+    other orders). Separates rounding from a fault where the bf16 paths'
+    tokens part."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticPolicy
+    from repro_torch.models import paged_cache_init, prefill, \
+        prefill_chunk_step
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=n_layers,
+                              dtype="float32")
+    p32, r32 = _f32_cut(params, rp, n_layers)
+    pol = ElasticPolicy.uniform(0.5, n_heads=cfg.n_heads).to(dev)
+    plen, ps = len(prompt), PAGE_SIZE
+    n_chunks = -(-plen // ps)
+    with torch.no_grad():
+        ring, _ = prefill(p32, r32, {"tokens": torch.as_tensor(
+            prompt[None], device=dev)}, cfg, spec, mode="infer", policy=pol)
+        caches = paged_cache_init(cfg, n_chunks + 1, ps, device=dev)
+        row = torch.arange(n_chunks, dtype=torch.int32, device=dev)
+        for c in range(n_chunks):
+            ck = np.zeros((1, ps), np.int32)
+            ck[0, :min(ps, plen - c * ps)] = prompt[c * ps:(c + 1) * ps]
+            paged, caches = prefill_chunk_step(
+                p32, r32, torch.as_tensor(ck, device=dev), caches, c, row,
+                c * ps, plen, cfg, spec, mode="infer", policy=pol)
+    diff = float((paged - ring).abs().max())
+    scale = float(ring.abs().max())
+    same = int(paged.argmax()) == int(ring.argmax())
+    print(f"chunked paged prefill vs one-shot ring prefill, f32, qwen2-7b "
+          f"width, {n_layers} layers, {plen} tokens, budget 0.5: last-token "
+          f"logits max |diff| {diff:.3e} of max |logit| {scale:.3e} "
+          f"(tolerance {rel_tol:g} of it); same argmax: {same}")
+    if not diff <= rel_tol * scale:
+        fail("the chunked paged prefill disagrees with the ring prefill in "
+             "f32")
 
 
 def check_launches(path, launches):
@@ -1033,16 +1549,85 @@ def check_native_serving(args, dev, device_line):
     return launches
 
 
+def print_ptxas(build, sources=None, tag=""):
+    """ptxas's registers and spills per instantiation, from the build log."""
+    for name, log in build.BUILD_LOG.items():
+        if sources is not None and name not in sources:
+            continue
+        fn = "?"
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "registers" in line or "spill" in line:
+                print(f"  {tag}ptxas {name} {fn}: {line.strip()}")
+
+
+def ab_turn(tree: Path, out: Path) -> None:
+    """One turn of ``--ab``: ``check_decode`` on the ring kernel of the
+    checkout at ``tree`` (its ``src`` first on the path, its kernels built
+    into its own tree), inputs drawn from seed 0; saves the outputs and the
+    kernel's L2-cold times to ``out``."""
+    sys.path.insert(0, str(tree.resolve() / "src"))
+    import torch
+    from repro_torch.kernels import build
+    build.build()
+    print_ptxas(build, ("decode_attention",), f"{tree}: ")
+    torch.manual_seed(0)
+    res = Results()
+    outs = check_decode(res, np.random.default_rng(0), torch.device("cuda"),
+                        28, 4, 128, 1024)
+    torch.save({"outs": {k: o.cpu() for k, o in outs.items()},
+                "ms": res.rows["decode_attention"]["ms"]}, out)
+
+
+def ring_ab(parent: Path) -> int:
+    """``--ab PARENT``: the ring decode kernel of the checkout at PARENT (p)
+    and of this one (c) in turns p c c p, each turn a process of its own
+    (``ab_turn``) on the same seeded inputs (``check_decode``'s at Qwen2-7B
+    heads: bf16, and f32 with a window). Prints the kernel's L2-cold median
+    per turn; fails unless every turn's outputs equal the first's bit for
+    bit."""
+    import shutil
+    import tempfile
+    import torch
+    tmp = Path(tempfile.mkdtemp(prefix="ring_ab_"))
+    turns = [("p", parent), ("c", ROOT), ("c", ROOT), ("p", parent)]
+    try:
+        got = []
+        for i, (_, tree) in enumerate(turns):
+            subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--ab-turn", str(tree), str(tmp / f"{i}.pt")],
+                           check=True)
+            got.append(torch.load(tmp / f"{i}.pt"))
+    finally:
+        shutil.rmtree(tmp)
+    same = all(torch.equal(g["outs"][k], got[0]["outs"][k])
+               for g in got for k in got[0]["outs"])
+    ms = " / ".join(f"{t} {g['ms']:.4f}" for (t, _), g in zip(turns, got))
+    print(f"ring decode_attention, {parent} (p) vs this checkout (c), "
+          f"turns p c c p, L2-cold median ms: {ms}; outputs bit for bit "
+          f"equal in every turn: {same}")
+    return 0 if same else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
                     help="depth of the served Qwen2-7B (width stays full)")
     ap.add_argument("--train-layers", type=int, default=28,
                     help="depth of the trained Qwen2-7B (width stays full)")
-    ap.add_argument("--moe-layers", type=int, default=24,
+    ap.add_argument("--moe-layers", type=int, default=12,
                     help="depth of the served Qwen1.5-MoE-A2.7B (width "
-                         "stays full)")
+                         "stays full; 24 is the model's)")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="pages in the paged serving pool (default the "
+                         "ring-equivalent 4 * 64 + 1)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab", type=Path, metavar="PARENT",
+                    help="run only the ring decode kernel of the checkout at "
+                         "PARENT and of this one in turns (p c c p): outputs "
+                         "bit for bit and L2-cold time")
+    ap.add_argument("--ab-turn", nargs=2, type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1052,6 +1637,11 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ab_turn:
+        ab_turn(*args.ab_turn)
+        return 0
+    if args.ab:
+        return ring_ab(args.ab)
     from repro_torch.configs import get_config
     from repro_torch.core.policy import ElasticSpec
     from repro_torch.kernels import build
@@ -1062,13 +1652,17 @@ def main() -> int:
           f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}")
     t_start = time.perf_counter()
+    phase_s, t_phase = {}, [t_start]
+
+    def done(phase):             # wall time since the previous phase ended
+        now = time.perf_counter()
+        phase_s[phase] = round(now - t_phase[0], 1)
+        t_phase[0] = now
+
     t_build = build.build()
     print(f"kernel build (nvcc sm_90a, {len(build.SOURCES)} sources in "
           f"parallel): {t_build:.1f} s")
-    for name, log in build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    print_ptxas(build)
 
     dev = torch.device("cuda")
     torch.manual_seed(0)
@@ -1081,7 +1675,9 @@ def main() -> int:
     check_fused_mlp(res, dev, cfg.d_model, cfg.d_ff)
     check_fused_mlp_routed(res, rng, dev, cfg.d_model, cfg.d_ff)
     check_decode(res, rng, dev, H, K, Dh, 1024)
+    check_paged_decode(res, rng, dev, H, K, Dh, 1024)
     torch.cuda.synchronize()
+    done("build, kernel checks")
 
     def free():                  # engines, caches and dropped weights
         gc.collect()
@@ -1090,14 +1686,20 @@ def main() -> int:
     spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
                        mha_head_routed=True, lora_rank=1)
     paths = {}
-    paths["serving"], params, rp, requests, teacher = check_serving(
+    paths["serving"], params, rp, requests, teacher, ring = check_serving(
         args, dev, device_line, spec)
     free()
+    done("serving")
+    paths["paged_serving"] = check_paged_serving(
+        args, res, dev, device_line, spec, params, rp, requests, ring)
+    free()
+    done("paged serving")
     check_gradients(params, rp, spec, dev, args.seed)
     free()
     paths["training"] = check_training(args, params, rp, spec, dev,
                                        device_line)
     free()
+    done("gradients, training")
     # moe_gmm is held to its plain version at the calls each expert path
     # made (recorded during the path, replayed after it)
     moefied = moefied_weights(dev, cfg.d_model, cfg.d_ff,
@@ -1110,6 +1712,7 @@ def main() -> int:
     check_moe_gmm(res, dev, "moefied qwen2-7b serving", rec.cases(), moefied,
                   timed=True)
     free()
+    done("expert serving")
     check_gradients(params, rp_e, expert_spec(spec), dev, args.seed)
     free()
     with GmmCalls() as rec:
@@ -1121,6 +1724,7 @@ def main() -> int:
                   moefied, timed=False)
     del params, rp, rp_e         # the Qwen2-7B weights leave the card
     free()
+    done("expert gradients, training")
     with GmmCalls() as rec:
         paths["native_serving"] = check_native_serving(args, dev,
                                                        device_line)
@@ -1129,11 +1733,13 @@ def main() -> int:
     check_moe_gmm(res, dev, "native qwen1.5-moe serving", rec.cases(),
                   native_weights(dev, get_config("qwen2-moe-a2.7b")),
                   timed=False)
+    done("native MoE serving")
     kernels = [dict(name=n, route="cuda", source=SOURCES[n][0],
                     replaces=SOURCES[n][1],
                     launches=sum(p[n] for p in paths.values()),
                     launches_by_path={k: p[n] for k, p in paths.items()},
                     **res.rows[n]) for n in SOURCES]
+    print(f"phase wall times (s): {phase_s}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(device_line)

@@ -10,7 +10,8 @@ names and layouts unchanged, whatever the layer tree holds: a native MoE
 layer's ``mlp`` (``router``, ``wi``/``wg``/``wo`` as ``(E, ...)`` stacks,
 ``shared.{wi,wg,wo}``) and the ``expert`` routers come over like any other
 leaf. A moefied spec adds no base weights (the experts are views of the
-dense MLP).
+dense MLP). Serving state comes over too: a JAX paged KV pool tree
+(``paged_caches_from_numpy``).
 """
 from __future__ import annotations
 
@@ -158,3 +159,14 @@ def train_state_to_numpy(state, cfg, spec=None):
     trees = dict(zip(TRAIN_TREES, (state.router_params, state.opt.m,
                                    state.opt.v)))
     return layered_to_numpy({}, cfg, spec, trees), int(state.opt.step)
+
+
+def paged_caches_from_numpy(tree: dict, cfg, *, device=None) -> dict:
+    """A JAX paged KV cache tree (``repro.models.paged_cache_init``'s
+    ``{"scan": [...], "tail": [...]}``, numpy leaves; scan leaves carry a
+    leading period dimension) as the port's pools ``{"layers": [{"attn":
+    {"kp", "vp", "pvalid"}}, ...]}``, bit for bit. The JAX pool stacks by
+    the layer pattern alone (no elastic spec)."""
+    device = resolve_device(device)
+    _, P, _ = build_pattern(cfg, None)
+    return {"layers": _layers_from(_tree_to_torch(tree, device), P)}

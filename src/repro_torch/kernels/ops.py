@@ -19,7 +19,8 @@ training crosses (``flash_attention``, ``fused_mlp``, ``fused_mlp_routed``,
 ``moe_gmm``) runs inside ``KernelOp``, a ``torch.autograd.Function`` whose
 forward is the kernel and whose backward replays the plain version: the
 counterpart of the JAX package's custom VJPs, which replay its jnp oracles
-(there are no backward kernels to port). ``decode_attention`` serves only.
+(there are no backward kernels to port). ``decode_attention`` and
+``paged_decode_attention`` serve only.
 """
 from __future__ import annotations
 
@@ -28,11 +29,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (_counts, decode_attention_ref,
                                      flash_attention_ref, fused_mlp_ref,
-                                     fused_mlp_routed_ref, moe_gmm_ref)
+                                     fused_mlp_routed_ref, moe_gmm_ref,
+                                     paged_decode_attention_ref)
 
 BACKENDS = ("auto", "cuda", "ref")
 KERNELS = ("flash_attention", "fused_mlp", "fused_mlp_routed",
-           "decode_attention", "moe_gmm")
+           "decode_attention", "moe_gmm", "paged_decode_attention")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # rt::DT_F32 / rt::DT_BF16
 _launches = {name: 0 for name in KERNELS}
 
@@ -409,4 +411,49 @@ def decode_attention(q, k, v, kv_pos, t, kv_valid=None, kscale=None,
             pos.data_ptr(), tv.data_ptr(), valid_ptr, B, L, H, K,
             int(window or 0), float(Dh ** -0.5), _stream(q))
     _check(rc, "decode_attention")
+    return out
+
+
+# -------------------------- paged decode attention ---------------------------
+#
+# Replaces kernels/paged_decode_attention.py::paged_decode_attention (TPU).
+# The paged mode of csrc/decode_attention.cu: the ring kernel's body with
+# the key addressed through the page table and masked by its implicit
+# position and pvalid. It serves paged decode and each paged prefill chunk
+# (the chunk's C queries as C rows of one table row). Bound on the H100:
+# bytes (the attended K/V rows).
+
+def paged_decode_attention(q, kp, vp, table, t, pvalid, kscale=None,
+                           vscale=None, *, backend=None):
+    """q: (B,1,H,Dh); kp, vp: (N, ps, K, Dh) page pool; table: (B, P)
+    page-table rows (-1 = unused); t: (B,) per-slot positions; pvalid:
+    (N, ps) bool. Returns (B,1,H,Dh); slots with no attendable key get
+    zeros."""
+    if kscale is not None or vscale is not None:
+        raise NotImplementedError(QUANT_TODO)
+    if not use_kernel(backend, q):
+        return paged_decode_attention_ref(q, kp, vp, table, t, pvalid)
+    B, Sq, H, Dh = q.shape
+    N, ps, K = kp.shape[0], kp.shape[1], kp.shape[2]
+    P = table.shape[-1]
+    if Sq != 1 or Dh not in (32, 64, 128) or H % K or kp.shape != vp.shape \
+            or table.shape != (B, P) or pvalid.shape != (N, ps):
+        raise ValueError(f"paged_decode_attention kernel: unsupported shapes "
+                         f"q {tuple(q.shape)}, kp {tuple(kp.shape)}, table "
+                         f"{tuple(table.shape)}, pvalid "
+                         f"{tuple(pvalid.shape)}")
+    dt = _dtype_code(q, kp, vp)
+    q, kp, vp = q.contiguous(), kp.contiguous(), vp.contiguous()
+    tbl = table.to(device=q.device, dtype=torch.int32).contiguous()
+    tv = torch.as_tensor(t, device=q.device).to(torch.int32).reshape(-1)
+    tv = tv.expand(B).contiguous()
+    pv = pvalid.to(device=q.device, dtype=torch.bool).contiguous()
+    out = torch.empty_like(q)
+    lib = build.load("decode_attention")
+    with torch.cuda.device(q.device):
+        rc = lib.paged_decode_attention_launch(
+            dt, Dh, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            out.data_ptr(), tbl.data_ptr(), tv.data_ptr(), pv.data_ptr(), B,
+            P, ps, H, K, float(Dh ** -0.5), _stream(q))
+    _check(rc, "paged_decode_attention")
     return out

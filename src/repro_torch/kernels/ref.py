@@ -103,6 +103,44 @@ def decode_attention_ref(q, k, v, kv_pos, t, *, window=0, kv_valid=None,
     return ctx.to(q.dtype)
 
 
+def paged_decode_attention_ref(q, kp, vp, table, t, pvalid, *,
+                               sm_scale=None):
+    """Paged-pool decode attention. q: (B,1,H,Dh); kp, vp: (N, ps, K, Dh)
+    global page pool; table: (B, P) int page-table rows (-1 = unused); t:
+    (B,) per-slot decode positions; pvalid: (N, ps) bool routing validity.
+    Gathers each slot's pages in table order (key j of slot b at page
+    ``table[b, j // ps]``, lane ``j % ps``) and masks by the implicit
+    position j: attendable iff the entry is >= 0, j <= t[b] and the lane
+    is valid. Rows with no attendable key are exact zeros."""
+    B, Sq, H, Dh = q.shape
+    ps, K = kp.shape[1], kp.shape[2]
+    P = table.shape[1]
+    G = H // K
+    sm_scale = Dh ** -0.5 if sm_scale is None else sm_scale
+    table = torch.as_tensor(table, device=q.device).to(torch.int64)
+    t = torch.as_tensor(t, device=q.device).to(torch.int64).reshape(-1)
+    t = t.expand(B)
+    pid = table.clamp(min=0)                                  # (B, P)
+    k = kp[pid].reshape(B, P * ps, K, Dh).float()             # gather pages
+    v = vp[pid].reshape(B, P * ps, K, Dh).float()
+    pos = torch.arange(P * ps, device=q.device)               # implicit
+    mask = ((table[:, :, None] >= 0) & pvalid.bool()[pid]).reshape(B, P * ps)
+    mask = mask & (pos[None, :] <= t[:, None])
+    qg = q.reshape(B, Sq, K, G, Dh).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k) * sm_scale
+    s = torch.where(mask[:, None, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    a = torch.softmax(s, dim=-1)
+    # masked rows of v are zeroed before the product (0 * NaN guard)
+    vz = torch.where(mask[:, :, None, None], v,
+                     torch.zeros((), device=v.device))
+    ctx = torch.einsum("bkgqs,bskd->bqkgd", a, vz)
+    ctx = ctx.reshape(B, Sq, H, Dh)
+    ctx = torch.where(mask.any(-1)[:, None, None, None], ctx,
+                      torch.zeros_like(ctx))
+    return ctx.to(q.dtype)
+
+
 def gelu_tanh(x):
     """The tanh-approximate GELU (the JAX default, not torch's exact one)."""
     return F.gelu(x, approximate="tanh")

@@ -1,9 +1,10 @@
-"""Grouped-query self-attention with RoPE, ring KV caches, and the
-ElastiFormer hooks (head-routing weights, LoRA on q/v).
+"""Grouped-query self-attention with RoPE, ring and paged KV caches, and
+the ElastiFormer hooks (head-routing weights, LoRA on q/v).
 
-Prefill runs the flash-attention kernel and decode the ring-cache decode
-kernel (``kernels/ops.py``: the CUDA kernels on the card, their plain
-versions on the CPU). Both keep f32 probabilities where the JAX package's
+Prefill runs the flash-attention kernel, ring decode the ring-cache decode
+kernel, and paged decode and paged prefill chunks the paged decode kernel
+(``kernels/ops.py``: the CUDA kernels on the card, their plain versions on
+the CPU). Both keep f32 probabilities where the JAX package's
 ``sdpa`` twin casts them to v's dtype; the port follows the kernels. Head
 padding (``cfg.n_heads_p != cfg.n_heads``) waits for the multi-GPU slice.
 """
@@ -168,3 +169,97 @@ def attn_cache_init(cfg, batch: int, max_seq: int, window: int = 0,
         "valid": torch.zeros((batch, L), dtype=torch.bool, device=device),
         "pos": torch.full((batch, L), -1, dtype=torch.int32, device=device),
     }
+
+
+# ------------------------------ paged KV pool --------------------------------
+#
+# The block-paged twin of the ring cache (runtime/pagedkv.py): one GLOBAL
+# per-layer pool of (n_pages, page_size, K, Dh) pages shared by every
+# serving slot, addressed through per-slot int32 page-table rows. Position
+# t of slot b lives at (table[b, t // page_size], t % page_size): the
+# position is implicit in the table layout, so there is no `pos` array;
+# `pvalid` carries the ElastiFormer token-gate keep decision per lane.
+
+
+def attn_paged_cache_init(cfg, n_pages: int, page_size: int,
+                          device=None) -> dict:
+    """One layer's slice of the global page pool, in the model's dtype."""
+    K, Dh, dt = cfg.n_kv_heads, cfg.d_head, dtype_of(cfg)
+    return {
+        "kp": torch.zeros((n_pages, page_size, K, Dh), dtype=dt,
+                          device=device),
+        "vp": torch.zeros((n_pages, page_size, K, Dh), dtype=dt,
+                          device=device),
+        "pvalid": torch.zeros((n_pages, page_size), dtype=torch.bool,
+                              device=device),
+    }
+
+
+def attn_decode_paged(p, x, cache, t, table, trash, *, cfg,
+                      head_weights=None, lora=None,
+                      write: Optional[torch.Tensor] = None, backend=None):
+    """One decode step over the paged pool. x: (B,1,D); cache: {'kp','vp':
+    (N, ps, K, Dh), 'pvalid': (N, ps)}; t: (B,) int32 per-slot positions;
+    table: (B, P) int32 page-table rows (-1 = unused entry; the host backs
+    entry t // ps of every ACTIVE slot); trash: (B,) int32 per-slot trash
+    page ids. Each row writes its (page, lane) IN PLACE; rows whose entry
+    is -1 (inactive slots) write to their trash page, so the write never
+    lands on a live page. ``write``: (B,) bool token gate — a skipped token
+    keeps the old k/v and clears the lane's ``pvalid``. Returns
+    (out (B,1,D), cache)."""
+    B = x.shape[0]
+    ps = cache["kp"].shape[1]
+    P = table.shape[1]
+    t = torch.as_tensor(t, device=x.device).to(torch.int32).reshape(-1)
+    t = t.expand(B)
+    pos = t[:, None]
+    q = _project_q(p, x, pos, cfg, lora)
+    k_new, v_new = _project_kv(p, x, pos, cfg, lora)
+    wr = torch.ones((B,), dtype=torch.bool, device=x.device) \
+        if write is None else write
+    # an inactive slot's stale t may point past the table: clamp (its row
+    # is all -1, so it lands on the trash page either way)
+    ent = (t // ps).long().clamp(max=P - 1)
+    entries = table.gather(1, ent[:, None])[:, 0]
+    pages = torch.where(entries >= 0, entries, trash).long()
+    offs = torch.remainder(t, ps).long()
+    for name, new in (("kp", k_new), ("vp", v_new)):
+        c = cache[name]
+        old = c[pages, offs]                                  # (B, K, Dh)
+        c[pages, offs] = torch.where(wr[:, None, None], new[:, 0].to(c.dtype),
+                                     old)
+    cache["pvalid"][pages, offs] = wr
+    ctx = OPS.paged_decode_attention(q, cache["kp"], cache["vp"], table, t,
+                                     cache["pvalid"], backend=backend)
+    return _out_proj(p, ctx, head_weights), cache
+
+
+def attn_chunk(p, x, cache, write_page: int, table_row, pos0: int,
+               plen: int, *, cfg, keep=None, head_weights=None, lora=None,
+               backend=None):
+    """One CHUNK of a paged prefill, shaped like a decode: x is (1, C, D)
+    with C == page_size, covering absolute positions [pos0, pos0 + C). The
+    chunk's K/V fill exactly ONE page (``write_page``; the trash page when
+    this chunk's prefix page is shared and the chunk only recomputes its
+    queries), in place; then each of the C queries attends over the pages
+    of ``table_row`` (P,) up to its own position — C rows of the paged
+    decode op with the same table row. ``keep``: (1, C) token gate; lanes
+    at positions >= plen (chunk padding) are never marked valid. Returns
+    (out (1, C, D), cache)."""
+    B, C, _ = x.shape
+    H, Dh = cfg.n_heads, cfg.d_head
+    positions = pos0 + torch.arange(C, dtype=torch.int32,
+                                    device=x.device)[None, :]   # (1, C)
+    q = _project_q(p, x, positions, cfg, lora)
+    k_new, v_new = _project_kv(p, x, positions, cfg, lora)
+    wr = torch.ones((B, C), dtype=torch.bool, device=x.device) \
+        if keep is None else keep
+    wr = wr & (positions < plen)
+    cache["kp"][write_page] = k_new[0].to(cache["kp"].dtype)
+    cache["vp"][write_page] = v_new[0].to(cache["vp"].dtype)
+    cache["pvalid"][write_page] = wr[0]
+    table = table_row.reshape(1, -1).expand(C, -1)
+    ctx = OPS.paged_decode_attention(
+        q.reshape(C, 1, H, Dh), cache["kp"], cache["vp"], table,
+        positions[0], cache["pvalid"], backend=backend)
+    return _out_proj(p, ctx.reshape(B, C, H, Dh), head_weights), cache

@@ -425,8 +425,13 @@ def _decode_token_gate(rp, name, h, cap, pol):
 
 
 def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
-                 mode: str, elastic_on: bool, window: int = 0):
-    """One token per row. x: (B,1,D); the ring cache is updated in place.
+                 mode: str, elastic_on: bool, window: int = 0, table=None,
+                 trash=None):
+    """One token per row. x: (B,1,D); the cache is updated in place.
+    ``table``/``trash``: the paged-KV operands (the (B, P) page-table rows
+    and (B,) per-slot trash pages, see ``attention.attn_decode_paged``);
+    given them, the cache is a page pool ({'kp','vp','pvalid'}) and
+    attention appends through the page table instead of the ring.
     Returns (x', cache)."""
     _only_attn(kind)
     _check_spec(spec)
@@ -444,9 +449,14 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
             if spec.mha_token_routed else None
         lora = _lora_gate(lora, dcap, pol.student)
     hw = _head_weights(rp, h, spec, pol, cfg, []) if routed else None
-    y, cache["attn"] = A.attn_decode(p["attn"], h, cache["attn"], t, cfg=cfg,
-                                     window=window, head_weights=hw,
-                                     lora=lora, write=keep, backend=backend)
+    if table is not None:
+        y, cache["attn"] = A.attn_decode_paged(
+            p["attn"], h, cache["attn"], t, table, trash, cfg=cfg,
+            head_weights=hw, lora=lora, write=keep, backend=backend)
+    else:
+        y, cache["attn"] = A.attn_decode(
+            p["attn"], h, cache["attn"], t, cfg=cfg, window=window,
+            head_weights=hw, lora=lora, write=keep, backend=backend)
     if keep is not None:
         y = y * w1[:, None, None].to(y.dtype)
     x = x + y
@@ -473,6 +483,72 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
     if keep2 is not None:
         y = y * w2[:, None, None].to(y.dtype)
     return x + y, cache
+
+
+def block_chunk(kind: str, p, rp, x, cache, write_page: int, table_row,
+                pos0: int, plen: int, *, cfg, spec, pol=None, mode: str,
+                elastic_on: bool):
+    """One CHUNK of a paged prefill: x is (1, C, D) with C == page_size,
+    covering absolute positions [pos0, pos0 + C) of a plen-token prompt
+    (the last chunk arrives zero-padded). The inference-threshold branch of
+    ``block_apply``: the token gates, head routing and LoRA gating are all
+    per token, so streaming a prompt through this chunk by chunk takes the
+    one-shot prefill's keep decisions; K/V go into ONE pool page
+    (``write_page``) and attention reads through ``table_row`` (see
+    ``attention.attn_chunk``). Paged serving runs dense MLPs only (the
+    engine validates it). Returns (x', cache)."""
+    if mode not in ("infer", "base"):
+        raise ValueError(f"block_chunk serves infer/base modes, got {mode!r}")
+    _only_attn(kind)
+    _check_spec(spec)
+    routed = elastic_on and mode != "base" and rp is not None
+    backend = spec.kernel_backend if spec is not None else None
+    positions = pos0 + torch.arange(x.shape[1], dtype=torch.int32,
+                                    device=x.device)              # (C,)
+
+    cap_mha = cap_mlp = None
+    if routed and spec is not None and rp:
+        if spec.mha_token_routed and "tok_mixer" in rp:
+            cap_mha = R.gate_capacity(pol.mha_token_capacity, pol.student)
+        if spec.mlp_token_routed and "tok_mlp" in rp:
+            cap_mlp = R.gate_capacity(pol.mlp_token_capacity, pol.student)
+
+    # ---- attention (one page written, the table row attended) ----
+    h = norm_apply(p["norm1"], x, cfg.norm)
+    lora = rp.get("lora") if routed else None
+    lora = _lora_gate(lora, cap_mha,
+                      pol.student if (routed and pol is not None) else None)
+    hw = _head_weights(rp, h, spec, pol, cfg, []) if routed else None
+    keep, wtok = None, None
+    if cap_mha is not None:
+        logits = R.token_logits(rp["tok_mixer"], h)
+        keep, wtok = R.token_gate(logits, torch.sigmoid(logits), cap_mha,
+                                  mode, theta=pol.theta, mxu=True)
+    y, cache["attn"] = A.attn_chunk(
+        p["attn"], h, cache["attn"], write_page, table_row, pos0, plen,
+        cfg=cfg, keep=keep, head_weights=hw, lora=lora, backend=backend)
+    if wtok is not None:
+        y = y * wtok[..., None].to(y.dtype)
+    x = x + y
+
+    # ---- MLP (dense, per-token threshold routing) ----
+    h = norm_apply(p["norm2"], x, cfg.norm)
+    f = _mlp_fn(p, rp, cfg, spec, pol, elastic_on, mode, [], backend)
+    if cap_mlp is None:
+        delta = f(h, positions)
+    else:
+        delta, _ = R.route_tokens(rp["tok_mlp"], h, f, cap_mlp, mode,
+                                  positions=positions, theta=pol.theta)
+    return x + delta, cache
+
+
+def block_paged_cache_init(kind: str, cfg, n_pages: int, page_size: int,
+                           device=None) -> dict:
+    """Paged twin of ``block_cache_init``: one layer's slice of the global
+    page pool."""
+    _only_attn(kind)
+    return {"attn": A.attn_paged_cache_init(cfg, n_pages, page_size,
+                                            device=device)}
 
 
 def cache_row_insert(full: dict, row: dict, slot: int) -> None:

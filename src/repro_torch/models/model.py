@@ -1,5 +1,6 @@
 """Model assembly: embedding, the layer stack, LM head; prefill and ring
-decode; ElastiFormer router attachment.
+decode, paged decode and chunked paged prefill; ElastiFormer router
+attachment.
 
 Params are plain dicts of tensors with the JAX package's leaf names and
 layouts; the layers are a Python list (``params["layers"][i]``) that a loop
@@ -22,7 +23,8 @@ from repro_torch.core.policy import as_spec_policy
 from repro_torch.device import resolve_device
 from repro_torch.core.routing import RouteAux
 from repro_torch.models.blocks import (block_apply, block_cache_init,
-                                       block_decode, block_init,
+                                       block_chunk, block_decode, block_init,
+                                       block_paged_cache_init,
                                        block_router_init, cache_row_insert)
 from repro_torch.models.layers import dense_init, dtype_of, norm_apply, norm_init
 
@@ -226,10 +228,13 @@ def prefill_into_slot(params, rparams, batch, caches, slot: int, cfg,
 
 
 def decode_step(params, rparams, token, caches, t, cfg, ecfg=None,
-                mode: str = "infer", policy=None):
+                mode: str = "infer", policy=None, table=None, trash=None):
     """One decode step over the slot array. token: (B,1) int; t: (B,) int32
-    per-row positions (or a scalar). The ring caches are updated in place.
-    Returns (logits (B,V), caches)."""
+    per-row positions (or a scalar). The caches are updated in place.
+    ``table``/``trash``: paged-KV mode, the (B, P) page-table rows and (B,)
+    per-slot trash pages; one table serves every layer (each layer's pool
+    slice is indexed with the same page ids). Returns (logits (B,V),
+    caches)."""
     spec, pol = as_spec_policy(ecfg, policy)
     x = _embed(params, token)
     has_rp = rparams is not None and mode != "base"
@@ -238,6 +243,44 @@ def decode_step(params, rparams, token, caches, t, cfg, ecfg=None,
             ent.kind, params["layers"][i],
             rparams["layers"][i] if has_rp else None, x,
             caches["layers"][i], t, cfg=cfg, spec=spec, pol=pol, mode=mode,
-            elastic_on=ent.elastic, window=ent.window)
+            elastic_on=ent.elastic, window=ent.window, table=table,
+            trash=trash)
     x = norm_apply(params["final_norm"], x[:, -1], cfg.norm)
+    return _logits(params, cfg, x), caches
+
+
+# --------------------------- paged serving -----------------------------------
+
+def paged_cache_init(cfg, n_pages: int, page_size: int, device=None) -> dict:
+    """Paged twin of ``cache_init``: every layer's slice of the GLOBAL page
+    pool, ``{"layers": [{"attn": {"kp", "vp", "pvalid"}}, ...]}``."""
+    device = resolve_device(device)
+    return {"layers": [block_paged_cache_init(k, cfg, n_pages, page_size,
+                                              device=device)
+                       for k in cfg.layer_kinds]}
+
+
+def prefill_chunk_step(params, rparams, tokens, caches, write_page: int,
+                       table_row, pos0: int, plen: int, cfg, ecfg=None,
+                       mode: str = "infer", policy=None):
+    """One CHUNK of a paged prefill through the whole stack: tokens is
+    (1, C) int with C == page_size, zero-padded past ``plen``;
+    ``write_page`` is the pool page this chunk's K/V land in at EVERY layer
+    (the same id in each layer's pool slice); ``table_row`` (P,) int32 is
+    the slot's page-table row (entries up to this chunk present); the
+    chunk covers positions [pos0, pos0 + C). Chaining ceil(plen / C) calls
+    prefills any prompt length with the same shapes. The pools are updated
+    in place. Returns (logits (1, V) at the chunk's LAST REAL position, and
+    the caches)."""
+    spec, pol = as_spec_policy(ecfg, policy)
+    x = _embed(params, tokens)
+    has_rp = rparams is not None and mode != "base"
+    for i, ent in enumerate(layer_entries(cfg, spec)):
+        x, _ = block_chunk(
+            ent.kind, params["layers"][i],
+            rparams["layers"][i] if has_rp else None, x,
+            caches["layers"][i], write_page, table_row, pos0, plen, cfg=cfg,
+            spec=spec, pol=pol, mode=mode, elastic_on=ent.elastic)
+    lidx = min(max(plen - 1 - pos0, 0), x.shape[1] - 1)
+    x = norm_apply(params["final_norm"], x[:, lidx], cfg.norm)
     return _logits(params, cfg, x), caches

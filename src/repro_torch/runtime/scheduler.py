@@ -17,12 +17,14 @@ host-side bookkeeping around that array:
   full-budget row per slot" (admission limited only by free slots).
 
 This is the single-device, single-class subset of the JAX package's
-``runtime/scheduler.py`` (same admission order and packing), copied so that
-the port depends on nothing of that package. Replica sharding, tenant
-classes, deadlines, shedding and repricing arrive with the mesh, paged and
-SLO-controller slices (ROADMAP Queue A). The scheduler imports no array
-library; the engine calls ``admit()`` / ``free()`` / ``tick()`` around its
-steps.
+``runtime/scheduler.py`` (same admission order and packing, the paged
+engine's ``page_check`` and ``requeue_front`` included), copied so that the
+port depends on nothing of that package. It has one replica: the replica
+helpers (``replica_of``, ``free_slots_in``) exist for the paged engine's
+calls. Replica sharding, tenant classes, deadlines, shedding and repricing
+arrive with the mesh and SLO-controller slices (ROADMAP Queue A). The
+scheduler imports no array library; the engine calls ``admit()`` /
+``free()`` / ``tick()`` around its steps.
 """
 from __future__ import annotations
 
@@ -143,6 +145,14 @@ class SlotScheduler:
         handle.status = QUEUED
         self._queue.append((handle, max(float(cost), MIN_COST)))
 
+    def requeue_front(self, handle: RequestHandle, cost: float = 1.0):
+        """Put a PREEMPTED request back at the head of the queue (it was
+        admitted first; preemption by page pressure must not also cost it
+        its FIFO position)."""
+        handle.status = QUEUED
+        handle.slot = None
+        self._queue.appendleft((handle, max(float(cost), MIN_COST)))
+
     def drop_queued(self, handle: RequestHandle) -> bool:
         """Remove a still-queued handle; True if it was found."""
         for i, (h, _) in enumerate(self._queue):
@@ -166,9 +176,24 @@ class SlotScheduler:
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
 
-    def admit(self) -> List[Tuple[int, RequestHandle]]:
+    # ---- the replica axis (one replica) ----
+    @property
+    def slots_per_replica(self) -> int:
+        return self.n_slots
+
+    def replica_of(self, slot: int) -> int:
+        return slot // self.slots_per_replica
+
+    def free_slots_in(self, replica: int) -> List[int]:
+        return self.free_slots() if replica == 0 else []
+
+    def admit(self, page_check=None) -> List[Tuple[int, RequestHandle]]:
         """Pop queued requests into free slots under the FLOP budget;
-        returns [(slot, handle)] for the engine to prefill."""
+        returns [(slot, handle)] for the engine to prefill.
+        ``page_check(handle, replica) -> bool`` (optional) is the paged
+        engine's joint-packing hook: the head is admitted only when the
+        replica also has the free KV pages its prompt needs. A head that
+        cannot get its pages waits, and nothing jumps it."""
         out: List[Tuple[int, RequestHandle]] = []
         used = self.used_cost
         while self._queue:
@@ -176,6 +201,8 @@ class SlotScheduler:
             if not free:
                 break
             handle, cost = self._queue[0]
+            if page_check is not None and not page_check(handle, 0):
+                break                       # wait for page frees
             if used + cost > self.flop_budget + 1e-9 and self.active:
                 break                       # wait for running work to drain
             self._queue.popleft()

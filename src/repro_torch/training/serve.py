@@ -1,4 +1,5 @@
-"""Continuous-batching greedy serving over the port's ring KV cache.
+"""Continuous-batching greedy serving over the port's ring or paged KV
+cache.
 
     engine = ServingEngine(params, rp, cfg, spec, mode="infer")
     h = engine.submit(GenRequest(prompt, 64, budget=0.5))
@@ -15,6 +16,16 @@ per-step FLOP budget (a request costs its budget fraction). Budgets,
 slots and positions are tensor arguments, so every decode step has the same
 shapes and dtypes whatever the budget mix.
 
+``kv_layout="paged"`` (``runtime/pagedkv.py``) replaces the ring's
+``max_seq`` reservation per slot with a global pool of ``page_size``-token
+pages and a per-slot page table: a prompt is prefilled in chunks of one
+page, full prompt pages are shared between requests with the same prefix
+(refcounted, namespaced by mode, budget, theta and KV dtype), ``fork``
+copies only the partial tail page, and when the pool runs dry the
+latest-admitted slot is preempted and re-queued at the front as a
+continuation. The (B, pages_per_slot) table and the (B,) trash pages are
+device tensors built from the host's numpy mirror each step.
+
 Decode runs the ElastiFormer threshold path (§B.1). This slice samples
 greedily (exact argmax); ``temperature > 0`` needs the JAX package's
 threefry sample stream and raises until it is ported.
@@ -22,6 +33,7 @@ threefry sample stream and raises until it is ported.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import List, Optional
 
@@ -30,7 +42,11 @@ import torch
 
 from repro_torch.core.policy import ElasticPolicy, as_spec_policy, solve_budget
 from repro_torch.device import resolve_device
-from repro_torch.models.model import cache_init, decode_step, prefill_into_slot
+from repro_torch.models.model import (cache_init, decode_step,
+                                     paged_cache_init, prefill_chunk_step,
+                                     prefill_into_slot)
+from repro_torch.runtime.pagedkv import (PagePool, copy_page_in_tree,
+                                        n_pages_for, prefix_keys)
 from repro_torch.runtime.scheduler import RequestHandle, SlotScheduler
 
 
@@ -61,8 +77,11 @@ class ServingEngine:
     go through the roofline budget solver and are spliced into the live
     (B,)-leaf policy at admission. ``step_flop_budget``: per-step FLOP
     budget for admission packing, in full-budget rows (None = limited by
-    slots only). ``device``: None = the CUDA card (raises without one);
-    ``"cpu"`` runs on the CPU. The params must already live there.
+    slots only). ``kv_layout``: ``"ring"`` or ``"paged"`` (``page_size``
+    tokens per page, ``n_pages`` pages in the pool, default the
+    ring-equivalent ``batch_size * ceil(max_seq / page_size) + 1`` with
+    the trash page). ``device``: None = the CUDA card (raises without
+    one); ``"cpu"`` runs on the CPU. The params must already live there.
     """
 
     def __init__(self, params, router_params, cfg, elastic=None,
@@ -70,12 +89,20 @@ class ServingEngine:
                  max_seq: int = 256, default_budget: Optional[float] = None,
                  theta: float = 0.5, eos_id: Optional[int] = None,
                  step_flop_budget: Optional[float] = None, mesh=None,
-                 kv_layout: str = "ring", kv_dtype: str = "fp32",
+                 kv_layout: str = "ring", page_size: int = 16,
+                 n_pages: Optional[int] = None, kv_dtype: str = "fp32",
                  weight_dtype: str = "fp32", controller=None, device=None):
         if mesh is not None:
             raise _todo("SPMD serving (mesh=)", "item 11")
-        if kv_layout != "ring":
-            raise _todo(f"kv_layout={kv_layout!r}", "item 8")
+        if kv_layout not in ("ring", "paged"):
+            raise ValueError(f"kv_layout must be 'ring' or 'paged', "
+                             f"got {kv_layout!r}")
+        self.cfg, self.mode = cfg, mode
+        self.spec, self._base_policy = as_spec_policy(elastic)
+        self.kv_layout, self.page_size = kv_layout, int(page_size)
+        self.kv_dtype = kv_dtype
+        if kv_layout == "paged":
+            self._validate_paged(mode)
         if (kv_dtype, weight_dtype) != ("fp32", "fp32"):
             raise _todo("quantized KV caches and weights", "item 9")
         if controller is not None:
@@ -87,8 +114,6 @@ class ServingEngine:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine on {self.device}")
         self.params, self.rp = params, router_params
-        self.cfg, self.mode = cfg, mode
-        self.spec, self._base_policy = as_spec_policy(elastic)
         if self._base_policy is not None:
             self._base_policy = self._base_policy.replace(theta=theta)
         self.B, self.max_seq = batch_size, max_seq
@@ -99,18 +124,82 @@ class ServingEngine:
 
         B = batch_size
         self.scheduler = SlotScheduler(B, step_flop_budget)
-        self._caches = cache_init(cfg, B, max_seq, device=self.device)
+        self.pool: Optional[PagePool] = None
+        if kv_layout == "paged":
+            self.pages_per_slot = n_pages_for(max_seq, self.page_size)
+            if n_pages is None:
+                # ring-equivalent memory: every slot at full length, plus
+                # the trash page for masked writes
+                n_pages = B * self.pages_per_slot + 1
+            self.pool = PagePool(n_pages, self.page_size)
+            self._caches = paged_cache_init(cfg, n_pages, self.page_size,
+                                            device=self.device)
+            # the host's page table, mirrored to the device every step
+            self._table = np.full((B, self.pages_per_slot), -1, np.int32)
+            self._trash = np.array(
+                [self.pool.trash_page(self.scheduler.replica_of(s))
+                 for s in range(B)], np.int32)
+            self._admit_counter = itertools.count()
+            self._admit_seq = np.full((B,), -1, np.int64)
+        else:
+            self._caches = cache_init(cfg, B, max_seq, device=self.device)
         self._live_policy = (self._base_policy.broadcast_rows(B).to(
             self.device) if self._use_policy else None)
         self._tok = torch.zeros((B,), dtype=torch.int64, device=self.device)
         self._t = np.zeros((B,), np.int32)        # per-slot decode position
         self._active = np.zeros((B,), bool)
         self._ngen = np.zeros((B,), np.int64)
+        self.n_preempted = 0                      # paged: evictions so far
         # host wall time of admissions (prefill) and decode steps; both end
         # in a device-to-host copy, which waits for the device
         self.timing = {"prefill_s": 0.0, "prefill_tokens": 0,
                        "decode_s": 0.0, "decode_steps": 0,
                        "decode_tokens": 0}
+
+    # ---------------------------- paged KV mode ------------------------------
+
+    def _validate_paged(self, mode: str) -> None:
+        """The paged layout serves global self-attention layers (the port's
+        only kind) with dense MLPs: windows would need page eviction, and
+        expert dispatch sizes its capacity buffers by the prefill chunking
+        (chunked and one-shot prefills could drop different tokens)."""
+        if mode not in ("infer", "base"):
+            raise ValueError(f"kv_layout='paged' serves infer/base modes, "
+                             f"got mode={mode!r}")
+        if any(w and w > 0 for w in self.cfg.layer_windows):
+            raise ValueError("kv_layout='paged' does not support sliding-"
+                             "window layers")
+        if self.cfg.moe is not None or (self.spec is not None
+                                        and self.spec.mlp_n_experts):
+            raise ValueError("kv_layout='paged' requires a dense MLP (no "
+                             "MoE / moefied experts): expert-capacity "
+                             "buffers depend on the prefill chunking")
+        if self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+
+    def _budget_of(self, req: GenRequest) -> Optional[float]:
+        """A request's serving budget: its own, or the engine default."""
+        return req.budget if req.budget is not None else self.default_budget
+
+    def _prefix_namespace(self, req: GenRequest) -> tuple:
+        """Prefix-sharing hash namespace: pages hold post-gate K/V, so two
+        requests may share a page only when every knob that shapes the
+        written values agrees — mode, budget, theta and the KV storage
+        dtype."""
+        b = self._budget_of(req)
+        return (self.mode, None if b is None else round(float(b), 6),
+                round(float(self.theta), 6), self.kv_dtype)
+
+    def paged_stats(self) -> dict:
+        """Pool stats plus live-token page efficiency (host side only)."""
+        st = self.pool.stats()
+        live_tok = int(self._t[self._active].sum())
+        held = int(sum((self._table[s] >= 0).sum()
+                       for s in range(self.B) if self._active[s]))
+        st["live_tokens"] = live_tok
+        st["pages_held_by_active"] = held
+        st["pages_per_token"] = (held / live_tok) if live_tok else 0.0
+        return st
 
     # ---- budgets -> per-request policy rows ----
     def _policy_for(self, budget: Optional[float]) -> Optional[ElasticPolicy]:
@@ -139,6 +228,13 @@ class ServingEngine:
         b = request.budget
         if b is not None and not 0.0 < b <= 1.0:
             raise ValueError(f"budget must be in (0, 1], got {b}")
+        if self.kv_layout == "paged":
+            need = n_pages_for(prompt.size + request.max_new_tokens,
+                               self.page_size)
+            if need > self.pool.usable_per_replica:
+                raise ValueError(
+                    f"request needs {need} pages but the pool only has "
+                    f"{self.pool.usable_per_replica} usable pages")
         if request.temperature > 0:
             raise _todo("sampling at temperature > 0 (the threefry sample "
                         "stream)", "item 13")
@@ -153,6 +249,8 @@ class ServingEngine:
         if handle.done:
             return False
         if handle.status == "running" and handle.slot is not None:
+            if self.kv_layout == "paged":
+                self._free_slot_pages(handle.slot)
             self.scheduler.free(handle.slot)
             self._active[handle.slot] = False
         else:
@@ -175,7 +273,7 @@ class ServingEngine:
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         t0 = time.perf_counter()
         tokens = torch.as_tensor(prompt[None], device=self.device)
-        b_eff = req.budget if req.budget is not None else self.default_budget
+        b_eff = self._budget_of(req)
         logits, self._caches, self._live_policy = prefill_into_slot(
             self.params, self.rp, {"tokens": tokens}, self._caches, slot,
             self.cfg, self.spec, mode=self.mode, max_cache_len=self.max_seq,
@@ -191,6 +289,144 @@ class ServingEngine:
         handle.budget_served = min(1.0, 1.0 if b_eff is None else float(b_eff))
         self._append(slot, handle, tok0)
 
+    # ----------------------- paged admission / decode ------------------------
+
+    def _page_check(self, handle: RequestHandle, replica: int) -> bool:
+        """Admission hook of ``SlotScheduler.admit``: the head is admitted
+        only when the freelist covers the prompt's full page count
+        (conservative: prefix sharing can only reduce it)."""
+        plen = np.asarray(handle.request.prompt).size
+        return self.pool.can_alloc(replica, n_pages_for(plen, self.page_size))
+
+    def _free_slot_pages(self, slot: int) -> None:
+        """Return a slot's page-table row to the pool (refcounted: shared
+        prefix pages survive until their last holder frees) and clear it."""
+        pages = [int(p) for p in self._table[slot] if p >= 0]
+        if pages:
+            self.pool.free(pages)
+        self._table[slot] = -1
+
+    def _admit_one_paged(self, slot: int, handle: RequestHandle) -> bool:
+        """Paged admission: match shared prefix pages, allocate the rest,
+        then stream the prompt through ``prefill_chunk_step``, one page of
+        tokens per call. Fully shared chunks are skipped — except the FINAL
+        chunk, which always runs (its activations give the first token);
+        when that chunk's page is shared, its write goes to the trash page
+        while attention reads the real shared page. Returns False when the
+        pool cannot back the prompt right now (the caller re-queues)."""
+        req = handle.request
+        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        plen, ps = prompt.size, self.page_size
+        n_chunks = n_pages_for(plen, ps)
+        n_full = plen // ps                  # full pages eligible to share
+        r = self.scheduler.replica_of(slot)
+        keys = prefix_keys(tuple(int(x) for x in prompt), ps,
+                           namespace=self._prefix_namespace(req))
+        row = np.full(self.pages_per_slot, -1, np.int32)
+        matched = 0
+        for i in range(n_full):
+            pg = self.pool.lookup_prefix(keys[i], r)
+            if pg is None:
+                break
+            self.pool.incref(pg)
+            row[i] = pg
+            matched += 1
+        fresh = self.pool.alloc(r, n_chunks - matched) \
+            if n_chunks > matched else []
+        if fresh is None:                    # raced out inside this batch
+            shared = [int(p) for p in row[:matched]]
+            if shared:
+                self.pool.free(shared)
+            return False
+        for j, pg in enumerate(fresh):
+            row[matched + j] = pg
+        self._table[slot] = row
+        b_eff = self._budget_of(req)
+        pol_row = self._policy_for(b_eff)
+        trash = self.pool.trash_page(r)
+        t0 = time.perf_counter()
+        table_row = torch.as_tensor(row, device=self.device)
+        for c in list(range(matched, n_chunks)) or [n_chunks - 1]:
+            lo = c * ps
+            n = min(ps, plen - lo)
+            ck = np.zeros((1, ps), np.int32)
+            ck[0, :n] = prompt[lo:lo + n]
+            wp = int(row[c]) if c >= matched else trash
+            logits, self._caches = prefill_chunk_step(
+                self.params, self.rp, torch.as_tensor(ck, device=self.device),
+                self._caches, wp, table_row, lo, plen, self.cfg, self.spec,
+                mode=self.mode, policy=pol_row)
+        if self._live_policy is not None and pol_row is not None:
+            self._live_policy = self._live_policy.set_row(slot, pol_row)
+        tok0 = sample_tokens(logits)[0]
+        self._tok[slot] = tok0
+        tok0 = int(tok0)                          # waits for the device
+        self.timing["prefill_s"] += time.perf_counter() - t0
+        self.timing["prefill_tokens"] += int(plen)
+        for i in range(matched, n_full):     # freshly written full pages
+            self.pool.register_prefix(keys[i], int(row[i]))
+        self._t[slot] = plen
+        self._active[slot] = True
+        self._ngen[slot] = 0
+        self._admit_seq[slot] = next(self._admit_counter)
+        handle.budget_served = min(1.0, 1.0 if b_eff is None else float(b_eff))
+        self._append(slot, handle, tok0)
+        return True
+
+    def _pick_victim(self, replica: int) -> Optional[int]:
+        """Preemption order: the LATEST-admitted active slot of the replica
+        (FIFO priority: the request that has waited longest keeps its
+        pages)."""
+        spr = self.scheduler.slots_per_replica
+        cands = [s for s in range(replica * spr, (replica + 1) * spr)
+                 if self._active[s]]
+        return max(cands, key=lambda s: self._admit_seq[s]) if cands else None
+
+    def _preempt(self, slot: int) -> None:
+        """Evict a running request under page pressure: recycle its pages,
+        free the slot, and re-queue it AT THE FRONT as a continuation
+        (prompt := original + generated so far). Greedy decoding continues
+        token for token as if never interrupted."""
+        handle = self.scheduler.slots[slot]
+        cost = self.scheduler.costs[slot]
+        self._free_slot_pages(slot)
+        self._active[slot] = False
+        self.scheduler.free(slot)
+        req = handle.request
+        prompt = np.concatenate([
+            np.asarray(req.prompt, np.int32).reshape(-1),
+            np.asarray(handle.output, np.int32)])
+        handle.request = dataclasses.replace(
+            req, prompt=prompt,
+            max_new_tokens=req.max_new_tokens - len(handle.output))
+        self.n_preempted += 1
+        self.scheduler.requeue_front(handle, cost)
+
+    def _ensure_decode_pages(self) -> None:
+        """Before the decode step: every active slot whose next write
+        position crosses into an unbacked table entry gets a fresh page,
+        preempting the latest-admitted slot when the freelist is dry
+        (possibly the requester itself)."""
+        for slot in np.nonzero(self._active)[0]:
+            if not self._active[slot]:    # preempted by an earlier iteration
+                continue
+            pi = int(self._t[slot]) // self.page_size
+            if pi >= self.pages_per_slot or self._table[slot, pi] >= 0:
+                continue
+            r = self.scheduler.replica_of(int(slot))
+            while True:
+                pg = self.pool.alloc(r, 1)
+                if pg is not None:
+                    self._table[slot, pi] = pg[0]
+                    break
+                victim = self._pick_victim(r)
+                if victim is None:
+                    raise RuntimeError("page pool exhausted with no "
+                                       "preemptible slot")
+                self._preempt(victim)
+                if victim == slot:           # requester evicted itself
+                    break
+
     def _append(self, slot: int, handle: RequestHandle, tok: int) -> None:
         handle.append(tok)
         self._ngen[slot] += 1
@@ -203,26 +439,52 @@ class ServingEngine:
 
     def _finish(self, slot: int, handle: RequestHandle, reason: str) -> None:
         handle.finish(reason)
+        if self.kv_layout == "paged":
+            self._free_slot_pages(slot)
         self.scheduler.free(slot)
         self._active[slot] = False
 
     def step(self) -> int:
         """Admit queued requests into free slots, then run ONE decode step
         over the slot array. Returns the number of progress events
-        (admissions + slots that advanced); 0 = the engine is idle."""
-        admitted = self.scheduler.admit()
-        for slot, handle in admitted:
-            self._admit_one(slot, handle)
+        (admissions + slots that advanced); 0 = the engine is idle.
+
+        Paged mode: admission packs on free pages and the FLOP budget
+        together (``_page_check``); an admission that runs out of pages
+        inside the batch is re-queued at the front; before the decode,
+        slots crossing into a new page get one, preempting under page
+        pressure."""
+        paged = self.kv_layout == "paged"
+        if paged:
+            admitted = []
+            for slot, handle in self.scheduler.admit(
+                    page_check=self._page_check):
+                if self._admit_one_paged(slot, handle):
+                    admitted.append((slot, handle))
+                else:
+                    cost = self.scheduler.costs[slot]
+                    self.scheduler.free(slot)
+                    self.scheduler.requeue_front(handle, cost)
+            self._ensure_decode_pages()       # may preempt: before `live`
+        else:
+            admitted = self.scheduler.admit()
+            for slot, handle in admitted:
+                self._admit_one(slot, handle)
         if not self._active.any():
             return len(admitted)
         live = [(s, h) for s, h in enumerate(self.scheduler.slots)
                 if h is not None and self._active[s]]
         t0 = time.perf_counter()
         active = torch.as_tensor(self._active, device=self.device)
+        paged_kw = {}
+        if paged:
+            paged_kw = dict(
+                table=torch.as_tensor(self._table, device=self.device),
+                trash=torch.as_tensor(self._trash, device=self.device))
         logits, self._caches = decode_step(
             self.params, self.rp, self._tok[:, None], self._caches,
             torch.as_tensor(self._t, device=self.device), self.cfg,
-            self.spec, mode=self.mode, policy=self._live_policy)
+            self.spec, mode=self.mode, policy=self._live_policy, **paged_kw)
         self._tok = torch.where(active, sample_tokens(logits),
                                 torch.zeros_like(self._tok))
         toks = self._tok.cpu().numpy()            # waits for the device
@@ -234,6 +496,68 @@ class ServingEngine:
             self._t[slot] += 1
             self._append(slot, handle, int(toks[slot]))
         return len(admitted) + len(live)
+
+    # ------------------------------- fork ------------------------------------
+
+    def fork(self, handle: RequestHandle,
+             max_new_tokens: Optional[int] = None) -> RequestHandle:
+        """Copy-on-write fork of a RUNNING paged request: the child takes a
+        free slot, shares every FULL page of the parent's history by
+        refcount, and copies only the partial tail page (``n_keep`` lanes
+        kept). The child continues from the parent's exact decode state:
+        greedy, its tokens match an independent run fed prompt +
+        parent-output-so-far. Parent and child then append into their OWN
+        tail pages."""
+        if self.kv_layout != "paged":
+            raise ValueError("fork() requires kv_layout='paged'")
+        if handle.status != "running" or handle.slot is None:
+            raise ValueError("fork() requires a running request")
+        s = handle.slot
+        r = self.scheduler.replica_of(s)
+        free = self.scheduler.free_slots_in(r)
+        if not free:
+            raise RuntimeError(f"no free slot on replica {r} to fork into")
+        req = handle.request
+        remaining = (req.max_new_tokens - len(handle.output)
+                     if max_new_tokens is None else int(max_new_tokens))
+        if remaining <= 0:
+            raise ValueError("nothing left to generate for the fork")
+        dst = self.pool.alloc(r, 1)
+        if dst is None:
+            raise RuntimeError(f"no free page on replica {r} to fork")
+        dst = dst[0]
+        cs = free[0]
+        t = int(self._t[s])
+        n_full, rem = t // self.page_size, t % self.page_size
+        row = np.full(self.pages_per_slot, -1, np.int32)
+        for i in range(n_full):
+            row[i] = self._table[s, i]
+            self.pool.incref(int(row[i]))
+        # the child's append page: a copy of the parent's partial tail (rem
+        # lanes kept), or a blank page when the tail is page-aligned
+        # (n_keep = 0 masks every lane; src = dst copies nothing new)
+        row[n_full] = dst
+        src = int(self._table[s, n_full]) if rem else dst
+        copy_page_in_tree(self._caches, src, dst, rem)
+        self._table[cs] = row
+        prompt = np.concatenate([np.asarray(req.prompt, np.int32).reshape(-1),
+                                 np.asarray(handle.output, np.int32)])
+        creq = dataclasses.replace(req, prompt=prompt,
+                                   max_new_tokens=remaining)
+        child = RequestHandle(creq, engine=self)
+        child.slot, child.status = cs, "running"
+        child.budget_served = handle.budget_served
+        self.scheduler.slots[cs] = child
+        self.scheduler.costs[cs] = self.scheduler.costs[s]
+        self._tok[cs] = self._tok[s]
+        self._t[cs] = t
+        self._active[cs] = True
+        self._ngen[cs] = 0
+        self._admit_seq[cs] = next(self._admit_counter)
+        if self._live_policy is not None:
+            self._live_policy = self._live_policy.set_row(
+                cs, self._policy_for(self._budget_of(req)))
+        return child
 
     def generate(self, requests: List[GenRequest],
                  budget: Optional[float] = None) -> List[np.ndarray]:

@@ -75,6 +75,37 @@ def ring(seed, B, L, K, Dh, t):
     return k, v, pos, valid
 
 
+PAGED_CASES = [
+    # B, N pages, page size, H, K, Dh, table rows, t, pvalid keep fraction
+    (3, 10, 8, 4, 2, 32,                       # holes and a -1 row
+     [[4, 1, -1, -1], [0, 6, 2, 9], [-1, -1, -1, -1]], [11, 31, 5], 0.8),
+    (2, 12, 16, 8, 2, 64,                      # a -1 entry mid-row, GQA 4:1
+     [[3, -1, 7, 2], [5, 0, 11, -1]], [55, 15], 0.7),  # 15: page boundary
+    (2, 6, 16, 4, 1, 128, [[2, 4], [1, 3]], [20, 31], 0.9),     # MQA
+    (4, 9, 16, 28, 4, 128,                     # Qwen2-7B heads, GQA 7:1
+     [[8, 3, 0, -1], [1, 5, -1, -1], [-1, -1, -1, -1], [6, 2, 7, 4]],
+     [40, 16, 3, 63], 0.8),
+    # prefill chunks as attn_chunk calls the kernel: page-size rows share
+    # one table row, row i at t = pos0 + i
+    (16, 9, 16, 28, 4, 128, [[8, 3, 0, 5]] * 16, list(range(48, 64)), 0.8),
+    (16, 5, 16, 8, 2, 64, [[2, -1, -1, -1]] * 16, list(range(16)), 0.7),
+]
+
+
+def paged_inputs(case, seed):
+    """A paged decode case: q, the pools, table, t and pvalid as numpy.
+    Pages are used in shuffled pool order; the second row of the first
+    case has its key at t masked through pvalid."""
+    B, N, ps, H, K, Dh, table, t, keep = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, 1, H, Dh), dtype=np.float32)
+    kp = rng.standard_normal((N, ps, K, Dh), dtype=np.float32)
+    vp = rng.standard_normal((N, ps, K, Dh), dtype=np.float32)
+    pvalid = rng.random((N, ps)) < keep
+    return (q, kp, vp, np.asarray(table, np.int32), np.asarray(t, np.int32),
+            pvalid)
+
+
 def mlp_inputs(case, seed, **to):
     shape, Fd, act, gated, weighted, count = case
     D = shape[-1]
@@ -135,6 +166,26 @@ def test_decode_kernel_matches_plain(cuda, dtype, window):
     want = ops.decode_attention(*args, window=window, backend="ref")
     torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
     assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=range(len(PAGED_CASES)))
+def test_paged_decode_kernel_matches_plain(cuda, case, dtype):
+    """Toy and Qwen2-7B head shapes; rows with no attendable key (an
+    all -1 row) must be exact zeros."""
+    q, kp, vp, table, t, pvalid = paged_inputs(case, 8)
+    args = [as_t(a, device=cuda, dtype=dtype) for a in (q, kp, vp)] + [
+        as_t(table, device=cuda), as_t(t, device=cuda),
+        as_t(pvalid, device=cuda)]
+    n0 = ops.launch_counts()["paged_decode_attention"]
+    got = ops.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention"] == n0 + 1
+    want = ops.paged_decode_attention(*args, backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    dead = (table < 0).all(1)
+    assert not got[torch.from_numpy(dead).to(cuda)].any()
 
 
 @pytest.mark.cuda
@@ -411,3 +462,39 @@ def test_toy_trainer_with_experts_on_the_card(cuda, arch):
     assert ops.launch_counts()["moe_gmm"] > 0
     for layer in state.opt.m["layers"]:   # AdamW's first moment saw a grad
         assert float(layer["expert"]["w"].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_toy_paged_engine_on_the_card(cuda):
+    """toy-lm served from the paged pool on the card: the paged decode
+    kernel and fused_mlp launch, budget 1.0 equals a mode="base" paged
+    engine and a request alone equals its staggered run, bit for bit, and
+    the pool drains."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticSpec
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = dataclasses.replace(get_config("toy-lm"), dtype="bfloat16")
+    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                       mha_head_routed=True, lora_rank=1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model_init(gen, cfg, spec, device=cuda)
+    rp = router_init(gen, cfg, spec, device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [GenRequest(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                       6, budget=b)
+            for n, b in zip((9, 33, 17, 70), (1.0, 0.5, 0.75, 1.0))]
+    mk = lambda mode: ServingEngine(params, rp, cfg, spec, mode=mode,
+                                    batch_size=2, max_seq=128, device=cuda,
+                                    kv_layout="paged", page_size=16)
+    ops.reset_launch_counts()
+    eng = mk("infer")
+    out = eng.generate(reqs)
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("paged_decode_attention",
+                                       "fused_mlp")), counts
+    assert counts["decode_attention"] == 0
+    assert eng.paged_stats()["allocated"] == 0
+    base = mk("base").generate(reqs)
+    assert [list(o) for o in out[::3]] == [list(o) for o in base[::3]]
+    assert list(mk("infer").generate([reqs[2]])[0]) == list(out[2])

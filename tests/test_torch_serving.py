@@ -163,4 +163,4 @@ def test_no_silent_cpu_fallback(setup):
         _port_engine(s).submit(GenRequest(s["prompts"][0], 4,
                                           temperature=1.0))
     with pytest.raises(NotImplementedError):
-        _port_engine(s, kv_layout="paged")
+        _port_engine(s, kv_dtype="int8")
