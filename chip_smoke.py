@@ -5,22 +5,35 @@
                           [--pages N] [--seed S]
     python3 chip_smoke.py --ab PARENT_CHECKOUT
 
-``--ab`` runs only the ring decode kernel of another checkout (unpacked
-with ``git archive``) and of this one in turns, p c c p, one process each,
-on the same seeded inputs: L2-cold time per turn, and it fails unless the
-outputs of every turn are equal bit for bit. Without it:
+``--ab`` runs only the flash, ring decode and paged decode checks of item
+2 on another checkout (unpacked with ``git archive``) and on this one in
+turns, p c c p, one process each, on the same seeded inputs: each turn
+within TOL of the plain versions, the timed medians per turn (graphed and
+eager), and it fails unless each tree's outputs are equal bit for bit in
+its own two turns. Without it:
 
 1. Prints the card (nvidia-smi name and power limit), builds the
    hand-written CUDA kernels from src/repro_torch/kernels/csrc with nvcc
-   (sm_90a, one process per source, in parallel) and prints the build time.
+   (sm_90a, one process per source, in parallel) and prints the build time,
+   ptxas's registers and spills, and the number of tensor-core (HGMMA)
+   instructions in each flash_fwd instantiation's SASS (fails unless the
+   bf16 Dh=128 one has some).
 2. Holds each kernel against its plain PyTorch version at Qwen2-7B shapes,
    in bf16 and f32, with ragged counts, kv_valid holes, a part-filled ring
-   and a routed selection; prints the max error beside the tolerance, and
-   times the kernel, the plain version and (attention) one SDPA call with
-   CUDA events (KV heads shared by enable_gqa; SDPA over K/V repeated to
-   the q-heads is printed beside it). moe_gmm is held to its plain
-   version after each expert path (items 6, 8, 9) at the calls that path
-   made: their shapes and group counts are recorded during the path and
+   (t at the decode kernel's split edges, a slot with every key masked and
+   an inactive one) and a routed selection; prints the max error beside the
+   tolerance, and times the kernel, the plain version and (attention) one
+   SDPA call with CUDA events (KV heads shared by enable_gqa; SDPA over K/V
+   repeated to the q-heads is printed beside it). The attention kernels,
+   their plain versions and SDPA are timed twice: back to back (eager) and
+   replayed from a CUDA graph (graphed: the device's time without the
+   host's cost of issuing each call); the result line's ms, plain_ms and
+   library_ms are back-to-back medians in every row, as for the MLP
+   kernels, and the attention rows carry the graphed medians beside them
+   as graphed_ms, graphed_plain_ms and graphed_library_ms. moe_gmm is held
+   to its plain version after each expert path (items 6, 8, 9) at the
+   calls that path made: their shapes and group counts are recorded during
+   the path and
    replayed (random x and weights in the path's weight layout, bf16 and
    f32, with and without routing weights, exact zeros past every count),
    the largest timed.
@@ -143,26 +156,47 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, reps: int = 5, warmup: int = 5) -> list:
+def cuda_ms(fn, iters: int, reps: int = 5, warmup: int = 5,
+            graph: bool = False) -> list:
     """Mean ms per call of ``fn`` over ``iters`` back-to-back calls,
     measured with CUDA events ``reps`` times after ``warmup`` calls; returns
     the ``reps`` means, sorted (median is the reported time, the ends are
-    its spread)."""
+    its spread). With ``graph`` the ``iters`` calls are captured once into
+    a CUDA graph, which is replayed: the device's time per call without the
+    host's cost of issuing it (wrapper Python, allocation, launch calls),
+    which the plain back-to-back form includes wherever it is the larger."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
+        run()
+        torch.cuda.synchronize()
     out = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
-            fn()
+        run()
         end.record()
         torch.cuda.synchronize()
         out.append(start.elapsed_time(end) / iters)
     return sorted(out)
+
+
+def device_and_eager_ms(fn, iters: int) -> tuple:
+    """(graphed, back-to-back) times of ``fn`` (``cuda_ms``): the attention
+    kernels, their plain versions and SDPA run near the host's cost of one
+    call, so both are kept."""
+    return cuda_ms(fn, iters, graph=True), cuda_ms(fn, iters)
 
 
 def cycling(fn, n: int):
@@ -209,17 +243,29 @@ class Results:
         row["max_abs_err"] = max(row["max_abs_err"], err)
 
     def timing(self, name, ms, plain_ms, flops, nbytes, kind, library_ms):
-        """Each time is the sorted list from ``cuda_ms``; the median goes
-        into the result line, the spread is printed."""
+        """Each time is the sorted list from ``cuda_ms``, or a (graphed,
+        back-to-back) pair of them from ``device_and_eager_ms``; the
+        back-to-back median goes into the result line under its key (one
+        clock for every row), the graphed one of a pair beside it as
+        graphed_*; the spread is printed."""
         b, by = bound_ms(flops, nbytes, kind)
         med = lambda ts: None if ts is None else ts[len(ts) // 2]
-        self.rows[name].update(ms=med(ms), plain_ms=med(plain_ms), bound_ms=b,
-                               bound_by=by, library_ms=med(library_ms))
         fmt = lambda ts: ("n/a" if ts is None else f"{med(ts):.4f} ms "
                           f"[{ts[0]:.4f}-{ts[-1]:.4f}]")
-        print(f"  {name:17s} median [min-max] of {len(ms)}: kernel {fmt(ms)}"
-              f"  plain {fmt(plain_ms)}  library {fmt(library_ms)}  bound "
-              f"{b:.4f} ms ({by})")
+        times = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+        text = {}
+        for key, ts in times.items():
+            if isinstance(ts, tuple):
+                self.rows[name][key] = med(ts[1])
+                self.rows[name]["graphed_" + key] = med(ts[0])
+                text[key] = f"{fmt(ts[0])} graphed, {fmt(ts[1])} eager"
+            else:
+                self.rows[name][key] = med(ts)
+                text[key] = fmt(ts)
+        self.rows[name].update(bound_ms=b, bound_by=by)
+        print(f"  {name:17s} median [min-max] of 5: kernel {text['ms']}"
+              f"  plain {text['plain_ms']}  library {text['library_ms']}  "
+              f"bound {b:.4f} ms ({by})")
 
 
 def mib(tensors) -> float:
@@ -234,14 +280,17 @@ def sdpa_ms(name, qt, ks, vs, mask, iters):
     call over K/V repeated to the H q-heads first (H/K times the bytes)."""
     import torch.nn.functional as F
     H, K, n = qt.shape[1], ks[0].shape[2], len(ks)
-    gqa = cuda_ms(cycling(lambda i: F.scaled_dot_product_attention(
-        qt, ks[i].transpose(1, 2), vs[i].transpose(1, 2), attn_mask=mask,
-        enable_gqa=True), n), iters)
+    gqa = device_and_eager_ms(cycling(
+        lambda i: F.scaled_dot_product_attention(
+            qt, ks[i].transpose(1, 2), vs[i].transpose(1, 2),
+            attn_mask=mask, enable_gqa=True), n), iters)
     rep = lambda a: a.repeat_interleave(H // K, dim=2).transpose(1, 2)
     kxs, vxs = [rep(a) for a in ks], [rep(a) for a in vs]
-    full = cuda_ms(cycling(lambda i: F.scaled_dot_product_attention(
-        qt, kxs[i], vxs[i], attn_mask=mask), n), iters)
-    med = lambda ts: f"{ts[len(ts) // 2]:.4f} ms [{ts[0]:.4f}-{ts[-1]:.4f}]"
+    full = device_and_eager_ms(cycling(
+        lambda i: F.scaled_dot_product_attention(
+            qt, kxs[i], vxs[i], attn_mask=mask), n), iters)
+    med = lambda ts: (f"{ts[0][len(ts[0]) // 2]:.4f} ms graphed, "
+                      f"{ts[1][len(ts[1]) // 2]:.4f} eager")
     print(f"  {name:17s} SDPA, KV heads shared (enable_gqa; the library "
           f"time): {med(gqa)}; over K/V repeated to {H} heads first "
           f"({mib(kxs + vxs):.0f} MiB): {med(full)}")
@@ -262,13 +311,20 @@ def _attention_mask(B, S, valid, causal, count):
 
 
 def check_flash(res: Results, rng, dev, H, K, Dh):
+    """flash_attention against its plain version: the serving prefill's
+    512-token prompt (timed), the training shape (B=2, S=512, a per-row
+    count), a prompt that is not a multiple of the 64-row tile, and ragged
+    f32 / bf16 counts. Returns the outputs by case."""
     import torch
     from repro_torch.kernels import ops
     cases = [  # (dtype, B, S, keep fraction, counts, timed)
         ("bf16", 1, 512, 0.6, None, True),
         ("f32", 2, 384, 0.7, [384, 200], False),
         ("bf16", 2, 256, 0.5, [256, 77], False),
+        ("bf16", 2, 512, 0.8, [512, 347], False),
+        ("bf16", 1, 300, 0.9, None, False),
     ]
+    outs = {}
     for kind, B, S, keep, counts, timed in cases:
         dt = torch.bfloat16 if kind == "bf16" else torch.float32
         q = torch.randn(B, S, H, Dh, device=dev).to(dt)
@@ -280,8 +336,9 @@ def check_flash(res: Results, rng, dev, H, K, Dh):
         kw = dict(kv_valid=valid, kv_count=cnt, causal=True)
         got = ops.flash_attention(q, k, v, **kw)
         want = ops.flash_attention(q, k, v, backend="ref", **kw)
-        res.compare("flash_attention", f"{kind} B={B} S={S} H={H} K={K} "
-                    f"keep={keep} cnt={counts}", got, want, kind)
+        case = f"{kind} B={B} S={S} H={H} K={K} keep={keep} cnt={counts}"
+        res.compare("flash_attention", case, got, want, kind)
+        outs[case] = got
         if not timed:
             continue
         cvec = torch.full((B,), S, device=dev) if cnt is None else cnt
@@ -297,12 +354,14 @@ def check_flash(res: Results, rng, dev, H, K, Dh):
             + valid.numel()
         res.timing(
             "flash_attention",
-            cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), 20),
-            cuda_ms(lambda: ops.flash_attention(q, k, v, backend="ref", **kw),
-                    5),
+            device_and_eager_ms(lambda: ops.flash_attention(q, k, v, **kw),
+                                20),
+            device_and_eager_ms(lambda: ops.flash_attention(
+                q, k, v, backend="ref", **kw), 5),
             4 * Dh * pairs, nbytes, kind,
             sdpa_ms("flash_attention", q.transpose(1, 2), [k], [v],
                     mask[:, None], 20))
+    return outs
 
 
 def check_fused_mlp(res: Results, dev, D, Fd):
@@ -400,13 +459,46 @@ def _ring(rng, B, L, t, keep):
     return pos, rng.random((B, L)) < keep
 
 
-def check_decode(res: Results, rng, dev, H, K, Dh, L):
+def check_decode_edges(res: Results, rng, dev, H, K, Dh, L):
     import torch
     from repro_torch.kernels import ops
+    split = ops.decode_split_plan(L)[0]
+    t = np.asarray([split - 1, split, split + 1, 700, 0], np.int32)
+    B = len(t)
+    outs = {}
+    for kind in ("bf16", "f32"):
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        pos_np, valid_np = _ring(rng, B, L, t, 0.8)
+        valid_np[3] = False                    # every key of slot 3 masked
+        pos_np[4] = -1                         # slot 4 inactive
+        q = torch.randn(B, 1, H, Dh, device=dev).to(dt)
+        k = torch.randn(B, L, K, Dh, device=dev).to(dt)
+        v = torch.randn(B, L, K, Dh, device=dev).to(dt)
+        pos, valid, tv = (torch.from_numpy(a).to(dev)
+                          for a in (pos_np, valid_np, t))
+        run = lambda backend=None: ops.decode_attention(
+            q, k, v, pos, tv, valid, backend=backend)
+        outs[f"edges {kind}"] = got = run()
+        res.compare("decode_attention", f"{kind} B={B} L={L} t={t.tolist()} "
+                    f"split edges", got, run("ref"), kind)
+        if got[3:].count_nonzero() != 0:
+            fail("decode_attention: a slot with no attendable key is not "
+                 "zero")
+    return outs
+
+
+def check_decode(res: Results, rng, dev, H, K, Dh, L, edges=True):
+    """decode_attention against its plain version at the ring serving
+    path's shape (4 slots, L=1024; bf16 timed L2-cold, f32 windowed) and,
+    with ``edges``, at the kernel's split edges: t = split - 1, split,
+    split + 1, a slot whose every key is masked and an inactive slot (no
+    position written), the last two exact zeros. Returns the outputs."""
+    import torch
+    from repro_torch.kernels import ops
+    outs = check_decode_edges(res, rng, dev, H, K, Dh, L) if edges else {}
     B = 4
     t = np.asarray([63, 300, L - 1, L + 476], np.int32)   # last one wrapped
     cases = [("bf16", 0, True), ("f32", 256, False)]      # (dtype, window)
-    outs = {}
     for kind, window, timed in cases:
         dt = torch.bfloat16 if kind == "bf16" else torch.float32
         pos_np, valid_np = _ring(rng, B, L, t, 0.8)
@@ -441,8 +533,8 @@ def check_decode(res: Results, rng, dev, H, K, Dh, L):
             backend=backend), n_sets)
         print(f"  decode_attention  timed L2-cold: rotating over {n_sets} "
               f"K/V sets ({mib(ks + vs):.0f} MiB)")
-        res.timing("decode_attention", cuda_ms(dec(None), 50),
-                   cuda_ms(dec("ref"), 10),
+        res.timing("decode_attention", device_and_eager_ms(dec(None), 50),
+                   device_and_eager_ms(dec("ref"), 10),
                    4 * Dh * H * float(att.sum()), nbytes, kind,
                    sdpa_ms("decode_attention", q.transpose(1, 2), ks, vs,
                            mask, 50))
@@ -503,7 +595,8 @@ def paged_cold(q, kp, vp, table, t, pvalid):
     """Kernel and plain times of one ``paged_decode_attention`` call,
     L2-cold: on the serving path every layer has its own pool, so rotate
     over enough pools (same table, t and pvalid) that their total is twice
-    the L2 cache. Returns (kernel times, plain times, K pools, V pools)."""
+    the L2 cache. Returns (kernel times, plain times, K pools, V pools),
+    each time a (graphed, back-to-back) pair (``device_and_eager_ms``)."""
     import torch
     from repro_torch.kernels import ops
     n_sets = 1 + 2 * L2_BYTES // (kp.numel() * kp.element_size() * 2)
@@ -513,7 +606,8 @@ def paged_cold(q, kp, vp, table, t, pvalid):
         q, kps[i], vps[i], table, t, pvalid, backend=backend), n_sets)
     print(f"  paged_decode_attention timed L2-cold: rotating over {n_sets} "
           f"pools ({mib(kps + vps):.0f} MiB)")
-    return cuda_ms(dec(None), 50), cuda_ms(dec("ref"), 10), kps, vps
+    return (device_and_eager_ms(dec(None), 50),
+            device_and_eager_ms(dec("ref"), 10), kps, vps)
 
 
 def check_paged_decode(res: Results, rng, dev, H, K, Dh, max_seq):
@@ -528,6 +622,7 @@ def check_paged_decode(res: Results, rng, dev, H, K, Dh, max_seq):
     P = max_seq // ps
     N = B * P + 1
     table_np, t = _paged_case(rng, B, N, ps, P)
+    outs = {}
     for kind in ("bf16", "f32"):
         dt = torch.bfloat16 if kind == "bf16" else torch.float32
         pvalid_np = rng.random((N, ps)) < 0.8
@@ -538,7 +633,7 @@ def check_paged_decode(res: Results, rng, dev, H, K, Dh, max_seq):
                              for a in (table_np, t, pvalid_np))
         run = lambda backend=None: ops.paged_decode_attention(
             q, kp, vp, table, tv, pvalid, backend=backend)
-        got = run()
+        outs[kind] = got = run()
         res.compare("paged_decode_attention", f"{kind} B={B} P={P} ps={ps} "
                     f"N={N} H={H} K={K} holes", got, run("ref"), kind)
         if got[2].count_nonzero() != 0:
@@ -563,6 +658,7 @@ def check_paged_decode(res: Results, rng, dev, H, K, Dh, max_seq):
               f"(K and V to (B, P*ps, K, Dh), what SDPA needs first) "
               f"{g[len(g) // 2]:.4f} ms [{g[0]:.4f}-{g[-1]:.4f}]")
         del kps, vps, kvs
+    return outs
 
 
 class PagedCalls:
@@ -639,8 +735,9 @@ def check_paged_calls(res: Results, dev, cases, labels):
             flops, nbytes, keys = paged_work(q, kp, table, t, pvalid)
             ms, plain, _, _ = paged_cold(q, kp, vp, table, t, pvalid)
             b, by = bound_ms(flops, nbytes, kind)
-            med = lambda ts: f"{ts[len(ts) // 2]:.4f} ms [{ts[0]:.4f}-" \
-                f"{ts[-1]:.4f}]"
+            med = lambda tt: " / ".join(
+                f"{ts[len(ts) // 2]:.4f} ms [{ts[0]:.4f}-{ts[-1]:.4f}]"
+                for ts in tt) + " (graphed / eager)"
             print(f"  paged_decode_attention path {label}, heaviest of {n} "
                   f"calls ({keys} attendable keys, {int(dead.sum())} "
                   f"row(s) with none): kernel {med(ms)}  plain "
@@ -1562,35 +1659,85 @@ def print_ptxas(build, sources=None, tag=""):
                 print(f"  {tag}ptxas {name} {fn}: {line.strip()}")
 
 
+def print_hgmma(build) -> None:
+    """Counts the tensor-core instructions (HGMMA) in the SASS of every
+    flash_fwd instantiation of the built flash_attention library
+    (cuobjdump, or the copy in Triton's package where the toolkit lacks
+    it); fails unless the bf16 Dh=128 instantiation has some."""
+    import re
+    import shutil
+    tools = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+        tools.append(str(Path(triton.__file__).parent / "backends" /
+                         "nvidia" / "bin" / "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t and Path(t).exists()), None)
+    if tool is None:
+        fail("no cuobjdump to count the flash kernel's HGMMA instructions")
+    lib = build.BUILD_ROOT / build.source_hash() / "libflash_attention.so"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(flash_fwd_\w+?)I(\w*?)L?i(\d+)E", line)
+            fn = None if m is None else (
+                f"{m.group(1)}<{'bf16, ' if 'bfloat16' in m.group(2) else ''}"
+                f"{'f32, ' if m.group(2).endswith('f') else ''}"
+                f"{m.group(3)}>")
+            if fn is not None:
+                counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    print(f"  SASS HGMMA instructions per flash_fwd instantiation: {counts}")
+    if not counts.get("flash_fwd_wgmma<128>"):
+        fail("the bf16 Dh=128 flash kernel has no HGMMA instruction")
+
+
+AB_KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention")
+
+
 def ab_turn(tree: Path, out: Path) -> None:
-    """One turn of ``--ab``: ``check_decode`` on the ring kernel of the
-    checkout at ``tree`` (its ``src`` first on the path, its kernels built
-    into its own tree), inputs drawn from seed 0; saves the outputs and the
-    kernel's L2-cold times to ``out``."""
+    """One turn of ``--ab``: ``check_flash``, ``check_decode`` (ring, no
+    split edges) and ``check_paged_decode`` on the kernels of the checkout
+    at ``tree`` (its ``src`` first on the path, its kernels built into its
+    own tree), inputs drawn from seed 0, each held to its plain version
+    under ``TOL``; saves the outputs and each kernel's timed-case median
+    to ``out``."""
     sys.path.insert(0, str(tree.resolve() / "src"))
     import torch
     from repro_torch.kernels import build
     build.build()
-    print_ptxas(build, ("decode_attention",), f"{tree}: ")
+    print_ptxas(build, ("flash_attention", "decode_attention"), f"{tree}: ")
     torch.manual_seed(0)
-    res = Results()
-    outs = check_decode(res, np.random.default_rng(0), torch.device("cuda"),
-                        28, 4, 128, 1024)
-    torch.save({"outs": {k: o.cpu() for k, o in outs.items()},
-                "ms": res.rows["decode_attention"]["ms"]}, out)
+    rng, dev, res = np.random.default_rng(0), torch.device("cuda"), Results()
+    outs = {}
+    for name, fn in (("flash", lambda: check_flash(res, rng, dev, 28, 4,
+                                                   128)),
+                     ("ring", lambda: check_decode(res, rng, dev, 28, 4, 128,
+                                                   1024, edges=False)),
+                     ("paged", lambda: check_paged_decode(
+                         res, rng, dev, 28, 4, 128, 1024))):
+        outs.update({f"{name} {k}": o.cpu() for k, o in fn().items()})
+    torch.save({"outs": outs,
+                "ms": {n: (res.rows[n]["graphed_ms"], res.rows[n]["ms"])
+                       for n in AB_KERNELS}}, out)
 
 
-def ring_ab(parent: Path) -> int:
-    """``--ab PARENT``: the ring decode kernel of the checkout at PARENT (p)
-    and of this one (c) in turns p c c p, each turn a process of its own
-    (``ab_turn``) on the same seeded inputs (``check_decode``'s at Qwen2-7B
-    heads: bf16, and f32 with a window). Prints the kernel's L2-cold median
-    per turn; fails unless every turn's outputs equal the first's bit for
-    bit."""
+def kernel_ab(parent: Path) -> int:
+    """``--ab PARENT``: the flash, ring decode and paged decode kernels of
+    the checkout at PARENT (p) and of this one (c) in turns p c c p, each
+    turn a process of its own (``ab_turn``) on the same seeded inputs at
+    Qwen2-7B heads, each turn within ``TOL`` of the plain version. Prints
+    each kernel's timed median per turn; fails unless each tree's outputs
+    are equal bit for bit across its own two turns (the trees may differ:
+    a redesign sums in another order)."""
     import shutil
     import tempfile
     import torch
-    tmp = Path(tempfile.mkdtemp(prefix="ring_ab_"))
+    tmp = Path(tempfile.mkdtemp(prefix="kernel_ab_"))
     turns = [("p", parent), ("c", ROOT), ("c", ROOT), ("p", parent)]
     try:
         got = []
@@ -1601,13 +1748,20 @@ def ring_ab(parent: Path) -> int:
             got.append(torch.load(tmp / f"{i}.pt"))
     finally:
         shutil.rmtree(tmp)
-    same = all(torch.equal(g["outs"][k], got[0]["outs"][k])
-               for g in got for k in got[0]["outs"])
-    ms = " / ".join(f"{t} {g['ms']:.4f}" for (t, _), g in zip(turns, got))
-    print(f"ring decode_attention, {parent} (p) vs this checkout (c), "
-          f"turns p c c p, L2-cold median ms: {ms}; outputs bit for bit "
-          f"equal in every turn: {same}")
-    return 0 if same else 1
+    ok = True
+    for tree, (i, j) in (("p", (0, 3)), ("c", (1, 2))):
+        same = all(torch.equal(got[i]["outs"][k], got[j]["outs"][k])
+                   for k in got[i]["outs"])
+        ok = ok and same
+        print(f"--ab {tree} ({parent if tree == 'p' else ROOT}): outputs "
+              f"bit for bit equal in its two turns: {same}")
+    for n in AB_KERNELS:
+        for i, form in enumerate(("graphed", "eager")):
+            ms = " / ".join(f"{t} {g['ms'][n][i]:.4f}"
+                            for (t, _), g in zip(turns, got))
+            print(f"--ab {n}, turns p c c p, timed-case median ms, {form}: "
+                  f"{ms}")
+    return 0 if ok else 1
 
 
 def main() -> int:
@@ -1624,9 +1778,10 @@ def main() -> int:
                          "ring-equivalent 4 * 64 + 1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab", type=Path, metavar="PARENT",
-                    help="run only the ring decode kernel of the checkout at "
-                         "PARENT and of this one in turns (p c c p): outputs "
-                         "bit for bit and L2-cold time")
+                    help="run only the flash, ring decode and paged decode "
+                         "kernels of the checkout at PARENT and of this one "
+                         "in turns (p c c p): each tree bit for bit across "
+                         "its turns, within TOL, and the timed medians")
     ap.add_argument("--ab-turn", nargs=2, type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -1641,7 +1796,7 @@ def main() -> int:
         ab_turn(*args.ab_turn)
         return 0
     if args.ab:
-        return ring_ab(args.ab)
+        return kernel_ab(args.ab)
     from repro_torch.configs import get_config
     from repro_torch.core.policy import ElasticSpec
     from repro_torch.kernels import build
@@ -1663,6 +1818,7 @@ def main() -> int:
     print(f"kernel build (nvcc sm_90a, {len(build.SOURCES)} sources in "
           f"parallel): {t_build:.1f} s")
     print_ptxas(build)
+    print_hgmma(build)
 
     dev = torch.device("cuda")
     torch.manual_seed(0)

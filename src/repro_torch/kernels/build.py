@@ -39,9 +39,11 @@ ENTRIES = {
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
         _P]),
     "decode_attention_launch": ("decode_attention", [
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _F, _P]),
     "paged_decode_attention_launch": ("decode_attention", [
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+        _F, _P]),
     "moe_gmm_launch": ("fused_mlp", [
         _I, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I,
         _I, _I, _P]),

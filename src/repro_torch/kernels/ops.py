@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import (_counts, decode_attention_ref,
+from repro_torch.kernels.ref import (decode_attention_ref,
                                      flash_attention_ref, fused_mlp_ref,
                                      fused_mlp_routed_ref, moe_gmm_ref,
                                      paged_decode_attention_ref)
@@ -105,15 +105,24 @@ def _dtype_code(*ts) -> int:
 
 
 def _counts_vec(count, batch: int, limit: int, device) -> torch.Tensor:
-    """None | scalar | (B,) -> contiguous (B,) int32 clipped to [0, limit]."""
-    return _counts(count, batch, limit, device).to(torch.int32).contiguous()
+    """None | scalar | (B,) -> contiguous (B,) int32 clipped to [0, limit]
+    (one small kernel: a fill, or a clamp of an int32 count)."""
+    if count is None:
+        return torch.full((batch,), limit, dtype=torch.int32, device=device)
+    c = torch.as_tensor(count, device=device).reshape(-1)
+    if c.dtype != torch.int32:
+        c = c.to(torch.int64)
+    return c.expand(batch).clamp(0, limit).to(torch.int32).contiguous()
 
 
 def _mask_ptr(mask, shape, device):
     """Optional bool mask broadcast to ``shape`` -> (keep-alive, pointer)."""
     if mask is None:
         return None, None
-    m = mask.to(device=device, dtype=torch.bool).expand(shape).contiguous()
+    m = mask if (mask.dtype == torch.bool and mask.device == device
+                 and tuple(mask.shape) == shape and mask.is_contiguous()) \
+        else mask.to(device=device, dtype=torch.bool).expand(shape) \
+        .contiguous()
     return m, m.data_ptr()
 
 
@@ -124,6 +133,11 @@ def _as_tensor(v):
 
 
 def _check(rc: int, name: str) -> None:
+    if rc >= 200000:     # csrc/flash_attention.cu tc::ERR_NO_ENCODER
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled not found")
+    if rc >= 100000:     # tc::ERR_ENCODE + CUresult
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a "
+                           f"tensor map, CUresult {rc - 100000}")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
     _launches[name] += 1
@@ -133,12 +147,31 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary (TMA boxes and
+    16-byte copies); a view that starts elsewhere is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def check_attention_shapes(name, q, k, v, head_dims) -> None:
+    """Raises ValueError unless q (B,Sq,H,Dh) and k, v (B,S,K,Dh) (a
+    decode pool: (N,ps,K,Dh)) are shapes the kernel ``name`` takes: Dh in
+    ``head_dims``, K dividing H, k and v alike and of q's Dh."""
+    if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
+            or q.shape[-1] not in head_dims or k.shape[-1] != q.shape[-1]
+            or k.shape[2] == 0 or q.shape[2] % k.shape[2]):
+        raise ValueError(f"{name} kernel: unsupported shapes q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+
+
 # ----------------------------- flash attention -------------------------------
 #
 # Replaces kernels/flash_attention.py::flash_attention (TPU). Bound on the
-# H100 at the serving shapes: FLOPs (tensor-core rate); the kernel keeps the
-# score tile and softmax state on chip and skips dead key tiles, but
-# multiplies on the CUDA cores (csrc/flash_attention.cu).
+# H100 at the serving shapes: FLOPs (tensor-core rate). bf16 at Dh 64 / 128
+# runs on the tensor cores (wgmma, K/V tiles through a TMA ring); f32, and
+# the toy widths 16 / 32, on the CUDA cores (csrc/flash_attention.cu).
 
 def flash_attention(q, k, v, kv_valid=None, kv_count=None, *, causal=True,
                     window=0, backend=None):
@@ -153,21 +186,20 @@ def flash_attention(q, k, v, kv_valid=None, kv_count=None, *, causal=True,
         return plain(q, k, v, kv_valid, kv_count)
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    if Dh not in (16, 32, 64, 128) or H % K or k.shape != v.shape:
-        raise ValueError(f"flash_attention kernel: unsupported shapes q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    check_attention_shapes("flash_attention", q, k, v, (16, 32, 64, 128))
     dt = _dtype_code(q, k, v)
 
     def kernel(q, k, v, kv_valid, kv_count):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
         out = torch.empty_like(q)
         valid, valid_ptr = _mask_ptr(kv_valid, (B, Sk), q.device)
-        cnt = _counts_vec(kv_count, B, max(Sq, Sk), q.device)
+        cnt = None if kv_count is None else _counts_vec(
+            kv_count, B, max(Sq, Sk), q.device)
         lib = build.load("flash_attention")
         with torch.cuda.device(q.device):
             rc = lib.flash_attention_launch(
                 dt, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), valid_ptr, cnt.data_ptr(), B, Sq, Sk, H, K,
+                out.data_ptr(), valid_ptr, _ptr(cnt), B, Sq, Sk, H, K,
                 int(bool(causal)), int(window or 0), float(Dh ** -0.5),
                 _stream(q))
         _check(rc, "flash_attention")
@@ -379,8 +411,46 @@ def moe_gmm(x, wi, wo, wg=None, weights=None, group_counts=None,
 # ----------------------------- decode attention ------------------------------
 #
 # Replaces kernels/decode_attention.py::decode_attention (TPU). Bound on the
-# H100: bytes (the attended K/V rows); a masked ring slot is skipped before
-# its K/V row is read (csrc/decode_attention.cu).
+# H100: bytes (the attended K/V rows). csrc/decode_attention.cu: one block
+# per (kv-head, slot, split) reads each attended row once for the GQA group
+# and writes an f32 partial; a second launch merges the splits in order.
+# One call, two launches, one count in ``launch_counts()``. A masked ring
+# slot is skipped before its K/V row is read.
+
+DECODE_CHUNK = 128   # keys a split block takes at once (csrc NK)
+
+
+def decode_split_plan(n_keys: int, page_size: int = 1) -> tuple:
+    """(keys per split, number of splits) of a decode call whose keys are
+    [0, n_keys): ring L, or P * page_size for a paged table row. A split is
+    whole pages, DECODE_CHUNK keys when the page size divides it. The plan
+    depends on n_keys and the page size only, never on the batch, t or
+    which slots are active, so a slot's output depends only on its keys."""
+    if n_keys < 0 or page_size < 1:
+        raise ValueError(f"decode_split_plan({n_keys}, {page_size})")
+    per = max(1, DECODE_CHUNK // page_size) * page_size
+    return per, max(1, -(-n_keys // per))
+
+
+def decode_scratch(B: int, H: int, Dh: int, n_split: int, device):
+    """The f32 scratch of one decode call, one flat allocation: each
+    split's unnormalised output (B, H, n_split, Dh), then its (running max,
+    row sum) (B, H, n_split, 2)."""
+    return torch.empty(B * H * n_split * (Dh + 2), dtype=torch.float32,
+                       device=device)
+
+
+def _int32(x, shape, device):
+    """``x`` as a contiguous int32 tensor of ``shape`` on ``device``; one
+    that already is passes through without a copy (the serving loop's
+    positions and tables do: it saves host time on every decode call)."""
+    if (torch.is_tensor(x) and x.dtype == torch.int32 and x.device == device
+            and tuple(x.shape) == shape and x.is_contiguous()):
+        return x
+    x = torch.as_tensor(x, device=device).to(torch.int32)
+    return x.reshape(-1).expand(shape).contiguous() if len(shape) == 1 \
+        else x.expand(shape).contiguous()
+
 
 def decode_attention(q, k, v, kv_pos, t, kv_valid=None, kscale=None,
                      vscale=None, *, window=0, backend=None):
@@ -394,22 +464,25 @@ def decode_attention(q, k, v, kv_pos, t, kv_valid=None, kscale=None,
                                     kv_valid=kv_valid)
     B, Sq, H, Dh = q.shape
     L, K = k.shape[1], k.shape[2]
-    if Sq != 1 or Dh not in (32, 64, 128) or H % K or k.shape != v.shape:
-        raise ValueError(f"decode_attention kernel: unsupported shapes q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    check_attention_shapes("decode_attention", q, k, v, (32, 64, 128))
+    if Sq != 1 or k.shape[0] != B:
+        raise ValueError(f"decode_attention kernel: q {tuple(q.shape)} is "
+                         f"not one query row per slot of k {tuple(k.shape)}")
     dt = _dtype_code(q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    pos = kv_pos.to(device=q.device, dtype=torch.int32).contiguous()
-    tv = torch.as_tensor(t, device=q.device).to(torch.int32).reshape(-1)
-    tv = tv.expand(B).contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    pos = _int32(kv_pos, (B, L), q.device)
+    tv = _int32(t, (B,), q.device)
     valid, valid_ptr = _mask_ptr(kv_valid, (B, L), q.device)
+    split, n_split = decode_split_plan(L)
+    scratch = decode_scratch(B, H, Dh, n_split, q.device)
     out = torch.empty_like(q)
     lib = build.load("decode_attention")
     with torch.cuda.device(q.device):
         rc = lib.decode_attention_launch(
             dt, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            pos.data_ptr(), tv.data_ptr(), valid_ptr, B, L, H, K,
-            int(window or 0), float(Dh ** -0.5), _stream(q))
+            scratch.data_ptr(), pos.data_ptr(), tv.data_ptr(), valid_ptr, B,
+            L, H, K, int(window or 0), split, n_split, float(Dh ** -0.5),
+            _stream(q))
     _check(rc, "decode_attention")
     return out
 
@@ -419,9 +492,10 @@ def decode_attention(q, k, v, kv_pos, t, kv_valid=None, kscale=None,
 # Replaces kernels/paged_decode_attention.py::paged_decode_attention (TPU).
 # The paged mode of csrc/decode_attention.cu: the ring kernel's body with
 # the key addressed through the page table and masked by its implicit
-# position and pvalid. It serves paged decode and each paged prefill chunk
-# (the chunk's C queries as C rows of one table row). Bound on the H100:
-# bytes (the attended K/V rows).
+# position and pvalid; splits are whole pages, and keys past t are never
+# visited. It serves paged decode and each paged prefill chunk (the chunk's
+# C queries as C rows of one table row). Bound on the H100: bytes (the
+# attended K/V rows).
 
 def paged_decode_attention(q, kp, vp, table, t, pvalid, kscale=None,
                            vscale=None, *, backend=None):
@@ -436,24 +510,26 @@ def paged_decode_attention(q, kp, vp, table, t, pvalid, kscale=None,
     B, Sq, H, Dh = q.shape
     N, ps, K = kp.shape[0], kp.shape[1], kp.shape[2]
     P = table.shape[-1]
-    if Sq != 1 or Dh not in (32, 64, 128) or H % K or kp.shape != vp.shape \
-            or table.shape != (B, P) or pvalid.shape != (N, ps):
+    check_attention_shapes("paged_decode_attention", q, kp, vp, (32, 64, 128))
+    if Sq != 1 or table.shape != (B, P) or pvalid.shape != (N, ps):
         raise ValueError(f"paged_decode_attention kernel: unsupported shapes "
                          f"q {tuple(q.shape)}, kp {tuple(kp.shape)}, table "
                          f"{tuple(table.shape)}, pvalid "
                          f"{tuple(pvalid.shape)}")
     dt = _dtype_code(q, kp, vp)
-    q, kp, vp = q.contiguous(), kp.contiguous(), vp.contiguous()
-    tbl = table.to(device=q.device, dtype=torch.int32).contiguous()
-    tv = torch.as_tensor(t, device=q.device).to(torch.int32).reshape(-1)
-    tv = tv.expand(B).contiguous()
-    pv = pvalid.to(device=q.device, dtype=torch.bool).contiguous()
+    q, kp, vp = _aligned(q), _aligned(kp), _aligned(vp)
+    tbl = _int32(table, (B, P), q.device)
+    tv = _int32(t, (B,), q.device)
+    pv, pv_ptr = _mask_ptr(pvalid, (N, ps), q.device)
+    split, n_split = decode_split_plan(P * ps, ps)
+    scratch = decode_scratch(B, H, Dh, n_split, q.device)
     out = torch.empty_like(q)
     lib = build.load("decode_attention")
     with torch.cuda.device(q.device):
         rc = lib.paged_decode_attention_launch(
             dt, Dh, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-            out.data_ptr(), tbl.data_ptr(), tv.data_ptr(), pv.data_ptr(), B,
-            P, ps, H, K, float(Dh ** -0.5), _stream(q))
+            out.data_ptr(), scratch.data_ptr(), tbl.data_ptr(), tv.data_ptr(),
+            pv_ptr, B, P, ps, H, K, split, n_split, float(Dh ** -0.5),
+            _stream(q))
     _check(rc, "paged_decode_attention")
     return out

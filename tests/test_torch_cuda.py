@@ -27,6 +27,9 @@ from repro_torch.kernels import ops  # noqa: E402
 CUDA_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
+# Qwen2-7B heads (GQA 7:1, Dh 128) at the training shape, per-row counts
+QWEN_TRAIN_FLASH = (2, 512, 512, 28, 4, 128, True, 0, 0.8, [512, 347])
+
 FLASH_CASES = [
     # B, Sq, Sk, H, K, Dh, causal, window, p_valid, count
     (1, 128, 128, 4, 4, 64, True, 0, 1.0, None),       # MHA, all valid
@@ -35,6 +38,12 @@ FLASH_CASES = [
     (1, 64, 192, 4, 1, 128, False, 0, 0.9, None),      # MQA, non-causal
     (2, 256, 256, 4, 2, 32, True, 0, 0.6, 100),        # scalar count
     (3, 256, 256, 4, 4, 32, True, 96, 0.7, [7, 130, 256]),  # per-row count
+    # Qwen2-7B heads: the training shape and a prompt that is not a
+    # multiple of the 64-row tile, with per-row counts
+    QWEN_TRAIN_FLASH,
+    (2, 300, 300, 28, 4, 128, True, 0, 0.9, [300, 211]),
+    # the tensor-core body with a sliding window (tiles before it skipped)
+    (2, 320, 320, 8, 2, 128, True, 100, 0.8, [320, 250]),
 ]
 
 MLP_CASES = [
@@ -89,6 +98,13 @@ PAGED_CASES = [
     # one table row, row i at t = pos0 + i
     (16, 9, 16, 28, 4, 128, [[8, 3, 0, 5]] * 16, list(range(48, 64)), 0.8),
     (16, 5, 16, 8, 2, 64, [[2, -1, -1, -1]] * 16, list(range(16)), 0.7),
+    # rows over several 128-key splits of the decode kernel, -1 holes
+    (3, 41, 16, 28, 4, 128,
+     [[40, 3, 17, 22, 5, 9, 31, 0, 12, -1, 27, 8, 36, 14, 2, 19, 33, 6, 25,
+       -1],
+      [11, 29, 38, -1, 7, 20, 1, 34, 15] + [-1] * 11,
+      [23, 4, 37, 10, 28, 16, 39, 21] + [-1] * 12],
+     [300, 129, 127], 0.8),
 ]
 
 
@@ -186,6 +202,112 @@ def test_paged_decode_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
     dead = (table < 0).all(1)
     assert not got[torch.from_numpy(dead).to(cuda)].any()
+
+
+def long_ring(seed, t, L=1024, H=28, K=4, Dh=128):
+    """Qwen2-7B heads over a 1024-slot ring (``ring``) and a query row per
+    slot, as numpy."""
+    k, v, pos, valid = ring(seed, len(t), L, K, Dh, t)
+    q = np.random.default_rng(seed + 1).standard_normal(
+        (len(t), 1, H, Dh), dtype=np.float32)
+    return q, k, v, pos, np.asarray(t, np.int32), valid
+
+
+def on_card(arrays, cuda, dtype):
+    """q, K/V (and pools) in ``dtype``, the rest as they are, on the card."""
+    return [as_t(a, device=cuda, dtype=dtype) if i < 3 else
+            as_t(a, device=cuda) for i, a in enumerate(arrays)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_long_ring_matches_plain(cuda, dtype):
+    """L=1024 at Qwen2-7B heads: t at the split edges (the plan's split
+    size - 1, itself and + 1), a wrapped slot, a slot whose every key is
+    masked and an inactive slot (no position written): exact zeros."""
+    split = ops.decode_split_plan(1024)[0]
+    q, k, v, pos, t, valid = long_ring(
+        11, [split - 1, split, split + 1, 1500, 700, 0])
+    valid[4] = False
+    pos[5] = -1
+    args = on_card((q, k, v, pos, t, valid), cuda, dtype)
+    n0 = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == n0 + 1
+    want = ops.decode_attention(*args, backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    assert not got[4:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_slot_ignores_other_slots(cuda, dtype):
+    """Ring mode: slot 0's output depends on its own keys only. New K/V,
+    positions, t, masks and queries in every other slot, and slot 0 run
+    alone (B=1), leave it bit for bit the same: the kernel-level form of
+    staggered == solo (the split plan depends on L alone)."""
+    q, k, v, pos, t, valid = long_ring(12, [300, 1023, 129, 64])
+    base = ops.decode_attention(*on_card((q, k, v, pos, t, valid), cuda,
+                                         dtype))
+    other = list(long_ring(14, [300, 5, 900, 2047]))
+    for new, old in zip(other, (q, k, v, pos, t, valid)):
+        new[0] = old[0]
+    moved = ops.decode_attention(*on_card(other, cuda, dtype))
+    solo = ops.decode_attention(*on_card(
+        [a[:1] for a in (q, k, v, pos, t, valid)], cuda, dtype))
+    assert torch.equal(moved[0], base[0])
+    assert torch.equal(solo[0], base[0])
+    assert not torch.equal(moved[1:], base[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_slot_ignores_other_slots(cuda, dtype):
+    """Paged mode: slot 0's output depends on its own pages only. Other
+    rows pointing at other pages and other t, new K/V and pvalid on every
+    page slot 0 does not own, and slot 0 alone (B=1) leave it bit for bit
+    the same."""
+    q, kp, vp, table, t, pvalid = paged_inputs(PAGED_CASES[-1], 15)
+    base = ops.paged_decode_attention(*on_card(
+        (q, kp, vp, table, t, pvalid), cuda, dtype))
+    rng = np.random.default_rng(16)
+    mine = np.unique(table[0][table[0] >= 0])
+    free = np.setdiff1d(np.arange(kp.shape[0]), mine)
+    table2 = np.full_like(table, -1)
+    table2[0] = table[0]
+    table2[1, :12] = rng.permutation(free)[:12]
+    table2[2, :5] = rng.permutation(free)[:5]
+    t2 = np.asarray([t[0], 191, 70], np.int32)
+    q2, kp2, vp2 = q.copy(), kp.copy(), vp.copy()
+    q2[1:] = rng.standard_normal(q2[1:].shape)
+    kp2[free] = rng.standard_normal(kp2[free].shape)
+    vp2[free] = rng.standard_normal(vp2[free].shape)
+    pvalid2 = pvalid.copy()
+    pvalid2[free] = rng.random(pvalid2[free].shape) < 0.5
+    moved = ops.paged_decode_attention(*on_card(
+        (q2, kp2, vp2, table2, t2, pvalid2), cuda, dtype))
+    solo = ops.paged_decode_attention(*on_card(
+        (q[:1], kp, vp, table[:1], t[:1], pvalid), cuda, dtype))
+    assert torch.equal(moved[0], base[0])
+    assert torch.equal(solo[0], base[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_are_deterministic(cuda, dtype):
+    """Two calls on the same inputs give the same bits: flash at Qwen2-7B's
+    training shape, ring decode over L=1024, paged decode over several
+    splits (no atomics; splits merge in a fixed order)."""
+    B, Sq, Sk, H, K, Dh, causal, window, p_valid, count = QWEN_TRAIN_FLASH
+    q, k, v, valid = attn_inputs(17, B, Sq, Sk, H, K, Dh, p_valid)
+    fa = on_card((q, k, v, valid, np.asarray(count, np.int32)), cuda, dtype)
+    ring_args = on_card(long_ring(18, [300, 1023, 129, 1500]), cuda, dtype)
+    paged_args = on_card(paged_inputs(PAGED_CASES[-1], 19), cuda, dtype)
+    for run in (lambda: ops.flash_attention(*fa),
+                lambda: ops.decode_attention(*ring_args),
+                lambda: ops.paged_decode_attention(*paged_args)):
+        assert torch.equal(run(), run())
 
 
 @pytest.mark.cuda

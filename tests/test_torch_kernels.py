@@ -113,3 +113,119 @@ def test_wrappers_take_plain_version_on_cpu():
     with pytest.raises(NotImplementedError):
         ops.fused_mlp(as_t(q[0, :, 0]), torch.ones(32, 8), torch.ones(8, 32),
                       wi_scale=torch.ones(8))
+
+
+# ------------- the Python around the decode and flash kernels ---------------
+
+def test_decode_split_plan_for_the_ring():
+    """Ring mode: splits of DECODE_CHUNK keys over [0, L)."""
+    chunk = ops.DECODE_CHUNK
+    for L, n in ((1, 1), (64, 1), (chunk - 1, 1), (chunk, 1), (chunk + 1, 2),
+                 (1024, -(-1024 // chunk))):
+        assert ops.decode_split_plan(L) == (chunk, n)
+
+
+@pytest.mark.parametrize("ps", [1, 3, 8, 16, 48, 128, 256])
+def test_decode_split_plan_is_whole_pages(ps):
+    """Paged mode: a split is whole pages, at most one chunk unless a page
+    is larger, and the splits cover the table row exactly once."""
+    for P in (1, 7, 64):
+        per, n = ops.decode_split_plan(P * ps, ps)
+        assert per % ps == 0
+        assert ps <= per <= max(ops.DECODE_CHUNK, ps)
+        assert (n - 1) * per < P * ps <= n * per
+
+
+class _Recorder:
+    """Stands in for a kernel library: every ``*_launch`` records its
+    arguments and returns 0 (success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def fake_launch(monkeypatch):
+    """The wrappers' kernel path on CPU tensors, the launch recorded: only
+    the Python before the launch runs (plan, scratch, shape checks,
+    counts); the outputs are never read."""
+    import contextlib
+    lib = _Recorder()
+    monkeypatch.setattr(ops, "use_kernel", lambda backend, t: True)
+    monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(ops.build, "load", lambda name: lib)
+    monkeypatch.setattr(ops.torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    scratch = []
+
+    def record_scratch(*args, **kw):
+        out = real_scratch(*args, **kw)
+        scratch.append((tuple(out.shape), out.dtype))
+        return out
+    real_scratch = ops.decode_scratch
+    monkeypatch.setattr(ops, "decode_scratch", record_scratch)
+    lib.scratch = scratch
+    return lib
+
+
+def _decode_call(op, B, t, H=28, K=4, Dh=128, L=1024, ps=16):
+    rng = np.random.default_rng(B)
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, Dh),
+                                             dtype=np.float32))
+    tv = torch.full((B,), t, dtype=torch.int32)
+    if op == "ring":
+        kv = torch.zeros(B, L, K, Dh)
+        pos = torch.arange(L, dtype=torch.int32).expand(B, L)
+        return ops.decode_attention(q, kv, kv, pos, tv)
+    P = L // ps
+    pool = torch.zeros(B * P + 1, ps, K, Dh)
+    table = torch.arange(B * P, dtype=torch.int32).reshape(B, P)
+    return ops.paged_decode_attention(q, pool, pool, table, tv,
+                                      torch.ones(B * P + 1, ps,
+                                                 dtype=torch.bool))
+
+
+@pytest.mark.parametrize("op", ["ring", "paged"])
+def test_decode_wrappers_pass_a_fixed_split_plan(fake_launch, op):
+    """The plan handed to the kernel depends on L (or P * ps) only: the
+    same for B=1 and B=8 and any t; the f32 scratch holds (B, H, n_split,
+    Dh) partial outputs and (B, H, n_split, 2) (max, sum) pairs; each call
+    counts one launch (two CUDA launches on the card: the splits and their
+    merge)."""
+    name = "decode_attention" if op == "ring" else "paged_decode_attention"
+    ops.reset_launch_counts()
+    for B, t in ((1, 0), (8, 5), (1, 1023), (8, 700)):
+        _decode_call(op, B, t)
+    plans = {(args[15], args[16]) for _, args in fake_launch.calls}
+    split, n = ops.decode_split_plan(1024, 1 if op == "ring" else 16)
+    assert plans == {(split, n)}
+    assert [c for c, _ in fake_launch.calls] == [f"{name}_launch"] * 4
+    for (B, _), shapes in zip(((1, 0), (8, 5), (1, 1023), (8, 700)),
+                              fake_launch.scratch):
+        assert shapes == ((B * 28 * n * (128 + 2),), torch.float32)
+    assert ops.launch_counts()[name] == 4
+
+
+@pytest.mark.parametrize("op", ["flash", "ring", "paged"])
+def test_kernel_wrappers_refuse_unsupported_shapes(fake_launch, op):
+    """On the kernel path each attention wrapper raises ValueError for a
+    head width it has no instantiation for, or K not dividing H, before
+    anything launches."""
+    if op == "flash":
+        run = lambda H, K, Dh: ops.flash_attention(
+            torch.zeros(1, 8, H, Dh), torch.zeros(1, 8, K, Dh),
+            torch.zeros(1, 8, K, Dh))
+    else:
+        run = lambda H, K, Dh: _decode_call(op, 2, 3, H=H, K=K, Dh=Dh, L=64)
+    for H, K, Dh in ((4, 2, 48), (6, 4, 64), (4, 2, 8)):
+        with pytest.raises(ValueError):
+            run(H, K, Dh)
+    if op != "flash":
+        with pytest.raises(ValueError):    # 16 is a flash-only toy width
+            run(4, 2, 16)
+    assert fake_launch.calls == []
+    run(4, 2, 64)
+    assert len(fake_launch.calls) == 1
