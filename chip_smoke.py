@@ -5,26 +5,34 @@
                           [--pages N] [--seed S]
     python3 chip_smoke.py --ab PARENT_CHECKOUT
 
-``--ab`` runs only the flash, ring decode and paged decode checks of item
-2 on another checkout (unpacked with ``git archive``) and on this one in
-turns, p c c p, one process each, on the same seeded inputs: each turn
-within TOL of the plain versions, the timed medians per turn (graphed and
-eager), and it fails unless each tree's outputs are equal bit for bit in
-its own two turns. Without it:
+``--ab`` runs only the kernel checks of item 2 (all six kernels;
+``moe_gmm`` at one moefied Qwen2-7B call) on another checkout (unpacked
+with ``git archive``) and on this one in turns, p c c p, one process
+each, on the same seeded inputs: each turn within TOL of the plain
+versions, the timed medians per turn (graphed and eager), whether the
+change beat the parent in every turn at the MLP cases, and it fails
+unless each tree's outputs are equal bit for bit in its own two turns and
+the kernels this change leaves alone (``AB_SAME``) give the same bits in
+both trees. Without it:
 
 1. Prints the card (nvidia-smi name and power limit), builds the
    hand-written CUDA kernels from src/repro_torch/kernels/csrc with nvcc
    (sm_90a, one process per source, in parallel) and prints the build time,
    ptxas's registers and spills, and the number of tensor-core (HGMMA)
-   instructions in each flash_fwd instantiation's SASS (fails unless the
-   bf16 Dh=128 one has some).
+   instructions in each flash_fwd instantiation's SASS and in the MLP's
+   tensor-core up and down phases (fails unless the bf16 Dh=128 flash
+   kernel and every MLP phase have some).
 2. Holds each kernel against its plain PyTorch version at Qwen2-7B shapes,
    in bf16 and f32, with ragged counts, kv_valid holes, a part-filled ring
    (t at the decode kernel's split edges, a slot with every key masked and
    an inactive one) and a routed selection; prints the max error beside the
    tolerance, and times the kernel, the plain version and (attention) one
    SDPA call with CUDA events (KV heads shared by enable_gqa; SDPA over K/V
-   repeated to the q-heads is printed beside it). The attention kernels,
+   repeated to the q-heads is printed beside it). The MLP kernels are
+   timed at the ring prefill's 512 rows, the training shape and a paged
+   prefill chunk's 16 rows (fused_mlp) and at a training step's routed
+   bucket (fused_mlp_routed), each beside a cuBLAS bf16 composite of the
+   same function (several calls: printed, never library_ms). The attention kernels,
    their plain versions and SDPA are timed twice: back to back (eager) and
    replayed from a CUDA graph (graphed: the device's time without the
    host's cost of issuing each call); the result line's ms, plain_ms and
@@ -364,14 +372,65 @@ def check_flash(res: Results, rng, dev, H, K, Dh):
     return outs
 
 
+def composite_ms(x, wi, wo, wg, tw, act):
+    """CUDA-event times of a cuBLAS bf16 composite of the MLP on the
+    kernel's inputs (x already gathered): x@wi, x@wg, act*mul, h@wo, *tw.
+    Several PyTorch calls, not one: printed as a yardstick, never a
+    row's library_ms."""
+    import torch.nn.functional as F
+    f = F.silu if act == "swiglu" else (
+        lambda t: F.gelu(t, approximate="tanh"))
+
+    def run():
+        h = x @ wi
+        h = f(x @ wg) * h if wg is not None else f(h)
+        y = h @ wo
+        return y if tw is None else y * tw[..., None].to(y.dtype)
+    return cuda_ms(run, 5)
+
+
+def mlp_timing(res: Results, name, label, run, composite, rows, d, f,
+               n_mats, nbytes, kind):
+    """Times one MLP case (kernel, plain version) and prints the cuBLAS
+    composite beside it. label "main": the row's timing; any other label:
+    kept in the row under cases[label] (ms, plain_ms, bound_ms, bound_by)."""
+    ms, plain = cuda_ms(run, 5), cuda_ms(lambda: run("ref"), 3)
+    flops = 2 * rows * d * f * n_mats
+    comp = composite()
+    med = lambda ts: ts[len(ts) // 2]
+    print(f"  {name:17s} {label}: cuBLAS bf16 composite (x@wi, x@wg, "
+          f"act*mul, h@wo, *tw; a yardstick, several calls) {med(comp):.4f} "
+          f"ms [{comp[0]:.4f}-{comp[-1]:.4f}]")
+    if label == "main":
+        res.timing(name, ms, plain, flops, nbytes, kind, None)
+        return
+    b, by = bound_ms(flops, nbytes, kind)
+    res.rows[name].setdefault("cases", {})[label] = dict(
+        ms=med(ms), plain_ms=med(plain), composite_ms=med(comp), bound_ms=b,
+        bound_by=by)
+    print(f"  {name:17s} {label} median [min-max] of 5: kernel "
+          f"{med(ms):.4f} ms [{ms[0]:.4f}-{ms[-1]:.4f}]  plain "
+          f"{med(plain):.4f} ms  bound {b:.4f} ms ({by})")
+
+
 def check_fused_mlp(res: Results, dev, D, Fd):
+    """fused_mlp against its plain version at Qwen2-7B widths and small
+    ones, bf16 (the tensor-core body at widths that are multiples of 64)
+    and f32 (the CUDA-core body). Timed, each beside a cuBLAS composite:
+    the ring prefill's 512-token call (the row's time), the training shape
+    (B=2, T=512) and a paged prefill chunk's 16-row call (bound by the
+    weights' bytes). Returns the outputs by case."""
     import torch
     from repro_torch.kernels import ops
     cases = [  # (dtype, x shape, D, F, act, gated, token weights, counts, timed)
-        ("bf16", (1, 512), D, Fd, "swiglu", True, False, None, True),
-        ("f32", (2, 96), D, Fd, "swiglu", True, True, [96, 41], False),
-        ("f32", (1, 70), 256, 512, "gelu", False, True, [70], False),
+        ("bf16", (1, 512), D, Fd, "swiglu", True, False, None, "main"),
+        ("bf16", (2, 512), D, Fd, "swiglu", True, False, None, "train"),
+        ("bf16", (1, 16), D, Fd, "swiglu", True, False, None, "chunk"),
+        ("bf16", (2, 77), D, Fd, "swiglu", True, True, [77, 30], None),
+        ("f32", (2, 96), D, Fd, "swiglu", True, True, [96, 41], None),
+        ("f32", (1, 70), 256, 512, "gelu", False, True, [70], None),
     ]
+    outs = {}
     for kind, xs, d, f, act, gated, weighted, counts, timed in cases:
         dt = torch.bfloat16 if kind == "bf16" else torch.float32
         x = torch.randn(*xs, d, device=dev).to(dt)
@@ -383,24 +442,26 @@ def check_fused_mlp(res: Results, dev, D, Fd):
                                                        dtype=torch.int32)
         run = lambda backend=None: ops.fused_mlp(
             x, wi, wo, wg, tw, cnt, act=act, backend=backend)
-        res.compare("fused_mlp", f"{kind} x={tuple(x.shape)} F={f} {act} "
-                    f"cnt={counts}", run(), run("ref"), kind)
+        case = f"{kind} x={tuple(x.shape)} F={f} {act} cnt={counts}"
+        outs[case] = run()
+        res.compare("fused_mlp", case, outs[case], run("ref"), kind)
         if not timed:
             continue
         rows = xs[0] * xs[1]
         n_mats = 3 if gated else 2
-        esz = x.element_size()
-        nbytes = (n_mats * d * f + 2 * x.numel()) * esz
-        res.timing("fused_mlp", cuda_ms(run, 5), cuda_ms(
-            lambda: run("ref"), 3), 2 * rows * d * f * n_mats, nbytes, kind,
-            None)
+        nbytes = (n_mats * d * f + 2 * x.numel()) * x.element_size()
+        mlp_timing(res, "fused_mlp", timed, run,
+                   lambda: composite_ms(x, wi, wo, wg, tw, act), rows, d, f,
+                   n_mats, nbytes, kind)
+    return outs
 
 
 def check_fused_mlp_routed(res: Results, rng, dev, D, Fd):
     """The routed MLP at a training step's shapes: B=2, S=512, a 256-row
-    bucket with counts (256, 200); plus a small ungated case whose bucket
-    is the whole sequence. Rows outside the live selection must be exactly
-    zero."""
+    bucket with counts (256, 200) (timed, beside a cuBLAS composite on the
+    gathered rows); plus a small ungated case whose bucket is the whole
+    sequence. Rows outside the live selection must be exactly zero.
+    Returns the outputs by case."""
     import torch
     from repro_torch.kernels import ops
     cases = [  # (dtype, B, S, Kb, D, F, act, gated, counts, timed)
@@ -408,6 +469,7 @@ def check_fused_mlp_routed(res: Results, rng, dev, D, Fd):
         ("f32", 2, 512, 256, D, Fd, "swiglu", True, [256, 200], False),
         ("f32", 2, 96, 96, 256, 512, "gelu", False, [96, 0], False),
     ]
+    outs = {}
     for kind, B, S, Kb, d, f, act, gated, counts, timed in cases:
         dt = torch.bfloat16 if kind == "bf16" else torch.float32
         x = torch.randn(B, S, d, device=dev).to(dt)
@@ -424,8 +486,9 @@ def check_fused_mlp_routed(res: Results, rng, dev, D, Fd):
         run = lambda backend=None: ops.fused_mlp_routed(
             x, idx, wi, wo, wg, tw, cnt, act=act, backend=backend)
         got = run()
-        res.compare("fused_mlp_routed", f"{kind} x={tuple(x.shape)} Kb={Kb} "
-                    f"F={f} {act} cnt={counts}", got, run("ref"), kind)
+        case = f"{kind} x={tuple(x.shape)} Kb={Kb} F={f} {act} cnt={counts}"
+        outs[case] = got
+        res.compare("fused_mlp_routed", case, got, run("ref"), kind)
         live = torch.zeros(B, S, dtype=torch.bool, device=dev)
         for b, c in enumerate(counts):
             live[b, idx[b, :c]] = True
@@ -444,9 +507,11 @@ def check_fused_mlp_routed(res: Results, rng, dev, D, Fd):
         # idx and token weights (4 bytes each) and the counts
         nbytes = (n_mats * d * f + rows * d + B * S * d) * esz \
             + B * Kb * 8 + B * 4
-        res.timing("fused_mlp_routed", cuda_ms(run, 5),
-                   cuda_ms(lambda: run("ref"), 3), 2 * rows * d * f * n_mats,
-                   nbytes, kind, None)
+        xg = torch.gather(x, 1, idx[..., None].expand(B, Kb, d))
+        mlp_timing(res, "fused_mlp_routed", "main", run,
+                   lambda: composite_ms(xg, wi, wo, wg, tw, act), rows, d, f,
+                   n_mats, nbytes, kind)
+    return outs
 
 
 def _ring(rng, B, L, t, keep):
@@ -784,11 +849,12 @@ def check_moe_gmm(res, dev, label, cases, weights_of, timed):
     routing weights, against the plain version; every slot at or past its
     count must be exactly zero. The largest call in bf16 without weights
     (the path's own call) is timed: ``timed`` makes it the row's timing,
-    else it is printed beside it."""
+    else it is printed beside it. Returns the outputs by case."""
     import torch
     from repro_torch.kernels import ops
     print(f"  moe_gmm {label}: {len(cases)} distinct call shapes, the "
           f"heaviest call of each replayed")
+    outs = {}
     for kind in ("bf16", "f32"):
         dt = torch.bfloat16 if kind == "bf16" else torch.float32
         wi, wg, wo = weights_of(dt)
@@ -803,9 +869,10 @@ def check_moe_gmm(res, dev, label, cases, weights_of, timed):
                 run = lambda backend=None: ops.moe_gmm(
                     x, wi, wo, wg, rw, cnt, act="swiglu", backend=backend)
                 got = run()
-                res.compare("moe_gmm", f"{kind} {label} {tuple(shape)} rows "
-                            f"{int(counts.sum())} w={'y' if weighted else 'n'}",
-                            got, run("ref"), kind)
+                case = (f"{kind} {label} {tuple(shape)} rows "
+                        f"{int(counts.sum())} w={'y' if weighted else 'n'}")
+                outs[case] = got
+                res.compare("moe_gmm", case, got, run("ref"), kind)
                 if got[~live].count_nonzero() != 0:
                     fail(f"moe_gmm {label} {kind} {shape}: a slot past its "
                          f"count is not zero")
@@ -837,6 +904,7 @@ def check_moe_gmm(res, dev, label, cases, weights_of, timed):
                   f"{med(args[1]):.4f} ms [{args[1][0]:.4f}-"
                   f"{args[1][-1]:.4f}]  bound {b:.4f} ms ({by})")
         del wi, wg, wo
+    return outs
 
 
 def moefied_weights(dev, D, F, E):
@@ -1659,11 +1727,11 @@ def print_ptxas(build, sources=None, tag=""):
                 print(f"  {tag}ptxas {name} {fn}: {line.strip()}")
 
 
-def print_hgmma(build) -> None:
-    """Counts the tensor-core instructions (HGMMA) in the SASS of every
-    flash_fwd instantiation of the built flash_attention library
-    (cuobjdump, or the copy in Triton's package where the toolkit lacks
-    it); fails unless the bf16 Dh=128 instantiation has some."""
+def sass_hgmma(build, lib, pattern, name_of) -> dict:
+    """HGMMA (tensor-core) instruction count per kernel function of the
+    built library ``lib`` whose mangled name matches ``pattern``
+    (cuobjdump -sass, or the copy in Triton's package where the toolkit
+    lacks it); ``name_of(match)`` names it."""
     import re
     import shutil
     tools = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
@@ -1675,65 +1743,109 @@ def print_hgmma(build) -> None:
         pass
     tool = next((t for t in tools if t and Path(t).exists()), None)
     if tool is None:
-        fail("no cuobjdump to count the flash kernel's HGMMA instructions")
-    lib = build.BUILD_ROOT / build.source_hash() / "libflash_attention.so"
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+        fail("no cuobjdump to count the kernels' HGMMA instructions")
+    path = build.BUILD_ROOT / build.source_hash() / f"lib{lib}.so"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(flash_fwd_\w+?)I(\w*?)L?i(\d+)E", line)
-            fn = None if m is None else (
-                f"{m.group(1)}<{'bf16, ' if 'bfloat16' in m.group(2) else ''}"
-                f"{'f32, ' if m.group(2).endswith('f') else ''}"
-                f"{m.group(3)}>")
+            m = re.search(pattern, line)
+            fn = None if m is None else name_of(m)
             if fn is not None:
                 counts[fn] = 0
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
-    print(f"  SASS HGMMA instructions per flash_fwd instantiation: {counts}")
-    if not counts.get("flash_fwd_wgmma<128>"):
+    return counts
+
+
+def print_hgmma(build) -> None:
+    """Counts the HGMMA instructions of every flash_fwd instantiation and
+    of the MLP library's tensor-core up and down phases (mlp_tc); fails
+    unless the bf16 Dh=128 flash kernel and every mlp_tc instantiation
+    have some."""
+    flash = sass_hgmma(
+        build, "flash_attention", r"(flash_fwd_\w+?)I(\w*?)L?i(\d+)E",
+        lambda m: (f"{m.group(1)}<"
+                   f"{'bf16, ' if 'bfloat16' in m.group(2) else ''}"
+                   f"{'f32, ' if m.group(2).endswith('f') else ''}"
+                   f"{m.group(3)}>"))
+    print(f"  SASS HGMMA instructions per flash_fwd instantiation: {flash}")
+    if not flash.get("flash_fwd_wgmma<128>"):
         fail("the bf16 Dh=128 flash kernel has no HGMMA instruction")
+    mlp = sass_hgmma(
+        build, "fused_mlp", r"mlp_tcILb(\d)ELi(\d)E",
+        lambda m: (f"mlp_tc<{'up' if m.group(1) == '1' else 'down'}, "
+                   f"{64 * int(m.group(2))} rows>"))
+    print(f"  SASS HGMMA instructions per fused_mlp tensor-core phase: {mlp}")
+    if len(mlp) != 4 or not all(mlp.values()):
+        fail("a tensor-core MLP phase (bf16 up / down) has no HGMMA "
+             "instruction")
 
 
-AB_KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention")
+AB_KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention",
+              "fused_mlp", "fused_mlp_routed", "moe_gmm")
+# outputs that must be bit-identical between the two trees (kernels this
+# change leaves as they were), by ab_turn's case prefix
+AB_SAME = ("flash", "ring", "paged", "moe_gmm")
+AB_FASTER = (("fused_mlp", None), ("fused_mlp_routed", None),
+             ("fused_mlp", "chunk"))
 
 
 def ab_turn(tree: Path, out: Path) -> None:
     """One turn of ``--ab``: ``check_flash``, ``check_decode`` (ring, no
-    split edges) and ``check_paged_decode`` on the kernels of the checkout
-    at ``tree`` (its ``src`` first on the path, its kernels built into its
+    split edges), ``check_paged_decode``, ``check_fused_mlp``,
+    ``check_fused_mlp_routed`` and ``check_moe_gmm`` (a moefied Qwen2-7B
+    call, 8 experts, ragged counts) on the kernels of the checkout at
+    ``tree`` (its ``src`` first on the path, its kernels built into its
     own tree), inputs drawn from seed 0, each held to its plain version
-    under ``TOL``; saves the outputs and each kernel's timed-case median
+    under ``TOL``; saves the outputs and each kernel's timed-case medians
     to ``out``."""
     sys.path.insert(0, str(tree.resolve() / "src"))
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     build.build()
-    print_ptxas(build, ("flash_attention", "decode_attention"), f"{tree}: ")
+    print_ptxas(build, None, f"{tree}: ")
+    cfg = get_config("qwen2-7b")
+    D, Fd = cfg.d_model, cfg.d_ff
     torch.manual_seed(0)
     rng, dev, res = np.random.default_rng(0), torch.device("cuda"), Results()
+    counts = np.array([[512, 301, 0, 77, 512, 450, 128, 1]])
     outs = {}
     for name, fn in (("flash", lambda: check_flash(res, rng, dev, 28, 4,
                                                    128)),
                      ("ring", lambda: check_decode(res, rng, dev, 28, 4, 128,
                                                    1024, edges=False)),
                      ("paged", lambda: check_paged_decode(
-                         res, rng, dev, 28, 4, 128, 1024))):
+                         res, rng, dev, 28, 4, 128, 1024)),
+                     ("fused_mlp", lambda: check_fused_mlp(res, dev, D, Fd)),
+                     ("fused_mlp_routed", lambda: check_fused_mlp_routed(
+                         res, rng, dev, D, Fd)),
+                     ("moe_gmm", lambda: check_moe_gmm(
+                         res, dev, "moefied", [((1, 8, 512, D), counts)],
+                         moefied_weights(dev, D, Fd, 8), timed=True))):
         outs.update({f"{name} {k}": o.cpu() for k, o in fn().items()})
-    torch.save({"outs": outs,
-                "ms": {n: (res.rows[n]["graphed_ms"], res.rows[n]["ms"])
-                       for n in AB_KERNELS}}, out)
+    ms = {}
+    for n in AB_KERNELS:
+        row = res.rows[n]
+        ms[(n, None)] = (row.get("graphed_ms"), row["ms"])
+        for label, case in row.get("cases", {}).items():
+            ms[(n, label)] = (None, case["ms"])
+    torch.save({"outs": outs, "ms": ms}, out)
 
 
 def kernel_ab(parent: Path) -> int:
-    """``--ab PARENT``: the flash, ring decode and paged decode kernels of
-    the checkout at PARENT (p) and of this one (c) in turns p c c p, each
-    turn a process of its own (``ab_turn``) on the same seeded inputs at
-    Qwen2-7B heads, each turn within ``TOL`` of the plain version. Prints
-    each kernel's timed median per turn; fails unless each tree's outputs
-    are equal bit for bit across its own two turns (the trees may differ:
-    a redesign sums in another order)."""
+    """``--ab PARENT``: the six kernels of the checkout at PARENT (p) and
+    of this one (c) in turns p c c p, each turn a process of its own
+    (``ab_turn``) on the same seeded inputs at Qwen2-7B widths, each turn
+    within ``TOL`` of the plain version. Prints each kernel's timed
+    medians per turn (graphed and eager for attention, eager for the MLP
+    kernels, whose calls are far above the host's cost of issuing them),
+    and whether the change was faster than the parent in every turn at
+    the MLP cases it redesigned (``AB_FASTER``); fails unless each tree's
+    outputs are equal bit for bit across its own two turns, and unless the
+    kernels of ``AB_SAME`` give the same bits in both trees."""
     import shutil
     import tempfile
     import torch
@@ -1755,12 +1867,27 @@ def kernel_ab(parent: Path) -> int:
         ok = ok and same
         print(f"--ab {tree} ({parent if tree == 'p' else ROOT}): outputs "
               f"bit for bit equal in its two turns: {same}")
-    for n in AB_KERNELS:
+    for prefix in AB_SAME:
+        keys = [k for k in got[0]["outs"] if k.split(" ", 1)[0] == prefix]
+        same = bool(keys) and all(
+            torch.equal(got[0]["outs"][k], got[1]["outs"][k]) for k in keys)
+        ok = ok and same
+        print(f"--ab {prefix}: {len(keys)} outputs bit for bit equal between "
+              f"the parent and the change: {same}")
+    for key in got[0]["ms"]:
+        n, label = key
         for i, form in enumerate(("graphed", "eager")):
-            ms = " / ".join(f"{t} {g['ms'][n][i]:.4f}"
+            if got[0]["ms"][key][i] is None:
+                continue
+            ms = " / ".join(f"{t} {g['ms'][key][i]:.4f}"
                             for (t, _), g in zip(turns, got))
-            print(f"--ab {n}, turns p c c p, timed-case median ms, {form}: "
-                  f"{ms}")
+            print(f"--ab {n}{'' if label is None else ' ' + label}, turns "
+                  f"p c c p, timed-case median ms, {form}: {ms}")
+    for key in AB_FASTER:
+        t = [g["ms"][key][1] for g in got]
+        print(f"--ab {key[0]}{'' if key[1] is None else ' ' + key[1]}: the "
+              f"change faster than the parent in every turn: "
+              f"{max(t[1], t[2]) < min(t[0], t[3])}")
     return 0 if ok else 1
 
 
@@ -1778,10 +1905,11 @@ def main() -> int:
                          "ring-equivalent 4 * 64 + 1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab", type=Path, metavar="PARENT",
-                    help="run only the flash, ring decode and paged decode "
-                         "kernels of the checkout at PARENT and of this one "
-                         "in turns (p c c p): each tree bit for bit across "
-                         "its turns, within TOL, and the timed medians")
+                    help="run only the six kernels' checks on the checkout "
+                         "at PARENT and on this one in turns (p c c p): "
+                         "each tree bit for bit across its turns, the "
+                         "unchanged kernels bit for bit across the trees, "
+                         "within TOL, and the timed medians")
     ap.add_argument("--ab-turn", nargs=2, type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
 

@@ -56,8 +56,14 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using hp::cp_async16;
+using hp::cp_async16_or_zero;
+using hp::cp_commit;
+using hp::cp_wait;
 
 constexpr int NK = 128;   // keys per chunk of a split block
 constexpr int NT = 256;   // threads per split block: two per key
@@ -135,19 +141,6 @@ struct Smem {
   long row[NK];          // the chunk's K/V rows, -1 = masked
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // 16 bytes of a row in shared memory -> f32 (the f32 body's loads; the
 // place an int8 row would be dequantized)
@@ -358,15 +351,6 @@ struct SmemMma {
   float alpha[GMAX];            // this chunk's rescale of each row
   long row[NK];                 // the chunk's K/V rows, -1 = masked
 };
-
-// cp.async of 16 bytes, or (bytes = 0) 16 zero bytes without a read
-__device__ __forceinline__ void cp_async16_or_zero(void* dst, const void* src,
-                                                   int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
 
 // D(16 x 8) += A(16 x 16) B(16 x 8), A's rows 8-15 zero: a0 = row lane/4,
 // columns 2*(lane%4) + {0, 1}; a2 = the same row, columns + 8

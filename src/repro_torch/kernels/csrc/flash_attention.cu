@@ -42,9 +42,8 @@
 //   tensor cores on purpose: TF32 would break the 1e-4 tolerance that the
 //   f32 gradient check and the f32 card cases hold; 16 and 32 are the toy
 //   widths, below one 64-column swizzle atom.
-#include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -251,7 +250,7 @@ int launch_simt(const void* q, const void* k, const void* v, void* out,
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace hp;
 
 constexpr int BQ = 64;       // query rows per block: one consumer warpgroup
 constexpr int BK = 64;       // keys per K/V tile
@@ -270,80 +269,6 @@ struct Smem {
                                // count and valid
   uint64_t q_full, full[STAGES], empty[STAGES];
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar)) : "memory");
-}
-
-// Spin until the barrier's phase differs from `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
-// One box of a 4-D tensor map at (c0 innermost, ..., c3) into shared
-// memory; completes on `bar` with the box's bytes (zeros out of bounds).
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor of a 128-byte-swizzled operand:
-// start address, leading and stride byte offsets (each >> 4), layout type 1
-// (128B swizzle) in bits 62-63. K-major operands: sbo = 1024 (the next 8
-// rows), lbo unused. The MN-major V operand: sbo = 1024 (the next 8 keys),
-// lbo = the distance to the next 64 columns of Dh (the next box).
-__device__ __forceinline__ uint64_t desc(const bf16* p, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma (issue ... wait).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
 
 // The accumulator fragment of m64nNk16 (f32): register 4*j + e of thread
 // (warp w, lane l) is row 16*w + l/4 + 8*(e/2), column 8*j + 2*(l%4) + e%2.
@@ -540,7 +465,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma(
       wgmma_ss_n64(sc, desc(sm.q[kk / 4] + (kk % 4) * 16, 16, 1024),
                    desc(sm.k[s][kk / 4] + (kk % 4) * 16, 16, 1024), kk > 0);
     wg_commit();
-    wg_wait0();
+    wg_wait<0>();
     fence_regs(sc);
 
     // masks as bit sets, without branches: row qi may attend columns
@@ -613,7 +538,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma(
       else wgmma_rs_n64(o, pa[kk], dv);
     }
     wg_commit();
-    wg_wait0();
+    wg_wait<0>();
     fence_regs(o);
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[s]);  // K/V slot free
@@ -636,32 +561,6 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma(
   }
 }
 
-// cuTensorMapEncodeTiled, found through the runtime (no -lcuda link)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The map of a bf16 (B, S, heads, DH) tensor: 4-D (DH, heads, S, B), boxes
 // of 64 columns x 1 head x 64 rows, 128-byte swizzle, zeros out of bounds.
 CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* base,
@@ -672,18 +571,8 @@ CUresult make_map(EncodeTiled enc, CUtensorMap* map, const void* base,
                                  (cuuint64_t)heads * DH * 2,
                                  (cuuint64_t)S * heads * DH * 2};
   const cuuint32_t box[4] = {64, 1, 64, 1};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(base), dims, strides, box, one,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return make_map_bf16(enc, map, base, 4, dims, strides, box);
 }
-
-// Return codes beyond cudaError_t: cuTensorMapEncodeTiled was not found,
-// or ERR_ENCODE + the CUresult of a refused tensor map.
-constexpr int ERR_NO_ENCODER = 200000;
-constexpr int ERR_ENCODE = 100000;
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* out,
@@ -713,7 +602,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // C entry point bound with ctypes. Returns the launch's cudaError_t (or a
-// tc::ERR_* code).
+// hp::ERR_* code, csrc/hopper.cuh).
 extern "C" int flash_attention_launch(int dtype, int dh, const void* q,
                                       const void* k, const void* v, void* out,
                                       const void* kv_valid,

@@ -35,25 +35,41 @@
 //
 // The TPU kernel carries the down-projection sum across its SEQUENTIAL F
 // grid axis in VMEM. Hopper blocks run in parallel in no order, and a
-// block cannot hold a (64 x D) f32 accumulator for D = 3584, so the work is
-// two phases in one launch sequence on the caller's stream:
-//   up:   one block per (64 buffer rows, 64 hidden columns) reduces over D
-//         and writes act(x Wg) * (x Wi) to an f32 scratch (rows x F; 39 MB
-//         for 512 Qwen2-7B rows, which the 50 MB L2 mostly holds);
-//   down: one block per (64 buffer rows, 64 output columns) reduces over F
-//         in a fixed order and applies the token weights and the count.
-// No floating-point atomics: every output element is summed by one thread
-// in the same order on every run, and each output row has one writer, so
-// a row's result depends only on that row (budget 1.0 == teacher,
-// staggered == solo and "the same step twice gives the same bits" stay
-// bit-exact). Each block stages its x / H rows and weight tiles through
-// shared memory, so a weight element is read once per 64-row tile, not
-// once per token.
+// block cannot hold a (rows x D) f32 accumulator for D = 3584, so the work
+// is two phases on the caller's stream:
+//   up:   each block reduces over D for a tile of buffer rows x hidden
+//         columns and writes act(x Wg) * (x Wi) to a scratch (rows x F);
+//   down: each block reduces over F in a fixed order for a tile of rows x
+//         output columns, and the token weights and the count are applied.
+// No floating-point atomics: every output element is summed in the same
+// order on every run, and each output row has one writer, so a row's
+// result depends only on that row (budget 1.0 == teacher, staggered ==
+// solo and "the same step twice gives the same bits" stay bit-exact).
 //
 // Bound on the H100: at a 512-token prefill the 6*T*D*F FLOPs (~208 GFLOP)
-// outweigh the ~0.4 GB of weights, so the tensor-core rate bounds it; this
-// first version multiplies on the CUDA cores and is far from that bound.
+// outweigh the ~0.4 GB of weights, so the tensor-core rate bounds it; at a
+// 16-row prefill chunk the weights' bytes do. Two bodies, chosen by the
+// wrapper (kernels/ops.py::mlp_plan) from dtype and shape:
+//
+// * bf16 dense and routed modes with D and F multiples of 64 (every
+//   Qwen2-7B call): the tensor-core body (namespace tc below): TMA weight
+//   tiles through a multi-stage mbarrier ring, a cp.async row gather in
+//   routed mode, wgmma into f32 accumulators, a bf16 H scratch (19.4 MB for
+//   512 Qwen2-7B rows, which the 50 MB L2 holds) and, where the row tiles
+//   are few, a down phase split over F with an in-order sum of the parts.
+//   NUMERICS: H is rounded to bf16 between the phases (the wgmma A operand
+//   is bf16); the JAX kernel and the plain version keep it in f32. The
+//   difference is one bf16 rounding of each hidden value, well inside the
+//   bf16 tolerance (tests/test_torch_kernels.py holds the emulation to the
+//   JAX kernel; chip_smoke.py and tests/test_torch_cuda.py hold this body
+//   to the plain version).
+// * f32 (TF32 would break the 1e-4 tolerance), widths that are not
+//   multiples of 64 (the toy configs), and the grouped-expert mode: the
+//   first, CUDA-core body: one block per (64 buffer rows, 64 columns), x /
+//   H rows and weight tiles staged through shared memory in f32 per 16-deep
+//   step, f32 FMAs, H in an f32 scratch.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -284,6 +300,374 @@ int dispatch(int dtype, const void* x, const int* gidx, const void* wi,
   return (int)cudaErrorInvalidValue;
 }
 
+// ----------------------------- tensor-core body -----------------------------
+//
+// bf16 dense and routed modes with D and F multiples of 64. Each phase is
+// one launch of mlp_tc<UP, WGS>: a block computes BM = 64 * WGS buffer rows
+// x BN = 128 output columns, reducing over its share of K in 64-deep steps,
+// with WGS consumer warpgroups (64 rows each) and producer_warps<WGS>().
+//
+// * Producer warps: keep a ring of Smem::S stages in flight, each guarded by
+//   a full and an empty mbarrier. Lane 0 loads the B tiles (wi and wg in the
+//   up phase, wo in the down phase) by TMA with the 128-byte swizzle, two
+//   64-column boxes of [64 k][64 columns] per matrix: the (K, N) weights are
+//   N-contiguous, the MN-major B operand (as V in flash_attention.cu). The A
+//   tile ([BM rows][64 k], K-major) comes by TMA too (x in dense mode, H in
+//   the down phase; rows past T_ are TMA's zero fill), except in the routed
+//   up phase: tiled TMA cannot gather indexed rows, so the producer warps
+//   gather x rows through idx with 16-byte cp.async copies (chunk c of row
+//   r at chunk c ^ (r & 7): the layout TMA's swizzle writes); each thread's
+//   copies arrive on the stage's full barrier when they land
+//   (cp.async.mbarrier.arrive), and the consumers fence the async proxy
+//   before wgmma reads them. On the H100 one warp's copies kept too few
+//   bytes in flight for 128-row tiles (the routed call took ~2x the dense
+//   one's time); four warps take most of that gap away (copies issued by
+//   the 256 consumer threads instead did no better), and per-row TMA boxes
+//   (one 128-byte box per gathered row) measured slower still (PERF.md).
+// * Consumer warpgroups: wgmma.mma_async m64n128k16 (bf16 -> f32) from
+//   shared memory, two accumulators (up, gate) on one A tile in the up
+//   phase. One stage's products stay in flight while the next stage's are
+//   issued; a stage's slot is released when its products are done.
+// * Up epilogue: act(gate) * up in registers, rounded to bf16, into H
+//   (G, T_, F). Down epilogue: f32 partial sums into part (split, G, T_, D):
+//   the down phase's F reduction is cut into `split` parts when its row
+//   tiles alone are too few to fill the card. mlp_finalize then sums the
+//   parts in split order, applies the token weight and the count, rounds to
+//   bf16 and (routed) scatters to the idx rows.
+// Tile shape and split come from the wrapper (kernels/ops.py::mlp_plan) and
+// depend on (B, T_, D, F) only; every output element is summed in one fixed
+// order, no atomics, and a row's products read only that row of A, so a
+// row's result does not depend on the other rows of its tile.
+namespace tc {
+
+using namespace hp;
+
+constexpr int BN = 128;       // output columns per block: two 64-column boxes
+constexpr int BOX = 64 * 64;  // elements of a [64 rows][64 columns] box (8 KB)
+
+// producer warps: four gather the routed mode's 128-row tiles (one warp's
+// copies keep too few bytes in flight); at 64-row tiles two blocks share an
+// SM, which leaves registers for one
+template <int WGS>
+__host__ __device__ constexpr int producer_warps() {
+  return WGS == 2 ? 4 : 1;
+}
+
+template <bool UP, int WGS>
+struct Smem {
+  // stages: an up-phase stage (x, wi, wg) is 40-48 KB; at WGS = 1 (a
+  // bandwidth-bound call of few rows) two blocks share an SM
+  static constexpr int S = UP && WGS == 1 ? 2 : 4;
+  static constexpr int NB = UP ? 2 : 1;  // B matrices: wi, wg | wo
+  bf16 a[S][WGS][BOX];    // A: [BM rows][64 k], 64 rows per warpgroup
+  bf16 b[S][NB][2][BOX];  // B: per matrix two boxes of [64 k][64 columns]
+  int rows[WGS * 64];     // routed up phase: x row of each buffer row, -1
+  uint64_t full[S], empty[S];
+};
+
+struct Params {
+  const bf16* x;    // routed up phase: the (G, S_, D) rows gathered
+  const int* gidx;  // routed up phase: (G, T_) buffer row -> x row
+  const int* cnt;   // (G,) live leading buffer rows
+  bf16* h;          // (G, T_, F): written by the up phase
+  float* part;      // (split, G, T_, D): written by the down phase
+  int G, T_, S_, D, F, mt, act, gated, split;
+};
+
+// D(64 x 128) += A(64 x 16) B(16 x 128); A K-major, B MN-major, both from
+// shared memory.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Grid: (G * mt row tiles, N / 128 column tiles, split). ta: the A map, 3-D
+// (K, T_, G); tb0 / tb1: the B maps, 2-D (N, K) (tb1: wg, gated up only).
+template <bool UP, int WGS>
+__global__ void __launch_bounds__(WGS * 128 + producer_warps<WGS>() * 32,
+                                  WGS == 1 ? 2 : 1) mlp_tc(
+    const __grid_constant__ CUtensorMap ta,
+    const __grid_constant__ CUtensorMap tb0,
+    const __grid_constant__ CUtensorMap tb1, const Params p) {
+  using Sm = Smem<UP, WGS>;
+  constexpr int S = Sm::S;
+  constexpr int BM = 64 * WGS;
+  constexpr int PT = producer_warps<WGS>() * 32;  // producer threads
+  extern __shared__ uint8_t smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+
+  const int g = blockIdx.x / p.mt, m0 = (blockIdx.x % p.mt) * BM;
+  const int n0 = blockIdx.y * BN;
+  if (m0 >= p.cnt[g]) return;  // dead tile: mlp_finalize writes its zeros
+  const int ks = (UP ? p.D : p.F) / 64;  // 64-deep steps of the reduction
+  const int kb = (int)((long)blockIdx.z * ks / p.split);
+  const int nk = (int)((long)(blockIdx.z + 1) * ks / p.split) - kb;
+  const bool routed = UP && p.gidx != nullptr;
+  const bool two = UP && p.gated;  // a second B matrix (the gate)
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&sm.full[s], routed ? 1 + PT : 1);  // + each copier
+      mbar_init(&sm.empty[s], 4 * WGS);         // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (routed)
+    for (int r = tid; r < BM; r += blockDim.x) {
+      const int m = m0 + r;
+      sm.rows[r] = m < p.T_ ? min(max(p.gidx[(long)g * p.T_ + m], 0),
+                                  p.S_ - 1)
+                            : -1;
+    }
+  __syncthreads();
+
+  if (tid >= WGS * 128) {  // the producer warps
+    const int lane = tid - WGS * 128;  // 0 .. PT - 1
+    if (!routed && lane >= 32) return;  // TMA needs one thread
+    const int tx = (routed ? 0 : BM * 64 * 2) + (two ? 2 : 1) * 2 * BOX * 2;
+    const bf16* xb = routed ? p.x + (long)g * p.S_ * p.D : nullptr;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % S;
+      mbar_wait(&sm.empty[s], ((i / S) & 1) ^ 1);  // slot consumed
+      const int k0 = (kb + i) * 64;
+      if (lane == 0) {
+        mbar_expect_tx(&sm.full[s], tx);
+        if (!routed) tma_load(sm.a[s][0], &ta, &sm.full[s], k0, m0, g);
+        tma_load(sm.b[s][0][0], &tb0, &sm.full[s], n0, k0);
+        tma_load(sm.b[s][0][1], &tb0, &sm.full[s], n0 + 64, k0);
+        if constexpr (UP) {
+          if (two) {
+            tma_load(sm.b[s][1][0], &tb1, &sm.full[s], n0, k0);
+            tma_load(sm.b[s][1][1], &tb1, &sm.full[s], n0 + 64, k0);
+          }
+        }
+      }
+      if (routed) {  // threads 8j .. 8j + 7: the 8 chunks of row j, ...
+        const int ch = lane & 7;
+        bf16* a = sm.a[s][0];
+        for (int r = lane >> 3; r < BM; r += PT / 8) {
+          const int xr = sm.rows[r];
+          cp_async16_or_zero(a + r * 64 + ((ch ^ (r & 7)) << 3),
+                             xb + (long)max(xr, 0) * p.D + k0 + ch * 8,
+                             xr >= 0 ? 16 : 0);
+        }
+        cp_arrive_noinc(&sm.full[s]);  // once this lane's copies landed
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows m0 + 64 * wg .. + 63
+  const int wg = tid >> 7, wq = (tid >> 5) & 3, lane = tid & 31;
+  float acc[64];           // x wi (up) or H wo (down)
+  float acg[UP ? 64 : 1];  // x wg (gated up)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (UP ? 64 : 1); ++i) acg[i] = 0.f;
+
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % S;
+    mbar_wait(&sm.full[s], (i / S) & 1);
+    if (routed) fence_proxy_async();  // the gathered rows, for wgmma
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = desc(sm.a[s][wg] + kk * 16, 16, 1024);
+      wgmma_n128(acc, da, desc(sm.b[s][0][0] + kk * 16 * 64, BOX * 2, 1024));
+      // ungated: wi's product again into the unread gate accumulator, so no
+      // branch sits between the wgmmas of a group (a branch there makes
+      // ptxas serialise them); only toy widths are ungated
+      if constexpr (UP)
+        wgmma_n128(acg, da, desc(sm.b[s][two ? 1 : 0][0] + kk * 16 * 64,
+                                 BOX * 2, 1024));
+    }
+    wg_commit();
+    wg_wait<1>();  // stage i - 1's products are done: free its slot
+    if (i > 0 && lane == 0) mbar_arrive(&sm.empty[(i - 1) % S]);
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+  fence_regs(acg);
+
+  // this thread's rows r0 and r0 + 8, columns 8 j + c0 + {0, 1}
+  const int r0 = m0 + wg * 64 + wq * 16 + (lane >> 2);
+  const int c0 = n0 + (lane & 3) * 2;
+  if constexpr (UP) {
+    bf16* hb = p.h + (long)g * p.T_ * p.F;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r0 + hr * 8;
+      if (r >= p.T_) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = c0 + j * 8;
+        if (n >= p.F) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float u = acc[j * 4 + hr * 2 + e];
+          if (two) {
+            const float gt = acg[j * 4 + hr * 2 + e];
+            v[e] = (p.act == 0 ? rt::silu(gt) : rt::gelu_tanh(gt)) * u;
+          } else {
+            v[e] = p.act == 0 ? rt::silu(u) : rt::gelu_tanh(u);
+          }
+        }
+        *reinterpret_cast<__nv_bfloat162*>(hb + (long)r * p.F + n) =
+            __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
+  } else {
+    const int live = min(p.T_, p.cnt[g]);  // rows past it are never read
+    float* pb = p.part + ((long)blockIdx.z * p.G + g) * p.T_ * p.D;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r0 + hr * 8;
+      if (r >= live) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = c0 + j * 8;
+        if (n >= p.D) continue;
+        *reinterpret_cast<float2*>(pb + (long)r * p.D + n) =
+            make_float2(acc[j * 4 + hr * 2], acc[j * 4 + hr * 2 + 1]);
+      }
+    }
+  }
+}
+
+// Output row of buffer row (g, r) = tw * (part[0] + part[1] + ...), in
+// split order; rows past the count: zeros (dense), untouched (routed: the
+// zero fill covers them). One thread per 4 columns.
+__global__ void __launch_bounds__(256) mlp_finalize(
+    const float* __restrict__ part, const int* __restrict__ gidx,
+    const float* __restrict__ tw, const int* __restrict__ cnt,
+    bf16* __restrict__ out, int G, int T_, int S_, int D, int split) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int q = D / 4;
+  if (i >= (long)G * T_ * q) return;
+  const long row = i / q;  // buffer row g * T_ + r
+  const int col = (int)(i % q) * 4;
+  const int g = (int)(row / T_), r = (int)(row % T_);
+  if (r >= cnt[g]) {
+    if (gidx == nullptr)
+      *reinterpret_cast<uint2*>(out + row * D + col) = make_uint2(0, 0);
+    return;
+  }
+  const long plane = (long)G * T_ * D;
+  float4 a = *reinterpret_cast<const float4*>(part + row * D + col);
+  for (int s = 1; s < split; ++s) {
+    const float4 b =
+        *reinterpret_cast<const float4*>(part + s * plane + row * D + col);
+    a.x += b.x, a.y += b.y, a.z += b.z, a.w += b.w;
+  }
+  const float w = tw != nullptr ? tw[row] : 1.f;
+  const long orow = gidx != nullptr
+                        ? (long)g * S_ + min(max(gidx[row], 0), S_ - 1)
+                        : row;
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a.x * w, a.y * w);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(a.z * w, a.w * w);
+  *reinterpret_cast<uint2*>(out + orow * D + col) =
+      make_uint2(*reinterpret_cast<uint32_t*>(&lo),
+                 *reinterpret_cast<uint32_t*>(&hi));
+}
+
+template <bool UP, int WGS>
+int launch_phase(const CUtensorMap& ta, const CUtensorMap& tb0,
+                 const CUtensorMap& tb1, const Params& p, dim3 grid,
+                 cudaStream_t stream) {
+  const int smem = (int)sizeof(Smem<UP, WGS>) + 1024;  // + alignment slack
+  cudaError_t e = cudaFuncSetAttribute(
+      mlp_tc<UP, WGS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  mlp_tc<UP, WGS><<<grid, WGS * 128 + producer_warps<WGS>() * 32, smem,
+                    stream>>>(ta, tb0, tb1, p);
+  return (int)cudaGetLastError();
+}
+
+// The map of a bf16 (G, rows, cols) tensor, cols contiguous: 3-D (cols,
+// rows, G), boxes of 64 columns x `box_rows` rows.
+CUresult map3(EncodeTiled enc, CUtensorMap* map, const void* base, int cols,
+              int rows, int G, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)G};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  return make_map_bf16(enc, map, base, 3, dims, strides, box);
+}
+
+// The map of a bf16 (rows, cols) weight, cols contiguous: 2-D, boxes of 64
+// columns x 64 rows.
+CUresult map2(EncodeTiled enc, CUtensorMap* map, const void* base, int cols,
+              int rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, 64};
+  return make_map_bf16(enc, map, base, 2, dims, strides, box);
+}
+
+template <int WGS>
+int launch(const bf16* x, const int* gidx, const bf16* wi, const bf16* wg,
+           const bf16* wo, const float* tw, const int* cnt, bf16* h,
+           float* part, bf16* out, int G, int T_, int S_, int D, int F,
+           int act, int split, cudaStream_t stream) {
+  constexpr int BM = 64 * WGS;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return ERR_NO_ENCODER;
+  CUtensorMap mx, mwi, mwg, mh, mwo;
+  CUresult r = map2(enc, &mwi, wi, F, D);
+  if (r == CUDA_SUCCESS && wg != nullptr) r = map2(enc, &mwg, wg, F, D);
+  if (r == CUDA_SUCCESS && gidx == nullptr)
+    r = map3(enc, &mx, x, D, T_, G, BM);
+  if (r == CUDA_SUCCESS) r = map3(enc, &mh, h, F, T_, G, BM);
+  if (r == CUDA_SUCCESS) r = map2(enc, &mwo, wo, D, F);
+  if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
+  if (wg == nullptr) mwg = mwi;   // unread
+  if (gidx != nullptr) mx = mwi;  // unread: the producer gathers x rows
+  const int mt = (T_ + BM - 1) / BM;
+  Params p{x, gidx, cnt, h, part, G, T_, S_, D, F, mt, act,
+           wg != nullptr ? 1 : 0, 1};
+  int e = launch_phase<true, WGS>(mx, mwi, mwg, p,
+                                  dim3(G * mt, (F + BN - 1) / BN, 1), stream);
+  if (e != 0) return e;
+  p.x = nullptr, p.gidx = nullptr, p.split = split;
+  e = launch_phase<false, WGS>(mh, mwo, mwo, p,
+                               dim3(G * mt, (D + BN - 1) / BN, split),
+                               stream);
+  if (e != 0) return e;
+  const long n = (long)G * T_ * (D / 4);
+  mlp_finalize<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      part, gidx, tw, cnt, out, G, T_, S_, D, split);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // C entry points bound with ctypes: both phases on `stream`; `hbuf` is the
@@ -314,6 +698,38 @@ extern "C" int fused_mlp_routed_launch(int dtype, const void* x,
   if (e != cudaSuccess) return (int)e;
   return dispatch<false>(dtype, x, (const int*)idx, wi, wg, wo, Experts{},
                          tw, cnt, hbuf, out, B, Kb, S, D, F, act, s);
+}
+
+// The tensor-core body of the dense and routed modes (bf16, D and F
+// multiples of 64): x (G,S_,D) with S_ = T_ (dense, idx NULL) or x the
+// (G,S_,D) stream and idx (G,T_) (routed: out (G,S_,D) is zero-filled on
+// the stream first); h the bf16 (G,T_,F) scratch, part the f32
+// (split,G,T_,D) scratch; wgs: consumer warpgroups per block (1: 64-row
+// tiles, 2: 128-row tiles); split: parts of the down phase's F reduction.
+// Returns the launches' cudaError_t or an hp::ERR_* code.
+extern "C" int fused_mlp_tc_launch(const void* x, const void* idx,
+                                   const void* wi, const void* wg,
+                                   const void* wo, const void* tw,
+                                   const void* cnt, void* h, void* part,
+                                   void* out, int G, int T_, int S_, int D,
+                                   int F, int act, int wgs, int split,
+                                   void* stream) {
+  using hp::bf16;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (idx != nullptr) {
+    cudaError_t e = cudaMemsetAsync(out, 0, (size_t)G * S_ * D * 2, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (G == 0 || T_ == 0) return 0;
+  if (D % 64 != 0 || F % 64 != 0 || split < 1 || split > F / 64)
+    return (int)cudaErrorInvalidValue;
+#define TC_ARGS (const bf16*)x, (const int*)idx, (const bf16*)wi, \
+    (const bf16*)wg, (const bf16*)wo, (const float*)tw, (const int*)cnt, \
+    (bf16*)h, (float*)part, (bf16*)out, G, T_, S_, D, F, act, split, s
+  if (wgs == 1) return tc::launch<1>(TC_ARGS);
+  if (wgs == 2) return tc::launch<2>(TC_ARGS);
+#undef TC_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 // Grouped-expert mode: x and out are (B,E,C,D); strides in elements (wg,

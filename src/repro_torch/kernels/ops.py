@@ -24,6 +24,8 @@ counterpart of the JAX package's custom VJPs, which replay its jnp oracles
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import build
@@ -133,9 +135,9 @@ def _as_tensor(v):
 
 
 def _check(rc: int, name: str) -> None:
-    if rc >= 200000:     # csrc/flash_attention.cu tc::ERR_NO_ENCODER
+    if rc >= 200000:     # csrc/hopper.cuh hp::ERR_NO_ENCODER
         raise RuntimeError(f"{name}: cuTensorMapEncodeTiled not found")
-    if rc >= 100000:     # tc::ERR_ENCODE + CUresult
+    if rc >= 100000:     # hp::ERR_ENCODE + CUresult
         raise RuntimeError(f"{name}: cuTensorMapEncodeTiled refused a "
                            f"tensor map, CUresult {rc - 100000}")
     if rc != 0:
@@ -211,17 +213,51 @@ def flash_attention(q, k, v, kv_valid=None, kv_count=None, *, causal=True,
 
 # -------------------------------- fused MLP ----------------------------------
 #
-# Replaces kernels/fused_mlp.py::fused_mlp (TPU). Bound on the H100 at a
-# prefill: FLOPs (tensor-core rate). Two phases without atomics, weight tiles
-# staged through shared memory per 64-token tile, hidden in an f32 scratch
-# (csrc/fused_mlp.cu).
+# Replaces kernels/fused_mlp.py::fused_mlp (TPU). Bound on the H100: FLOPs
+# (tensor-core rate) at a prefill, the weights' bytes at a 16-row chunk. Two
+# phases without atomics (csrc/fused_mlp.cu), run by one of two bodies that
+# ``mlp_plan`` picks from dtype and shape: bf16 at widths that are
+# multiples of 64 on the tensor cores (wgmma, a TMA weight ring, hidden in a
+# bf16 scratch), everything else on the CUDA cores (hidden in f32).
+
+MLP_FILL_BLOCKS = 100   # down-phase blocks a split aims for (132 SMs)
+
+
+class MlpPlan(NamedTuple):
+    """How ``csrc/fused_mlp.cu`` runs a dense or routed MLP call: ``body``
+    "wgmma" (tensor cores) or "cuda_core"; for "wgmma", ``rows`` per block
+    (64 or 128) and ``split``, the parts of the down phase's F reduction."""
+    body: str
+    rows: int = 0
+    split: int = 0
+
+
+def mlp_plan(dtype, B: int, T: int, D: int, F: int) -> MlpPlan:
+    """The body, tile rows and split of an MLP call over B groups of T
+    buffer rows (T = Kb in routed mode), from dtype and shape only — never
+    from the counts, the indices or the data, so a row's bits do not
+    depend on what else is in the call's tiles (budget 1.0 == teacher,
+    staggered == solo). bf16 with D and F multiples of 64 runs on the
+    tensor cores: 64-row tiles for T <= 64 (a bandwidth-bound call), else
+    128; the down phase's F reduction is split when its B * row tiles *
+    D/128 column tiles are fewer than MLP_FILL_BLOCKS. f32 stays on the
+    CUDA cores on purpose (TF32 would break the f32 1e-4 tolerance), as do
+    widths that are not multiples of 64 (the toy configs)."""
+    if dtype != torch.bfloat16 or D % 64 or F % 64:
+        return MlpPlan("cuda_core")
+    rows = 64 if T <= 64 else 128
+    tiles = B * -(-T // rows) * -(-D // 128)
+    split = min(F // 64, max(1, -(-MLP_FILL_BLOCKS // max(tiles, 1))))
+    return MlpPlan("wgmma", rows, split)
+
 
 def _mlp_weights(x3, wi, wo, wg):
+    """Raises unless the weights fit x's width and share its dtype."""
     D, F = x3.shape[-1], wi.shape[1]
     if wi.shape != (D, F) or wo.shape != (F, D) or (
             wg is not None and wg.shape != (D, F)):
         raise ValueError("fused_mlp kernel: weight shapes do not match x")
-    return F, _dtype_code(x3, wi, wo, *([wg] if wg is not None else []))
+    _dtype_code(x3, wi, wo, *([wg] if wg is not None else []))
 
 
 def _act_code(act, gated: bool) -> int:
@@ -233,6 +269,45 @@ def _act_code(act, gated: bool) -> int:
 
 def _ptr(t):
     return t.data_ptr() if t is not None else None
+
+
+def _launch_mlp(name, x, idx, wi, wo, wg, tw, cnt, out, act, G, T_, S_):
+    """One dense (idx None; x (G, T_, D)) or routed (x (G, S_, D), idx
+    (G, T_) int32) MLP call of csrc/fused_mlp.cu into ``out``, by the body
+    ``mlp_plan`` picks; tw (G, T_) f32 or None, cnt (G,) int32. Allocates
+    the hidden scratch (and the tensor-core body's split partials)."""
+    D, F = x.shape[-1], wi.shape[1]
+    plan = mlp_plan(x.dtype, G, T_, D, F)
+    act_code = _act_code(act, wg is not None)
+    lib = build.load("fused_mlp")
+    if plan.body == "wgmma":
+        x, wi, wo = _aligned(x), _aligned(wi), _aligned(wo)
+        wg = _aligned(wg) if wg is not None else None
+        hbuf = torch.empty((G, T_, F), dtype=torch.bfloat16, device=x.device)
+        part = torch.empty((plan.split, G, T_, D), dtype=torch.float32,
+                           device=x.device)
+        with torch.cuda.device(x.device):
+            rc = lib.fused_mlp_tc_launch(
+                x.data_ptr(), _ptr(idx), wi.data_ptr(), _ptr(wg),
+                wo.data_ptr(), _ptr(tw), cnt.data_ptr(), hbuf.data_ptr(),
+                part.data_ptr(), out.data_ptr(), G, T_, S_, D, F, act_code,
+                plan.rows // 64, plan.split, _stream(x))
+    else:
+        hbuf = torch.empty((G, T_, F), dtype=torch.float32, device=x.device)
+        dt = _DTYPES[x.dtype]
+        with torch.cuda.device(x.device):
+            if idx is None:
+                rc = lib.fused_mlp_launch(
+                    dt, x.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
+                    _ptr(tw), cnt.data_ptr(), hbuf.data_ptr(),
+                    out.data_ptr(), G, T_, D, F, act_code, _stream(x))
+            else:
+                rc = lib.fused_mlp_routed_launch(
+                    dt, x.data_ptr(), idx.data_ptr(), wi.data_ptr(),
+                    _ptr(wg), wo.data_ptr(), _ptr(tw), cnt.data_ptr(),
+                    hbuf.data_ptr(), out.data_ptr(), G, S_, T_, D, F,
+                    act_code, _stream(x))
+    _check(rc, name)
 
 
 def fused_mlp(x, wi, wo, wg=None, token_weights=None, valid_count=None,
@@ -251,7 +326,7 @@ def fused_mlp(x, wi, wo, wg=None, token_weights=None, valid_count=None,
         return plain(x, wi, wo, wg, token_weights, valid_count)
     squeeze = x.dim() == 2
     B, T, D = (x[None] if squeeze else x).shape
-    F, dt = _mlp_weights(x, wi, wo, wg)
+    _mlp_weights(x, wi, wo, wg)
 
     def kernel(x, wi, wo, wg, tw, cnt):
         x3 = (x[None] if squeeze else x).contiguous()
@@ -261,15 +336,9 @@ def fused_mlp(x, wi, wo, wg=None, token_weights=None, valid_count=None,
             tw = tw.to(device=x.device, dtype=torch.float32)
             tw = tw.reshape(-1, T).expand(B, T).contiguous()
         cnt = _counts_vec(cnt, B, T, x.device)
-        hbuf = torch.empty((B, T, F), dtype=torch.float32, device=x.device)
         out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        lib = build.load("fused_mlp")
-        with torch.cuda.device(x.device):
-            rc = lib.fused_mlp_launch(
-                dt, x3.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
-                _ptr(tw), cnt.data_ptr(), hbuf.data_ptr(), out.data_ptr(), B,
-                T, D, F, _act_code(act, wg is not None), _stream(x))
-        _check(rc, "fused_mlp")
+        _launch_mlp("fused_mlp", x3, None, wi, wo, wg, tw, cnt, out, act, B,
+                    T, T)
         return out
 
     return KernelOp.apply(kernel, plain, x, wi, wo, wg, token_weights,
@@ -279,11 +348,12 @@ def fused_mlp(x, wi, wo, wg=None, token_weights=None, valid_count=None,
 # ---------------------------- routed fused MLP -------------------------------
 #
 # Replaces kernels/fused_mlp.py::fused_mlp_routed (TPU). The same two phases
-# as fused_mlp (csrc/fused_mlp.cu, routed mode): the tile loads gather x
-# rows through idx and the tile stores scatter the weighted rows back, into
-# an output zero-filled first. The TPU kernel's resident (S, D) output slab
-# and its VMEM limit have no counterpart here. Bound on the H100 at a
-# training step: FLOPs (tensor-core rate), as for fused_mlp.
+# and bodies as fused_mlp (csrc/fused_mlp.cu, routed mode): the up phase
+# gathers x rows through idx (cp.async on the tensor-core body) and the
+# stores scatter the weighted rows back, into an output zero-filled first.
+# The TPU kernel's resident (S, D) output slab and its VMEM limit have no
+# counterpart here. Bound on the H100 at a training step: FLOPs
+# (tensor-core rate), as for fused_mlp.
 
 def fused_mlp_routed(x, idx, wi, wo, wg=None, token_weights=None,
                      valid_count=None, wi_scale=None, wo_scale=None,
@@ -307,7 +377,7 @@ def fused_mlp_routed(x, idx, wi, wo, wg=None, token_weights=None,
     if idx.shape != (B, Kb) or Kb > S:
         raise ValueError(f"fused_mlp_routed kernel: idx {tuple(idx.shape)} "
                          f"does not index x {tuple(x.shape)}")
-    F, dt = _mlp_weights(x, wi, wo, wg)
+    _mlp_weights(x, wi, wo, wg)
 
     def kernel(x, idx, wi, wo, wg, tw, cnt):
         x = x.contiguous()
@@ -318,16 +388,9 @@ def fused_mlp_routed(x, idx, wi, wo, wg=None, token_weights=None,
             tw = tw.to(device=x.device, dtype=torch.float32)
             tw = tw.expand(B, Kb).contiguous()
         cnt = _counts_vec(cnt, B, Kb, x.device)
-        hbuf = torch.empty((B, Kb, F), dtype=torch.float32, device=x.device)
         out = torch.empty_like(x)
-        lib = build.load("fused_mlp")
-        with torch.cuda.device(x.device):
-            rc = lib.fused_mlp_routed_launch(
-                dt, x.data_ptr(), ix.data_ptr(), wi.data_ptr(), _ptr(wg),
-                wo.data_ptr(), _ptr(tw), cnt.data_ptr(), hbuf.data_ptr(),
-                out.data_ptr(), B, S, Kb, D, F,
-                _act_code(act, wg is not None), _stream(x))
-        _check(rc, "fused_mlp_routed")
+        _launch_mlp("fused_mlp_routed", x, ix, wi, wo, wg, tw, cnt, out, act,
+                    B, Kb, S)
         return out
 
     return KernelOp.apply(kernel, plain, x, idx, wi, wo, wg, token_weights,

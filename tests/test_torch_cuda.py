@@ -310,12 +310,37 @@ def test_attention_kernels_are_deterministic(cuda, dtype):
         assert torch.equal(run(), run())
 
 
+# The tensor-core body's edges (bf16 at widths that are multiples of 64;
+# ops.mlp_plan): row counts around its 64- and 128-row tiles, alone and
+# as two rows of a batch with counts that straddle a tile or are 0; an
+# ungated tanh-GELU with column tiles past D and F (F = 320, D = 192); and
+# widths that are not multiples of 64, which take the CUDA-core body.
+TC_MLP_CASES = [
+    *[((T, 128), 256, "swiglu", True, True, None)
+      for T in (1, 15, 16, 17, 63, 64, 65, 128, 512)],
+    *[((2, T, 128), 256, "swiglu", True, True, [T, c])
+      for T, c in ((1, 0), (15, 7), (16, 0), (17, 16), (63, 62), (64, 0),
+                   (65, 64), (128, 65), (512, 129))],
+    ((2, 130, 192), 320, "gelu", False, False, [130, 70]),
+    ((70, 96), 160, "swiglu", True, True, None),
+]
+
+
+def mlp_body(x, wi):
+    """The body ``ops.mlp_plan`` picks for a fused_mlp call on x."""
+    B, T = (1, *x.shape[:1]) if x.dim() == 2 else x.shape[:2]
+    return ops.mlp_plan(x.dtype, B, T, x.shape[-1], wi.shape[1]).body
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", MLP_CASES)
+@pytest.mark.parametrize("case", MLP_CASES + TC_MLP_CASES)
 def test_fused_mlp_kernel_matches_plain(cuda, case, dtype):
     x, wi, wo, wg, tw, cnt, act = mlp_inputs(case, 8, device=cuda,
                                              dtype=dtype)
+    wide = x.shape[-1] % 64 == 0 and wi.shape[1] % 64 == 0
+    assert mlp_body(x, wi) == ("wgmma" if dtype == torch.bfloat16 and wide
+                               else "cuda_core")
     got = ops.fused_mlp(x, wi, wo, wg, tw, cnt, act=act)
     want = ops.fused_mlp(x, wi, wo, wg, tw, cnt, act=act, backend="ref")
     torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
@@ -329,6 +354,12 @@ ROUTED_CASES = [
     (2, 128, 64, 64, 192, "swiglu", True, [64, 64]),   # full buckets
     (1, 80, 80, 32, 128, "gelu", False, [77]),         # Kb == S, ungated
     (3, 64, 64, 64, 256, "geglu", True, [64, 1, 40]),  # Kb == S, mixed
+    # the tensor-core body's edges: 128-row tiles, a row with count 0, a
+    # straddled tile, an ungated bucket of 17, a width off the 64 grid
+    (2, 300, 130, 128, 256, "swiglu", True, [130, 0]),
+    (2, 600, 512, 128, 320, "swiglu", True, [512, 200]),
+    (1, 40, 17, 64, 128, "gelu", False, [17]),
+    (2, 50, 20, 96, 160, "swiglu", True, [20, 9]),
 ]
 
 
@@ -368,6 +399,33 @@ def test_fused_mlp_routed_kernel_matches_plain(cuda, case, dtype):
     assert got[~live].count_nonzero() == 0
     assert torch.equal(got, ops.fused_mlp_routed(x, idx, wi, wo, wg, tw, cnt,
                                                  act=act))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [16, 65, 200])
+def test_fused_mlp_row_ignores_other_rows(cuda, dtype, T):
+    """Row independence, the kernel-level form of staggered == solo: a
+    row's output is bit for bit the same whether the other rows of its
+    tile (and call) hold random values or zeros, in dense and routed
+    mode."""
+    case = ((1, T, 128), 256, "swiglu", True, True, None)
+    x, wi, wo, wg, tw, cnt, act = mlp_inputs(case, 11, device=cuda,
+                                             dtype=dtype)
+    r = T // 2
+    alone = torch.zeros_like(x)
+    alone[:, r] = x[:, r]
+    full = ops.fused_mlp(x, wi, wo, wg, tw, act=act)
+    solo = ops.fused_mlp(alone, wi, wo, wg, tw, act=act)
+    assert torch.equal(full[:, r], solo[:, r])
+    xs, idx, wi, wo, wg, tw, cnt, act = routed_inputs(
+        (1, 2 * T, T, 128, 256, "swiglu", True, [T]), 12, cuda, dtype)
+    row = idx[0, r]
+    alone = torch.zeros_like(xs)
+    alone[0, row] = xs[0, row]
+    full = ops.fused_mlp_routed(xs, idx, wi, wo, wg, tw, cnt, act=act)
+    solo = ops.fused_mlp_routed(alone, idx, wi, wo, wg, tw, cnt, act=act)
+    assert torch.equal(full[0, row], solo[0, row])
 
 
 def _toy_train_setup(cuda, dtype="float32"):

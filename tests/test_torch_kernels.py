@@ -115,6 +115,67 @@ def test_wrappers_take_plain_version_on_cpu():
                       wi_scale=torch.ones(8))
 
 
+# ------------------- the tensor-core MLP body's numerics ---------------------
+
+BF16_TOL = dict(rtol=1e-2, atol=1e-2)   # chip_smoke.py's bf16 TOL
+
+
+@pytest.mark.parametrize("act,gated", [("swiglu", True), ("gelu", False)])
+def test_bf16_hidden_matches_pallas(act, gated):
+    """The tensor-core body of csrc/fused_mlp.cu rounds the hidden H to
+    bf16 between its phases (the wgmma A operand); the JAX kernel keeps it
+    in f32. An emulation of that body (f32 products of bf16 inputs, H
+    rounded to bf16, f32 down product, bf16 out) agrees with the JAX
+    kernel, run in interpret mode on the same numpy-seeded bf16 inputs,
+    within the bf16 tolerance the card holds the kernel to (rtol = atol =
+    1e-2)."""
+    import torch.nn.functional as F
+    T, D, Fd = 64, 512, 2048
+    rng = np.random.default_rng(21)
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    x = bf(rng.standard_normal((T, D)))
+    wi = bf(rng.standard_normal((D, Fd)) / D ** 0.5)
+    wo = bf(rng.standard_normal((Fd, D)) / Fd ** 0.5)
+    wg = bf(rng.standard_normal((D, Fd)) / D ** 0.5) if gated else None
+    tw = jnp.asarray(rng.random(T), jnp.float32)
+    want = np.asarray(jax_fused_mlp(x, wi, wo, wg, tw, act=act,
+                                    interpret=True).astype(jnp.float32))
+    tt = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32)))
+    h = tt(x) @ tt(wi)
+    if gated:
+        h = F.silu(tt(x) @ tt(wg)) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    y = (h.to(torch.bfloat16).float() @ tt(wo)) * tt(tw)[:, None]
+    got = y.to(torch.bfloat16).float().numpy()
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D,F,wide", [(3584, 18944, True), (64, 256, True),
+                                      (192, 320, True), (96, 256, False),
+                                      (128, 160, False), (32, 128, False)])
+def test_mlp_plan_picks_the_body(dtype, D, F, wide):
+    """bf16 at widths that are multiples of 64 takes the tensor-core body;
+    f32 (TF32 would break its 1e-4 tolerance) and other widths take the
+    CUDA-core body. A tensor-core plan's tile rows and split depend on the
+    shape only: 64-row tiles up to 64 rows, else 128; a split of the F
+    reduction that fills MLP_FILL_BLOCKS blocks, never more parts than
+    64-deep steps."""
+    for B, T in ((1, 1), (1, 16), (1, 64), (1, 65), (2, 512), (4, 1024)):
+        plan = ops.mlp_plan(dtype, B, T, D, F)
+        assert plan == ops.mlp_plan(dtype, B, T, D, F)
+        if dtype != torch.bfloat16 or not wide:
+            assert plan.body == "cuda_core"
+            continue
+        assert plan.body == "wgmma"
+        assert plan.rows == (64 if T <= 64 else 128)
+        tiles = B * -(-T // plan.rows) * -(-D // 128)
+        assert 1 <= plan.split <= F // 64
+        assert plan.split == 1 or tiles * (plan.split - 1) < \
+            ops.MLP_FILL_BLOCKS
+
+
 # ------------- the Python around the decode and flash kernels ---------------
 
 def test_decode_split_plan_for_the_ring():
@@ -229,3 +290,37 @@ def test_kernel_wrappers_refuse_unsupported_shapes(fake_launch, op):
     assert fake_launch.calls == []
     run(4, 2, 64)
     assert len(fake_launch.calls) == 1
+
+
+@pytest.mark.parametrize("routed", [False, True])
+def test_mlp_wrappers_pass_the_plan(fake_launch, routed):
+    """On the kernel path the MLP wrappers launch the body ``mlp_plan``
+    picks: bf16 at widths that are multiples of 64 goes to
+    fused_mlp_tc_launch with the plan's warpgroups (rows / 64) and split,
+    everything else to the CUDA-core entry; one count per call."""
+    ops.reset_launch_counts()
+    name = "fused_mlp_routed" if routed else "fused_mlp"
+    for dt, D, Fd, T in ((torch.bfloat16, 128, 256, 16),
+                         (torch.bfloat16, 128, 256, 300),
+                         (torch.float32, 128, 256, 16),
+                         (torch.bfloat16, 96, 256, 16)):
+        x = torch.zeros(2, T, D, dtype=dt)
+        wi, wg = torch.zeros(D, Fd, dtype=dt), torch.zeros(D, Fd, dtype=dt)
+        wo = torch.zeros(Fd, D, dtype=dt)
+        if routed:
+            idx = torch.arange(T // 2).expand(2, T // 2)
+            ops.fused_mlp_routed(x, idx, wi, wo, wg)
+            rows = T // 2
+        else:
+            ops.fused_mlp(x, wi, wo, wg)
+            rows = T
+        entry, args = fake_launch.calls[-1]
+        plan = ops.mlp_plan(dt, 2, rows, D, Fd)
+        if plan.body == "wgmma":
+            assert entry == "fused_mlp_tc_launch"
+            assert args[10:13] == (2, rows, T) and args[16:18] == (
+                plan.rows // 64, plan.split)
+            assert (args[1] is not None) == routed
+        else:
+            assert entry == f"{name}_launch"
+    assert ops.launch_counts()[name] == 4
