@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (built for H100).
 
     python3 chip_smoke.py [--layers N] [--train-layers N] [--moe-layers N]
-                          [--pages N] [--seed S]
+                          [--pages N] [--seed S] [--gmm-tile-rows]
     python3 chip_smoke.py --ab PARENT_CHECKOUT
 
 ``--ab`` runs only the kernel checks of item 2 (all six kernels;
@@ -10,18 +10,20 @@
 with ``git archive``) and on this one in turns, p c c p, one process
 each, on the same seeded inputs: each turn within TOL of the plain
 versions, the timed medians per turn (graphed and eager), whether the
-change beat the parent in every turn at the MLP cases, and it fails
-unless each tree's outputs are equal bit for bit in its own two turns and
-the kernels this change leaves alone (``AB_SAME``) give the same bits in
-both trees. Without it:
+change beat the parent in every turn at ``moe_gmm``'s bf16 call
+(``AB_FASTER``), and it fails unless each tree's outputs are equal bit for
+bit in its own two turns and the kernels and modes this change leaves
+alone (``AB_SAME``: attention, the dense and routed MLP, ``moe_gmm`` in
+f32) give the same bits in both trees. Without it:
 
 1. Prints the card (nvidia-smi name and power limit), builds the
    hand-written CUDA kernels from src/repro_torch/kernels/csrc with nvcc
    (sm_90a, one process per source, in parallel) and prints the build time,
    ptxas's registers and spills, and the number of tensor-core (HGMMA)
    instructions in each flash_fwd instantiation's SASS and in the MLP's
-   tensor-core up and down phases (fails unless the bf16 Dh=128 flash
-   kernel and every MLP phase have some).
+   tensor-core up and down phases, which run the dense (fused_mlp), routed
+   (fused_mlp_routed) and grouped (moe_gmm) modes (fails unless the bf16
+   Dh=128 flash kernel and every MLP phase have some).
 2. Holds each kernel against its plain PyTorch version at Qwen2-7B shapes,
    in bf16 and f32, with ragged counts, kv_valid holes, a part-filled ring
    (t at the decode kernel's split edges, a slot with every key masked and
@@ -43,8 +45,11 @@ both trees. Without it:
    calls that path made: their shapes and group counts are recorded during
    the path and
    replayed (random x and weights in the path's weight layout, bf16 and
-   f32, with and without routing weights, exact zeros past every count),
-   the largest timed.
+   f32, with and without routing weights, exact zeros past every count,
+   each output bit-stable across a repeat), the largest timed beside its
+   bound and a cuBLAS per-expert composite (printed, never library_ms);
+   with --gmm-tile-rows also the tensor-core body at 64- and at 128-row
+   tiles.
 3. Serving: 6 staggered mixed-budget requests through ``ServingEngine`` at
    Qwen2-7B full width (random bf16 weights from --seed; --layers cuts depth
    only) and fails unless budget-1.0 requests equal a mode="base" engine
@@ -841,15 +846,62 @@ class GmmCalls:
                                                     -kv[1].sum()))
 
 
-def check_moe_gmm(res, dev, label, cases, weights_of, timed):
+def gmm_composite_ms(x, wi, wg, wo, counts, act):
+    """(graphed, back-to-back) CUDA-event times of a cuBLAS bf16 composite
+    of ``moe_gmm`` without routing weights: a zeroed output, then for every
+    live group its live slots through x@wi, x@wg, act*mul, h@wo on
+    contiguous copies of the expert weights (copied before the timing).
+    Several PyTorch calls per live group, not one: printed as a yardstick,
+    never the row's library_ms; the graphed time is the device's (the
+    back-to-back one is the host's cost of ~5 calls per group at 60
+    experts)."""
+    import torch.nn.functional as F
+    f = F.silu if act == "swiglu" else (
+        lambda t: F.gelu(t, approximate="tanh"))
+    E = wi.shape[0]
+    wic = [wi[e].contiguous() for e in range(E)]
+    wgc = [wg[e].contiguous() for e in range(E)]
+    woc = [wo[e].contiguous() for e in range(E)]
+    live = [(b, e, int(c)) for (b, e), c in np.ndenumerate(counts) if c > 0]
+
+    def run():
+        out = x.new_zeros(x.shape)
+        for b, e, c in live:
+            xs = x[b, e, :c]
+            out[b, e, :c] = (f(xs @ wgc[e]) * (xs @ wic[e])) @ woc[e]
+        return out
+    return device_and_eager_ms(run, 5)
+
+
+def gmm_tile_rows_ms(main):
+    """``main``'s graphed times (``cuda_ms``) and output with the
+    tensor-core plan's tile rows forced to 64 and to 128 (``ops.mlp_plan``
+    patched for the call; ``--gmm-tile-rows``): the measurement behind the
+    plan's choice of tile rows for ``moe_gmm``."""
+    from repro_torch.kernels import ops
+    orig, got = ops.mlp_plan, {}
+    try:
+        for rows in (64, 128):
+            ops.mlp_plan = lambda *a, rows=rows: orig(*a)._replace(rows=rows)
+            got[rows] = (cuda_ms(main, 5, graph=True), main())
+    finally:
+        ops.mlp_plan = orig
+    return got
+
+
+def check_moe_gmm(res, dev, label, cases, weights_of, timed,
+                  tile_rows=False):
     """Replays a path's own ``moe_gmm`` calls on the card: each recorded
     (shape, counts) with random x and routing weights and the layout's
     expert weights ``weights_of(dtype) -> (wi, wg, wo)`` (strided moefied
     views or contiguous native stacks), in bf16 and f32, with and without
     routing weights, against the plain version; every slot at or past its
-    count must be exactly zero. The largest call in bf16 without weights
-    (the path's own call) is timed: ``timed`` makes it the row's timing,
-    else it is printed beside it. Returns the outputs by case."""
+    count must be exactly zero, and each output must repeat bit for bit.
+    The heaviest call of the largest shape in bf16 without weights (the
+    path's own call) is timed beside its bound and a cuBLAS per-expert
+    composite (and, with ``tile_rows``, the tensor-core body at 64- and
+    128-row tiles): ``timed`` makes it the row's timing, else it is kept in
+    the row under cases[label]. Returns the outputs by case."""
     import torch
     from repro_torch.kernels import ops
     print(f"  moe_gmm {label}: {len(cases)} distinct call shapes, the "
@@ -864,6 +916,7 @@ def check_moe_gmm(res, dev, label, cases, weights_of, timed):
             x = torch.randn(shape, device=dev).to(dt)
             cnt = torch.from_numpy(counts.astype(np.int32)).to(dev)
             live = torch.arange(C, device=dev) < cnt[..., None]
+            plan = ops.mlp_plan(dt, B * E, C, D, Fe)
             for weighted in (False, True):
                 rw = torch.rand(B, E, C, device=dev) if weighted else None
                 run = lambda backend=None: ops.moe_gmm(
@@ -876,11 +929,18 @@ def check_moe_gmm(res, dev, label, cases, weights_of, timed):
                 if got[~live].count_nonzero() != 0:
                     fail(f"moe_gmm {label} {kind} {shape}: a slot past its "
                          f"count is not zero")
+                if not torch.equal(got, run()):
+                    fail(f"moe_gmm {label} {kind} {shape}: a repeat gives "
+                         f"other bits")
             if kind == "bf16":
-                print(f"  moe_gmm           {label} {tuple(shape)}: counts "
-                      f"sum {int(counts.sum())}, {int((counts == 0).sum())} "
-                      f"empty group(s), {int((~live).sum())} slots past "
-                      f"their counts: all exactly zero")
+                lv = counts[counts > 0]
+                print(f"  moe_gmm           {label} {tuple(shape)}: plan "
+                      f"{tuple(plan)}; counts sum {int(counts.sum())}, "
+                      f"{int((counts == 0).sum())} empty group(s), live "
+                      f"groups' counts min / median / max {int(lv.min())} / "
+                      f"{int(np.median(lv))} / {int(lv.max())}; "
+                      f"{int((~live).sum())} slots past their counts: all "
+                      f"exactly zero; repeats bit-identical")
             if kind != "bf16" or ci != 0:
                 continue
             rows = int(counts.sum())
@@ -891,18 +951,44 @@ def check_moe_gmm(res, dev, label, cases, weights_of, timed):
                 * x.element_size() + B * E * 4
             main = lambda backend=None: ops.moe_gmm(     # no weights
                 x, wi, wo, wg, None, cnt, act="swiglu", backend=backend)
-            args = (cuda_ms(main, 5), cuda_ms(lambda: main("ref"), 3),
-                    6 * D * Fe * rows, nbytes, kind, None)
+            args = (device_and_eager_ms(main, 5),
+                    cuda_ms(lambda: main("ref"), 3), 6 * D * Fe * rows,
+                    nbytes, kind, None)
+            comp = gmm_composite_ms(x, wi, wg, wo, counts, "swiglu")
+            tiles = gmm_tile_rows_ms(main) if tile_rows and \
+                plan.body == "wgmma" else {}
+            med = lambda ts: ts[len(ts) // 2]
+            print(f"  moe_gmm           {label}: cuBLAS bf16 per-expert "
+                  f"composite (a yardstick, ~5 calls per live group) "
+                  f"{med(comp[0]):.4f} ms graphed [{comp[0][0]:.4f}-"
+                  f"{comp[0][-1]:.4f}], {med(comp[1]):.4f} ms eager")
+            want = main()
+            for r, (ts, o) in tiles.items():
+                print(f"  moe_gmm           {label}: {r}-row tiles "
+                      f"{med(ts):.4f} ms [{ts[0]:.4f}-{ts[-1]:.4f}] "
+                      f"graphed; the "
+                      f"same bits as the plan's {plan.rows}-row tiles: "
+                      f"{torch.equal(o, want)}")
+            extra = dict(shape=list(shape), rows=rows,
+                         composite_ms=med(comp[1]),
+                         graphed_composite_ms=med(comp[0]),
+                         **{f"rows{r}_ms": med(ts)
+                            for r, (ts, _) in tiles.items()})
             if timed:
                 res.timing("moe_gmm", *args)
+                res.rows["moe_gmm"].update(extra)
                 continue
             b, by = bound_ms(*args[2:5])
-            med = lambda ts: ts[len(ts) // 2]
+            (graphed, eager), plain = args[:2]
+            res.rows["moe_gmm"].setdefault("cases", {})[label] = dict(
+                ms=med(eager), graphed_ms=med(graphed), plain_ms=med(plain),
+                bound_ms=b, bound_by=by, **extra)
             print(f"  moe_gmm           {label} {tuple(shape)} median "
-                  f"[min-max] of 5: kernel {med(args[0]):.4f} ms "
-                  f"[{args[0][0]:.4f}-{args[0][-1]:.4f}]  plain "
-                  f"{med(args[1]):.4f} ms [{args[1][0]:.4f}-"
-                  f"{args[1][-1]:.4f}]  bound {b:.4f} ms ({by})")
+                  f"[min-max] of 5: kernel {med(graphed):.4f} ms "
+                  f"[{graphed[0]:.4f}-{graphed[-1]:.4f}] graphed, "
+                  f"{med(eager):.4f} ms [{eager[0]:.4f}-{eager[-1]:.4f}] "
+                  f"eager  plain {med(plain):.4f} ms [{plain[0]:.4f}-"
+                  f"{plain[-1]:.4f}]  bound {b:.4f} ms ({by})")
         del wi, wg, wo
     return outs
 
@@ -1761,9 +1847,9 @@ def sass_hgmma(build, lib, pattern, name_of) -> dict:
 
 def print_hgmma(build) -> None:
     """Counts the HGMMA instructions of every flash_fwd instantiation and
-    of the MLP library's tensor-core up and down phases (mlp_tc); fails
-    unless the bf16 Dh=128 flash kernel and every mlp_tc instantiation
-    have some."""
+    of the MLP library's tensor-core up and down phases (mlp_tc, one code
+    for the dense, routed and grouped-expert modes); fails unless the bf16
+    Dh=128 flash kernel and every mlp_tc instantiation have some."""
     flash = sass_hgmma(
         build, "flash_attention", r"(flash_fwd_\w+?)I(\w*?)L?i(\d+)E",
         lambda m: (f"{m.group(1)}<"
@@ -1777,19 +1863,21 @@ def print_hgmma(build) -> None:
         build, "fused_mlp", r"mlp_tcILb(\d)ELi(\d)E",
         lambda m: (f"mlp_tc<{'up' if m.group(1) == '1' else 'down'}, "
                    f"{64 * int(m.group(2))} rows>"))
-    print(f"  SASS HGMMA instructions per fused_mlp tensor-core phase: {mlp}")
+    print(f"  SASS HGMMA instructions per fused_mlp tensor-core phase (all "
+          f"three modes): {mlp}")
     if len(mlp) != 4 or not all(mlp.values()):
-        fail("a tensor-core MLP phase (bf16 up / down) has no HGMMA "
-             "instruction")
+        fail("a tensor-core MLP phase (bf16 up / down, 64 or 128 rows) has "
+             "no HGMMA instruction")
 
 
 AB_KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention",
               "fused_mlp", "fused_mlp_routed", "moe_gmm")
-# outputs that must be bit-identical between the two trees (kernels this
-# change leaves as they were), by ab_turn's case prefix
-AB_SAME = ("flash", "ring", "paged", "moe_gmm")
-AB_FASTER = (("fused_mlp", None), ("fused_mlp_routed", None),
-             ("fused_mlp", "chunk"))
+# outputs that must be bit-identical between the two trees (kernels and
+# modes this change leaves as they were), by ab_turn's case prefix
+AB_SAME = ("flash", "ring", "paged", "fused_mlp", "fused_mlp_routed",
+           "moe_gmm f32")
+# timed cases of the kernel this change redesigned (moe_gmm's bf16 call)
+AB_FASTER = (("moe_gmm", None),)
 
 
 def ab_turn(tree: Path, out: Path) -> None:
@@ -1843,7 +1931,7 @@ def kernel_ab(parent: Path) -> int:
     medians per turn (graphed and eager for attention, eager for the MLP
     kernels, whose calls are far above the host's cost of issuing them),
     and whether the change was faster than the parent in every turn at
-    the MLP cases it redesigned (``AB_FASTER``); fails unless each tree's
+    the cases it redesigned (``AB_FASTER``); fails unless each tree's
     outputs are equal bit for bit across its own two turns, and unless the
     kernels of ``AB_SAME`` give the same bits in both trees."""
     import shutil
@@ -1868,7 +1956,7 @@ def kernel_ab(parent: Path) -> int:
         print(f"--ab {tree} ({parent if tree == 'p' else ROOT}): outputs "
               f"bit for bit equal in its two turns: {same}")
     for prefix in AB_SAME:
-        keys = [k for k in got[0]["outs"] if k.split(" ", 1)[0] == prefix]
+        keys = [k for k in got[0]["outs"] if k.startswith(prefix + " ")]
         same = bool(keys) and all(
             torch.equal(got[0]["outs"][k], got[1]["outs"][k]) for k in keys)
         ok = ok and same
@@ -1911,6 +1999,9 @@ def main() -> int:
                          "unchanged kernels bit for bit across the trees, "
                          "within TOL, and the timed medians")
     ap.add_argument("--ab-turn", nargs=2, type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--gmm-tile-rows", action="store_true",
+                    help="also time moe_gmm's heaviest call of each expert "
+                         "path at 64- and at 128-row tiles")
     args = ap.parse_args()
 
     import torch
@@ -1994,7 +2085,7 @@ def main() -> int:
     free()
     print(f"moe_gmm at the expert serving path's calls [{device_line}]:")
     check_moe_gmm(res, dev, "moefied qwen2-7b serving", rec.cases(), moefied,
-                  timed=True)
+                  timed=True, tile_rows=args.gmm_tile_rows)
     free()
     done("expert serving")
     check_gradients(params, rp_e, expert_spec(spec), dev, args.seed)
@@ -2005,7 +2096,7 @@ def main() -> int:
     free()
     print(f"moe_gmm at the expert training path's calls [{device_line}]:")
     check_moe_gmm(res, dev, "moefied qwen2-7b training", rec.cases(),
-                  moefied, timed=False)
+                  moefied, timed=False, tile_rows=args.gmm_tile_rows)
     del params, rp, rp_e         # the Qwen2-7B weights leave the card
     free()
     done("expert gradients, training")
@@ -2016,7 +2107,7 @@ def main() -> int:
     print(f"moe_gmm at the native MoE serving path's calls [{device_line}]:")
     check_moe_gmm(res, dev, "native qwen1.5-moe serving", rec.cases(),
                   native_weights(dev, get_config("qwen2-moe-a2.7b")),
-                  timed=False)
+                  timed=False, tile_rows=args.gmm_tile_rows)
     done("native MoE serving")
     kernels = [dict(name=n, route="cuda", source=SOURCES[n][0],
                     replaces=SOURCES[n][1],

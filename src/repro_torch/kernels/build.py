@@ -50,6 +50,9 @@ ENTRIES = {
     "moe_gmm_launch": ("fused_mlp", [
         _I, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I,
         _I, _I, _P]),
+    "moe_gmm_tc_launch": ("fused_mlp", [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

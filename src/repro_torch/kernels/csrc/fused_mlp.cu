@@ -22,13 +22,15 @@
 // (b, e) with its own count cnt (B,E), and expert e = g % E of group g
 // reads wi/wg (E,D,Fe, one layout for both) and wo (E,Fe,D) through an
 // expert stride and a row stride (elements; the last dimension is
-// contiguous). So one kernel reads both layouts in place: the moefied
-// views of a dense (D,F) / (F,D) MLP (expert e of wi is columns
-// [e*Fe, (e+1)*Fe) of the dense matrix: expert stride Fe, row stride F)
-// and native contiguous expert stacks. No weight is copied. The dense mode
-// is the grouped mode with one expert (groups are batch rows), compiled
-// apart so that it keeps the index arithmetic of a plain matrix (runtime
-// strides cost it ~7 % on the H100). As in dense mode, tiles past a
+// contiguous; the tensor-core body turns them into tile coordinates). So
+// one kernel reads both layouts in place: the moefied views of a dense
+// (D,F) / (F,D) MLP (expert e of wi is columns [e*Fe, (e+1)*Fe) of the
+// dense matrix: expert stride Fe, row stride F) and native contiguous
+// expert stacks. No weight is copied. The dense mode is the grouped mode
+// with one expert (groups are batch rows): the tensor-core body runs both
+// through one code, the CUDA-core body compiles the dense mode apart so
+// that it keeps the index arithmetic of a plain matrix (runtime strides
+// cost it ~7 % on the H100). As in dense mode, tiles past a
 // group's count do no work and are written as zeros (the TPU kernel's
 // `_dead` branch), so the work follows the dispatched tokens, not the
 // capacity.
@@ -48,26 +50,30 @@
 //
 // Bound on the H100: at a 512-token prefill the 6*T*D*F FLOPs (~208 GFLOP)
 // outweigh the ~0.4 GB of weights, so the tensor-core rate bounds it; at a
-// 16-row prefill chunk the weights' bytes do. Two bodies, chosen by the
-// wrapper (kernels/ops.py::mlp_plan) from dtype and shape:
+// 16-row prefill chunk the weights' bytes do, and in grouped mode so do the
+// live experts' weights when each holds few rows (60 Qwen1.5-MoE experts:
+// ~1 GB). Two bodies, chosen by the wrapper (kernels/ops.py::mlp_plan and
+// gmm_plan) from dtype and shape:
 //
-// * bf16 dense and routed modes with D and F multiples of 64 (every
-//   Qwen2-7B call): the tensor-core body (namespace tc below): TMA weight
-//   tiles through a multi-stage mbarrier ring, a cp.async row gather in
-//   routed mode, wgmma into f32 accumulators, a bf16 H scratch (19.4 MB for
-//   512 Qwen2-7B rows, which the 50 MB L2 holds) and, where the row tiles
-//   are few, a down phase split over F with an in-order sum of the parts.
+// * bf16 in all three modes with D and F multiples of 64 (every Qwen2-7B
+//   and Qwen1.5-MoE call): the tensor-core body (namespace tc below): TMA
+//   weight tiles through a multi-stage mbarrier ring (in grouped mode the
+//   expert moves the tile's coordinates, so both expert layouts are read in
+//   place), a cp.async row gather in routed mode, wgmma into f32
+//   accumulators, a bf16 H scratch (19.4 MB for 512 Qwen2-7B rows, which
+//   the 50 MB L2 holds) and, where the row tiles are few, a down phase
+//   split over F with an in-order sum of the parts.
 //   NUMERICS: H is rounded to bf16 between the phases (the wgmma A operand
-//   is bf16); the JAX kernel and the plain version keep it in f32. The
+//   is bf16); the JAX kernels and the plain versions keep it in f32. The
 //   difference is one bf16 rounding of each hidden value, well inside the
-//   bf16 tolerance (tests/test_torch_kernels.py holds the emulation to the
-//   JAX kernel; chip_smoke.py and tests/test_torch_cuda.py hold this body
-//   to the plain version).
-// * f32 (TF32 would break the 1e-4 tolerance), widths that are not
-//   multiples of 64 (the toy configs), and the grouped-expert mode: the
-//   first, CUDA-core body: one block per (64 buffer rows, 64 columns), x /
-//   H rows and weight tiles staged through shared memory in f32 per 16-deep
-//   step, f32 FMAs, H in an f32 scratch.
+//   bf16 tolerance (tests/test_torch_kernels.py and tests/test_torch_moe.py
+//   hold the emulation to the JAX kernels; chip_smoke.py and
+//   tests/test_torch_cuda.py hold this body to the plain versions).
+// * f32 (TF32 would break the 1e-4 tolerance) and widths that are not
+//   multiples of 64 (the toy configs), in every mode: the first, CUDA-core
+//   body: one block per (64 buffer rows, 64 columns), x / H rows and weight
+//   tiles staged through shared memory in f32 per 16-deep step, f32 FMAs,
+//   H in an f32 scratch.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -302,16 +308,26 @@ int dispatch(int dtype, const void* x, const int* gidx, const void* wi,
 
 // ----------------------------- tensor-core body -----------------------------
 //
-// bf16 dense and routed modes with D and F multiples of 64. Each phase is
-// one launch of mlp_tc<UP, WGS>: a block computes BM = 64 * WGS buffer rows
-// x BN = 128 output columns, reducing over its share of K in 64-deep steps,
-// with WGS consumer warpgroups (64 rows each) and producer_warps<WGS>().
+// bf16 dense, routed and grouped-expert modes with D and F multiples of 64.
+// Each phase is one launch of mlp_tc<UP, WGS> (one code for all three
+// modes): a block computes BM = 64 * WGS buffer rows x BN = 128 output
+// columns of one group,
+// reducing over its share of K in 64-deep steps, with WGS consumer
+// warpgroups (64 rows each) and producer_warps<WGS>().
 //
 // * Producer warps: keep a ring of Smem::S stages in flight, each guarded by
 //   a full and an empty mbarrier. Lane 0 loads the B tiles (wi and wg in the
 //   up phase, wo in the down phase) by TMA with the 128-byte swizzle, two
 //   64-column boxes of [64 k][64 columns] per matrix: the (K, N) weights are
-//   N-contiguous, the MN-major B operand (as V in flash_attention.cu). The A
+//   N-contiguous, the MN-major B operand (as V in flash_attention.cu). Each
+//   B map is one 2-D map over the weights' storage (WMap: as many columns
+//   as the row stride) and expert e = g % E's tile sits at (e * cs, e * rs)
+//   from expert 0's (E = 1 in the dense and routed modes): moefied views
+//   of a dense (D, E*Fe) wi step by Fe columns, native (E, D, Fe) stacks
+//   and every wo by D (or Fe) rows. A 128-column tile that runs past an
+//   expert's Fe columns reads the next expert's (or TMA's zeros past the
+//   last); the up epilogue's n < F guard keeps them out of H, and D and Fe
+//   are multiples of 64, so no 64-deep step crosses an expert. The A
 //   tile ([BM rows][64 k], K-major) comes by TMA too (x in dense mode, H in
 //   the down phase; rows past T_ are TMA's zero fill), except in the routed
 //   up phase: tiled TMA cannot gather indexed rows, so the producer warps
@@ -333,11 +349,18 @@ int dispatch(int dtype, const void* x, const int* gidx, const void* wi,
 //   the down phase's F reduction is cut into `split` parts when its row
 //   tiles alone are too few to fill the card. mlp_finalize then sums the
 //   parts in split order, applies the token weight and the count, rounds to
-//   bf16 and (routed) scatters to the idx rows.
-// Tile shape and split come from the wrapper (kernels/ops.py::mlp_plan) and
-// depend on (B, T_, D, F) only; every output element is summed in one fixed
-// order, no atomics, and a row's products read only that row of A, so a
-// row's result does not depend on the other rows of its tile.
+//   bf16 and (routed) scatters to the idx rows. With one part and no
+//   scatter (dense and grouped modes) the down epilogue does that itself
+//   (the same arithmetic, so the same bits) and dead tiles' down blocks
+//   write their zeros: the (G, T_, D) f32 part never exists (143 MB at a
+//   native Qwen1.5-MoE call) and there is no second launch.
+// * Block order: one grid axis over (expert, column tile, batch row, row
+//   tile), row tile fastest (for one expert, as in the dense and routed
+//   modes: row tiles, then column tiles).
+// Tile shape and split come from the wrapper (kernels/ops.py::mlp_plan)
+// and depend on the shape only; every output element is summed
+// in one fixed order, no atomics, and a row's products read only that row
+// of A, so a row's result does not depend on the other rows of its tile.
 namespace tc {
 
 using namespace hp;
@@ -372,6 +395,20 @@ struct Params {
   bf16* h;          // (G, T_, F): written by the up phase
   float* part;      // (split, G, T_, D): written by the down phase
   int G, T_, S_, D, F, mt, act, gated, split;
+  // experts (1 but in grouped mode), this phase's B expert step (WMap) and
+  // column tiles; out and tw: the down phase's direct store (one part, no
+  // scatter), else NULL
+  int E, bcs, brs, nt;
+  bf16* out;
+  const float* tw;
+};
+
+// Where a phase's B matrix lies (wi and wg share one): a 2-D map of `rows`
+// rows of `cols` elements (cols = the row stride), expert e's (K, N) tile
+// at column and row offset (e * cs, e * rs) from expert 0's. The dense and
+// routed modes: one matrix, {N, K, 0, 0}.
+struct WMap {
+  int cols, rows, cs, rs;
 };
 
 // D(64 x 128) += A(64 x 16) B(16 x 128); A K-major, B MN-major, both from
@@ -403,8 +440,9 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-// Grid: (G * mt row tiles, N / 128 column tiles, split). ta: the A map, 3-D
-// (K, T_, G); tb0 / tb1: the B maps, 2-D (N, K) (tb1: wg, gated up only).
+// Grid: (G * mt row tiles * N / 128 column tiles, 1, split). ta: the A
+// map, 3-D (K, T_, G); tb0 / tb1: the B maps, 2-D over every expert's
+// (N, K) tile (WMap; tb1: wg, gated up only).
 template <bool UP, int WGS>
 __global__ void __launch_bounds__(WGS * 128 + producer_warps<WGS>() * 32,
                                   WGS == 1 ? 2 : 1) mlp_tc(
@@ -419,9 +457,29 @@ __global__ void __launch_bounds__(WGS * 128 + producer_warps<WGS>() * 32,
   Sm& sm = *reinterpret_cast<Sm*>(
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
 
-  const int g = blockIdx.x / p.mt, m0 = (blockIdx.x % p.mt) * BM;
-  const int n0 = blockIdx.y * BN;
-  if (m0 >= p.cnt[g]) return;  // dead tile: mlp_finalize writes its zeros
+  // blockIdx.x runs over (expert, column tile, batch row, row tile), row
+  // tile fastest (E = 1 outside grouped mode: column tile, group, row
+  // tile): the row tiles sharing an expert's weight tile run together, and
+  // one expert's rows stay in L2 across its column tiles (the native MoE's
+  // 60 experts hold ~94 MB of x and H: a column-major sweep over every
+  // group would read them from memory once per column tile)
+  int blk = blockIdx.x;
+  const int t = blk % p.mt, B = p.G / p.E;
+  blk /= p.mt;
+  const int b = blk % B;
+  blk /= B;
+  const int ex = blk / p.nt;  // the expert (0 outside grouped mode)
+  const int g = b * p.E + ex, m0 = t * BM, n0 = (blk % p.nt) * BN;
+  if (m0 >= p.cnt[g]) {  // dead tile: no work
+    if (!UP && p.out != nullptr) {  // direct store: its zeros
+      const int rows = min(BM, p.T_ - m0), q = min(BN, p.D - n0) / 8;
+      bf16* ob = p.out + ((long)g * p.T_ + m0) * p.D + n0;
+      for (int i = threadIdx.x; i < rows * q; i += blockDim.x)
+        *reinterpret_cast<uint4*>(ob + (long)(i / q) * p.D + i % q * 8) =
+            make_uint4(0, 0, 0, 0);
+    }
+    return;  // else mlp_finalize writes its zeros
+  }
   const int ks = (UP ? p.D : p.F) / 64;  // 64-deep steps of the reduction
   const int kb = (int)((long)blockIdx.z * ks / p.split);
   const int nk = (int)((long)(blockIdx.z + 1) * ks / p.split) - kb;
@@ -450,6 +508,7 @@ __global__ void __launch_bounds__(WGS * 128 + producer_warps<WGS>() * 32,
     if (!routed && lane >= 32) return;  // TMA needs one thread
     const int tx = (routed ? 0 : BM * 64 * 2) + (two ? 2 : 1) * 2 * BOX * 2;
     const bf16* xb = routed ? p.x + (long)g * p.S_ * p.D : nullptr;
+    const int bn = n0 + ex * p.bcs, bk = ex * p.brs;  // this expert's tile
     for (int i = 0; i < nk; ++i) {
       const int s = i % S;
       mbar_wait(&sm.empty[s], ((i / S) & 1) ^ 1);  // slot consumed
@@ -457,12 +516,12 @@ __global__ void __launch_bounds__(WGS * 128 + producer_warps<WGS>() * 32,
       if (lane == 0) {
         mbar_expect_tx(&sm.full[s], tx);
         if (!routed) tma_load(sm.a[s][0], &ta, &sm.full[s], k0, m0, g);
-        tma_load(sm.b[s][0][0], &tb0, &sm.full[s], n0, k0);
-        tma_load(sm.b[s][0][1], &tb0, &sm.full[s], n0 + 64, k0);
+        tma_load(sm.b[s][0][0], &tb0, &sm.full[s], bn, bk + k0);
+        tma_load(sm.b[s][0][1], &tb0, &sm.full[s], bn + 64, bk + k0);
         if constexpr (UP) {
           if (two) {
-            tma_load(sm.b[s][1][0], &tb1, &sm.full[s], n0, k0);
-            tma_load(sm.b[s][1][1], &tb1, &sm.full[s], n0 + 64, k0);
+            tma_load(sm.b[s][1][0], &tb1, &sm.full[s], bn, bk + k0);
+            tma_load(sm.b[s][1][1], &tb1, &sm.full[s], bn + 64, bk + k0);
           }
         }
       }
@@ -540,6 +599,26 @@ __global__ void __launch_bounds__(WGS * 128 + producer_warps<WGS>() * 32,
         }
         *reinterpret_cast<__nv_bfloat162*>(hb + (long)r * p.F + n) =
             __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
+  } else if (p.out != nullptr) {
+    // the direct store: tw * acc in bf16, zeros past the count
+    const int c = p.cnt[g];
+    bf16* ob = p.out + (long)g * p.T_ * p.D;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r0 + hr * 8;
+      if (r >= p.T_) continue;
+      const float w = r < c && p.tw != nullptr ? p.tw[(long)g * p.T_ + r]
+                                               : 1.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int n = c0 + j * 8;
+        if (n >= p.D) continue;
+        *reinterpret_cast<__nv_bfloat162*>(ob + (long)r * p.D + n) =
+            r < c ? __floats2bfloat162_rn(acc[j * 4 + hr * 2] * w,
+                                          acc[j * 4 + hr * 2 + 1] * w)
+                  : __floats2bfloat162_rn(0.f, 0.f);
       }
     }
   } else {
@@ -631,35 +710,43 @@ CUresult map2(EncodeTiled enc, CUtensorMap* map, const void* base, int cols,
   return make_map_bf16(enc, map, base, 2, dims, strides, box);
 }
 
+// G groups of T_ buffer rows; expert e = g % E of group g (E = 1 but in
+// grouped mode) reads its B tiles through wim (wi, wg) and wom (wo).
 template <int WGS>
 int launch(const bf16* x, const int* gidx, const bf16* wi, const bf16* wg,
            const bf16* wo, const float* tw, const int* cnt, bf16* h,
            float* part, bf16* out, int G, int T_, int S_, int D, int F,
-           int act, int split, cudaStream_t stream) {
+           int act, int split, int E, const WMap& wim, const WMap& wom,
+           cudaStream_t stream) {
   constexpr int BM = 64 * WGS;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
   CUtensorMap mx, mwi, mwg, mh, mwo;
-  CUresult r = map2(enc, &mwi, wi, F, D);
-  if (r == CUDA_SUCCESS && wg != nullptr) r = map2(enc, &mwg, wg, F, D);
+  CUresult r = map2(enc, &mwi, wi, wim.cols, wim.rows);
+  if (r == CUDA_SUCCESS && wg != nullptr)
+    r = map2(enc, &mwg, wg, wim.cols, wim.rows);
   if (r == CUDA_SUCCESS && gidx == nullptr)
     r = map3(enc, &mx, x, D, T_, G, BM);
   if (r == CUDA_SUCCESS) r = map3(enc, &mh, h, F, T_, G, BM);
-  if (r == CUDA_SUCCESS) r = map2(enc, &mwo, wo, D, F);
+  if (r == CUDA_SUCCESS) r = map2(enc, &mwo, wo, wom.cols, wom.rows);
   if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
   if (wg == nullptr) mwg = mwi;   // unread
   if (gidx != nullptr) mx = mwi;  // unread: the producer gathers x rows
   const int mt = (T_ + BM - 1) / BM;
   Params p{x, gidx, cnt, h, part, G, T_, S_, D, F, mt, act,
-           wg != nullptr ? 1 : 0, 1};
-  int e = launch_phase<true, WGS>(mx, mwi, mwg, p,
-                                  dim3(G * mt, (F + BN - 1) / BN, 1), stream);
+           wg != nullptr ? 1 : 0, 1, E, wim.cs, wim.rs, (F + BN - 1) / BN,
+           nullptr, nullptr};
+  // one grid axis over every (expert, column tile, batch row, row tile)
+  int e = launch_phase<true, WGS>(mx, mwi, mwg, p, dim3(G * mt * p.nt),
+                                  stream);
   if (e != 0) return e;
   p.x = nullptr, p.gidx = nullptr, p.split = split;
+  p.bcs = wom.cs, p.brs = wom.rs, p.nt = (D + BN - 1) / BN;
+  // one part and no scatter: the down phase stores the output itself
+  if (split == 1 && gidx == nullptr) p.out = out, p.tw = tw;
   e = launch_phase<false, WGS>(mh, mwo, mwo, p,
-                               dim3(G * mt, (D + BN - 1) / BN, split),
-                               stream);
-  if (e != 0) return e;
+                               dim3(G * mt * p.nt, 1, split), stream);
+  if (e != 0 || p.out != nullptr) return e;
   const long n = (long)G * T_ * (D / 4);
   mlp_finalize<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
       part, gidx, tw, cnt, out, G, T_, S_, D, split);
@@ -704,7 +791,8 @@ extern "C" int fused_mlp_routed_launch(int dtype, const void* x,
 // multiples of 64): x (G,S_,D) with S_ = T_ (dense, idx NULL) or x the
 // (G,S_,D) stream and idx (G,T_) (routed: out (G,S_,D) is zero-filled on
 // the stream first); h the bf16 (G,T_,F) scratch, part the f32
-// (split,G,T_,D) scratch; wgs: consumer warpgroups per block (1: 64-row
+// (split,G,T_,D) scratch (NULL in dense mode with split 1: the down phase
+// then stores the output); wgs: consumer warpgroups per block (1: 64-row
 // tiles, 2: 128-row tiles); split: parts of the down phase's F reduction.
 // Returns the launches' cudaError_t or an hp::ERR_* code.
 extern "C" int fused_mlp_tc_launch(const void* x, const void* idx,
@@ -723,9 +811,11 @@ extern "C" int fused_mlp_tc_launch(const void* x, const void* idx,
   if (G == 0 || T_ == 0) return 0;
   if (D % 64 != 0 || F % 64 != 0 || split < 1 || split > F / 64)
     return (int)cudaErrorInvalidValue;
+  const tc::WMap wim{F, D, 0, 0}, wom{D, F, 0, 0};
 #define TC_ARGS (const bf16*)x, (const int*)idx, (const bf16*)wi, \
     (const bf16*)wg, (const bf16*)wo, (const float*)tw, (const int*)cnt, \
-    (bf16*)h, (float*)part, (bf16*)out, G, T_, S_, D, F, act, split, s
+    (bf16*)h, (float*)part, (bf16*)out, G, T_, S_, D, F, act, split, 1, \
+    wim, wom, s
   if (wgs == 1) return tc::launch<1>(TC_ARGS);
   if (wgs == 2) return tc::launch<2>(TC_ARGS);
 #undef TC_ARGS
@@ -744,4 +834,39 @@ extern "C" int moe_gmm_launch(int dtype, const void* x, const void* wi,
   const Experts ex{E, w_es, w_rs, wo_es, wo_rs};
   return dispatch<true>(dtype, x, nullptr, wi, wg, wo, ex, w, cnt, hbuf, out,
                         B * E, C, C, D, Fe, act, (cudaStream_t)stream);
+}
+
+// The tensor-core body of the grouped-expert mode (bf16, D and Fe multiples
+// of 64): x and out (B,E,C,D), expert e = g % E of group g = b*E + e; h
+// the bf16 (B*E,C,Fe) scratch, part the f32 (split,B*E,C,D) scratch
+// (NULL when split is 1: the down phase then stores the output); `cnt`
+// (B*E) int32 counts clipped to [0, C]; w (B*E*C) f32 or NULL; wgs and
+// split as in fused_mlp_tc_launch. wi (and wg, in wi's layout) and wo are
+// read in place through 2-D maps of wi_rows x wi_cols and wo_rows x
+// wo_cols elements (cols = the row stride), expert e's tile at column and
+// row offset (e * *_cs, e * *_rs) (kernels/ops.py::gmm_map derives them
+// from the strides). Returns the launches' cudaError_t or an hp::ERR_*
+// code.
+extern "C" int moe_gmm_tc_launch(const void* x, const void* wi,
+                                 const void* wg, const void* wo,
+                                 const void* w, const void* cnt, void* h,
+                                 void* part, void* out, int B, int E, int C,
+                                 int D, int Fe, int act, int wgs, int split,
+                                 int wi_cols, int wi_rows, int wi_cs,
+                                 int wi_rs, int wo_cols, int wo_rows,
+                                 int wo_cs, int wo_rs, void* stream) {
+  using hp::bf16;
+  if (B * E == 0 || C == 0) return 0;
+  if (D % 64 != 0 || Fe % 64 != 0 || split < 1 || split > Fe / 64)
+    return (int)cudaErrorInvalidValue;
+  const tc::WMap wim{wi_cols, wi_rows, wi_cs, wi_rs};
+  const tc::WMap wom{wo_cols, wo_rows, wo_cs, wo_rs};
+#define TC_ARGS (const bf16*)x, nullptr, (const bf16*)wi, (const bf16*)wg, \
+    (const bf16*)wo, (const float*)w, (const int*)cnt, (bf16*)h, \
+    (float*)part, (bf16*)out, B * E, C, C, D, Fe, act, split, E, wim, wom, \
+    (cudaStream_t)stream
+  if (wgs == 1) return tc::launch<1>(TC_ARGS);
+  if (wgs == 2) return tc::launch<2>(TC_ARGS);
+#undef TC_ARGS
+  return (int)cudaErrorInvalidValue;
 }

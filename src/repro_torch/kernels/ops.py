@@ -224,7 +224,7 @@ MLP_FILL_BLOCKS = 100   # down-phase blocks a split aims for (132 SMs)
 
 
 class MlpPlan(NamedTuple):
-    """How ``csrc/fused_mlp.cu`` runs a dense or routed MLP call: ``body``
+    """How ``csrc/fused_mlp.cu`` runs an MLP call (any mode): ``body``
     "wgmma" (tensor cores) or "cuda_core"; for "wgmma", ``rows`` per block
     (64 or 128) and ``split``, the parts of the down phase's F reduction."""
     body: str
@@ -234,9 +234,10 @@ class MlpPlan(NamedTuple):
 
 def mlp_plan(dtype, B: int, T: int, D: int, F: int) -> MlpPlan:
     """The body, tile rows and split of an MLP call over B groups of T
-    buffer rows (T = Kb in routed mode), from dtype and shape only — never
-    from the counts, the indices or the data, so a row's bits do not
-    depend on what else is in the call's tiles (budget 1.0 == teacher,
+    buffer rows (T = Kb in routed mode; ``moe_gmm``: B·E groups of C
+    slots), from dtype and shape only — never from the counts, the
+    indices or the data, so a row's bits do not depend on what else is
+    in the call's tiles (budget 1.0 == teacher,
     staggered == solo). bf16 with D and F multiples of 64 runs on the
     tensor cores: 64-row tiles for T <= 64 (a bandwidth-bound call), else
     128; the down phase's F reduction is split when its B * row tiles *
@@ -275,7 +276,8 @@ def _launch_mlp(name, x, idx, wi, wo, wg, tw, cnt, out, act, G, T_, S_):
     """One dense (idx None; x (G, T_, D)) or routed (x (G, S_, D), idx
     (G, T_) int32) MLP call of csrc/fused_mlp.cu into ``out``, by the body
     ``mlp_plan`` picks; tw (G, T_) f32 or None, cnt (G,) int32. Allocates
-    the hidden scratch (and the tensor-core body's split partials)."""
+    the hidden scratch (and the tensor-core body's partials of the down
+    phase, unless it stores the output itself: one part, dense mode)."""
     D, F = x.shape[-1], wi.shape[1]
     plan = mlp_plan(x.dtype, G, T_, D, F)
     act_code = _act_code(act, wg is not None)
@@ -285,12 +287,13 @@ def _launch_mlp(name, x, idx, wi, wo, wg, tw, cnt, out, act, G, T_, S_):
         wg = _aligned(wg) if wg is not None else None
         hbuf = torch.empty((G, T_, F), dtype=torch.bfloat16, device=x.device)
         part = torch.empty((plan.split, G, T_, D), dtype=torch.float32,
-                           device=x.device)
+                           device=x.device) \
+            if plan.split > 1 or idx is not None else None
         with torch.cuda.device(x.device):
             rc = lib.fused_mlp_tc_launch(
                 x.data_ptr(), _ptr(idx), wi.data_ptr(), _ptr(wg),
                 wo.data_ptr(), _ptr(tw), cnt.data_ptr(), hbuf.data_ptr(),
-                part.data_ptr(), out.data_ptr(), G, T_, S_, D, F, act_code,
+                _ptr(part), out.data_ptr(), G, T_, S_, D, F, act_code,
                 plan.rows // 64, plan.split, _stream(x))
     else:
         hbuf = torch.empty((G, T_, F), dtype=torch.float32, device=x.device)
@@ -400,11 +403,21 @@ def fused_mlp_routed(x, idx, wi, wo, wg=None, token_weights=None,
 # --------------------------------- MoE GMM -----------------------------------
 #
 # Replaces kernels/moe_gmm.py::moe_gmm (TPU). The grouped-expert mode of
-# csrc/fused_mlp.cu: its two phases over one group per (b, e), 64-slot tiles
-# at or past a group's count do no work and are written as zeros, and the
-# expert weights are read through their strides, so the moefied views of a
-# dense MLP (core/moefy.py) and native expert stacks both go in without a
-# copy.
+# csrc/fused_mlp.cu: its two phases over one group per (b, e), and tiles at
+# or past a group's count do no work and are written as zeros. The bodies
+# are fused_mlp's, picked by ``mlp_plan`` over the B * E groups of C slots
+# (shape only, never the counts, so a slot's bits do not depend on what
+# else was dispatched: budget 1.0 == teacher, staggered == solo; its
+# 128-row tiles past C = 64 beat 64-row tiles on the H100 at the heaviest
+# call of each expert path, PERF.md): bf16 at widths that are multiples of
+# 64 on the tensor cores, where expert e's weight tiles are TMA boxes at
+# coordinates moved by e in one 2-D map over each matrix's storage
+# (``gmm_map``); everything else on the CUDA cores, through the expert and
+# row strides. Either way the moefied views of a dense MLP (core/moefy.py)
+# and native expert stacks both go in without a copy. Bound on the H100:
+# FLOPs at the moefied Qwen2-7B calls (hundreds of rows per expert); bytes
+# at the native Qwen1.5-MoE ones (60 experts' ~1 GB of weights), nearly
+# balanced with FLOPs at its heaviest call (~290 rows per expert).
 
 def _expert_strides(w, shape, name):
     """(expert stride, row stride) in elements of an (E, rows, cols)
@@ -416,12 +429,35 @@ def _expert_strides(w, shape, name):
     return w.stride(0), w.stride(1)
 
 
+def gmm_map(w, shape, name) -> tuple:
+    """How the tensor-core body reads an (E, rows, cols) expert weight in
+    place: (map columns, map rows, expert column step, expert row step) of
+    one 2-D map whose columns are the weight's row stride, expert e's tile
+    at (e * column step, e * row step). Two layouts have one: experts side
+    by side in each row (the moefied views of a dense (D, E*Fe) wi or wg:
+    column step Fe) and experts stacked by rows (native (E, D, Fe) stacks
+    and every wo: row step rows). Raises ValueError for any other layout,
+    a row stride that is not a multiple of 16 bytes or a start that is not
+    16-byte aligned (TMA's rules)."""
+    es, rs = _expert_strides(w, shape, name)
+    E, rows, cols = shape
+    if rs % 8 == 0 and w.data_ptr() % 16 == 0 and cols <= rs:
+        if E == 1 or (E - 1) * es + cols <= rs:
+            return rs, rows, es if E > 1 else 0, 0
+        if es % rs == 0:
+            return rs, (E - 1) * (es // rs) + rows, 0, es // rs
+    raise ValueError(f"moe_gmm kernel: {name} {tuple(w.shape)} strides "
+                     f"{w.stride()} at byte {w.data_ptr() % 16} of 16: "
+                     f"neither experts side by side in each row nor "
+                     f"stacked by rows, 16-byte aligned")
+
+
 def moe_gmm(x, wi, wo, wg=None, weights=None, group_counts=None,
             wi_scale=None, wo_scale=None, wg_scale=None, *, act="swiglu",
             backend=None):
     """x: (E, C, D) or (B, E, C, D) dispatched tokens; wi/wg: (E, D, Fe)
     and wo: (E, Fe, D), any strides with a contiguous last dimension (wg
-    with wi's);
+    with wi's; on the tensor-core body one of the two ``gmm_map`` layouts);
     weights: (E, C) / (B, E, C); group_counts: (E,) / (B, E) count of real
     leading slots per group (None = C). Returns x's shape and dtype; slots
     at or past their group's count are exactly zero."""
@@ -439,12 +475,18 @@ def moe_gmm(x, wi, wo, wg=None, weights=None, group_counts=None,
     dt = _dtype_code(x, wi, wo, *([wg] if wg is not None else []))
 
     def kernel(x, wi, wo, wg, w, cnt):
+        plan = mlp_plan(x.dtype, B * E, C, D, Fe)
         strides = [*_expert_strides(wi, (E, D, Fe), "wi"),
                    *_expert_strides(wo, (E, Fe, D), "wo")]
         if wg is not None and _expert_strides(wg, (E, D, Fe), "wg") != \
                 tuple(strides[:2]):
             raise ValueError(f"moe_gmm kernel: wg strides {wg.stride()} "
                              f"differ from wi's {wi.stride()}")
+        if plan.body == "wgmma":
+            maps = [*gmm_map(wi, (E, D, Fe), "wi"),
+                    *gmm_map(wo, (E, Fe, D), "wo")]
+            if wg is not None:      # wi's strides (checked above), its start
+                gmm_map(wg, (E, D, Fe), "wg")
         x4 = (x[None] if squeeze else x).contiguous()
         if w is not None:
             w = w.to(device=x.device, dtype=torch.float32)
@@ -454,16 +496,32 @@ def moe_gmm(x, wi, wo, wg=None, weights=None, group_counts=None,
         else:
             cnt = torch.as_tensor(cnt, device=x.device).to(torch.int32)
             cnt = cnt.reshape(-1, E).expand(B, E).clamp(0, C).contiguous()
-        hbuf = torch.empty((B, E, C, Fe), dtype=torch.float32,
-                           device=x.device)
         out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        act_code = _act_code(act, wg is not None)
         lib = build.load("fused_mlp")
-        with torch.cuda.device(x.device):
-            rc = lib.moe_gmm_launch(
-                dt, x4.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
-                *strides, _ptr(w), cnt.data_ptr(), hbuf.data_ptr(),
-                out.data_ptr(), B, E, C, D, Fe,
-                _act_code(act, wg is not None), _stream(x))
+        if plan.body == "wgmma":
+            x4 = _aligned(x4)
+            hbuf = torch.empty((B, E, C, Fe), dtype=torch.bfloat16,
+                               device=x.device)
+            # the down phase stores the output itself unless F is split
+            part = torch.empty((plan.split, B, E, C, D), dtype=torch.float32,
+                               device=x.device) if plan.split > 1 else None
+            with torch.cuda.device(x.device):
+                rc = lib.moe_gmm_tc_launch(
+                    x4.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
+                    _ptr(w), cnt.data_ptr(), hbuf.data_ptr(), _ptr(part),
+                    out.data_ptr(), B, E, C, D, Fe,
+                    act_code, plan.rows // 64, plan.split, *maps,
+                    _stream(x))
+        else:
+            hbuf = torch.empty((B, E, C, Fe), dtype=torch.float32,
+                               device=x.device)
+            with torch.cuda.device(x.device):
+                rc = lib.moe_gmm_launch(
+                    dt, x4.data_ptr(), wi.data_ptr(), _ptr(wg),
+                    wo.data_ptr(), *strides, _ptr(w), cnt.data_ptr(),
+                    hbuf.data_ptr(), out.data_ptr(), B, E, C, D, Fe,
+                    act_code, _stream(x))
         _check(rc, "moe_gmm")
         return out
 

@@ -315,6 +315,13 @@ def test_attention_kernels_are_deterministic(cuda, dtype):
 # as two rows of a batch with counts that straddle a tile or are 0; an
 # ungated tanh-GELU with column tiles past D and F (F = 320, D = 192); and
 # widths that are not multiples of 64, which take the CUDA-core body.
+# TC_ONE_PART: enough tiles (D = 1024) for one part of the down phase, whose
+# blocks store the output themselves (zeros past a count in a live tile and
+# in the dead tiles).
+TC_ONE_PART = [
+    ((2, 1024, 1024), 256, "swiglu", True, True, [1024, 130]),
+    ((2, 832, 1024), 128, "gelu", False, True, [0, 831]),
+]
 TC_MLP_CASES = [
     *[((T, 128), 256, "swiglu", True, True, None)
       for T in (1, 15, 16, 17, 63, 64, 65, 128, 512)],
@@ -323,6 +330,7 @@ TC_MLP_CASES = [
                    (65, 64), (128, 65), (512, 129))],
     ((2, 130, 192), 320, "gelu", False, False, [130, 70]),
     ((70, 96), 160, "swiglu", True, True, None),
+    *TC_ONE_PART,
 ]
 
 
@@ -341,6 +349,9 @@ def test_fused_mlp_kernel_matches_plain(cuda, case, dtype):
     wide = x.shape[-1] % 64 == 0 and wi.shape[1] % 64 == 0
     assert mlp_body(x, wi) == ("wgmma" if dtype == torch.bfloat16 and wide
                                else "cuda_core")
+    if dtype == torch.bfloat16 and case in TC_ONE_PART:
+        assert ops.mlp_plan(dtype, *x.shape[:2], x.shape[-1],
+                            wi.shape[1]).split == 1
     got = ops.fused_mlp(x, wi, wo, wg, tw, cnt, act=act)
     want = ops.fused_mlp(x, wi, wo, wg, tw, cnt, act=act, backend="ref")
     torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
@@ -538,7 +549,24 @@ GMM_CASES = [
      [[20, 0, 3, 20, 11, 0]]),
     ("native", 2, 3, 70, 32, 64, "gelu", False, True,
      [[70, 65, 0], [2, 70, 64]]),
+    # bf16 reaches the tensor-core body at these widths (multiples of 64):
+    # a moefied Fe = 192, whose last 128-column tile straddles into the next
+    # expert (the last expert's: TMA's zeros); native Fe = 128; C = 44 and
+    # 130 around the 64- and 128-row tiles; counts 0, 1, 64 and 128
+    ("moefied", 2, 3, 130, 128, 192, "swiglu", True, True,
+     [[128, 1, 0], [64, 130, 77]]),
+    ("moefied", 1, 4, 44, 64, 192, "gelu", False, False, [[44, 0, 1, 30]]),
+    ("native", 1, 4, 44, 64, 128, "swiglu", True, False, [[44, 0, 1, 30]]),
+    ("native", 2, 2, 130, 192, 128, "gelu", False, True,
+     [[128, 64], [0, 130]]),
+    *[(layout, 1, 8, 256, 1024, 256, "swiglu", True, True,
+       [[0, 1, 64, 130, 256, 256, 17, 200]])
+      for layout in ("moefied", "native")],
 ]
+# the bf16 cases above split the down phase's F reduction (f32 partials and
+# a finalize pass); these have the tiles (128) for one part, whose blocks
+# store the output themselves
+GMM_ONE_PART = GMM_CASES[8:]
 
 
 def gmm_inputs(case, seed, device, dtype):
@@ -549,19 +577,24 @@ def gmm_inputs(case, seed, device, dtype):
     layout, B, E, C, D, Fe, act, gated, weighted, counts = case
     rng = np.random.default_rng(seed)
     t = lambda a, **kw: as_t(a.astype(np.float32), device=device, **kw)
-    r = lambda *s: rng.standard_normal(s) * 0.1
+    # weights: 0.1 at the narrow widths; at D = 1024 a model's 1/sqrt(fan-in)
+    # init (0.1 there gives pre-activations of std 3.2, where the bf16
+    # rounding of H alone moves ~0.1 % of the outputs past CUDA_TOL)
+    sd_in, sd_out = (0.1, 0.1) if D <= 192 else (D ** -0.5, Fe ** -0.5)
+    r = lambda sd, *s: rng.standard_normal(s) * sd
     x = t(rng.standard_normal((B, E, C, D)), dtype=dtype)
     if layout == "moefied":
-        dense = {"wi": t(r(D, E * Fe), dtype=dtype),
-                 "wo": t(r(E * Fe, D), dtype=dtype)}
+        dense = {"wi": t(r(sd_in, D, E * Fe), dtype=dtype),
+                 "wo": t(r(sd_out, E * Fe, D), dtype=dtype)}
         if gated:
-            dense["wg"] = t(r(D, E * Fe), dtype=dtype)
+            dense["wg"] = t(r(sd_in, D, E * Fe), dtype=dtype)
         ep = moefy_mlp(dense, E)
         wi, wo, wg = ep["wi"], ep["wo"], ep.get("wg")
         assert not wi.is_contiguous()
     else:
-        wi, wo = t(r(E, D, Fe), dtype=dtype), t(r(E, Fe, D), dtype=dtype)
-        wg = t(r(E, D, Fe), dtype=dtype) if gated else None
+        wi = t(r(sd_in, E, D, Fe), dtype=dtype)
+        wo = t(r(sd_out, E, Fe, D), dtype=dtype)
+        wg = t(r(sd_in, E, D, Fe), dtype=dtype) if gated else None
     w = t(rng.random((B, E, C))) if weighted else None
     cnt = as_t(np.asarray(counts, np.int32), device=device)
     return x, wi, wo, wg, w, cnt, act
@@ -572,6 +605,15 @@ def gmm_inputs(case, seed, device, dtype):
 @pytest.mark.parametrize("case", GMM_CASES, ids=range(len(GMM_CASES)))
 def test_moe_gmm_kernel_matches_plain(cuda, case, dtype):
     x, wi, wo, wg, w, cnt, act = gmm_inputs(case, 10, cuda, dtype)
+    # the body the plan picks: the tensor cores for bf16 at widths that are
+    # multiples of 64, the CUDA cores otherwise
+    B, E, C, D = x.shape
+    Fe = wi.shape[-1]
+    plan = ops.mlp_plan(dtype, B * E, C, D, Fe)
+    assert plan.body == ("wgmma" if dtype == torch.bfloat16 and D % 64 == 0
+                         and Fe % 64 == 0 else "cuda_core")
+    if plan.body == "wgmma":
+        assert (plan.split == 1) == (case in GMM_ONE_PART)
     n0 = ops.launch_counts()["moe_gmm"]
     got = ops.moe_gmm(x, wi, wo, wg, w, cnt, act=act)
     torch.cuda.synchronize()
@@ -582,6 +624,30 @@ def test_moe_gmm_kernel_matches_plain(cuda, case, dtype):
     live = torch.arange(x.shape[2], device=cuda) < cnt[..., None]
     assert got[~live].count_nonzero() == 0
     assert torch.equal(got, ops.moe_gmm(x, wi, wo, wg, w, cnt, act=act))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [GMM_CASES[4], GMM_CASES[7], *GMM_ONE_PART],
+                         ids=["moefied", "native", "moefied-one-part",
+                              "native-one-part"])
+def test_moe_gmm_slot_ignores_other_slots(cuda, case, dtype):
+    """Slot independence, the kernel-level form of staggered == solo: a
+    slot's output is bit for bit the same whether the other slots of its
+    group (and so of its row tile) and the other groups hold random values
+    or zeros, at the same counts, on both bodies and both layouts, with the
+    down phase split and in one part."""
+    case = case[:6] + ("swiglu", True, True, case[9])
+    x, wi, wo, wg, w, cnt, act = gmm_inputs(case, 13, cuda, dtype)
+    live = [(b, e, int(c)) for (b, e), c in np.ndenumerate(
+        cnt.cpu().numpy()) if c > 2]
+    for b, e, c in live[:3]:
+        r = c // 2          # neither the first nor the last live slot
+        alone = torch.zeros_like(x)
+        alone[b, e, r] = x[b, e, r]
+        full = ops.moe_gmm(x, wi, wo, wg, w, cnt, act=act)
+        solo = ops.moe_gmm(alone, wi, wo, wg, w, cnt, act=act)
+        assert torch.equal(full[b, e, r], solo[b, e, r])
 
 
 def _toy_expert_spec():

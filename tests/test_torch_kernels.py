@@ -296,12 +296,15 @@ def test_kernel_wrappers_refuse_unsupported_shapes(fake_launch, op):
 def test_mlp_wrappers_pass_the_plan(fake_launch, routed):
     """On the kernel path the MLP wrappers launch the body ``mlp_plan``
     picks: bf16 at widths that are multiples of 64 goes to
-    fused_mlp_tc_launch with the plan's warpgroups (rows / 64) and split,
-    everything else to the CUDA-core entry; one count per call."""
+    fused_mlp_tc_launch with the plan's warpgroups (rows / 64) and split
+    (and no f32 partials in dense mode with one part: the down phase
+    stores the output), everything else to the CUDA-core entry; one count
+    per call."""
     ops.reset_launch_counts()
     name = "fused_mlp_routed" if routed else "fused_mlp"
     for dt, D, Fd, T in ((torch.bfloat16, 128, 256, 16),
                          (torch.bfloat16, 128, 256, 300),
+                         (torch.bfloat16, 256, 128, 3200),
                          (torch.float32, 128, 256, 16),
                          (torch.bfloat16, 96, 256, 16)):
         x = torch.zeros(2, T, D, dtype=dt)
@@ -321,6 +324,104 @@ def test_mlp_wrappers_pass_the_plan(fake_launch, routed):
             assert args[10:13] == (2, rows, T) and args[16:18] == (
                 plan.rows // 64, plan.split)
             assert (args[1] is not None) == routed
+            assert (args[8] is None) == (plan.split == 1 and not routed)
         else:
             assert entry == f"{name}_launch"
-    assert ops.launch_counts()[name] == 4
+    assert ops.launch_counts()[name] == 5
+    assert ops.mlp_plan(torch.bfloat16, 2, 3200, 256, 128).split == 1
+
+
+# ------------------- the grouped-expert MLP (moe_gmm) plan --------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D,Fe,wide", [(3584, 2368, True), (2048, 1408, True),
+                                       (128, 192, True), (64, 128, True),
+                                       (64, 48, False), (96, 128, False),
+                                       (32, 64, False)])
+def test_gmm_plan_picks_the_body(dtype, D, Fe, wide):
+    """moe_gmm's plan, mlp_plan over B * E groups of C slots (a function
+    of the shape alone: the group counts never reach it): bf16 with D and
+    Fe multiples of 64 takes the tensor-core body, f32 and other widths the
+    CUDA-core body; one part of the down phase once its tiles fill the
+    card."""
+    for B, E, C in ((1, 8, 512), (2, 8, 256), (1, 60, 512), (1, 4, 44),
+                    (2, 3, 130), (1, 1, 1)):
+        plan = ops.mlp_plan(dtype, B * E, C, D, Fe)
+        assert plan == ops.mlp_plan(dtype, B * E, C, D, Fe)
+        assert plan.body == ("wgmma" if dtype == torch.bfloat16 and wide
+                             else "cuda_core")
+        if plan.body == "wgmma":
+            assert plan.rows == (64 if C <= 64 else 128)
+            assert 1 <= plan.split <= Fe // 64
+            tiles = B * E * -(-C // plan.rows) * -(-D // 128)
+            assert (plan.split == 1) == (tiles >= ops.MLP_FILL_BLOCKS)
+
+
+def _gmm_weights(layout, E, D, Fe, dtype):
+    """Expert weights in the two layouts the kernel reads in place: moefied
+    views of dense (D, E*Fe) / (E*Fe, D) matrices, or native contiguous
+    (E, D, Fe) / (E, Fe, D) stacks."""
+    from repro_torch.core.moefy import moefy_mlp
+    if layout == "moefied":
+        ep = moefy_mlp({"wi": torch.zeros(D, E * Fe, dtype=dtype),
+                        "wg": torch.zeros(D, E * Fe, dtype=dtype),
+                        "wo": torch.zeros(E * Fe, D, dtype=dtype)}, E)
+        return ep["wi"], ep["wg"], ep["wo"]
+    return (torch.zeros(E, D, Fe, dtype=dtype),
+            torch.zeros(E, D, Fe, dtype=dtype),
+            torch.zeros(E, Fe, D, dtype=dtype))
+
+
+@pytest.mark.parametrize("layout", ["moefied", "native"])
+def test_moe_gmm_wrapper_passes_the_plan_and_maps(fake_launch, layout):
+    """On the kernel path moe_gmm launches the body mlp_plan picks over its
+    B * E groups: bf16 at
+    widths that are multiples of 64 goes to moe_gmm_tc_launch with the
+    plan's warpgroups and split and each matrix's 2-D map and expert step
+    (moefied wi and wg: E*Fe columns, a step of Fe columns; native wi and
+    wg: E*D rows, a step of D rows; wo in both: E*Fe rows, a step of Fe
+    rows), read in place; f32 and other widths go to moe_gmm_launch with
+    the strides. A layout that is neither form raises before any launch.
+    One count per call."""
+    ops.reset_launch_counts()
+    B, E, C, D, Fe = 2, 3, 130, 128, 192
+    for dt in (torch.bfloat16, torch.float32):
+        wi, wg, wo = _gmm_weights(layout, E, D, Fe, dt)
+        x = torch.zeros(B, E, C, D, dtype=dt)
+        ops.moe_gmm(x, wi, wo, wg, None, torch.tensor([[130, 0, 1]] * B))
+        entry, args = fake_launch.calls[-1]
+        if dt == torch.float32:
+            assert entry == "moe_gmm_launch"
+            assert args[5:9] == (*wi.stride()[:2], *wo.stride()[:2])
+            continue
+        plan = ops.mlp_plan(dt, B * E, C, D, Fe)
+        assert plan.body == "wgmma"
+        assert entry == "moe_gmm_tc_launch"
+        assert args[1:4] == (wi.data_ptr(), wg.data_ptr(), wo.data_ptr())
+        assert args[9:17] == (B, E, C, D, Fe, 0, plan.rows // 64,
+                              plan.split)
+        assert (args[7] is None) == (plan.split == 1)
+        wi_map = ((E * Fe, D, Fe, 0) if layout == "moefied"
+                  else (Fe, E * D, 0, D))
+        assert args[17:25] == (*wi_map, D, E * Fe, 0, Fe)
+    assert ops.launch_counts()["moe_gmm"] == 2
+    # experts neither side by side nor stacked by whole rows, or a row
+    # stride of 136 bytes (TMA takes multiples of 16): no tensor-core map;
+    # the same strides run on the CUDA-core body in f32
+    for es, rs, fe in ((D * Fe + 8, Fe, Fe), (D * 68, 68, 64)):
+        for dt in (torch.bfloat16, torch.float32):
+            store = torch.zeros(E * es + D * rs, dtype=dt)
+            bad = store.as_strided((E, D, fe), (es, rs, 1))
+            run = lambda: ops.moe_gmm(torch.zeros(1, E, 64, D, dtype=dt),
+                                      bad, torch.zeros(E, fe, D, dtype=dt))
+            n = len(fake_launch.calls)
+            if dt == torch.float32:
+                run()
+                assert fake_launch.calls[-1][0] == "moe_gmm_launch"
+                continue
+            with pytest.raises(ValueError):
+                run()
+            assert len(fake_launch.calls) == n
+            with pytest.raises(ValueError):
+                ops.gmm_map(bad, (E, D, fe), "wi")
+    assert ops.launch_counts()["moe_gmm"] == 4

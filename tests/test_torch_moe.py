@@ -244,6 +244,72 @@ def test_moe_gmm_plain_matches_jax(case):
     assert ops.launch_counts()["moe_gmm"] == 0
 
 
+BF16_TOL = dict(rtol=1e-2, atol=1e-2)   # chip_smoke.py's bf16 TOL
+
+
+def _gmm_tc_emulation(x, wi, wo, wg, w, cnt, act):
+    """What the tensor-core body of moe_gmm computes, on the CPU: per live
+    group, f32 products of the bf16 slots and the expert's bf16 weights
+    (read through the given views), act(x wg) * (x wi) rounded to bf16 (the
+    bf16 H scratch), an f32 down product, the routing weight, bf16 out;
+    exact zeros past each count."""
+    import torch.nn.functional as F
+    f = F.silu if act == "swiglu" else (
+        lambda t: F.gelu(t, approximate="tanh"))
+    B, E, C, D = x.shape
+    out = torch.zeros(B, E, C, D)
+    for b in range(B):
+        for e in range(E):
+            c = int(cnt[b, e])
+            xs = x[b, e, :c].float()
+            h = xs @ wi[e].float()
+            h = f(xs @ wg[e].float()) * h if wg is not None else f(h)
+            y = h.to(torch.bfloat16).float() @ wo[e].float()
+            out[b, e, :c] = y * w[b, e, :c, None] if w is not None else y
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("layout", ["moefied", "native"])
+@pytest.mark.parametrize("act,gated", [("swiglu", True), ("gelu", False)])
+def test_bf16_grouped_hidden_matches_pallas(layout, act, gated):
+    """The tensor-core body of moe_gmm rounds the hidden H to bf16 between
+    its phases (the wgmma A operand); the JAX kernel keeps it in f32. An
+    emulation of that body, reading the expert weights through the layout
+    the kernel reads in place (moefied views of dense matrices, whose Fe =
+    192 makes the last 128-column tile straddle into the next expert, or
+    native stacks), agrees with the JAX moe_gmm run in interpret mode on
+    the same numpy-seeded bf16 inputs within the bf16 tolerance the card
+    holds the kernel to (rtol = atol = 1e-2); ragged counts, one empty
+    group, slots past each count exactly zero."""
+    B, E, C, D, Fe = 2, 3, 96, 128, 192
+    rng = np.random.default_rng(31)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    x = bf(rng.standard_normal((B, E, C, D)))
+    if layout == "moefied":
+        dense = {"wi": bf(rng.standard_normal((D, E * Fe)) / D ** 0.5),
+                 "wg": bf(rng.standard_normal((D, E * Fe)) / D ** 0.5),
+                 "wo": bf(rng.standard_normal((E * Fe, D)) / Fe ** 0.5)}
+        ep = moefy_mlp(dense, E)
+        wi, wg, wo = ep["wi"], ep["wg"], ep["wo"]
+        assert not wi.is_contiguous()
+    else:
+        wi = bf(rng.standard_normal((E, D, Fe)) / D ** 0.5)
+        wg = bf(rng.standard_normal((E, D, Fe)) / D ** 0.5)
+        wo = bf(rng.standard_normal((E, Fe, D)) / Fe ** 0.5)
+    wg = wg if gated else None
+    w = torch.from_numpy(rng.random((B, E, C)).astype(np.float32))
+    cnt = np.asarray([[96, 0, 37], [1, 64, 95]], np.int32)
+    j = lambda t: None if t is None else jnp.asarray(
+        t.float().contiguous().numpy(), jnp.bfloat16)
+    want = np.asarray(jax_moe_gmm(
+        j(x), j(wi), j(wo), j(wg), jnp.asarray(w.numpy()), act=act,
+        group_counts=jnp.asarray(cnt), interpret=True).astype(jnp.float32))
+    got = _gmm_tc_emulation(x, wi, wo, wg, w, cnt, act).float().numpy()
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+    live = np.arange(C) < cnt[..., None]
+    assert not got[~live].any() and not want[~live].any()
+
+
 def test_kernel_op_moe_gmm_gradients():
     rng = np.random.default_rng(5)
     x, w = _f64(rng, 2, 3, 4, 6), _f64(rng, 2, 3, 4)
