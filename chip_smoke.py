@@ -3,18 +3,19 @@
 
     python3 chip_smoke.py [--layers N] [--train-layers N] [--moe-layers N]
                           [--pages N] [--seed S] [--gmm-tile-rows]
-    python3 chip_smoke.py --ab PARENT_CHECKOUT
+    python3 chip_smoke.py --ab PARENT_CHECKOUT [--layers N]
 
 ``--ab`` runs only the kernel checks of item 2 (all six kernels;
-``moe_gmm`` at one moefied Qwen2-7B call) on another checkout (unpacked
-with ``git archive``) and on this one in turns, p c c p, one process
-each, on the same seeded inputs: each turn within TOL of the plain
-versions, the timed medians per turn (graphed and eager), whether the
-change beat the parent in every turn at ``moe_gmm``'s bf16 call
-(``AB_FASTER``), and it fails unless each tree's outputs are equal bit for
-bit in its own two turns and the kernels and modes this change leaves
-alone (``AB_SAME``: attention, the dense and routed MLP, ``moe_gmm`` in
-f32) give the same bits in both trees. Without it:
+``moe_gmm`` at one moefied Qwen2-7B call) and the greedy decode of item
+3's six staggered requests (ring and paged infer engines and a ring
+mode="base" engine, --layers deep, warm ms/step) on another checkout
+(unpacked with ``git archive``) and on this one in turns, p c c p, one
+process each, on the same seeded inputs: each turn within TOL of the
+plain versions, the timed medians and warm decode ms/step per turn,
+whether the change beat the parent in every turn at the cases of
+``AB_FASTER``, and it fails unless each tree's outputs are equal bit for
+bit in its own two turns and the kernels and paths this change leaves
+alone (``AB_SAME``) give the same bits in both trees. Without it:
 
 1. Prints the card (nvidia-smi name and power limit), builds the
    hand-written CUDA kernels from src/repro_torch/kernels/csrc with nvcc
@@ -88,6 +89,41 @@ f32) give the same bits in both trees. Without it:
    0, a plan step run twice gives the same bits, every loss is finite and
    every training kernel launched. Prints each step's losses, bucket,
    teacher and student times, tokens/s and peak memory.
+5b. Depth serving: the slice's spec and routers plus a fresh seeded depth
+   router per layer (per-token whole-layer skip), the six staggered
+   requests on the ring and on the paged pool: fails unless budget-1.0
+   rows equal the mode="base" runs of items 3 and 3b bit for bit, a
+   request alone equals its staggered tokens, the pool drains, and
+   flash_attention, fused_mlp, decode_attention (ring) and
+   paged_decode_attention (paged) launched. The path's flash, decode,
+   MLP and paged calls are recorded and the heaviest of each replayed in
+   bf16 and f32 against the plain version (rows with no attendable key
+   exact zeros). Prints the rates beside the slice's, the share of
+   (token, layer) pairs that wrote no K/V per budget (ring ``valid``,
+   paged ``pvalid``) and the depth router's own skip share at the
+   staggered ring run's prefills; the depth ring path is decoded warm in
+   turns against the slice's ring engine.
+5c. Depth gradients: item 4 for the depth spec at depth 0.5 and budget
+   0.75 on the other knobs (the bucket solved with the spec: 256 rows,
+   not the token knobs' 384; every head's router at a partial top-k, so
+   no leaf's gradient is structurally zero), every depth router leaf
+   non-zero on both paths.
+5d. Depth training: item 5's anneal with the depth spec (the same gates,
+   every depth router leaf with a non-zero gradient), then the step timed
+   at (depth, token) = (1.0, 1.0), (0.75, 1.0), (0.5, 1.0), (0.5, 0.5)
+   (wall time), and the last once more under torch.profiler (device
+   time).
+5e. Sampled serving: the six requests of item 3 with temperature 0 on the
+   first two and 0.7 / 1.0, top-k 0 / 40 and seeds on the rest: fails
+   unless the temperature-0 rows equal item 3's greedy tokens, a sampled
+   request alone equals its staggered tokens, greedy-only and sampling
+   decode steps hand ``decode_step`` tensors of the same shapes and
+   dtypes and the sampling steps hand ``sample_tokens`` (B,) settings (a
+   host branch skips the sort and noise when no live slot samples), and
+   (paged
+   pool, f32, 2 layers) a preempted sampled request resumes to its
+   uninterrupted run's tokens. Times one ``sample_tokens`` call against
+   the greedy argmax at (4, vocab), graphed and eager.
 6. Expert serving: the same six requests through the same weights with
    the MLPs moefied into 8 routed experts (views of the dense weights,
    fresh routers): staggered == solo bit for bit, moe_gmm launched; prints
@@ -115,6 +151,7 @@ TF32 is off for matmuls and cuDNN (both set below): f32 means f32.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import subprocess
@@ -155,6 +192,10 @@ PATH_KERNELS = {
     "expert_serving": ("flash_attention", "moe_gmm", "decode_attention"),
     "expert_training": ("flash_attention", "fused_mlp", "moe_gmm"),
     "native_serving": ("flash_attention", "moe_gmm", "decode_attention"),
+    "depth_serving": ("flash_attention", "fused_mlp", "decode_attention"),
+    "depth_paged_serving": ("fused_mlp", "paged_decode_attention"),
+    "depth_training": ("flash_attention", "fused_mlp", "fused_mlp_routed"),
+    "sampled_serving": ("flash_attention", "fused_mlp", "decode_attention"),
 }
 
 
@@ -731,38 +772,94 @@ def check_paged_decode(res: Results, rng, dev, H, K, Dh, max_seq):
     return outs
 
 
-class PagedCalls:
-    """Records what decides the work of every ``paged_decode_attention``
-    call made while active: q's and the pool's shapes and copies of the
-    table rows, t and pvalid (the pool changes after the call). The model
-    calls the op through the module, so a delegating wrapper put there sees
-    each call; the kernel wrapper and its launch count are untouched."""
+class PathCalls:
+    """Records what decides the work of every call to the kernel wrappers
+    ``names`` (default all of ``DATA``) made while active: each tensor
+    operand's shape and dtype, copies of the operands that ``DATA`` names
+    (masks, positions, page tables, counts; the caches change after the
+    call), and the other arguments. The model calls the kernels through
+    the ``ops`` module, so a delegating wrapper put there sees each call;
+    the kernel wrappers and their launch counts are untouched."""
+
+    DATA = {"flash_attention": ("kv_valid", "kv_count"),
+            "decode_attention": ("kv_pos", "t", "kv_valid"),
+            "fused_mlp": ("token_weights", "valid_count"),
+            "paged_decode_attention": ("table", "t", "pvalid"),
+            "moe_gmm": ("group_counts",)}
+    # the kernels check_path_calls replays (the others have their own)
+    REPLAYED = ("flash_attention", "decode_attention", "fused_mlp")
+
+    def __init__(self, *names):
+        self.names = names or tuple(self.DATA)
 
     def __enter__(self):
+        import inspect
         import torch
         from repro_torch.kernels import ops
-        self.calls, self._ops = [], ops
-        self._orig = ops.paged_decode_attention
+        self.calls, self._ops, self._orig = {}, ops, {}
+        for name in self.names:
+            orig = self._orig[name] = getattr(ops, name)
+            sig = inspect.signature(orig)
 
-        def record(q, kp, vp, table, t, pvalid, *a, **kw):
-            self.calls.append((tuple(q.shape), tuple(kp.shape), table.clone(),
-                               torch.as_tensor(t).reshape(-1).clone(),
-                               pvalid.clone()))
-            return self._orig(q, kp, vp, table, t, pvalid, *a, **kw)
-        ops.paged_decode_attention = record
+            def record(*a, _name=name, _orig=orig, _sig=sig,
+                       _data=self.DATA[name], **kw):
+                args = _sig.bind(*a, **kw).arguments
+                rec = {}
+                for k, v in args.items():
+                    if not isinstance(v, torch.Tensor):
+                        rec[k] = v
+                    elif k in _data:
+                        rec[k] = v.detach().clone()
+                    else:
+                        rec[k] = ("shape", tuple(v.shape), v.dtype)
+                self.calls.setdefault(_name, []).append(rec)
+                return _orig(*a, **kw)
+            setattr(ops, name, record)
         return self
 
     def __exit__(self, *exc):
-        self._ops.paged_decode_attention = self._orig
+        for name, orig in self._orig.items():
+            setattr(self._ops, name, orig)
 
-    def cases(self, chunk=256):
-        """The heaviest call (most attendable keys) of each (q, pool) shape
-        as (q shape, pool shape, table, t, pvalid, calls of that shape),
-        the most q rows first."""
+    @staticmethod
+    def _work(name, c):
+        """A call's work on its data: attendable (query, key) pairs for
+        the attention kernels, rows for the MLP."""
+        import torch
+        if name == "flash_attention":
+            B, S = c["q"][1][:2]
+            valid = c.get("kv_valid")
+            dev = valid.device if valid is not None else None
+            valid = torch.ones(B, S, dtype=torch.bool, device=dev) \
+                if valid is None else valid.expand(B, S)
+            cnt = c.get("kv_count")
+            cnt = torch.full((B,), S, device=dev) if cnt is None else \
+                torch.as_tensor(cnt, device=dev).expand(B)
+            return int(_attention_mask(B, S, valid, c.get("causal", True),
+                                       cnt).sum())
+        if name == "decode_attention":
+            pos, t = c["kv_pos"], c["t"].reshape(-1, 1)
+            att = (pos >= 0) & (pos <= t)
+            if c.get("kv_valid") is not None:
+                att &= c["kv_valid"]
+            return int(att.sum())
+        return int(np.prod(c["x"][1][:-1]))
+
+    def heaviest(self):
+        """The call of each of ``REPLAYED`` with the most work on its
+        data."""
+        return {name: max(cs, key=lambda c: self._work(name, c))
+                for name, cs in self.calls.items() if name in self.REPLAYED}
+
+    def paged_cases(self, chunk=256):
+        """The heaviest ``paged_decode_attention`` call (most attendable
+        keys) of each (q, pool) shape as (q shape, pool shape, table, t,
+        pvalid, calls of that shape), the most q rows first."""
         import torch
         groups = {}
-        for c in self.calls:
-            groups.setdefault(c[:2], []).append(c[2:])
+        for c in self.calls.get("paged_decode_attention", []):
+            groups.setdefault((c["q"][1], c["kp"][1]), []).append(
+                (c["table"], c["t"].reshape(-1), c["pvalid"]))
         out = []
         for (qs, ks), cs in groups.items():
             keys = torch.cat([paged_attendable(
@@ -771,6 +868,19 @@ class PagedCalls:
                 for j in range(0, len(cs), chunk)])
             out.append((qs, ks, *cs[int(keys.argmax())], len(cs)))
         return sorted(out, key=lambda c: -c[0][0])
+
+    def gmm_cases(self):
+        """The heaviest ``moe_gmm`` call (most dispatched rows) of each
+        distinct shape as (shape, (B, E) numpy counts), the largest shape
+        first."""
+        best = {}
+        for c in self.calls.get("moe_gmm", []):
+            shape = c["x"][1]
+            cnt = c["group_counts"].cpu().numpy().reshape(shape[0], shape[1])
+            if shape not in best or cnt.sum() > best[shape].sum():
+                best[shape] = cnt
+        return sorted(best.items(), key=lambda kv: (-np.prod(kv[0]),
+                                                    -kv[1].sum()))
 
 
 def check_paged_calls(res: Results, dev, cases, labels):
@@ -812,38 +922,6 @@ def check_paged_calls(res: Results, dev, cases, labels):
                   f"calls ({keys} attendable keys, {int(dead.sum())} "
                   f"row(s) with none): kernel {med(ms)}  plain "
                   f"{med(plain)}  bound {b:.4f} ms ({by})")
-
-
-class GmmCalls:
-    """Records the shape and group counts of every ``moe_gmm`` call made
-    while active. The model calls ``ops.moe_gmm`` through the module, so a
-    delegating wrapper put there sees each call; the kernel wrapper and its
-    launch count are untouched."""
-
-    def __enter__(self):
-        from repro_torch.kernels import ops
-        self.calls, self._ops, self._orig = [], ops, ops.moe_gmm
-
-        def record(x, wi, wo, wg=None, weights=None, group_counts=None,
-                   *a, **kw):
-            self.calls.append((tuple(x.shape), group_counts.detach().clone()))
-            return self._orig(x, wi, wo, wg, weights, group_counts, *a, **kw)
-        ops.moe_gmm = record
-        return self
-
-    def __exit__(self, *exc):
-        self._ops.moe_gmm = self._orig
-
-    def cases(self):
-        """The heaviest call (most dispatched rows) of each distinct shape
-        as (shape, (B, E) numpy counts), the largest shape first."""
-        best = {}
-        for shape, cnt in self.calls:
-            c = cnt.cpu().numpy().reshape(shape[0], shape[1])
-            if shape not in best or c.sum() > best[shape].sum():
-                best[shape] = c
-        return sorted(best.items(), key=lambda kv: (-np.prod(kv[0]),
-                                                    -kv[1].sum()))
 
 
 def gmm_composite_ms(x, wi, wg, wo, counts, act):
@@ -1020,19 +1098,27 @@ def native_weights(dev, cfg):
 
 # ------------------------------- serving -------------------------------------
 
-def serve(engine, requests, stagger: bool):
-    """Submit two requests, step twice, submit the rest, run to the end."""
+def serve(engine, requests, stagger: bool, after_step=None):
+    """Submit two requests, step twice, submit the rest, run to the end.
+    A request is (prompt, max_new_tokens, budget[, GenRequest kwargs]);
+    ``after_step(handles)`` runs after every step."""
     from repro_torch.training import GenRequest
     first = 2 if stagger else len(requests)
-    handles = [engine.submit(GenRequest(p, n, budget=b))
-               for p, n, b in requests[:first]]
+    make = lambda r: GenRequest(r[0], r[1], budget=r[2],
+                                **(r[3] if len(r) > 3 else {}))
+    handles = [engine.submit(make(r)) for r in requests[:first]]
+
+    def step():
+        progressed = engine.step()
+        if after_step is not None:
+            after_step(handles)
+        return progressed
     if stagger:
         for _ in range(2):
-            engine.step()
-        handles += [engine.submit(GenRequest(p, n, budget=b))
-                    for p, n, b in requests[first:]]
+            step()
+        handles += [engine.submit(make(r)) for r in requests[first:]]
     while not all(h.done for h in handles):
-        if engine.step() == 0:
+        if step() == 0:
             fail("serving engine stalled")
     return [list(h.output) for h in handles]
 
@@ -1146,18 +1232,10 @@ def check_serving(args, dev, device_line, spec):
     return launches, params, rp, requests, teacher, ring
 
 
-def decode_turns(engines, req, device_line, prof_tokens=7):
+def decode_turns(engines, req, device_line):
     """Warm decode of one request on each of two engines (name -> engine)
-    in turns (a b b a), ms per step from ``engine.timing``; then the decode
-    steps of a ``prof_tokens``-token request after the step that admits it
-    (the prefill's token and one decode step) under torch.profiler,
-    device activity only: wall and device
-    time per step, device operations per step, and the operations whose
-    count per step differs between the two. Reported, not gated."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.training import GenRequest
+    in turns (a b b a), ms per step from ``engine.timing``. Reported, not
+    gated."""
     a, b = engines
     turns = []
     for name in (a, b, b, a):
@@ -1168,6 +1246,20 @@ def decode_turns(engines, req, device_line, prof_tokens=7):
     print(f"warm decode in turns, one request ({len(req[0])}-token prompt, "
           f"{req[1]} new tokens, budget {req[2]}), ms/step: "
           f"{' / '.join(turns)} [{device_line}]")
+
+
+def decode_profile(engines, req, prof_tokens=7):
+    """The decode steps of a ``prof_tokens``-token request (``req``'s
+    prompt and budget) on each of two engines, after the step that admits
+    it (the prefill's token and one decode step), under torch.profiler,
+    device activity only: wall and device time per step, device
+    operations per step, and the operations whose count per step differs
+    between the two. Reported, not gated."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training import GenRequest
+    a, b = engines
     ops_by = {}
     for name, eng in engines.items():
         h = eng.submit(GenRequest(req[0], prof_tokens, budget=req[2]))
@@ -1209,7 +1301,8 @@ def check_paged_serving(args, res, dev, device_line, spec, params, rp,
     and the heaviest decode and chunk call replayed against the plain
     version), a mode="base" paged engine, a solo run, warm decode in turns
     with a ring engine, prefix sharing, a fork and preemption. Returns the
-    launches of the staggered run."""
+    launches of the staggered run, and its tokens, timing and the paged
+    teacher's tokens."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -1239,7 +1332,7 @@ def check_paged_serving(args, res, dev, device_line, spec, params, rp,
           f"layers [{device_line}]")
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    with PagedCalls() as rec:
+    with PathCalls("paged_decode_attention") as rec:
         tokens = serve(engine, requests, stagger=True)    # the main path
         torch.cuda.synchronize()
     launches = ops.launch_counts()
@@ -1247,7 +1340,7 @@ def check_paged_serving(args, res, dev, device_line, spec, params, rp,
     st = drained(engine, "staggered run")
     print(f"paged_decode_attention at the paged serving path's calls "
           f"[{device_line}]:")
-    check_paged_calls(res, dev, rec.cases(), {4: "decode step",
+    check_paged_calls(res, dev, rec.paged_cases(), {4: "decode step",
                                               PAGE_SIZE: "prefill chunk"})
     del rec
     print_timing("paged serving (first run)", engine.timing, device_line)
@@ -1286,8 +1379,10 @@ def check_paged_serving(args, res, dev, device_line, spec, params, rp,
     print(f"paged staggered == solo (request {solo_i}): ok")
     ring_eng = ServingEngine(params, rp, cfg, spec, mode="infer",
                              batch_size=4, max_seq=1024, device=dev)
-    decode_turns({"ring": ring_eng, "paged": mk()},
-                 (requests[0][0], 16, 0.75), device_line)
+    engines = {"ring": ring_eng, "paged": mk()}
+    decode_turns(engines, (requests[0][0], 16, 0.75), device_line)
+    decode_profile(engines, (requests[0][0], 16, 0.75))
+    del engines
     del ring_eng
 
     # prefix sharing: a common 256-token prefix = 16 full pages
@@ -1361,7 +1456,8 @@ def check_paged_serving(args, res, dev, device_line, spec, params, rp,
           f"uninterrupted run (reported, not gated): "
           f"{[list(h.output) == a for h, a in zip(hs, alone)]}")
     check_chunked_prefill_f32(params, rp, spec, dev, requests[2][0])
-    return launches
+    return launches, {"tokens": tokens, "timing": dict(engine.timing),
+                      "teacher": teacher}
 
 
 def check_chunked_prefill_f32(params, rp, spec, dev, prompt, n_layers=2,
@@ -1497,7 +1593,7 @@ def _f32_cut(params, rp, n_layers):
 
 
 def check_gradients(params, rp, spec, dev, seed, n_layers=2, budget=0.5,
-                    rel_tol=2e-3):
+                    depth=None, rel_tol=2e-3):
     """Router gradients of one distillation loss at Qwen2-7B full width,
     ``n_layers`` layers, f32: the kernel path (backend "cuda") against the
     plain path (backend "ref") on the same batch and policy. A leaf passes
@@ -1506,7 +1602,11 @@ def check_gradients(params, rp, spec, dev, seed, n_layers=2, budget=0.5,
     mark of a kernel whose autograd plumbing is missing). With expert
     routing, every expert routing decision must also be the same on both
     paths: which experts each token selects, and which (token, expert)
-    pairs each expert's capacity keeps (``expert_decisions``)."""
+    pairs each expert's capacity keeps (``expert_decisions``). ``depth``
+    sets the depth budget apart from ``budget`` (the other knobs); the
+    bucket is solved with the spec, so depth composes into it, and with
+    depth routing every depth router leaf must get a non-zero gradient on
+    both paths."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -1521,12 +1621,15 @@ def check_gradients(params, rp, spec, dev, seed, n_layers=2, budget=0.5,
     # the budget on every knob directly: at 2 layers the FLOP solver would
     # cut far deeper (the embedding and LM head dominate the 2-layer model)
     pol = ElasticPolicy.uniform(budget, n_heads=cfg.n_heads,
-                                n_experts=spec.mlp_n_experts).to(dev)
-    bucket = ragged_bucket(pol, S)
+                                n_experts=spec.mlp_n_experts)
+    if depth is not None:
+        pol = pol.replace(depth_capacity=depth)
+    pol = pol.to(dev)
+    bucket = ragged_bucket(pol, S, spec=spec)
     tokens = torch.from_numpy(LMDataPipeline(
         vocab=cfg.vocab_size, seq_len=S, global_batch=B,
         seed=seed).batch_at(0)).to(dev)
-    out, picks = {}, {}
+    out, picks, depth_ids = {}, {}, {}
     for backend in ("cuda", "ref"):
         sp = dataclasses.replace(spec, kernel_backend=backend)
         leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
@@ -1535,15 +1638,22 @@ def check_gradients(params, rp, spec, dev, seed, n_layers=2, budget=0.5,
             loss, m = make_loss_fn(cfg, sp)(leaves, p32, {"tokens": tokens},
                                             pol, bucket)
         flat = tree_leaves(leaves)
+        depth_ids[backend] = [i for i, t in enumerate(flat) if any(
+            t is d for layer in leaves["layers"] if "depth" in layer
+            for d in tree_leaves(layer["depth"]))]
         gs = torch.autograd.grad(loss, flat, allow_unused=True)
         out[backend] = (float(loss.detach()), float(m["sel_rate"]),
                         [torch.zeros_like(t) if g is None else g
                          for g, t in zip(gs, flat)])
         torch.cuda.synchronize()
     (lk, sk, gk), (lr_, sr, gr) = out["cuda"], out["ref"]
-    label = "experts" if spec.expert_routed else "dense"
+    label = ("experts" if spec.expert_routed else
+             "depth" if spec.depth_routed else "dense")
     print(f"gradient check ({label}): qwen2-7b width, {n_layers} layers, f32,"
-          f" B={B} S={S}, budget {budget} (bucket {bucket}): loss kernel "
+          f" B={B} S={S}, budget {budget}"
+          + ("" if depth is None else f", depth {depth}")
+          + f" (bucket {bucket}; without the spec "
+          f"{ragged_bucket(pol, S)}): loss kernel "
           f"{lk:.6f} plain {lr_:.6f}, sel_rate {sk:.6f} / {sr:.6f}")
     if sk != sr:
         fail("the kernel and plain paths selected different tokens")
@@ -1559,6 +1669,13 @@ def check_gradients(params, rp, spec, dev, seed, n_layers=2, budget=0.5,
               f"on both paths: ok ({moved} kept tokens sit in another slot "
               f"of their expert's buffer: equal weights to f32 rounding, "
               f"the slot does not change a token's result)")
+    if spec.depth_routed:
+        ids = depth_ids["cuda"]
+        if not ids or any(not bool(g[i].any()) for g in (gk, gr)
+                          for i in ids):
+            fail("a depth router leaf has no gradient")
+        print(f"  all {len(ids)} depth router leaves get a non-zero "
+              f"gradient on both paths: ok")
     worst = 0.0
     for i, (a, b) in enumerate(zip(gk, gr)):
         scale = float(b.abs().max())
@@ -1625,8 +1742,10 @@ def check_training(args, params, rp, spec, dev, device_line):
     deep, bf16, through launch.train's build_trainer and step function.
     Returns the kernels' launches during the 4 steps. With expert routing
     the budget-1.0 student sums E partial products, so its difference from
-    the teacher is reported instead of held to 0, and every expert router
-    leaf must get a non-zero gradient in the repeated plan step."""
+    the teacher is reported instead of held to 0. Every expert or depth
+    router leaf must get a non-zero gradient in the repeated plan step;
+    with depth routing the step is then timed over ``depth_training_grid``'s
+    (depth, token) budgets."""
     import torch
     from repro_torch.core import routing as R
     from repro_torch.kernels import ops
@@ -1637,7 +1756,8 @@ def check_training(args, params, rp, spec, dev, device_line):
     steps, S, B = 4, 512, 2
     n = args.train_layers
     experts = spec.expert_routed
-    path = "expert_training" if experts else "training"
+    path = ("expert_training" if experts else
+            "depth_training" if spec.depth_routed else "training")
     cfg, ecfg, params, state, step_fn, pipe = T.build_trainer(
         "qwen2-7b", lr=1e-4, total_steps=steps, seq_len=S, global_batch=B,
         seed=args.seed, ecfg=spec, device=dev, n_layers=n,
@@ -1716,13 +1836,15 @@ def check_training(args, params, rp, spec, dev, device_line):
         flat = tree_leaves(leaves)
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
         runs.append((loss.detach(), grads))
-    if experts:
-        exp_ids = {id(layer["expert"]["w"]) for layer in leaves["layers"]}
+    kind = "expert" if experts else "depth" if spec.depth_routed else None
+    if kind is not None:
+        ids = {id(t) for layer in leaves["layers"]
+               for t in tree_leaves(layer[kind])}
         dead = [j for j, (t, g) in enumerate(zip(flat, runs[0][1]))
-                if id(t) in exp_ids and (g is None or not bool(g.any()))]
-        if dead or not exp_ids:
-            fail(f"expert router leaves without a gradient: {dead}")
-        print(f"all {len(exp_ids)} expert router leaves get a non-zero "
+                if id(t) in ids and (g is None or not bool(g.any()))]
+        if dead or not ids:
+            fail(f"{kind} router leaves without a gradient: {dead}")
+        print(f"all {len(ids)} {kind} router leaves get a non-zero "
               f"gradient: ok")
     same = torch.equal(runs[0][0], runs[1][0]) and all(
         (a is None and b is None) or torch.equal(a, b)
@@ -1736,6 +1858,9 @@ def check_training(args, params, rp, spec, dev, device_line):
     print(f"plan step {i} under torch.profiler:")
     profiled(lambda: step_fn(states[i], params, batches[i], pol, bucket),
              top=12)
+    if spec.depth_routed:
+        depth_training_grid(step_fn, states[i], params, batches[0], cfg,
+                            ecfg, dev, device_line, S)
     return launches
 
 
@@ -1798,6 +1923,478 @@ def check_native_serving(args, dev, device_line):
     print("native MoE staggered == solo (requests 3 and 4, budgets None and "
           "0.5): ok")
     return launches
+
+
+# -------------------------- depth routing, sampling ---------------------------
+
+def depth_spec(spec):
+    """The slice's spec with the depth router (per-token whole-layer skip)."""
+    import dataclasses
+    return dataclasses.replace(spec, depth_routed=True)
+
+
+def with_depth_routers(rp, dev, d_model, seed):
+    """The slice's routers with a fresh seeded depth router in each layer."""
+    import torch
+    from repro_torch.core import routing as R
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {"layers": [dict(layer, depth=R.token_router_init(
+        gen, d_model, device=dev)) for layer in rp["layers"]]}
+
+
+def check_path_calls(res: Results, dev, label, rec: PathCalls):
+    """Replays the heaviest ``flash_attention``, ``decode_attention`` and
+    ``fused_mlp`` call a path made with its recorded masks, positions and
+    counts and random operands of its shapes, in bf16 and f32, against the
+    plain version (within TOL); a query row or slot with no attendable key
+    must give exact zeros."""
+    import torch
+    from repro_torch.kernels import ops
+    for name, c in sorted(rec.heaviest().items()):
+        work = PathCalls._work(name, c)
+        for kind in ("bf16", "f32"):
+            dt = torch.bfloat16 if kind == "bf16" else torch.float32
+            rand = lambda key, scale=1.0: (
+                torch.randn(c[key][1], device=dev) * scale).to(dt)
+            args = {k: (rand(k) if isinstance(v, tuple) and v
+                        and v[0] == "shape" else v) for k, v in c.items()}
+            if name == "fused_mlp":         # weights at a 1/sqrt(fan-in) scale
+                for k in ("wi", "wg", "wo"):
+                    if isinstance(c.get(k), tuple):
+                        args[k] = rand(k, c[k][1][0] ** -0.5)
+            args.pop("backend", None)
+            got = getattr(ops, name)(**args)
+            want = getattr(ops, name)(**args, backend="ref")
+            shape = tuple(c["q" if "q" in c else "x"][1])
+            res.compare(name, f"{kind} {label} path {shape} ({work} "
+                        f"{'rows' if name == 'fused_mlp' else 'pairs'})",
+                        got, want, kind)
+            if name == "fused_mlp":
+                continue
+            if name == "flash_attention":
+                B, S = shape[:2]
+                valid = c.get("kv_valid")
+                valid = torch.ones(B, S, dtype=torch.bool, device=dev) \
+                    if valid is None else valid.expand(B, S)
+                cnt = torch.full((B,), S, device=dev)
+                dead = ~_attention_mask(B, S, valid, True, cnt).any(-1)
+            else:
+                pos, t = c["kv_pos"], c["t"].reshape(-1, 1)
+                dead = ~((pos >= 0) & (pos <= t) & c["kv_valid"]).any(-1)
+            if got[dead].count_nonzero() != 0:
+                fail(f"{name}, the {label} path's heaviest call: a row with "
+                     f"no attendable key is not zero")
+            if kind == "bf16":
+                print(f"  {name:17s} {label} path: {int(dead.sum())} "
+                      f"query row(s) with no attendable key, exact zeros")
+
+
+def serve_holes(engine, requests):
+    """``serve(stagger=True)`` that also reads, as each request finishes,
+    the (position, layer) pairs whose K/V it did not write (a token the
+    depth or the attention token router skipped at that layer): the ring's
+    ``valid`` row of its slot, or the ``pvalid`` lanes of its pages,
+    over the prompt and every generated token but the last (never
+    written). Returns (tokens, [(holes, pairs)] per request)."""
+    import torch
+    paged = engine.kv_layout == "paged"
+    rows = {}
+    if paged:                    # the table row as the slot frees it
+        real_free = engine._free_slot_pages
+
+        def free(slot):
+            rows[slot] = engine._table[slot].copy()
+            real_free(slot)
+        engine._free_slot_pages = free
+    holes = {}
+
+    def read(handles):
+        for i, h in enumerate(handles):
+            if not h.done or i in holes:
+                continue
+            n = len(h.request.prompt) + len(h.output) - 1
+            j = np.arange(n)
+            miss = 0
+            for layer in engine._caches["layers"]:
+                a = layer["attn"]
+                if paged:
+                    pages = torch.as_tensor(
+                        rows[h.slot][j // engine.page_size].astype(np.int64),
+                        device=engine.device)
+                    lanes = torch.as_tensor(j % engine.page_size,
+                                            device=engine.device)
+                    kept = a["pvalid"][pages, lanes]
+                else:
+                    if not bool((a["pos"][h.slot, :n].cpu().numpy()
+                                 == j).all()):
+                        fail("depth serving: a ring row's positions are "
+                             "not its request's")
+                    kept = a["valid"][h.slot, :n]
+                miss += int((~kept).sum())
+            holes[i] = (miss, n * len(engine._caches["layers"]))
+
+    tokens = serve(engine, requests, stagger=True, after_step=read)
+    if paged:
+        del engine._free_slot_pages
+    return tokens, [holes[i] for i in range(len(tokens))]
+
+
+class DepthPromptSkips:
+    """While active, records per budget below 1 the share of (prompt
+    token, layer) pairs the depth router alone skips at the ring engine's
+    infer prefills (one request's whole prompt each, told apart by its
+    length), read from the router's logits against the threshold of the
+    serving engine's policy for the request's budget (a budget-1.0 row
+    keeps every token)."""
+
+    def __init__(self, rp, cfg, spec, requests):
+        from repro_torch.core import routing as R
+        from repro_torch.core.policy import solve_budget
+        self._R, self._ids = R, {id(layer["depth"]) for layer in rp["layers"]}
+        self._budget = {len(p): b for p, _, b in requests if b < 1.0}
+        self._thr = {b: R.threshold_logit(float(
+            solve_budget(cfg, spec, b, static=True).theta))
+            for b in set(self._budget.values())}
+        self.seen = []
+
+    def __enter__(self):
+        real = self._real = self._R.token_logits
+
+        def token_logits(r, x):
+            lg = real(r, x)
+            b = self._budget.get(x.shape[1]) if x.dim() == 3 else None
+            if id(r) in self._ids and b is not None:
+                self.seen.append((b, (lg <= self._thr[b]).float().mean()))
+            return lg
+        self._R.token_logits = token_logits
+        return self
+
+    def __exit__(self, *exc):
+        self._R.token_logits = self._real
+
+    def shares(self):
+        return {b: float(sum(v for bb, v in self.seen if bb == b))
+                / sum(bb == b for bb, _ in self.seen)
+                for b in sorted(set(self._thr), reverse=True)}
+
+
+def check_depth_serving(args, res, dev, device_line, spec, params, rp,
+                        requests, ring, paged):
+    """The slice's serving path with the depth router added (fresh seeded
+    depth routers beside the slice's routers), on the Qwen2-7B weights
+    already on the card, ring and paged: the six staggered requests,
+    budget-1.0 rows against the mode="base" runs of the ring and paged
+    phases, one request alone, the pool drained, the path's kernel calls
+    replayed against their plain versions. Prints the KV holes and the
+    depth router's own skip share per budget, and the rates beside the
+    slice's. Returns (launches by path, the depth routers)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.training import ServingEngine
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=args.layers)
+    dspec = depth_spec(spec)
+    rp_d = with_depth_routers(rp, dev, cfg.d_model, args.seed + 4)
+    budgets = sorted({b for _, _, b in requests}, reverse=True)
+    launches = {}
+    for layout, prior in (("ring", ring), ("paged", paged)):
+        path = "depth_serving" if layout == "ring" else "depth_paged_serving"
+        kw = dict(kv_layout="paged", page_size=PAGE_SIZE,
+                  n_pages=args.pages) if layout == "paged" else {}
+        mk = lambda: ServingEngine(params, rp_d, cfg, dspec, mode="infer",
+                                   batch_size=4, max_seq=1024, device=dev,
+                                   **kw)
+        engine = mk()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        skips = DepthPromptSkips(rp_d, cfg, dspec, requests) \
+            if layout == "ring" else None
+        with PathCalls() as rec, (skips or contextlib.nullcontext()):
+            tokens, holes = serve_holes(engine, requests)   # the main path
+            torch.cuda.synchronize()
+        launches[path] = ops.launch_counts()
+        check_launches(path, launches[path])
+        print(f"{path}: {cfg.name} depth {cfg.n_layers}, the slice's spec "
+              f"and routers plus a depth router per layer [{device_line}]")
+        print_timing(f"depth {layout} serving (first run)", engine.timing,
+                     device_line)
+        print_timing(f"{layout} serving without depth, same call (first "
+                     f"run)", prior["timing"], device_line)
+        for toks in tokens:
+            if len(toks) != 16 or not all(0 <= x < cfg.vocab_size
+                                          for x in toks):
+                fail(f"bad generated tokens {toks}")
+        for i, (_, _, b) in enumerate(requests):
+            if b == 1.0 and tokens[i] != prior["teacher"][i]:
+                fail(f"depth {layout}: budget-1.0 request {i} differs from "
+                     f"the mode='base' teacher")
+        print(f"depth {layout}: budget 1.0 == mode='base' teacher, bit for "
+              f"bit: ok")
+        solo_i = 4
+        solo_eng = mk()
+        solo = serve(solo_eng, [requests[solo_i]], stagger=False)[0]
+        if solo != tokens[solo_i]:
+            fail(f"depth {layout}: request {solo_i} alone {solo} != "
+                 f"staggered {tokens[solo_i]}")
+        print(f"depth {layout}: staggered == solo (request {solo_i}, budget "
+              f"{requests[solo_i][2]}): ok")
+        if layout == "ring":
+            print("depth router alone, share of (prompt token, layer) pairs "
+                  "skipped at the staggered run's prefills, by budget: "
+                  + ", ".join(f"{b}: {100 * v:.2f} %"
+                              for b, v in skips.shares().items())
+                  + "; 1.0: 0 (full budget keeps every token)")
+            decode_turns({"ring": ServingEngine(
+                params, rp, cfg, spec, mode="infer", batch_size=4,
+                max_seq=1024, device=dev), "depth ring": mk()},
+                (requests[0][0], 8, 0.75), device_line)
+        if layout == "paged":
+            for eng, what in ((engine, "staggered"), (solo_eng, "solo")):
+                if eng.paged_stats()["allocated"] != 0:
+                    fail(f"depth paged serving, {what} run: the pool did "
+                         f"not drain")
+            print("depth paged: the pool drained after both runs: ok")
+        share = {b: sum(h for (h, _), (_, _, bb) in zip(holes, requests)
+                        if bb == b) / sum(n for (_, n), (_, _, bb) in
+                                          zip(holes, requests) if bb == b)
+                 for b in budgets}
+        print(f"depth {layout}: (token, layer) pairs that wrote no K/V, by "
+              f"budget (depth or attention token router; ring valid / "
+              f"paged pvalid): " + ", ".join(f"{b}: {100 * s:.2f} %"
+                                             for b, s in share.items()))
+        print(f"depth kernel calls of the {layout} path [{device_line}]:")
+        check_path_calls(res, dev, f"depth {layout}", rec)
+        if layout == "paged":
+            check_paged_calls(res, dev, rec.paged_cases(),
+                              {4: "depth decode step",
+                               PAGE_SIZE: "depth prefill chunk"})
+        del rec, engine, solo_eng
+    return launches, rp_d
+
+
+def tensor_signature(obj):
+    """Shapes and dtypes of every tensor in ``obj`` (tuples, lists, dicts
+    and dataclasses such as the policy walked in order)."""
+    import dataclasses
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return ((tuple(obj.shape), obj.dtype),)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    elif isinstance(obj, dict):
+        obj = [obj[k] for k in sorted(obj)]
+    elif not isinstance(obj, (list, tuple)):
+        return ()
+    return tuple(x for o in obj for x in tensor_signature(o))
+
+
+def check_sampled_serving(args, dev, device_line, spec, params, rp,
+                          requests, ring):
+    """The ring serving path with per-request sampling: the six requests of
+    the serving phase (same prompts, budgets and stagger) with temperature
+    0 on the first two and 0.7 / 1.0, top-k 0 / 40 and distinct seeds on
+    the rest. Fails unless the temperature-0 rows give the greedy run's
+    tokens, a sampled request alone gives its staggered tokens, every
+    decode step (greedy-only and sampling) hands ``decode_step`` tensors
+    of the same shapes and dtypes, the sampling steps hand
+    ``sample_tokens`` (B,) settings, and, on the paged pool in f32 at 2
+    layers, two sampled requests one of which is preempted give their
+    uninterrupted runs' tokens. Returns the launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.training import ServingEngine
+    from repro_torch.training import serve as serve_mod
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=args.layers)
+    knobs = [dict(), dict(), dict(temperature=0.7, top_k=40, seed=11),
+             dict(temperature=1.0, seed=2 ** 32 - 1),
+             dict(temperature=0.7, seed=7),
+             dict(temperature=1.0, top_k=40, seed=123)]
+    reqs = [r + (k,) for r, k in zip(requests, knobs)]
+    mk = lambda: ServingEngine(params, rp, cfg, spec, mode="infer",
+                               batch_size=4, max_seq=1024, device=dev)
+    engine = mk()
+    steps = []     # per decode step: [decode_step's, sample_tokens' tensors]
+    real_step, real_sample = serve_mod.decode_step, serve_mod.sample_tokens
+
+    def step(*a, **kw):
+        steps.append([tensor_signature((a, kw))])
+        return real_step(*a, **kw)
+
+    def sample(*a, **kw):
+        if steps and len(steps[-1]) == 1:     # the decode step's own call
+            steps[-1].append(tensor_signature((a, kw)))
+        return real_sample(*a, **kw)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    serve_mod.decode_step, serve_mod.sample_tokens = step, sample
+    try:
+        tokens = serve(engine, reqs, stagger=True)       # the main path
+        torch.cuda.synchronize()
+    finally:
+        serve_mod.decode_step, serve_mod.sample_tokens = real_step, \
+            real_sample
+    launches = ops.launch_counts()
+    check_launches("sampled_serving", launches)
+    print(f"sampled serving: {cfg.name} depth {cfg.n_layers}, the six "
+          f"requests with {[k.get('temperature', 0.0) for k in knobs]} "
+          f"temperatures, top-k {[k.get('top_k', 0) for k in knobs]} "
+          f"[{device_line}]")
+    print_timing("sampled ring serving (first run)", engine.timing,
+                 device_line)
+    for i, k in enumerate(knobs):
+        if not k and tokens[i] != ring["tokens"][i]:
+            fail(f"sampled serving: temperature-0 request {i} differs from "
+                 f"the greedy run")
+    sampled_differ = sum(tokens[i] != ring["tokens"][i]
+                         for i, k in enumerate(knobs) if k)
+    print(f"sampled serving: temperature-0 rows == the greedy run's tokens, "
+          f"bit for bit: ok ({sampled_differ} of "
+          f"{sum(1 for k in knobs if k)} sampled rows differ from greedy)")
+    if sampled_differ == 0:
+        fail("sampled serving: no sampled row differs from greedy")
+    greedy = [st for st in steps if len(st[1]) == 1]
+    sampled = [st for st in steps if len(st[1]) > 1]
+    B = engine.B
+    if not greedy or not sampled or len({st[0] for st in steps}) != 1 \
+            or len({st[1] for st in sampled}) != 1 \
+            or [sh for sh, _ in sampled[0][1][1:]] != [(B,)] * 4:
+        fail(f"sampled serving: {len(greedy)} greedy-only and "
+             f"{len(sampled)} sampling decode steps handed decode_step "
+             f"{len({st[0] for st in steps})} tensor signature(s) and the "
+             f"sampling ones handed sample_tokens "
+             f"{len({st[1] for st in sampled})}, not one each with (B,) "
+             f"settings")
+    print(f"sampled serving: {len(greedy)} greedy-only and {len(sampled)} "
+          f"sampling decode steps handed decode_step tensors of the same "
+          f"shapes and dtypes; the sampling ones handed sample_tokens "
+          f"({B},) temperature, top-k, seed and position tensors, the "
+          f"greedy-only ones the logits alone (a host branch): ok")
+    solo_i = 4
+    solo = serve(mk(), [reqs[solo_i]], stagger=False)[0]
+    if solo != tokens[solo_i]:
+        fail(f"sampled serving: request {solo_i} alone {solo} != staggered "
+             f"{tokens[solo_i]}")
+    print(f"sampled serving: staggered == solo (request {solo_i}, "
+          f"temperature 0.7): ok")
+    sampling_cost(dev, cfg.vocab_size, device_line)
+    check_sampled_preemption(params, rp, spec, dev, args.seed)
+    return launches
+
+
+def sampling_cost(dev, vocab, device_line, B=4):
+    """CUDA-event times of one ``sample_tokens`` call on (B, vocab) f32
+    logits, every row sampling (top-k 40 on half of them) against the
+    greedy argmax: graphed (the device's time) and back to back (with the
+    host's cost of issuing each operation)."""
+    import torch
+    from repro_torch.training.serve import sample_tokens
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn(B, vocab, generator=gen, device=dev)
+    temp = torch.full((B,), 0.7, device=dev)
+    topk = torch.tensor([0, 40] * (B // 2), dtype=torch.int32, device=dev)
+    seeds = torch.arange(B, dtype=torch.int64, device=dev)
+    pos = torch.full((B,), 100, dtype=torch.int32, device=dev)
+    med = lambda ts: f"{ts[len(ts) // 2]:.4f}"
+    out = {}
+    for name, fn in (("sampled", lambda: sample_tokens(
+            logits, temp, topk, seeds, pos)), ("greedy", lambda: sample_tokens(
+                logits))):
+        graphed, eager = device_and_eager_ms(fn, 20)
+        out[name] = f"{med(graphed)} ms graphed, {med(eager)} eager"
+    print(f"sample_tokens on ({B}, {vocab}) f32 logits: sampling "
+          f"{out['sampled']}; greedy argmax {out['greedy']} [{device_line}]")
+
+
+def check_sampled_preemption(params, rp, spec, dev, seed, n_layers=2):
+    """Two sampled 512-token requests on a paged pool one page short of
+    both at full length (f32, Qwen2-7B width, ``n_layers`` layers: the
+    resumed request's chunked re-prefill then rounds as the decode steps
+    it replaces, so a difference is a fault of the stream, not bf16): at
+    least one preemption, and each request gives the tokens of its
+    uninterrupted run."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.training import ServingEngine
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=n_layers,
+                              dtype="float32")
+    p32, r32 = _f32_cut(params, rp, n_layers)
+    rng = np.random.default_rng(seed + 5)
+    reqs = [(rng.integers(0, cfg.vocab_size, 512).astype(np.int32), 16, 0.75,
+             dict(temperature=0.8, top_k=40, seed=s)) for s in (21, 22)]
+    need = -(-(512 + 16) // PAGE_SIZE)
+    mk = lambda n_pages=None: ServingEngine(
+        p32, r32, cfg, spec, mode="infer", batch_size=2, max_seq=1024,
+        device=dev, kv_layout="paged", page_size=PAGE_SIZE, n_pages=n_pages)
+    eng = mk(2 * need)                  # one page short, plus the trash page
+    got = serve(eng, reqs, stagger=False)
+    if eng.n_preempted < 1:
+        fail("sampled preemption: none on the short pool")
+    alone = [serve(mk(), [r], stagger=False)[0] for r in reqs]
+    if got != alone:
+        fail(f"sampled preemption: {got} != uninterrupted {alone}")
+    print(f"sampled preemption: f32, {n_layers} layers, {2 * need}-page "
+          f"pool, {eng.n_preempted} preemption(s): each request == its "
+          f"uninterrupted run, bit for bit: ok")
+
+
+def device_ms(fn) -> tuple:
+    """(wall ms, kernel ms on the device) of ``fn()`` under torch.profiler,
+    device activity only; the wall from the call to the device's end,
+    without the profiler's start and stop."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return wall, sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def depth_training_grid(step_fn, state, params, batch, cfg, spec, dev,
+                        device_line, S, grid=((1.0, 1.0), (0.75, 1.0),
+                                              (0.5, 1.0), (0.5, 0.5))):
+    """The depth spec's training step (``launch.train``'s step function) at
+    (depth, token) budgets set directly, each timed after one warm-up step:
+    the wall time with the teacher's and student's parts and the ragged
+    bucket; then one more step of the last budget under torch.profiler
+    (device activity) for its device time (the step is host-bound, so the
+    wall hides what the bucket saves)."""
+    import torch
+    from repro_torch.core.policy import ElasticPolicy, ragged_bucket
+    print(f"depth training grid, {cfg.name} width, depth {cfg.n_layers}, "
+          f"B={batch['tokens'].shape[0]} S={S} [{device_line}]:")
+    for depth, token in grid:
+        pol = ElasticPolicy.uniform(token, n_heads=cfg.n_heads).replace(
+            depth_capacity=depth).to(dev)
+        bucket = ragged_bucket(pol, S, spec=spec)
+        timing, out = {}, {}
+        run = lambda: out.update(step_fn(state, params, batch, pol, bucket,
+                                         timing=timing)[1])
+        run()                                   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        loss = float(out["loss"])
+        if not np.isfinite(loss):
+            fail(f"depth grid ({depth}, {token}): loss {loss}")
+        print(f"  (depth, token) = ({depth}, {token}) bucket {bucket}: step "
+              f"{wall:.1f} ms (teacher {timing['teacher_s'] * 1e3:.1f}, "
+              f"student fwd+bwd+update {timing['student_s'] * 1e3:.1f}); "
+              f"loss {loss:.6f}, sel_rate {float(out['sel_rate']):.4f}")
+    wall, dev_ms = device_ms(run)
+    print(f"  ({depth}, {token}) once more under torch.profiler (device "
+          f"activity): {wall:.1f} ms wall, {dev_ms:.1f} ms of it on the "
+          f"device ({100 * dev_ms / wall:.1f} % busy)")
 
 
 def print_ptxas(build, sources=None, tag=""):
@@ -1873,21 +2470,75 @@ def print_hgmma(build) -> None:
 AB_KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention",
               "fused_mlp", "fused_mlp_routed", "moe_gmm")
 # outputs that must be bit-identical between the two trees (kernels and
-# modes this change leaves as they were), by ab_turn's case prefix
+# modes this change leaves as they were, and the greedy serving path), by
+# ab_turn's case prefix
 AB_SAME = ("flash", "ring", "paged", "fused_mlp", "fused_mlp_routed",
-           "moe_gmm f32")
-# timed cases of the kernel this change redesigned (moe_gmm's bf16 call)
-AB_FASTER = (("moe_gmm", None),)
+           "moe_gmm", "decode")
+# timed cases of a kernel the change redesigned (none: this change
+# redesigned no kernel)
+AB_FASTER = ()
 
 
-def ab_turn(tree: Path, out: Path) -> None:
+def slice_spec():
+    """The slice's elastic spec: token routing of attention and the MLP,
+    head top-k, LoRA rank 1."""
+    from repro_torch.core.policy import ElasticSpec
+    return ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                       mha_head_routed=True, lora_rank=1)
+
+
+def ab_decode(dev, layers, reps=2):
+    """``--ab``'s serving turn: item 3's six staggered requests, seed 0,
+    greedy, through a ring and a paged infer engine and a ring mode="base"
+    engine of the tree on the path (Qwen2-7B width, ``layers`` deep, the
+    slice's spec), each served once cold and ``reps`` times warm. Returns
+    each engine's tokens (one (6, 16) tensor, equal across its warm runs)
+    and its warm decode ms/step."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import ServingEngine
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=layers)
+    spec = slice_spec()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model_init(gen, cfg, spec, device=dev)
+    rp = router_init(gen, cfg, spec, device=dev)
+    rng = np.random.default_rng(0)
+    requests = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 16, b)
+                for n, b in zip([64, 512, 200, 333, 128, 450],
+                                [1.0, 0.75, 0.5, 1.0, 0.5, 0.75])]
+    outs, ms = {}, {}
+    for name, mode, kw in (
+            ("ring infer", "infer", {}),
+            ("paged infer", "infer", dict(kv_layout="paged",
+                                          page_size=PAGE_SIZE)),
+            ("ring base", "base", {})):
+        eng = ServingEngine(params, rp, cfg, spec, mode=mode, batch_size=4,
+                            max_seq=1024, device=dev, **kw)
+        tokens = serve(eng, requests, stagger=True)          # cold
+        warm = []
+        for _ in range(reps):
+            eng.timing.update(decode_s=0.0, decode_steps=0)
+            if serve(eng, requests, stagger=True) != tokens:
+                fail(f"--ab decode {name}: a warm run's tokens differ")
+            warm.append(eng.timing["decode_s"] * 1e3
+                        / eng.timing["decode_steps"])
+        outs[f"decode {name} tokens"] = torch.tensor(tokens)
+        ms[name] = warm
+        del eng
+    return outs, ms
+
+
+def ab_turn(tree: Path, out: Path, layers: int) -> None:
     """One turn of ``--ab``: ``check_flash``, ``check_decode`` (ring, no
     split edges), ``check_paged_decode``, ``check_fused_mlp``,
     ``check_fused_mlp_routed`` and ``check_moe_gmm`` (a moefied Qwen2-7B
     call, 8 experts, ragged counts) on the kernels of the checkout at
     ``tree`` (its ``src`` first on the path, its kernels built into its
     own tree), inputs drawn from seed 0, each held to its plain version
-    under ``TOL``; saves the outputs and each kernel's timed-case medians
+    under ``TOL``, then ``ab_decode`` on its serving engines; saves the
+    outputs, each kernel's timed-case medians and the warm decode ms/step
     to ``out``."""
     sys.path.insert(0, str(tree.resolve() / "src"))
     import torch
@@ -1914,26 +2565,29 @@ def ab_turn(tree: Path, out: Path) -> None:
                          res, dev, "moefied", [((1, 8, 512, D), counts)],
                          moefied_weights(dev, D, Fd, 8), timed=True))):
         outs.update({f"{name} {k}": o.cpu() for k, o in fn().items()})
+    dec_outs, dec_ms = ab_decode(dev, layers)
+    outs.update(dec_outs)
     ms = {}
     for n in AB_KERNELS:
         row = res.rows[n]
         ms[(n, None)] = (row.get("graphed_ms"), row["ms"])
         for label, case in row.get("cases", {}).items():
             ms[(n, label)] = (None, case["ms"])
-    torch.save({"outs": outs, "ms": ms}, out)
+    torch.save({"outs": outs, "ms": ms, "decode_ms": dec_ms}, out)
 
 
-def kernel_ab(parent: Path) -> int:
-    """``--ab PARENT``: the six kernels of the checkout at PARENT (p) and
-    of this one (c) in turns p c c p, each turn a process of its own
-    (``ab_turn``) on the same seeded inputs at Qwen2-7B widths, each turn
-    within ``TOL`` of the plain version. Prints each kernel's timed
-    medians per turn (graphed and eager for attention, eager for the MLP
-    kernels, whose calls are far above the host's cost of issuing them),
-    and whether the change was faster than the parent in every turn at
-    the cases it redesigned (``AB_FASTER``); fails unless each tree's
-    outputs are equal bit for bit across its own two turns, and unless the
-    kernels of ``AB_SAME`` give the same bits in both trees."""
+def kernel_ab(parent: Path, layers: int) -> int:
+    """``--ab PARENT``: the six kernels and the greedy serving engines of
+    the checkout at PARENT (p) and of this one (c) in turns p c c p, each
+    turn a process of its own (``ab_turn``) on the same seeded inputs at
+    Qwen2-7B widths, each turn within ``TOL`` of the plain version. Prints
+    each kernel's timed medians per turn (graphed and eager for attention,
+    eager for the MLP kernels, whose calls are far above the host's cost
+    of issuing them), each engine's warm decode ms/step per turn, and
+    whether the change was faster than the parent in every turn at the
+    cases it redesigned (``AB_FASTER``); fails unless each tree's outputs
+    are equal bit for bit across its own two turns, and unless the kernels
+    and paths of ``AB_SAME`` give the same bits in both trees."""
     import shutil
     import tempfile
     import torch
@@ -1943,7 +2597,8 @@ def kernel_ab(parent: Path) -> int:
         got = []
         for i, (_, tree) in enumerate(turns):
             subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                            "--ab-turn", str(tree), str(tmp / f"{i}.pt")],
+                            "--ab-turn", str(tree), str(tmp / f"{i}.pt"),
+                            "--layers", str(layers)],
                            check=True)
             got.append(torch.load(tmp / f"{i}.pt"))
     finally:
@@ -1971,6 +2626,12 @@ def kernel_ab(parent: Path) -> int:
                             for (t, _), g in zip(turns, got))
             print(f"--ab {n}{'' if label is None else ' ' + label}, turns "
                   f"p c c p, timed-case median ms, {form}: {ms}")
+    for name in got[0]["decode_ms"]:
+        ms = " / ".join(f"{t} " + ", ".join(
+            f"{v:.2f}" for v in g["decode_ms"][name])
+            for (t, _), g in zip(turns, got))
+        print(f"--ab decode {name}, six staggered requests, {layers} "
+              f"layers, turns p c c p, warm ms/step per run: {ms}")
     for key in AB_FASTER:
         t = [g["ms"][key][1] for g in got]
         print(f"--ab {key[0]}{'' if key[1] is None else ' ' + key[1]}: the "
@@ -1993,11 +2654,13 @@ def main() -> int:
                          "ring-equivalent 4 * 64 + 1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab", type=Path, metavar="PARENT",
-                    help="run only the six kernels' checks on the checkout "
+                    help="run only the six kernels' checks and the greedy "
+                         "serving engines (--layers deep) on the checkout "
                          "at PARENT and on this one in turns (p c c p): "
                          "each tree bit for bit across its turns, the "
-                         "unchanged kernels bit for bit across the trees, "
-                         "within TOL, and the timed medians")
+                         "unchanged kernels and paths bit for bit across "
+                         "the trees, within TOL, the timed medians and the "
+                         "warm decode ms/step")
     ap.add_argument("--ab-turn", nargs=2, type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--gmm-tile-rows", action="store_true",
                     help="also time moe_gmm's heaviest call of each expert "
@@ -2012,12 +2675,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.ab_turn:
-        ab_turn(*args.ab_turn)
+        ab_turn(*args.ab_turn, args.layers)
         return 0
     if args.ab:
-        return kernel_ab(args.ab)
+        return kernel_ab(args.ab, args.layers)
     from repro_torch.configs import get_config
-    from repro_torch.core.policy import ElasticSpec
     from repro_torch.kernels import build
 
     device_line = card_line()
@@ -2058,14 +2720,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
-                       mha_head_routed=True, lora_rank=1)
+    spec = slice_spec()
     paths = {}
     paths["serving"], params, rp, requests, teacher, ring = check_serving(
         args, dev, device_line, spec)
+    ring["teacher"] = teacher
     free()
     done("serving")
-    paths["paged_serving"] = check_paged_serving(
+    paths["paged_serving"], paged = check_paged_serving(
         args, res, dev, device_line, spec, params, rp, requests, ring)
     free()
     done("paged serving")
@@ -2075,37 +2737,54 @@ def main() -> int:
                                        device_line)
     free()
     done("gradients, training")
+    depth_paths, rp_d = check_depth_serving(
+        args, res, dev, device_line, spec, params, rp, requests, ring, paged)
+    paths.update(depth_paths)
+    free()
+    done("depth serving")
+    check_gradients(params, rp_d, depth_spec(spec), dev, args.seed,
+                    budget=0.75, depth=0.5)
+    free()
+    paths["depth_training"] = check_training(
+        args, params, rp_d, depth_spec(spec), dev, device_line)
+    del rp_d
+    free()
+    done("depth gradients, training")
+    paths["sampled_serving"] = check_sampled_serving(
+        args, dev, device_line, spec, params, rp, requests, ring)
+    free()
+    done("sampled serving")
     # moe_gmm is held to its plain version at the calls each expert path
     # made (recorded during the path, replayed after it)
     moefied = moefied_weights(dev, cfg.d_model, cfg.d_ff,
                               expert_spec(spec).mlp_n_experts)
-    with GmmCalls() as rec:
+    with PathCalls("moe_gmm") as rec:
         paths["expert_serving"], rp_e = check_expert_serving(
             args, dev, device_line, spec, params, requests, teacher)
     free()
     print(f"moe_gmm at the expert serving path's calls [{device_line}]:")
-    check_moe_gmm(res, dev, "moefied qwen2-7b serving", rec.cases(), moefied,
+    check_moe_gmm(res, dev, "moefied qwen2-7b serving", rec.gmm_cases(), moefied,
                   timed=True, tile_rows=args.gmm_tile_rows)
     free()
     done("expert serving")
     check_gradients(params, rp_e, expert_spec(spec), dev, args.seed)
     free()
-    with GmmCalls() as rec:
+    with PathCalls("moe_gmm") as rec:
         paths["expert_training"] = check_training(
             args, params, rp_e, expert_spec(spec), dev, device_line)
     free()
     print(f"moe_gmm at the expert training path's calls [{device_line}]:")
-    check_moe_gmm(res, dev, "moefied qwen2-7b training", rec.cases(),
+    check_moe_gmm(res, dev, "moefied qwen2-7b training", rec.gmm_cases(),
                   moefied, timed=False, tile_rows=args.gmm_tile_rows)
     del params, rp, rp_e         # the Qwen2-7B weights leave the card
     free()
     done("expert gradients, training")
-    with GmmCalls() as rec:
+    with PathCalls("moe_gmm") as rec:
         paths["native_serving"] = check_native_serving(args, dev,
                                                        device_line)
     free()
     print(f"moe_gmm at the native MoE serving path's calls [{device_line}]:")
-    check_moe_gmm(res, dev, "native qwen1.5-moe serving", rec.cases(),
+    check_moe_gmm(res, dev, "native qwen1.5-moe serving", rec.gmm_cases(),
                   native_weights(dev, get_config("qwen2-moe-a2.7b")),
                   timed=False, tile_rows=args.gmm_tile_rows)
     done("native MoE serving")

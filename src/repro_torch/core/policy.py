@@ -5,7 +5,8 @@
 * ``ElasticPolicy`` — runtime knobs: token capacities, head/expert top-k,
   the decode threshold theta and a teacher/student flag. Leaves are Python
   numbers (static: trace-time constants in the JAX package) or float32
-  tensors of shape ``()`` or ``(B,)`` (one leaf per serving slot).
+  tensors of shape ``()``, ``(B,)`` (one leaf per serving slot) or
+  ``(L, 1)`` / ``(L, B)`` (per-layer schedules, ``for_layer``).
 
 Budget semantics: any capacity ``>= 1`` (or top-k ``>= n``) is the exact
 frozen-teacher computation, so ``ElasticPolicy.uniform(1.0)`` reproduces
@@ -136,6 +137,20 @@ class ElasticPolicy:
                                      device=live.device)
             return out
         return _map(upd, self, row)
+
+    # ---- per-layer schedules ----
+    @property
+    def has_layer_dim(self) -> bool:
+        """True when some leaf is ``(L, ...)`` (ndim >= 2): a per-layer
+        schedule."""
+        return any(getattr(getattr(self, f.name), "ndim", 0) >= 2
+                   for f in dataclasses.fields(self))
+
+    def for_layer(self, i: int) -> "ElasticPolicy":
+        """Layer ``i``'s policy: ``v[i % L]`` of every ``(L, ...)`` leaf;
+        scalar and ``(B,)`` leaves pass through."""
+        return _map(lambda v: v[i % v.shape[0]]
+                    if getattr(v, "ndim", 0) >= 2 else v, self)
 
     def replace(self, **kw) -> "ElasticPolicy":
         return dataclasses.replace(self, **kw)

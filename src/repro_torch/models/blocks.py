@@ -20,8 +20,16 @@ native MoE layer (``cfg.moe``) drives its experts with the learned
 ``expert`` router in place of its own; a dense MLP under
 ``spec.mlp_n_experts`` is split losslessly into experts (``core/moefy.py``,
 views of the dense weights) and routed the same way. Both dispatch through
-``models/moe.py`` and the ``moe_gmm`` kernel. Depth routing waits for its
-own slice.
+``models/moe.py`` and the ``moe_gmm`` kernel.
+
+Depth routing (per-token whole-layer skip): the ``depth`` token router is
+the block's OUTERMOST mixer router. Its selection drives the block's one
+plan in training (unselected tokens ride the residual through attention
+AND the MLP); at inference its threshold gate ANDs into the attention
+keep (a skipped token writes no K/V at that layer: the ring's ``valid`` /
+the pool's ``pvalid`` records the hole) and its weight scales the
+attention and MLP deltas. Its capacity multiplies the token capacities
+(``_mul_caps``).
 """
 from __future__ import annotations
 
@@ -43,14 +51,6 @@ def _only_attn(kind: str) -> None:
             f"families arrive with ROADMAP Queue A item 12")
 
 
-def _check_spec(spec) -> None:
-    if spec is None:
-        return
-    if spec.depth_routed:
-        raise NotImplementedError(
-            "depth routing arrives with ROADMAP Queue A item 7")
-
-
 # ------------------------------ init ---------------------------------------
 
 def block_init(gen, kind: str, cfg, device=None) -> dict:
@@ -66,7 +66,6 @@ def block_router_init(gen, kind: str, cfg, spec, device=None) -> dict:
     """Trainable ElastiFormer params for one layer; ``spec`` alone decides
     which routers exist."""
     _only_attn(kind)
-    _check_spec(spec)
     D = cfg.d_model
     rp = {}
     if spec.mha_token_routed:
@@ -85,6 +84,9 @@ def block_router_init(gen, kind: str, cfg, spec, device=None) -> dict:
     n_exp = cfg.moe.n_experts if cfg.moe is not None else spec.mlp_n_experts
     if n_exp and spec.expert_routed:
         rp["expert"] = R.param_router_init(gen, D, n_exp, device=device)
+    if spec.depth_routed:
+        # drawn last, so a spec without depth draws what it drew before
+        rp["depth"] = R.token_router_init(gen, D, device=device)
     return rp
 
 
@@ -188,6 +190,11 @@ def _is_dense_mlp(rp, cfg, spec, elastic_on, mode) -> bool:
 
 # --------------------- full-sequence block apply ----------------------------
 
+def _as_f32(v, like):
+    """A capacity as an f32 tensor on the device of ``like`` (a tensor)."""
+    return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+
+
 def _combine_caps(cap_a, cap_b):
     """Block-level plan capacity: the elementwise max of the components'
     (student-gated) token capacities; the budget solver sets them equal."""
@@ -197,8 +204,24 @@ def _combine_caps(cap_a, cap_b):
         return cap_a
     if R.is_static(cap_a) and R.is_static(cap_b):
         return max(cap_a, cap_b)
-    return torch.maximum(torch.as_tensor(cap_a, dtype=torch.float32),
-                         torch.as_tensor(cap_b, dtype=torch.float32))
+    like = cap_b if R.is_static(cap_a) else cap_a
+    return torch.maximum(_as_f32(cap_a, like), _as_f32(cap_b, like))
+
+
+def _mul_caps(cap_a, cap_b):
+    """Multiplicative capacity composition (the depth axis): the depth
+    router skips the WHOLE layer for unselected tokens, so a component's
+    token fraction is its own capacity times the depth capacity, each
+    clamped at 1 first (capacity >= 1 means "full", not "more")."""
+    if cap_a is None:
+        return cap_b
+    if cap_b is None:
+        return cap_a
+    if R.is_static(cap_a) and R.is_static(cap_b):
+        return min(1.0, cap_a) * min(1.0, cap_b)
+    like = cap_b if R.is_static(cap_a) else cap_a
+    return (torch.clamp(_as_f32(cap_a, like), max=1.0)
+            * torch.clamp(_as_f32(cap_b, like), max=1.0))
 
 
 def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
@@ -208,16 +231,18 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
     """x: (B,S,D) -> (x', aux[, cache]). Pre-norm residual block.
 
     Train mode plans the block's token routing ONCE: a ``RoutingPlan``
-    (one sort) from the mixer's token router when attention is routed,
-    else from the MLP's. ``bucket`` is the static plan-buffer hint for
-    tensor capacities (``policy.ragged_bucket``): ``IDENTITY_BUCKET``
-    asserts every row is at full budget (the identity path), ``None`` takes
-    the dense rank-masked path (full shapes, the same token set). Infer
-    mode gates each router with its threshold: dropped tokens are invalid
-    keys of the attention and their outputs are weighted by 0; the MLP runs
-    densely and its output is gate-weighted."""
+    (one sort) from the block's primary router: the depth router when
+    depth is routed, else the mixer's token router when attention is
+    routed, else the MLP's. The other routers weight the shared token set
+    and BCE-train toward its membership. ``bucket`` is the static
+    plan-buffer hint for tensor capacities (``policy.ragged_bucket``):
+    ``IDENTITY_BUCKET`` asserts every row is at full budget (the identity
+    path), ``None`` takes the dense rank-masked path (full shapes, the
+    same token set). Infer mode gates each router with its threshold:
+    dropped tokens are invalid keys of the attention and their outputs are
+    weighted by 0; the MLP runs densely and its output is gate-weighted
+    (and depth-weighted)."""
     _only_attn(kind)
-    _check_spec(spec)
     B, S, _ = x.shape
     auxes = [R.RouteAux.zero(x.device)]
     if positions is None:
@@ -227,13 +252,16 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
     backend = spec.kernel_backend if spec is not None else None
     cache = {}
 
-    cap_mha = cap_mlp = None
+    cap_mha = cap_mlp = cap_depth = None
     if routed and spec is not None and rp:
+        if spec.depth_routed and "depth" in rp:
+            cap_depth = R.gate_capacity(pol.depth_capacity, pol.student)
         if spec.mha_token_routed and "tok_mixer" in rp:
             cap_mha = R.gate_capacity(pol.mha_token_capacity, pol.student)
         if spec.mlp_token_routed and "tok_mlp" in rp:
             cap_mlp = R.gate_capacity(pol.mlp_token_capacity, pol.student)
-    cap_plan = _combine_caps(cap_mha, cap_mlp)
+    # depth skips the whole layer: the plan covers depth x the token caps
+    cap_plan = _mul_caps(_combine_caps(cap_mha, cap_mlp), cap_depth)
     impl = spec.routing_impl if spec is not None else "gather"
     kb = None
     if train and cap_plan is not None and (
@@ -245,6 +273,14 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
         R.capacity_k(cap_plan, S, mxu=True)
     plan = None                     # built by the first routed component
     dense_keep = None               # the mixer's keep on the dense path
+    # mixer-stage routers, OUTERMOST first: the first builds the plan, the
+    # rest weight its token set and BCE-train toward its membership
+    mixer_routers = []
+    if cap_depth is not None:
+        mixer_routers.append(("depth", cap_depth))
+    if cap_mha is not None:
+        mixer_routers.append(("tok_mixer", cap_mha))
+    depth = {}                      # "scores" (dense), "w_sel" (plan), "w"
 
     def bce_aux(logits, keep):
         auxes.append(R.RouteAux.of(topk=R.bce_topk_loss(logits, keep),
@@ -254,10 +290,63 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
         logits = R.token_logits(rp[name], h_src)
         return logits, torch.sigmoid(logits)
 
+    def build_plan(h_src):
+        """The block's ONE sort, on its primary router."""
+        name = mixer_routers[0][0] if mixer_routers else "tok_mlp"
+        logits, scores = gate(name, h_src)
+        return R.make_plan(scores, k_plan, kb), logits, scores
+
+    def plan_weights(plan, logits, scores, h_src):
+        """Mixer-stage weight on the plan's selected set: the primary
+        router's scores times every secondary mixer router's."""
+        w_sel = R.gather_tokens(scores, plan.idx)
+        bce_aux(logits, plan.keep)
+        if mixer_routers[0][0] == "depth":
+            depth["w_sel"] = w_sel * plan.valid
+        for name, _c in mixer_routers[1:]:
+            lg, sc = gate(name, h_src)
+            w_sel = w_sel * R.gather_tokens(sc, plan.idx)
+            bce_aux(lg, plan.keep)
+        return w_sel * plan.valid
+
+    def mixer_gate(h_src):
+        """Dense / threshold gate over every mixer-stage router. Train: the
+        primary router rank-masks at the plan capacity, the others weigh
+        in. Infer: each router thresholds at theta; keeps AND, weights
+        multiply (the decode gate's rule)."""
+        name0 = mixer_routers[0][0]
+        logits, scores = gate(name0, h_src)
+        if name0 == "depth":
+            depth["scores"] = scores
+        if train:
+            keep, wtok = R.token_gate(logits, scores, cap_plan, mode,
+                                      theta=pol.theta, mxu=True)
+            bce_aux(logits, keep)
+            full = R.is_full(cap_plan)
+            for name, _c in mixer_routers[1:]:
+                lg, sc = gate(name, h_src)
+                if R.is_static(full):
+                    wtok = wtok if full else wtok * sc
+                else:
+                    wtok = wtok * torch.where(R.bcast_to(full, keep.dim()),
+                                              torch.ones_like(sc), sc)
+                bce_aux(lg, keep)
+            return keep, wtok
+        keep = wtok = None
+        for name, c in mixer_routers:
+            lg, sc = (logits, scores) if name == name0 else gate(name, h_src)
+            kp, w = R.token_gate(lg, sc, c, mode, theta=pol.theta, mxu=True)
+            auxes.append(R.RouteAux.of(keep=kp))
+            if name == "depth":
+                depth["w"] = w
+            keep = kp if keep is None else keep & kp
+            wtok = w if wtok is None else wtok * w
+        return keep, wtok
+
     # ---- attention ----
     h = norm_apply(p["norm1"], x, cfg.norm)
     lora = rp.get("lora") if (routed and rp) else None
-    lora = _lora_gate(lora, cap_mha,
+    lora = _lora_gate(lora, _mul_caps(cap_mha, cap_depth),
                       pol.student if (routed and pol is not None) else None)
 
     def attn(hh, pos, **kw):
@@ -265,30 +354,23 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
                             causal=causal, window=window, lora=lora,
                             backend=backend, **kw)
 
-    if cap_mha is None:
+    if not mixer_routers:
         hw = _head_weights(rp, h, spec, pol, cfg, auxes) if routed else None
         y, k, v = attn(h, positions, head_weights=hw)
         delta = y
         keep = torch.ones((B, S), dtype=torch.bool, device=x.device)
-    elif not train:                 # inference threshold (§B.1)
-        hw = _head_weights(rp, h, spec, pol, cfg, auxes)
-        logits, scores = gate("tok_mixer", h)
-        keep, wtok = R.token_gate(logits, scores, cap_mha, mode,
-                                  theta=pol.theta)
-        auxes.append(R.RouteAux.of(keep=keep))
-        y, k, v = attn(h, positions, kv_valid=keep, head_weights=hw)
-        delta = y * wtok[..., None].to(y.dtype)
     elif identity:
         keep = torch.ones((B, S), dtype=torch.bool, device=x.device)
-        bce_aux(gate("tok_mixer", h)[0], keep)
+        for name, _c in mixer_routers:
+            bce_aux(gate(name, h)[0], keep)
         hw = _head_weights(rp, h, spec, pol, cfg, auxes)
         y, k, v = attn(h, positions, head_weights=hw)
         delta = y
     elif kb is not None:
         # the shared plan: selected tokens gathered valid-first (a
-        # position-ascending prefix of the bucket), the tail masked
-        logits, scores = gate("tok_mixer", h)
-        plan = R.make_plan(scores, k_plan, kb)
+        # position-ascending prefix of the bucket), the tail masked; with
+        # depth routed it is the depth router's selection
+        plan, logits, scores = build_plan(h)
         h_sel = R.plan_gather(h, plan)
         pos_sel = R.gather_tokens(positions.expand(B, S), plan.idx)
         hw = _head_weights(rp, h_sel, spec, pol, cfg, auxes,
@@ -296,8 +378,7 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
         y_sel, k, v = attn(h_sel, pos_sel, kv_valid=plan.valid,
                            kv_count=plan.count, head_weights=hw,
                            gathered=True)
-        w_sel = R.gather_tokens(scores, plan.idx) * plan.valid
-        bce_aux(logits, plan.keep)
+        w_sel = plan_weights(plan, logits, scores, h)
         delta = R.plan_scatter(
             plan, x, y_sel * w_sel[..., None].to(y_sel.dtype))
         keep = plan.keep
@@ -305,13 +386,14 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
             raise NotImplementedError(
                 "a train-mode prefill (the plan's k/v scattered into a "
                 "cache) has no caller yet; serving prefills in infer mode")
-    else:                           # dense train path: rank masking
-        logits, scores = gate("tok_mixer", h)
-        keep, wtok = R.token_gate(logits, scores, cap_plan, mode,
-                                  theta=pol.theta, mxu=True)
-        bce_aux(logits, keep)
-        dense_keep = keep
-        hw = _head_weights(rp, h, spec, pol, cfg, auxes, valid=keep)
+    else:                           # threshold (infer) or dense train path
+        keep, wtok = mixer_gate(h)
+        if train:
+            dense_keep = keep
+        # head-router statistics over the selected tokens in training, as
+        # on the plan path (whose buffer holds exactly the selected set)
+        hw = _head_weights(rp, h, spec, pol, cfg, auxes,
+                           valid=keep if train else None)
         y, k, v = attn(h, positions, kv_valid=keep, head_weights=hw)
         delta = y * wtok[..., None].to(y.dtype)
     if collect_cache:
@@ -321,22 +403,27 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
     # ---- MLP ----
     h = norm_apply(p["norm2"], x, cfg.norm)
     f = _mlp_fn(p, rp, cfg, spec, pol, elastic_on, mode, auxes, backend)
-    if cap_mlp is None:
+    if cap_mlp is None and cap_depth is None:
         delta = f(h, positions)
-    elif not train:
-        delta, a = R.route_tokens(rp["tok_mlp"], h, f, cap_mlp, mode,
-                                  positions=positions, theta=pol.theta)
-        auxes.append(a)
     elif identity:
-        bce_aux(gate("tok_mlp", h)[0],
-                torch.ones((B, S), dtype=torch.bool, device=x.device))
+        if cap_mlp is not None:
+            bce_aux(gate("tok_mlp", h)[0],
+                    torch.ones((B, S), dtype=torch.bool, device=x.device))
         delta = f(h, positions)
     elif kb is not None:
-        logits, scores = gate("tok_mlp", h)
         if plan is None:            # the block's one sort, on this router
-            plan = R.make_plan(scores, k_plan, kb)
-        w_sel = R.gather_tokens(scores, plan.idx) * plan.valid
-        bce_aux(logits, plan.keep)
+            plan, logits, scores = build_plan(h)
+            w_sel = R.gather_tokens(scores, plan.idx) * plan.valid
+            bce_aux(logits, plan.keep)
+        else:
+            if cap_mlp is not None:
+                logits, scores = gate("tok_mlp", h)
+                w_sel = R.gather_tokens(scores, plan.idx) * plan.valid
+                bce_aux(logits, plan.keep)
+            else:
+                w_sel = plan.valid.float()
+            if "w_sel" in depth:    # the whole block's delta is depth-gated
+                w_sel = w_sel * depth["w_sel"]
         if _is_dense_mlp(rp, cfg, spec, elastic_on, mode):
             # The routed kernel gathers the plan's rows from h and scatters
             # the weighted outputs back. The JAX package gates its TPU
@@ -354,11 +441,17 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
                       token_count=plan.count)
             delta = R.plan_scatter(
                 plan, x, y_sel * w_sel[..., None].to(y_sel.dtype))
-    else:                           # dense train path
-        logits, scores = gate("tok_mlp", h)
+    elif train:                     # dense train path
+        logits = scores = None
+        if cap_mlp is not None:
+            logits, scores = gate("tok_mlp", h)
         if dense_keep is not None:  # the mixer's selection is the block's
             keep = dense_keep
-            w = keep.float() * scores
+            w = keep.float()
+            if scores is not None:
+                w = w * scores
+            if "scores" in depth:
+                w = w * depth["scores"]
             full = R.is_full(cap_plan)
             if R.is_static(full):
                 wtok = torch.ones_like(w) if full else w
@@ -370,7 +463,17 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
                                       theta=pol.theta, mxu=True)
         y = f(h, positions, token_valid=keep, dispatch_frac=cap_plan)
         delta = y * wtok[..., None].to(y.dtype)
-        bce_aux(logits, keep)
+        if logits is not None:
+            bce_aux(logits, keep)
+    else:                           # inference threshold (§B.1)
+        if cap_mlp is None:
+            delta = f(h, positions)
+        else:
+            delta, a = R.route_tokens(rp["tok_mlp"], h, f, cap_mlp, mode,
+                                      positions=positions, theta=pol.theta)
+            auxes.append(a)
+        if "w" in depth:            # the depth gate covers the MLP too
+            delta = delta * depth["w"][..., None].to(delta.dtype)
     x = x + delta
 
     aux = auxes[0]
@@ -431,22 +534,34 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
     ``table``/``trash``: the paged-KV operands (the (B, P) page-table rows
     and (B,) per-slot trash pages, see ``attention.attn_decode_paged``);
     given them, the cache is a page pool ({'kp','vp','pvalid'}) and
-    attention appends through the page table instead of the ring.
-    Returns (x', cache)."""
+    attention appends through the page table instead of the ring. The
+    depth gate is per (slot, layer): a skipped token writes no K/V at this
+    layer (the ring's ``valid`` / the pool's ``pvalid`` records the hole)
+    and its attention and MLP deltas are weighted by 0. Returns (x',
+    cache)."""
     _only_attn(kind)
-    _check_spec(spec)
     routed = elastic_on and mode != "base" and rp is not None
     backend = spec.kernel_backend if spec is not None else None
 
     h = norm_apply(p["norm1"], x, cfg.norm)
+    keepd, wd = None, None
+    if routed and spec.depth_routed and "depth" in rp:
+        keepd, wd = _decode_token_gate(rp, "depth", h, pol.depth_capacity,
+                                       pol)
     keep, w1 = None, None
     if routed and spec.mha_token_routed and "tok_mixer" in rp:
         keep, w1 = _decode_token_gate(rp, "tok_mixer", h,
                                       pol.mha_token_capacity, pol)
+    if keepd is not None:
+        keep = keepd if keep is None else keep & keepd
+        w1 = wd if w1 is None else w1 * wd
     lora = rp.get("lora") if routed else None
     if lora is not None:
         dcap = R.gate_capacity(pol.mha_token_capacity, pol.student) \
             if spec.mha_token_routed else None
+        dcap = _mul_caps(dcap, R.gate_capacity(pol.depth_capacity,
+                                               pol.student)
+                         if spec.depth_routed else None)
         lora = _lora_gate(lora, dcap, pol.student)
     hw = _head_weights(rp, h, spec, pol, cfg, []) if routed else None
     if table is not None:
@@ -466,6 +581,9 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
     if routed and spec.mlp_token_routed and "tok_mlp" in rp:
         keep2, w2 = _decode_token_gate(rp, "tok_mlp", h,
                                        pol.mlp_token_capacity, pol)
+    if keepd is not None:           # depth gates the MLP delta too
+        keep2 = keepd if keep2 is None else keep2 & keepd
+        w2 = wd if w2 is None else w2 * wd
     if cfg.moe is not None:
         if routed and "expert" in rp:
             y, _ = moe_decode(p["mlp"], h, act=cfg.act,
@@ -491,23 +609,25 @@ def block_chunk(kind: str, p, rp, x, cache, write_page: int, table_row,
     """One CHUNK of a paged prefill: x is (1, C, D) with C == page_size,
     covering absolute positions [pos0, pos0 + C) of a plen-token prompt
     (the last chunk arrives zero-padded). The inference-threshold branch of
-    ``block_apply``: the token gates, head routing and LoRA gating are all
-    per token, so streaming a prompt through this chunk by chunk takes the
-    one-shot prefill's keep decisions; K/V go into ONE pool page
-    (``write_page``) and attention reads through ``table_row`` (see
+    ``block_apply``: the token and depth gates, head routing and LoRA
+    gating are all per token, so streaming a prompt through this chunk by
+    chunk takes the one-shot prefill's keep decisions; K/V go into ONE
+    pool page (``write_page``; a token the depth router skips leaves a
+    ``pvalid`` hole) and attention reads through ``table_row`` (see
     ``attention.attn_chunk``). Paged serving runs dense MLPs only (the
     engine validates it). Returns (x', cache)."""
     if mode not in ("infer", "base"):
         raise ValueError(f"block_chunk serves infer/base modes, got {mode!r}")
     _only_attn(kind)
-    _check_spec(spec)
     routed = elastic_on and mode != "base" and rp is not None
     backend = spec.kernel_backend if spec is not None else None
     positions = pos0 + torch.arange(x.shape[1], dtype=torch.int32,
                                     device=x.device)              # (C,)
 
-    cap_mha = cap_mlp = None
+    cap_mha = cap_mlp = cap_depth = None
     if routed and spec is not None and rp:
+        if spec.depth_routed and "depth" in rp:
+            cap_depth = R.gate_capacity(pol.depth_capacity, pol.student)
         if spec.mha_token_routed and "tok_mixer" in rp:
             cap_mha = R.gate_capacity(pol.mha_token_capacity, pol.student)
         if spec.mlp_token_routed and "tok_mlp" in rp:
@@ -516,14 +636,22 @@ def block_chunk(kind: str, p, rp, x, cache, write_page: int, table_row,
     # ---- attention (one page written, the table row attended) ----
     h = norm_apply(p["norm1"], x, cfg.norm)
     lora = rp.get("lora") if routed else None
-    lora = _lora_gate(lora, cap_mha,
+    lora = _lora_gate(lora, _mul_caps(cap_mha, cap_depth),
                       pol.student if (routed and pol is not None) else None)
     hw = _head_weights(rp, h, spec, pol, cfg, []) if routed else None
+    keep_d, w_d = None, None
+    if cap_depth is not None:
+        lg = R.token_logits(rp["depth"], h)
+        keep_d, w_d = R.token_gate(lg, torch.sigmoid(lg), cap_depth, mode,
+                                   theta=pol.theta, mxu=True)
     keep, wtok = None, None
     if cap_mha is not None:
         logits = R.token_logits(rp["tok_mixer"], h)
         keep, wtok = R.token_gate(logits, torch.sigmoid(logits), cap_mha,
                                   mode, theta=pol.theta, mxu=True)
+    if keep_d is not None:
+        keep = keep_d if keep is None else keep & keep_d
+        wtok = w_d if wtok is None else wtok * w_d
     y, cache["attn"] = A.attn_chunk(
         p["attn"], h, cache["attn"], write_page, table_row, pos0, plen,
         cfg=cfg, keep=keep, head_weights=hw, lora=lora, backend=backend)
@@ -539,6 +667,8 @@ def block_chunk(kind: str, p, rp, x, cache, write_page: int, table_row,
     else:
         delta, _ = R.route_tokens(rp["tok_mlp"], h, f, cap_mlp, mode,
                                   positions=positions, theta=pol.theta)
+    if w_d is not None:             # depth gates the MLP delta too
+        delta = delta * w_d[..., None].to(delta.dtype)
     return x + delta, cache
 
 

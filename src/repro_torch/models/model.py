@@ -9,7 +9,9 @@ runs, where the JAX package stacks them per pattern position and runs a
 
 Entry points take ``elastic`` as an ``ElasticSpec`` (or the legacy
 ``ElasticConfig``) plus an optional ``ElasticPolicy`` whose tensor leaves
-(``()`` or ``(B,)``) serve every budget with the same code and shapes.
+(``()`` or ``(B,)``) serve every budget with the same code and shapes;
+``(L, 1)`` / ``(L, B)`` leaves are per-layer schedules (layer i runs
+``policy.for_layer(i)``).
 """
 from __future__ import annotations
 
@@ -135,6 +137,14 @@ def _logits(params, cfg, x):
     return logits
 
 
+def _layer_policies(pol, n_layers: int) -> list:
+    """Each layer's policy, resolved once per call: ``pol.for_layer(i)``
+    for a per-layer schedule, else ``pol`` itself."""
+    if pol is not None and pol.has_layer_dim:
+        return [pol.for_layer(i) for i in range(n_layers)]
+    return [pol] * n_layers
+
+
 def _run(params, rparams, x, *, cfg, spec, pol, mode, collect_cache=False,
          max_cache_len=0, bucket=None, remat=False):
     """The layer loop (the JAX pattern scan). ``remat``: each layer under
@@ -144,12 +154,13 @@ def _run(params, rparams, x, *, cfg, spec, pol, mode, collect_cache=False,
     has_rp = rparams is not None and mode != "base"
     aux = RouteAux.zero(x.device)
     caches = []
+    pols = _layer_policies(pol, cfg.n_layers)
     for i, ent in enumerate(layer_entries(cfg, spec)):
         def layer(x, i=i, ent=ent):
             return block_apply(
                 ent.kind, params["layers"][i],
                 rparams["layers"][i] if has_rp else None, x, cfg=cfg,
-                spec=spec, pol=pol, mode=mode, elastic_on=ent.elastic,
+                spec=spec, pol=pols[i], mode=mode, elastic_on=ent.elastic,
                 window=ent.window, causal=True, collect_cache=collect_cache,
                 max_cache_len=max_cache_len, bucket=bucket)
         if remat:
@@ -238,13 +249,14 @@ def decode_step(params, rparams, token, caches, t, cfg, ecfg=None,
     spec, pol = as_spec_policy(ecfg, policy)
     x = _embed(params, token)
     has_rp = rparams is not None and mode != "base"
+    pols = _layer_policies(pol, cfg.n_layers)
     for i, ent in enumerate(layer_entries(cfg, spec)):
         x, _ = block_decode(
             ent.kind, params["layers"][i],
             rparams["layers"][i] if has_rp else None, x,
-            caches["layers"][i], t, cfg=cfg, spec=spec, pol=pol, mode=mode,
-            elastic_on=ent.elastic, window=ent.window, table=table,
-            trash=trash)
+            caches["layers"][i], t, cfg=cfg, spec=spec, pol=pols[i],
+            mode=mode, elastic_on=ent.elastic, window=ent.window,
+            table=table, trash=trash)
     x = norm_apply(params["final_norm"], x[:, -1], cfg.norm)
     return _logits(params, cfg, x), caches
 
@@ -275,12 +287,13 @@ def prefill_chunk_step(params, rparams, tokens, caches, write_page: int,
     spec, pol = as_spec_policy(ecfg, policy)
     x = _embed(params, tokens)
     has_rp = rparams is not None and mode != "base"
+    pols = _layer_policies(pol, cfg.n_layers)
     for i, ent in enumerate(layer_entries(cfg, spec)):
         x, _ = block_chunk(
             ent.kind, params["layers"][i],
             rparams["layers"][i] if has_rp else None, x,
             caches["layers"][i], write_page, table_row, pos0, plen, cfg=cfg,
-            spec=spec, pol=pol, mode=mode, elastic_on=ent.elastic)
+            spec=spec, pol=pols[i], mode=mode, elastic_on=ent.elastic)
     lidx = min(max(plen - 1 - pos0, 0), x.shape[1] - 1)
     x = norm_apply(params["final_norm"], x[:, lidx], cfg.norm)
     return _logits(params, cfg, x), caches

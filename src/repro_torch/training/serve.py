@@ -26,9 +26,13 @@ latest-admitted slot is preempted and re-queued at the front as a
 continuation. The (B, pages_per_slot) table and the (B,) trash pages are
 device tensors built from the host's numpy mirror each step.
 
-Decode runs the ElastiFormer threshold path (§B.1). This slice samples
-greedily (exact argmax); ``temperature > 0`` needs the JAX package's
-threefry sample stream and raises until it is ported.
+Decode runs the ElastiFormer threshold path (§B.1). Each slot samples with
+its request's temperature, top-k and seed (``sample_tokens``): the noise
+of a token is keyed on (seed, its position) only, so a request's stream is
+the same served alone or staggered, forked with its seed, or preempted and
+resumed. Temperature 0 (the default) is the exact argmax. A decode step
+copies the per-slot settings to the device as (B,) tensors only when a
+live slot samples; a greedy-only step takes the argmax alone.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.policy import ElasticPolicy, as_spec_policy, solve_budget
 from repro_torch.device import resolve_device
 from repro_torch.models.model import (cache_init, decode_step,
@@ -56,14 +61,37 @@ class GenRequest:
     max_new_tokens: int = 32
     budget: Optional[float] = None   # compute budget in (0, 1]; None = engine default
     eos_id: Optional[int] = None     # stop token; None = engine/config default
-    temperature: float = 0.0         # 0.0 = greedy (the only mode of this slice)
-    top_k: int = 0
-    seed: int = 0
+    temperature: float = 0.0         # 0.0 = greedy (the exact argmax)
+    top_k: int = 0                   # sample from the top-k logits; 0 = all
+    seed: int = 0                    # per-request PRNG seed (32 bits used)
 
 
-def sample_tokens(logits):
-    """Greedy decoding: the argmax of each row (first index on ties)."""
-    return torch.argmax(logits, dim=-1)
+def sample_tokens(logits, temperature=None, top_k=None, seeds=None,
+                  positions=None):
+    """Per-row sampling. logits: (B, V); temperature, top_k, seeds and
+    positions: (B,) tensors, or None for greedy decoding of every row.
+
+    Rows with temperature <= 0 take the exact argmax (first index on ties),
+    bit for bit the greedy path. The others take gumbel-max over the
+    logits at or above the row's k-th largest (``top_k`` <= 0: all; ties
+    all kept) at the row's temperature, the noise drawn from
+    ``fold_in(PRNGKey(seed), position of the new token)`` (``core/prng``,
+    the JAX package's stream), so a request's samples depend only on its
+    seed and positions."""
+    greedy = torch.argmax(logits, dim=-1)
+    if temperature is None:
+        return greedy
+    lg = logits.float()
+    V = lg.shape[-1]
+    k = torch.clamp(torch.where(top_k <= 0, torch.full_like(top_k, V),
+                                top_k), 1, V).long()
+    kth = torch.sort(lg, dim=-1).values.gather(-1, (V - k)[:, None])
+    key = prng.fold_in(prng.PRNGKey(seeds), positions)
+    z = torch.where(lg >= kth,
+                    lg / torch.clamp(temperature.float(), min=1e-6)[:, None]
+                    + prng.gumbel(key, V),
+                    torch.full((), -torch.inf, device=lg.device))
+    return torch.where(temperature > 0, torch.argmax(z, dim=-1), greedy)
 
 
 def _todo(what: str, item: str):
@@ -147,6 +175,10 @@ class ServingEngine:
             self.device) if self._use_policy else None)
         self._tok = torch.zeros((B,), dtype=torch.int64, device=self.device)
         self._t = np.zeros((B,), np.int32)        # per-slot decode position
+        # per-slot sampling settings (host; copied when a live slot samples)
+        self._temp = np.zeros((B,), np.float32)
+        self._topk = np.zeros((B,), np.int32)
+        self._seeds = np.zeros((B,), np.int64)    # uint32 values
         self._active = np.zeros((B,), bool)
         self._ngen = np.zeros((B,), np.int64)
         self.n_preempted = 0                      # paged: evictions so far
@@ -235,9 +267,6 @@ class ServingEngine:
                 raise ValueError(
                     f"request needs {need} pages but the pool only has "
                     f"{self.pool.usable_per_replica} usable pages")
-        if request.temperature > 0:
-            raise _todo("sampling at temperature > 0 (the threefry sample "
-                        "stream)", "item 13")
         handle = RequestHandle(request, engine=self)
         cost = b if b is not None else (self.default_budget or 1.0)
         self.scheduler.enqueue(handle, cost=min(1.0, float(cost)))
@@ -278,7 +307,7 @@ class ServingEngine:
             self.params, self.rp, {"tokens": tokens}, self._caches, slot,
             self.cfg, self.spec, mode=self.mode, max_cache_len=self.max_seq,
             policy=self._policy_for(b_eff), live_policy=self._live_policy)
-        tok0 = sample_tokens(logits)[0]
+        tok0 = self._first_token(logits, slot, req, prompt.size)
         self._tok[slot] = tok0
         tok0 = int(tok0)                          # waits for the device
         self.timing["prefill_s"] += time.perf_counter() - t0
@@ -288,6 +317,21 @@ class ServingEngine:
         self._ngen[slot] = 0
         handle.budget_served = min(1.0, 1.0 if b_eff is None else float(b_eff))
         self._append(slot, handle, tok0)
+
+    def _first_token(self, logits, slot: int, req: GenRequest, plen: int):
+        """Records the request's sampling settings in ``slot`` and samples
+        its first token (position ``plen``) from the prefill's logits."""
+        self._temp[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        self._seeds[slot] = int(req.seed) & 0xFFFFFFFF
+        if req.temperature <= 0:
+            return sample_tokens(logits)[0]
+        dev, sl = self.device, [slot]
+        return sample_tokens(
+            logits, torch.as_tensor(self._temp[sl], device=dev),
+            torch.as_tensor(self._topk[sl], device=dev),
+            torch.as_tensor(self._seeds[sl], device=dev),
+            torch.full((1,), plen, dtype=torch.int32, device=dev))[0]
 
     # ----------------------- paged admission / decode ------------------------
 
@@ -358,7 +402,7 @@ class ServingEngine:
                 mode=self.mode, policy=pol_row)
         if self._live_policy is not None and pol_row is not None:
             self._live_policy = self._live_policy.set_row(slot, pol_row)
-        tok0 = sample_tokens(logits)[0]
+        tok0 = self._first_token(logits, slot, req, plen)
         self._tok[slot] = tok0
         tok0 = int(tok0)                          # waits for the device
         self.timing["prefill_s"] += time.perf_counter() - t0
@@ -385,8 +429,9 @@ class ServingEngine:
     def _preempt(self, slot: int) -> None:
         """Evict a running request under page pressure: recycle its pages,
         free the slot, and re-queue it AT THE FRONT as a continuation
-        (prompt := original + generated so far). Greedy decoding continues
-        token for token as if never interrupted."""
+        (prompt := original + generated so far). The continuation keeps
+        its seed and the noise is keyed on absolute positions, so it
+        continues token for token as if never interrupted."""
         handle = self.scheduler.slots[slot]
         cost = self.scheduler.costs[slot]
         self._free_slot_pages(slot)
@@ -475,18 +520,25 @@ class ServingEngine:
         live = [(s, h) for s, h in enumerate(self.scheduler.slots)
                 if h is not None and self._active[s]]
         t0 = time.perf_counter()
-        active = torch.as_tensor(self._active, device=self.device)
+        dev = self.device
+        t = torch.as_tensor(self._t, device=dev)
+        active = torch.as_tensor(self._active, device=dev)
         paged_kw = {}
         if paged:
-            paged_kw = dict(
-                table=torch.as_tensor(self._table, device=self.device),
-                trash=torch.as_tensor(self._trash, device=self.device))
+            paged_kw = dict(table=torch.as_tensor(self._table, device=dev),
+                            trash=torch.as_tensor(self._trash, device=dev))
         logits, self._caches = decode_step(
-            self.params, self.rp, self._tok[:, None], self._caches,
-            torch.as_tensor(self._t, device=self.device), self.cfg,
-            self.spec, mode=self.mode, policy=self._live_policy, **paged_kw)
-        self._tok = torch.where(active, sample_tokens(logits),
-                                torch.zeros_like(self._tok))
+            self.params, self.rp, self._tok[:, None], self._caches, t,
+            self.cfg, self.spec, mode=self.mode, policy=self._live_policy,
+            **paged_kw)
+        if (self._temp[self._active] > 0).any():   # the new token: t + 1
+            nxt = sample_tokens(
+                logits, torch.as_tensor(self._temp, device=dev),
+                torch.as_tensor(self._topk, device=dev),
+                torch.as_tensor(self._seeds, device=dev), t + 1)
+        else:                      # every live slot greedy: no sort, no noise
+            nxt = sample_tokens(logits)
+        self._tok = torch.where(active, nxt, torch.zeros_like(self._tok))
         toks = self._tok.cpu().numpy()            # waits for the device
         self.timing["decode_s"] += time.perf_counter() - t0
         self.timing["decode_steps"] += 1
@@ -500,14 +552,16 @@ class ServingEngine:
     # ------------------------------- fork ------------------------------------
 
     def fork(self, handle: RequestHandle,
-             max_new_tokens: Optional[int] = None) -> RequestHandle:
+             max_new_tokens: Optional[int] = None,
+             seed: Optional[int] = None) -> RequestHandle:
         """Copy-on-write fork of a RUNNING paged request: the child takes a
         free slot, shares every FULL page of the parent's history by
         refcount, and copies only the partial tail page (``n_keep`` lanes
-        kept). The child continues from the parent's exact decode state:
-        greedy, its tokens match an independent run fed prompt +
-        parent-output-so-far. Parent and child then append into their OWN
-        tail pages."""
+        kept). The child continues from the parent's exact decode state
+        with the parent's sampling settings, its seed replaced by ``seed``
+        when given: with the same seed (or greedy) its tokens match an
+        independent run fed prompt + parent-output-so-far. Parent and
+        child then append into their OWN tail pages."""
         if self.kv_layout != "paged":
             raise ValueError("fork() requires kv_layout='paged'")
         if handle.status != "running" or handle.slot is None:
@@ -543,7 +597,8 @@ class ServingEngine:
         prompt = np.concatenate([np.asarray(req.prompt, np.int32).reshape(-1),
                                  np.asarray(handle.output, np.int32)])
         creq = dataclasses.replace(req, prompt=prompt,
-                                   max_new_tokens=remaining)
+                                   max_new_tokens=remaining,
+                                   seed=req.seed if seed is None else seed)
         child = RequestHandle(creq, engine=self)
         child.slot, child.status = cs, "running"
         child.budget_served = handle.budget_served
@@ -551,6 +606,9 @@ class ServingEngine:
         self.scheduler.costs[cs] = self.scheduler.costs[s]
         self._tok[cs] = self._tok[s]
         self._t[cs] = t
+        self._temp[cs] = creq.temperature
+        self._topk[cs] = creq.top_k
+        self._seeds[cs] = int(creq.seed) & 0xFFFFFFFF
         self._active[cs] = True
         self._ngen[cs] = 0
         self._admit_seq[cs] = next(self._admit_counter)

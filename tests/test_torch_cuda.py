@@ -744,3 +744,64 @@ def test_toy_paged_engine_on_the_card(cuda):
     base = mk("base").generate(reqs)
     assert [list(o) for o in out[::3]] == [list(o) for o in base[::3]]
     assert list(mk("infer").generate([reqs[2]])[0]) == list(out[2])
+
+
+@pytest.mark.cuda
+def test_prng_on_the_card_equals_the_cpu(cuda):
+    """core/prng's threefry stream in int64 on the card: keys, bits and
+    uniforms equal the CPU's bit for bit; gumbel noise within 4 f32
+    epsilons of max(1, |g|) (the two logarithms may round apart)."""
+    from repro_torch.core import prng
+    seeds = torch.tensor([0, 1, 2 ** 31, 2 ** 32 - 1], dtype=torch.int64)
+    pos = torch.tensor([0, 7, 65539, 2 ** 31 - 1], dtype=torch.int32)
+    kc = prng.fold_in(prng.PRNGKey(seeds), pos)
+    kg = prng.fold_in(prng.PRNGKey(seeds.to(cuda)), pos.to(cuda))
+    assert torch.equal(kg.cpu(), kc)
+    assert torch.equal(prng.random_bits(kg, 4099).cpu(),
+                       prng.random_bits(kc, 4099))
+    assert torch.equal(prng.uniform(kg, 4099).cpu(), prng.uniform(kc, 4099))
+    gc, gg = prng.gumbel(kc, 4099), prng.gumbel(kg, 4099).cpu()
+    eps = torch.finfo(torch.float32).eps
+    assert bool(((gg - gc).abs() <= 4 * eps * gc.abs().clamp(min=1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_toy_depth_engine_on_the_card(cuda, layout):
+    """toy-lm with the depth router served on the card, greedy and sampled
+    requests mixed: the layout's kernels launch, budget-1.0 greedy rows
+    equal the teacher, a request alone equals its staggered run bit for
+    bit, and the paged pool drains."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticSpec
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = dataclasses.replace(get_config("toy-lm"), dtype="bfloat16")
+    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                       mha_head_routed=True, lora_rank=1, depth_routed=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model_init(gen, cfg, spec, device=cuda)
+    rp = router_init(gen, cfg, spec, device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [GenRequest(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                       6, budget=b, temperature=t, top_k=k, seed=s)
+            for n, b, t, k, s in zip((9, 33, 17, 70), (1.0, 0.5, 0.75, 1.0),
+                                     (0.0, 0.8, 1.0, 0.0), (0, 40, 0, 0),
+                                     (0, 3, 4, 0))]
+    kw = dict(kv_layout="paged", page_size=16) if layout == "paged" else {}
+    mk = lambda mode: ServingEngine(params, rp, cfg, spec, mode=mode,
+                                    batch_size=2, max_seq=128, device=cuda,
+                                    **kw)
+    ops.reset_launch_counts()
+    eng = mk("infer")
+    out = eng.generate(reqs)
+    counts = ops.launch_counts()
+    want = (("paged_decode_attention", "fused_mlp") if layout == "paged"
+            else ("flash_attention", "fused_mlp", "decode_attention"))
+    assert all(counts[k] > 0 for k in want), counts
+    base = mk("base").generate([reqs[0], reqs[3]])
+    assert [list(o) for o in out[::3]] == [list(o) for o in base]
+    for i in (1, 2):
+        assert list(mk("infer").generate([reqs[i]])[0]) == list(out[i])
+    if layout == "paged":
+        assert eng.paged_stats()["allocated"] == 0

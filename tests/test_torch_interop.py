@@ -30,14 +30,15 @@ SPEC_KW = dict(mlp_token_routed=True, mha_token_routed=True,
                mha_head_routed=True, lora_rank=1)
 
 
-def toy_pair(seed=0, dtype="float32", lora_b=0.05):
+def toy_pair(seed=0, dtype="float32", lora_b=0.05, spec_kw=SPEC_KW):
     """toy-lm built by the JAX package (kernels in interpret mode) and the
     same weights loaded into the port. LoRA B starts at zero; ``lora_b``
-    fills it with N(0, lora_b) noise so the adapter path does work."""
+    fills it with N(0, lora_b) noise so the adapter path does work.
+    ``spec_kw``: the ElasticSpec fields of both sides."""
     jcfg = dataclasses.replace(jax_get_config("toy-lm", "smoke"), dtype=dtype)
     tcfg = dataclasses.replace(get_config("toy-lm", "smoke"), dtype=dtype)
-    jspec = JaxSpec(**SPEC_KW, kernel_backend="interpret")
-    tspec = ElasticSpec(**SPEC_KW)
+    jspec = JaxSpec(**spec_kw, kernel_backend="interpret")
+    tspec = ElasticSpec(**spec_kw)
     key = jax.random.PRNGKey(seed)
     params = jax_model_init(key, jcfg, jspec)
     rp = jax_router_init(jax.random.fold_in(key, 1), jcfg, jspec)

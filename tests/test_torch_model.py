@@ -131,3 +131,46 @@ def test_budget_one_is_the_teacher_bit_for_bit(setup):
     out = run("infer", mixed)
     assert torch.equal(out[0], base[0])
     assert not torch.equal(out[1], base[1])
+
+
+@pytest.mark.parametrize("mode", ["train", "infer"])
+def test_per_layer_schedule_matches_jax(mode, monkeypatch):
+    """(L, 1) depth and token schedules (tests/test_policy.py:145-158 with
+    depth routed): ``has_layer_dim`` / ``for_layer`` as in JAX, and the
+    logits of a scheduled forward within 1e-5 of JAX's."""
+    from tests.test_torch_interop import SPEC_KW
+    s = toy_pair(seed=0, spec_kw=dict(SPEC_KW, depth_routed=True))
+    L = s["tcfg"].n_layers
+    caps = np.linspace(0.4, 1.0, L, dtype=np.float32)[:, None]
+    depth = np.linspace(1.0, 0.5, L, dtype=np.float32)[:, None]
+    jp = JaxPolicy.uniform(1.0, n_heads=N_HEADS).replace(
+        mlp_token_capacity=jnp.asarray(caps),
+        mha_token_capacity=jnp.asarray(caps),
+        depth_capacity=jnp.asarray(depth))
+    tp = ElasticPolicy.uniform(1.0, n_heads=N_HEADS).replace(
+        mlp_token_capacity=torch.from_numpy(caps),
+        mha_token_capacity=torch.from_numpy(caps),
+        depth_capacity=torch.from_numpy(depth))
+    assert tp.has_layer_dim and jp.has_layer_dim
+    assert not ElasticPolicy.uniform(0.5).has_layer_dim
+    assert not ElasticPolicy.stack([ElasticPolicy.uniform(0.5)] * 2
+                                   ).has_layer_dim
+    for i in (0, L - 1, L + 1):
+        jl, tl = jp.for_layer(i), tp.for_layer(i)
+        for f in ("mlp_token_capacity", "depth_capacity", "theta"):
+            np.testing.assert_array_equal(np.asarray(getattr(tl, f)),
+                                          np.asarray(getattr(jl, f)))
+    assert tp.for_layer(0).mlp_token_capacity.shape == (1,)
+    margins = RouterMargins(monkeypatch)
+    tok = np.random.default_rng(5).integers(
+        0, s["tcfg"].vocab_size, (2, 24)).astype(np.int32)
+    want, jaux = jax_forward(s["params"], s["rp"], {"tokens": jnp.asarray(
+        tok)}, s["jcfg"], s["jspec"], mode=mode, policy=jp)
+    got, taux = forward(s["tparams"], s["trp"], {"tokens": torch.from_numpy(
+        tok)}, s["tcfg"], s["tspec"], mode=mode, policy=tp)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(taux.sel_rate), float(jaux.sel_rate),
+                               **TOL)
+    assert 0.2 < float(taux.sel_rate) < 1.0
+    if mode == "infer":
+        margins.check()

@@ -159,8 +159,7 @@ def test_no_silent_cpu_fallback(setup):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(s["tparams"], s["trp"], s["tcfg"], s["tspec"])
-    with pytest.raises(NotImplementedError):
-        _port_engine(s).submit(GenRequest(s["prompts"][0], 4,
-                                          temperature=1.0))
+    with pytest.raises(NotImplementedError):       # the SLO controller
+        _port_engine(s, controller=object())
     with pytest.raises(NotImplementedError):
         _port_engine(s, kv_dtype="int8")
