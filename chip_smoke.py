@@ -30,7 +30,14 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    (t at the decode kernel's split edges, a slot with every key masked and
    an inactive one) and a routed selection; prints the max error beside the
    tolerance, and times the kernel, the plain version and (attention) one
-   SDPA call with CUDA events (KV heads shared by enable_gqa; SDPA over K/V
+   SDPA call with CUDA events. The int8 operand forms of four kernels
+   (int8 K/V with per-(key, kv-head) scales for both decode kernels, int8
+   weights with per-output-channel scales for fused_mlp) are held the same
+   way at Qwen2-7B shapes, bf16 and f32 activations, with holes, a masked
+   and an inactive slot, each timed beside the same kernel on bf16
+   operands (their bound counts int8 at 1 byte plus the f32 scales; no
+   single PyTorch call computes an int8-operand function: library none;
+   kept under each kernel's "int8" key of the result line) (KV heads shared by enable_gqa; SDPA over K/V
    repeated to the q-heads is printed beside it). The MLP kernels are
    timed at the ring prefill's 512 rows, the training shape and a paged
    prefill chunk's 16 rows (fused_mlp) and at a training step's routed
@@ -78,6 +85,22 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    staggered run's calls are recorded (table, t, pvalid) and the heaviest
    decode-step call and prefill-chunk call (16 rows over one table row)
    are replayed in bf16 and f32 and timed.
+3c. Quantized serving: the same weights and requests through int8
+   engines (``kv_dtype`` and ``weight_dtype`` "int8"; each engine
+   quantizes the weights once at init), ring then paged: fails unless
+   staggered == solo, budget 1.0 == an int8 mode="base" engine of the
+   same layout, (paged) two requests sharing a 256-token prefix each
+   equal their solo runs and the pool drains, bit for bit, and the int8
+   forms of fused_mlp, decode_attention (ring) and paged_decode_attention
+   (paged) launched; the path's heaviest int8 calls are replayed against
+   the plain versions. Prints the rates beside the bf16 rows of item 3 /
+   3b, the int8-vs-bf16 greedy agreement (not gated), KV and weight bytes
+   against a bf16 engine's, and one warm decode profiled beside a bf16
+   engine (device ms and operations per step).
+3d. int8 fork and preemption: f32 at Qwen2-7B width, 2 layers, paged: a
+   fork child mid-page equals its independent run, and two 512-token
+   requests on a pool one page short (a preemption) each equal their
+   uninterrupted runs, bit for bit.
 4. Gradients: the router gradients of one distillation loss at full width,
    2 layers, f32, through the kernels against the same through the plain
    versions.
@@ -138,6 +161,11 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    --moe-layers deep, random bf16 weights, its registered elastic config)
    after the Qwen2-7B weights are freed: staggered == solo bit for bit,
    moe_gmm launched; prints the rates.
+9b. Native MoE int8 serving: the same model, routers and requests with
+   int8 weights and K/V: staggered == solo bit for bit, moe_gmm launched;
+   moe_gmm's int8 form (int8 expert stacks, (E, Fe) / (E, D) scales) is
+   replayed at that path's calls against the plain version and timed
+   beside the kernel on bf16 stacks.
 10. Prints one JSON line of per-kernel results (launches by path), the card
    line again, and as the last line {"ok": true, "device": {...}}.
 
@@ -196,6 +224,10 @@ PATH_KERNELS = {
     "depth_paged_serving": ("fused_mlp", "paged_decode_attention"),
     "depth_training": ("flash_attention", "fused_mlp", "fused_mlp_routed"),
     "sampled_serving": ("flash_attention", "fused_mlp", "decode_attention"),
+    "quant_serving": ("flash_attention", "fused_mlp", "decode_attention"),
+    "quant_paged_serving": ("fused_mlp", "paged_decode_attention"),
+    "quant_native_serving": ("flash_attention", "moe_gmm",
+                             "decode_attention"),
 }
 
 
@@ -1870,7 +1902,8 @@ def check_native_serving(args, dev, device_line):
     elastic config: expert top-k over the 60 experts, token routing, head
     top-k, LoRA. Five staggered requests of 64-512 tokens; the request
     admitted mid-decode alone must give its staggered tokens. Returns the
-    launches."""
+    launches and (params, routers, cfg, spec, requests) for the int8
+    phase."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config, get_elastic
@@ -1922,6 +1955,572 @@ def check_native_serving(args, dev, device_line):
                  f"{tokens[solo_i]}")
     print("native MoE staggered == solo (requests 3 and 4, budgets None and "
           "0.5): ok")
+    return launches, (params, rp, cfg, spec, requests)
+
+
+# ----------------------------- quantized serving ------------------------------
+#
+# The serving engine's kv_dtype / weight_dtype = "int8": K/V codes with f32
+# scales per (key, kv-head) and weights with f32 scales per output channel
+# (src/repro_torch/models/quant.py). Each kernel reads its int8 operands as
+# int8; its bound counts them at 1 byte plus their f32 scales.
+
+def int8_kv(k, v):
+    """(k codes, v codes, k scales, v scales) of f32 K/V."""
+    from repro_torch.models.quant import quantize_kv
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    return kq, vq, ks, vs
+
+
+def int8_weight(w):
+    """(codes, scales) of an (.., in, out) weight, per output channel."""
+    from repro_torch.models.quant import quantize_weight
+    return quantize_weight(w.float(), (-2,))
+
+
+def int8_timing(res, name, label, ms, plain, bf16_ms, flops, nbytes, kind):
+    """Keeps an int8 case's times in the kernel's row under int8[label]:
+    the kernel, its plain version and the same kernel on bf16 operands at
+    the same shape (each a ``cuda_ms`` list, or a (graphed, back-to-back)
+    pair), beside the bound; there is no single PyTorch call for an
+    int8-operand function (library: none)."""
+    b, by = bound_ms(flops, nbytes, kind)
+    med = lambda ts: ts[len(ts) // 2]
+    row = dict(bound_ms=b, bound_by=by, library_ms=None)
+    text = []
+    for key, ts in (("ms", ms), ("plain_ms", plain), ("bf16_ms", bf16_ms)):
+        if isinstance(ts, tuple):
+            row[key], row["graphed_" + key] = med(ts[1]), med(ts[0])
+            text.append(f"{key[:-3] or 'kernel'} {med(ts[0]):.4f} ms "
+                        f"[{ts[0][0]:.4f}-{ts[0][-1]:.4f}] graphed, "
+                        f"{med(ts[1]):.4f} eager")
+        else:
+            row[key] = med(ts)
+            text.append(f"{key[:-3] or 'kernel'} {med(ts):.4f} ms "
+                        f"[{ts[0]:.4f}-{ts[-1]:.4f}]")
+    res.rows[name].setdefault("int8", {})[label] = row
+    print(f"  {name:17s} int8 {label} median [min-max] of 5: "
+          f"{'; '.join(text)}; library: none; bound {b:.4f} ms ({by}, "
+          f"int8 operands at 1 byte plus their f32 scales)")
+
+
+def cold_sets(nbytes_one: int) -> int:
+    """Operand sets to rotate over so that their total is twice the L2."""
+    return 1 + 2 * L2_BYTES // max(nbytes_one, 1)
+
+
+def check_int8_decode(res, rng, dev, H, K, Dh, L):
+    """decode_attention with int8 K/V (kscale / vscale (B, L, K)) against
+    its plain version at the ring serving path's shape (L = 1024), bf16
+    and f32 queries: a wrapped ring, kv_valid holes, a slot whose every
+    key is masked and an inactive slot (exact zeros); the bf16 call timed
+    L2-cold beside the kernel on bf16 K/V at the same shape."""
+    import torch
+    from repro_torch.kernels import ops
+    B = 5
+    t = np.asarray([63, 300, L - 1, L + 476, 0], np.int32)
+    outs = {}
+    for kind in ("bf16", "f32"):
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        pos_np, valid_np = _ring(rng, B, L, t, 0.8)
+        valid_np[3] = False                    # every key of slot 3 masked
+        pos_np[4] = -1                         # slot 4 inactive
+        q = torch.randn(B, 1, H, Dh, device=dev).to(dt)
+        k = torch.randn(B, L, K, Dh, device=dev)
+        v = torch.randn(B, L, K, Dh, device=dev)
+        kq, vq, ks, vs = int8_kv(k, v)
+        pos, valid, tv = (torch.from_numpy(a).to(dev)
+                          for a in (pos_np, valid_np, t))
+        run = lambda backend=None: ops.decode_attention(
+            q, kq, vq, pos, tv, valid, ks, vs, backend=backend)
+        outs[kind] = got = run()
+        res.compare("decode_attention", f"int8 K/V, {kind} q, B={B} L={L} "
+                    f"holes, masked + inactive slot", got, run("ref"), kind)
+        if got[3:].count_nonzero() != 0:
+            fail("int8 decode_attention: a slot with no attendable key is "
+                 "not zero")
+        if kind != "bf16":
+            continue
+        att = (pos_np >= 0) & (pos_np <= t[:, None]) & valid_np
+        rows = int(att.sum())
+        nbytes = 2 * q.numel() * 2 + 2 * rows * K * (Dh + 4) \
+            + pos.numel() * 4 + valid.numel() + B * 4
+        n8 = cold_sets(2 * (kq.numel() + ks.numel() * 4))
+        sets8 = [int8_kv(torch.randn_like(k), torch.randn_like(v))
+                 for _ in range(n8 - 1)] + [(kq, vq, ks, vs)]
+        n16 = cold_sets(2 * k.numel() * 2)
+        sets16 = [(torch.randn_like(k).to(dt), torch.randn_like(v).to(dt))
+                  for _ in range(n16)]
+        call8 = lambda backend: cycling(lambda i: ops.decode_attention(
+            q, sets8[i][0], sets8[i][1], pos, tv, valid, sets8[i][2],
+            sets8[i][3], backend=backend), n8)
+        call16 = cycling(lambda i: ops.decode_attention(
+            q, sets16[i][0], sets16[i][1], pos, tv, valid), n16)
+        print(f"  decode_attention  int8 timed L2-cold: {n8} int8 K/V sets "
+              f"({mib([a for s in sets8 for a in s]):.0f} MiB), bf16 beside "
+              f"it over {n16} ({mib([a for s in sets16 for a in s]):.0f} "
+              f"MiB); {rows} attended rows of {B * L}")
+        int8_timing(res, "decode_attention", f"ring ({B}, {L})",
+                    device_and_eager_ms(call8(None), 50),
+                    device_and_eager_ms(call8("ref"), 10),
+                    device_and_eager_ms(call16, 50), 4 * Dh * H * rows,
+                    nbytes, kind)
+        del sets8, sets16
+    return outs
+
+
+def paged_int8_work(q, kp, table, t, pvalid):
+    """``paged_work`` with int8 pools: each attended K/V row at 1 byte an
+    element plus its f32 scale."""
+    K, Dh = kp.shape[2], kp.shape[3]
+    att, visited, lane = paged_attendable(table, t, pvalid, lanes=True)
+    keys = int(att.sum())
+    rows = lambda m: int(lane[m].unique().numel())
+    nbytes = 2 * q.numel() * q.element_size() + 2 * rows(att) * K * (Dh + 4) \
+        + table.numel() * 4 + t.numel() * 4 + rows(visited)
+    return 4 * Dh * q.shape[2] * keys, nbytes, keys
+
+
+def paged_int8_case(res, dev, label, qs, N, ps, K, Dh, table, t, pvalid,
+                    timed):
+    """One paged_decode_attention call shape with int8 pools against the
+    plain version in bf16 and f32 (rows with no attendable key exact
+    zeros); with ``timed`` the bf16 call L2-cold beside the kernel on bf16
+    pools. Returns the outputs."""
+    import torch
+    from repro_torch.kernels import ops
+    dead = ~paged_attendable(table, t, pvalid)[0].any(1)
+    outs = {}
+    for kind in ("bf16", "f32"):
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        q = torch.randn(qs, device=dev).to(dt)
+        kp = torch.randn(N, ps, K, Dh, device=dev)
+        vp = torch.randn(N, ps, K, Dh, device=dev)
+        kq, vq, ks, vs = int8_kv(kp, vp)
+        run = lambda backend=None: ops.paged_decode_attention(
+            q, kq, vq, table, t, pvalid, ks, vs, backend=backend)
+        outs[kind] = got = run()
+        res.compare("paged_decode_attention", f"int8 pool, {kind} q, "
+                    f"{label}", got, run("ref"), kind)
+        if got[dead].count_nonzero() != 0:
+            fail(f"int8 paged_decode_attention {label}: a row with no "
+                 f"attendable key is not zero")
+        if kind != "bf16" or not timed:
+            continue
+        flops, nbytes, keys = paged_int8_work(q, kq, table, t, pvalid)
+        n8 = cold_sets(2 * (kq.numel() + ks.numel() * 4))
+        sets8 = [int8_kv(torch.randn_like(kp), torch.randn_like(vp))
+                 for _ in range(n8 - 1)] + [(kq, vq, ks, vs)]
+        n16 = cold_sets(2 * kp.numel() * 2)
+        sets16 = [(torch.randn_like(kp).to(dt), torch.randn_like(vp).to(dt))
+                  for _ in range(n16)]
+        call8 = lambda backend: cycling(lambda i: ops.paged_decode_attention(
+            q, sets8[i][0], sets8[i][1], table, t, pvalid, sets8[i][2],
+            sets8[i][3], backend=backend), n8)
+        call16 = cycling(lambda i: ops.paged_decode_attention(
+            q, sets16[i][0], sets16[i][1], table, t, pvalid), n16)
+        print(f"  paged_decode_attention int8 {label}: {keys} attendable "
+              f"keys; timed L2-cold over {n8} int8 pools, bf16 beside it "
+              f"over {n16}")
+        int8_timing(res, "paged_decode_attention", label,
+                    device_and_eager_ms(call8(None), 50),
+                    device_and_eager_ms(call8("ref"), 10),
+                    device_and_eager_ms(call16, 50), flops, nbytes, kind)
+        del sets8, sets16
+    return outs
+
+
+def check_int8_paged(res, rng, dev, H, K, Dh, max_seq):
+    """paged_decode_attention with int8 pools and (N, ps, K) scale pools
+    at the paged serving path's decode shape (``check_paged_decode``'s
+    table: holes, an all -1 row, shuffled pages, pvalid holes)."""
+    import torch
+    B, ps = 4, PAGE_SIZE
+    P = max_seq // ps
+    N = B * P + 1
+    table_np, t_np = _paged_case(rng, B, N, ps, P)
+    table, t = (torch.from_numpy(a).to(dev) for a in (table_np, t_np))
+    pvalid = torch.from_numpy(rng.random((N, ps)) < 0.8).to(dev)
+    return paged_int8_case(res, dev, f"decode (4, {P}x{ps})", (B, 1, H, Dh),
+                           N, ps, K, Dh, table, t, pvalid, timed=True)
+
+
+def check_int8_mlp(res, dev, D, Fd):
+    """fused_mlp with int8 weights and per-output-channel scales against
+    its plain version: Qwen2-7B widths at the ring prefill's 512 rows and
+    a paged chunk's 16 (bf16 x, timed beside the kernel on bf16 weights at
+    the same shape), ragged counts with token weights (bf16, f32) and an
+    ungated toy width (f32)."""
+    import torch
+    from repro_torch.kernels import ops
+    cases = [  # (dtype, x shape, D, F, act, gated, token weights, counts, timed)
+        ("bf16", (1, 512), D, Fd, "swiglu", True, False, None, "prefill"),
+        ("bf16", (1, 16), D, Fd, "swiglu", True, False, None, "chunk"),
+        ("bf16", (2, 77), D, Fd, "swiglu", True, True, [77, 30], None),
+        ("f32", (2, 96), D, Fd, "swiglu", True, True, [96, 41], None),
+        ("f32", (1, 70), 256, 512, "gelu", False, True, [70], None),
+    ]
+    outs = {}
+    for kind, xs, d, f, act, gated, weighted, counts, timed in cases:
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        x = torch.randn(*xs, d, device=dev).to(dt)
+        w = lambda a, b: torch.randn(a, b, device=dev) / a ** 0.5
+        ws = [w(d, f), w(f, d)] + ([w(d, f)] if gated else [])
+        (wi, wis), (wo, wos) = int8_weight(ws[0]), int8_weight(ws[1])
+        wg, wgs = int8_weight(ws[2]) if gated else (None, None)
+        tw = torch.rand(*xs, device=dev) if weighted else None
+        cnt = None if counts is None else torch.tensor(counts, device=dev,
+                                                       dtype=torch.int32)
+        run = lambda backend=None: ops.fused_mlp(
+            x, wi, wo, wg, tw, cnt, wis, wos, wgs, act=act, backend=backend)
+        case = f"int8 weights, {kind} x={tuple(x.shape)} F={f} {act} " \
+               f"cnt={counts}"
+        outs[case] = got = run()
+        res.compare("fused_mlp", case, got, run("ref"), kind)
+        if not torch.equal(got, run()):
+            fail(f"int8 fused_mlp {case}: a repeat gives other bits")
+        if not timed:
+            continue
+        wb = [a.to(dt) for a in ws] + ([None] if not gated else [])
+        bf16 = lambda: ops.fused_mlp(x, wb[0], wb[1], wb[2], tw, cnt,
+                                     act=act)
+        rows, n_mats = xs[0] * xs[1], len(ws)
+        nbytes = n_mats * d * f + (2 * f + d) * 4 \
+            + 2 * x.numel() * x.element_size()
+        int8_timing(res, "fused_mlp", f"{timed} {tuple(xs)}", cuda_ms(run, 5),
+                    cuda_ms(lambda: run("ref"), 3), cuda_ms(bf16, 5),
+                    2 * rows * d * f * n_mats, nbytes, kind)
+    return outs
+
+
+def check_int8_gmm(res, dev, label, cases, cfg):
+    """Replays an int8 expert path's own ``moe_gmm`` calls (recorded shapes
+    and group counts) with native (E, D, Fe) / (E, Fe, D) int8 stacks and
+    their (E, Fe) / (E, D) scales, random x, in bf16 and f32, with and
+    without routing weights, against the plain version: slots past their
+    count exact zeros, a repeat bit-identical. The heaviest call of the
+    largest shape in bf16 timed beside the kernel on bf16 stacks."""
+    import torch
+    from repro_torch.kernels import ops
+    E, D, Fe = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert
+    w = lambda *sh: torch.randn(*sh, device=dev) / sh[1] ** 0.5
+    wf = [w(E, D, Fe), w(E, D, Fe), w(E, Fe, D)]
+    (wi, wis), (wg, wgs), (wo, wos) = (int8_weight(a) for a in wf)
+    for kind in ("bf16", "f32"):
+        dt = torch.bfloat16 if kind == "bf16" else torch.float32
+        for ci, (shape, counts) in enumerate(cases):
+            B, E_, C, D_ = shape
+            x = torch.randn(shape, device=dev).to(dt)
+            cnt = torch.from_numpy(counts.astype(np.int32)).to(dev)
+            live = torch.arange(C, device=dev) < cnt[..., None]
+            for weighted in (False, True):
+                rw = torch.rand(B, E, C, device=dev) if weighted else None
+                run = lambda backend=None: ops.moe_gmm(
+                    x, wi, wo, wg, rw, cnt, wis, wos, wgs, act="swiglu",
+                    backend=backend)
+                got = run()
+                res.compare("moe_gmm", f"int8 stacks, {kind} {label} "
+                            f"{tuple(shape)} rows {int(counts.sum())} "
+                            f"w={'y' if weighted else 'n'}", got, run("ref"),
+                            kind)
+                if got[~live].count_nonzero() != 0:
+                    fail(f"int8 moe_gmm {label}: a slot past its count is "
+                         f"not zero")
+                if not torch.equal(got, run()):
+                    fail(f"int8 moe_gmm {label}: a repeat gives other bits")
+            if kind != "bf16" or ci != 0:
+                continue
+            rows = int(counts.sum())
+            live_e = int((counts.sum(0) > 0).sum())
+            nbytes = 3 * D * Fe * live_e + live_e * (2 * Fe + D) * 4 \
+                + (rows * D + x.numel()) * x.element_size() + B * E * 4
+            wb = [a.to(dt) for a in wf]
+            int8_timing(res, "moe_gmm", f"{label} {tuple(shape)}",
+                        device_and_eager_ms(lambda: ops.moe_gmm(
+                            x, wi, wo, wg, None, cnt, wis, wos, wgs), 5),
+                        cuda_ms(lambda: ops.moe_gmm(
+                            x, wi, wo, wg, None, cnt, wis, wos, wgs,
+                            backend="ref"), 3),
+                        device_and_eager_ms(lambda: ops.moe_gmm(
+                            x, wb[0], wb[2], wb[1], None, cnt), 5),
+                        6 * D * Fe * rows, nbytes, kind)
+            del wb
+
+
+def check_int8_path_calls(res, dev, label, rec):
+    """Replays the heaviest int8 ``decode_attention`` and ``fused_mlp``
+    call a quantized path made (its recorded positions, masks, counts) with
+    random int8 operands and scales of its shapes, in bf16 and f32, against
+    the plain version; a slot with no attendable key must be exact
+    zeros."""
+    import torch
+    from repro_torch.kernels import ops
+    for name, c in sorted(rec.heaviest().items()):
+        work = PathCalls._work(name, c)
+        for kind in ("bf16", "f32"):
+            dt = torch.bfloat16 if kind == "bf16" else torch.float32
+            if name == "decode_attention":
+                kq, vq, ks, vs = int8_kv(torch.randn(c["k"][1], device=dev),
+                                         torch.randn(c["v"][1], device=dev))
+                q = torch.randn(c["q"][1], device=dev).to(dt)
+                run = lambda backend=None: ops.decode_attention(
+                    q, kq, vq, c["kv_pos"], c["t"], c["kv_valid"], ks, vs,
+                    window=c.get("window", 0), backend=backend)
+                shape = c["q"][1]
+            else:
+                x = torch.randn(c["x"][1], device=dev).to(dt)
+                sh = lambda k: c[k][1]
+                (wi, wis), (wo, wos) = (int8_weight(torch.randn(
+                    sh(k), device=dev) / sh(k)[0] ** 0.5) for k in ("wi",
+                                                                    "wo"))
+                wg, wgs = int8_weight(torch.randn(
+                    sh("wg"), device=dev) / sh("wg")[0] ** 0.5) \
+                    if isinstance(c.get("wg"), tuple) else (None, None)
+                run = lambda backend=None: ops.fused_mlp(
+                    x, wi, wo, wg, c.get("token_weights"),
+                    c.get("valid_count"), wis, wos, wgs,
+                    act=c.get("act", "swiglu"), backend=backend)
+                shape = c["x"][1]
+            got = run()
+            res.compare(name, f"int8 {kind} {label} path {tuple(shape)} "
+                        f"({work} {'rows' if name == 'fused_mlp' else 'pairs'})",
+                        got, run("ref"), kind)
+            if name == "decode_attention":
+                pos, t = c["kv_pos"], c["t"].reshape(-1, 1)
+                dead = ~((pos >= 0) & (pos <= t) & c["kv_valid"]).any(-1)
+                if got[dead].count_nonzero() != 0:
+                    fail(f"int8 decode_attention, the {label} path's "
+                         f"heaviest call: a slot with no attendable key is "
+                         f"not zero")
+
+
+def check_int8_paged_calls(res, dev, cases, labels):
+    """The quantized paged path's heaviest ``paged_decode_attention`` call
+    of each shape (a decode step, a prefill chunk), replayed with int8
+    pools (``paged_int8_case``), the chunk timed."""
+    for qs, ks, table, t, pvalid, n in cases:
+        label = f"path {labels.get(qs[0], f'{qs[0]}-row')} (heaviest of {n})"
+        paged_int8_case(res, dev, label, qs, ks[0], ks[1], ks[2], ks[3],
+                        table, t, pvalid, timed=qs[0] == PAGE_SIZE)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor leaf of a nested dict / list."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def check_quant_serving(args, res, dev, device_line, spec, params, rp,
+                        requests, ring, paged):
+    """Qwen2-7B (``--layers`` deep) served with int8 weights and int8 K/V,
+    ring then paged, on the bf16 weights already on the card (each engine
+    quantizes them once at init): the six staggered requests; fails unless
+    budget-1.0 rows equal an int8 mode="base" engine of the same layout, a
+    request alone equals its staggered tokens, (paged) two requests
+    sharing a 256-token prefix each equal their solo runs, the pool drains,
+    and the int8 forms of fused_mlp, decode_attention (ring) and
+    paged_decode_attention (paged) launched. The path's heaviest int8
+    calls are replayed against the plain versions. Prints the rates beside
+    the bf16 rows of the same call, the int8-vs-bf16 greedy agreement (not
+    gated), the int8 engine's KV and weight bytes against the bf16
+    engine's, and one warm decode profiled beside a bf16 engine. Returns
+    the launches by path."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=args.layers)
+    # the weights cover the training depth too: count the served layers
+    served = dict(params, layers=params["layers"][:cfg.n_layers])
+
+    def mk(mode="infer", layout="ring", dtype="int8", n_pages=args.pages):
+        kw = dict(kv_layout="paged", page_size=PAGE_SIZE, n_pages=n_pages) \
+            if layout == "paged" else {}
+        return ServingEngine(served, rp, cfg, spec, mode=mode, batch_size=4,
+                             max_seq=1024, device=dev, kv_dtype=dtype,
+                             weight_dtype=dtype, **kw)
+
+    launches = {}
+    for layout, bf in (("ring", ring), ("paged", paged)):
+        path = "quant_serving" if layout == "ring" else "quant_paged_serving"
+        eng = mk(layout=layout)
+        ref = mk(layout=layout, dtype="fp32")
+        kv8, kv16 = tree_bytes(eng._caches), tree_bytes(ref._caches)
+        w8, w16 = tree_bytes(eng.params), tree_bytes(ref.params)
+        print(f"int8 {layout} serving: {cfg.name} depth {cfg.n_layers}, int8 "
+              f"weights and K/V [{device_line}]: KV {kv8 / 1e6:.1f} MB "
+              f"against bf16's {kv16 / 1e6:.1f} MB ({kv8 / kv16:.3f}x); "
+              f"weights {w8 / 1e9:.3f} GB against {w16 / 1e9:.3f} GB "
+              f"({w8 / w16:.3f}x)")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        names = ("fused_mlp", "paged_decode_attention") if layout == "paged" \
+            else ("fused_mlp", "decode_attention")
+        with PathCalls(*names) as rec:
+            tokens = serve(eng, requests, stagger=True)   # the main path
+            torch.cuda.synchronize()
+        launches[path] = ops.launch_counts()
+        check_launches(path, launches[path])
+        if layout == "paged" and eng.paged_stats()["allocated"] != 0:
+            fail("int8 paged serving: the pool did not drain")
+        for toks in tokens:
+            if len(toks) != 16 or not all(0 <= x < cfg.vocab_size
+                                          for x in toks):
+                fail(f"bad generated tokens {toks}")
+        print(f"int8 {layout} kernel calls at the path's own shapes "
+              f"[{device_line}]:")
+        check_int8_path_calls(res, dev, f"int8 {layout}", rec)
+        if layout == "paged":
+            check_int8_paged_calls(res, dev, rec.paged_cases(),
+                                   {4: "decode step",
+                                    PAGE_SIZE: "prefill chunk"})
+        del rec
+        print_timing(f"int8 {layout} serving (first run)", eng.timing,
+                     device_line)
+        print_timing(f"bf16 {layout} serving, same call (first run)",
+                     bf["timing"], device_line)
+        agree = sum(a == b for i in range(len(tokens))
+                    for a, b in zip(tokens[i], bf["tokens"][i]))
+        print(f"int8 vs bf16 greedy tokens (reported, not gated): "
+              f"{sum(a == b for a, b in zip(tokens, bf['tokens']))} of "
+              f"{len(tokens)} requests identical, {agree} of "
+              f"{sum(map(len, tokens))} tokens agree position by position")
+        base = mk("base", layout)
+        teacher = serve(base, requests, stagger=True)
+        for i, (_, _, b) in enumerate(requests):
+            if b == 1.0 and tokens[i] != teacher[i]:
+                fail(f"int8 {layout}: budget-1.0 request {i} differs from "
+                     f"the int8 teacher: {tokens[i]} vs {teacher[i]}")
+        if layout == "paged" and base.paged_stats()["allocated"] != 0:
+            fail("int8 paged teacher: the pool did not drain")
+        del base
+        solo = serve(mk(layout=layout), [requests[4]], stagger=False)[0]
+        if solo != tokens[4]:
+            fail(f"int8 {layout}: request 4 alone {solo} != staggered "
+                 f"{tokens[4]}")
+        print(f"int8 {layout}: budget 1.0 == int8 mode='base' teacher and "
+              f"staggered == solo (request 4), bit for bit: ok")
+        if layout == "paged":
+            rng = np.random.default_rng(args.seed + 3)
+            V = cfg.vocab_size
+            pre = rng.integers(0, V, 256).astype(np.int32)
+            pair = [np.concatenate([pre, rng.integers(0, V, 64).astype(
+                np.int32)]) for _ in range(2)]
+            sh = mk(layout="paged")
+            hs = [sh.submit(GenRequest(pair[0], 16, budget=0.75))]
+            sh.step()
+            hs.append(sh.submit(GenRequest(pair[1], 16, budget=0.75)))
+            sh.step()
+            shared = sh.paged_stats()["shared"]
+            while not all(h.done for h in hs):
+                if sh.step() == 0:
+                    fail("int8 paged engine stalled (prefix sharing)")
+            if sh.paged_stats()["allocated"] != 0 or \
+                    shared != 256 // PAGE_SIZE:
+                fail(f"int8 prefix sharing: {shared} shared pages, "
+                     f"{sh.paged_stats()['allocated']} left allocated")
+            for i, h in enumerate(hs):
+                alone = serve(mk(layout="paged"), [(pair[i], 16, 0.75)],
+                              stagger=False)[0]
+                if list(h.output) != alone:
+                    fail(f"int8 prefix sharing: request {i} != alone")
+            print(f"int8 prefix sharing: {shared} pages shared, each request "
+                  f"== alone bit for bit, pool drained: ok")
+            del sh
+        decode_profile({f"bf16 {layout}": ref, f"int8 {layout}": eng},
+                       (requests[0][0], 16, 0.75))
+        del eng, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def check_int8_fork_preemption(params, rp, spec, dev, seed, n_layers=2):
+    """int8 weights and K/V on the paged pool, f32 at Qwen2-7B width,
+    ``n_layers`` layers (a re-prefill then rounds as the decode steps it
+    replaces, so a difference is a fault of the stored bytes): a fork
+    child mid-page equals its independent run of prompt + output (the
+    tail page's codes and scales copied verbatim), and two 512-token
+    requests on a pool one page short (at least one preemption) each
+    equal their uninterrupted runs, bit for bit."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=n_layers,
+                              dtype="float32")
+    p32, r32 = _f32_cut(params, rp, n_layers)
+    mk = lambda n_pages=None: ServingEngine(
+        p32, r32, cfg, spec, mode="infer", batch_size=2, max_seq=1024,
+        device=dev, kv_layout="paged", page_size=PAGE_SIZE, n_pages=n_pages,
+        kv_dtype="int8", weight_dtype="int8")
+    rng = np.random.default_rng(seed + 6)
+    p = rng.integers(0, cfg.vocab_size, 203).astype(np.int32)
+    eng = mk()
+    hp = eng.submit(GenRequest(p, 16, budget=0.75))
+    for _ in range(4):
+        eng.step()
+    prefix = list(hp.output)
+    t_fork = int(eng._t[hp.slot])
+    hc = eng.fork(hp)
+    while not (hp.done and hc.done):
+        if eng.step() == 0:
+            fail("int8 fork: engine stalled")
+    indep = serve(mk(), [(np.concatenate([p, np.asarray(prefix, np.int32)]),
+                          16 - len(prefix), 0.75)], stagger=False)[0]
+    if list(hc.output) != indep or eng.paged_stats()["allocated"] != 0:
+        fail(f"int8 fork at {t_fork}: child {list(hc.output)} != "
+             f"independent {indep}")
+    reqs = [(rng.integers(0, cfg.vocab_size, 512).astype(np.int32), 16, 0.75)
+            for _ in range(2)]
+    need = -(-(512 + 16) // PAGE_SIZE)
+    eng = mk(2 * need)                  # one page short, plus the trash page
+    got = serve(eng, reqs, stagger=False)
+    if eng.n_preempted < 1:
+        fail("int8 preemption: none on the short pool")
+    alone = [serve(mk(), [r], stagger=False)[0] for r in reqs]
+    if got != alone:
+        fail(f"int8 preemption: {got} != uninterrupted {alone}")
+    print(f"int8 fork (f32, {n_layers} layers, at position {t_fork}, "
+          f"{t_fork % PAGE_SIZE} lanes of the tail page copied) == its "
+          f"independent run; preemption ({2 * need}-page pool, "
+          f"{eng.n_preempted} preemption(s)) == uninterrupted runs; bit for "
+          f"bit: ok")
+
+
+def check_native_int8_serving(dev, device_line, state):
+    """The native MoE of ``check_native_serving`` (its weights, routers and
+    requests) served with int8 weights and K/V: staggered == solo bit for
+    bit, moe_gmm launched; prints the rates. Returns the launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.training import ServingEngine
+    params, rp, cfg, spec, requests = state
+    mk = lambda: ServingEngine(params, rp, cfg, spec, mode="infer",
+                               batch_size=4, max_seq=1024, device=dev,
+                               kv_dtype="int8", weight_dtype="int8")
+    engine = mk()
+    print(f"native MoE int8 serving: weights {tree_bytes(engine.params) / 1e9:.3f}"
+          f" GB (bf16 {tree_bytes(params) / 1e9:.3f}), KV "
+          f"{tree_bytes(engine._caches) / 1e6:.1f} MB [{device_line}]")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tokens = serve(engine, requests, stagger=True)    # the main path
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("quant_native_serving", launches)
+    print_timing("native MoE int8 serving (first run)", engine.timing,
+                 device_line)
+    del engine
+    solo = serve(mk(), [requests[4]], stagger=False)[0]
+    if solo != tokens[4]:
+        fail(f"native MoE int8: request 4 alone {solo} != staggered "
+             f"{tokens[4]}")
+    print("native MoE int8 staggered == solo (request 4), bit for bit: ok")
     return launches
 
 
@@ -2457,14 +3056,15 @@ def print_hgmma(build) -> None:
     if not flash.get("flash_fwd_wgmma<128>"):
         fail("the bf16 Dh=128 flash kernel has no HGMMA instruction")
     mlp = sass_hgmma(
-        build, "fused_mlp", r"mlp_tcILb(\d)ELi(\d)E",
+        build, "fused_mlp", r"mlp_tcILb(\d)ELi(\d)ELb(\d)E",
         lambda m: (f"mlp_tc<{'up' if m.group(1) == '1' else 'down'}, "
-                   f"{64 * int(m.group(2))} rows>"))
+                   f"{64 * int(m.group(2))} rows"
+                   f"{', int8 weights' if m.group(3) == '1' else ''}>"))
     print(f"  SASS HGMMA instructions per fused_mlp tensor-core phase (all "
-          f"three modes): {mlp}")
-    if len(mlp) != 4 or not all(mlp.values()):
-        fail("a tensor-core MLP phase (bf16 up / down, 64 or 128 rows) has "
-             "no HGMMA instruction")
+          f"three modes; bf16 and int8 weights): {mlp}")
+    if len(mlp) != 8 or not all(mlp.values()):
+        fail("a tensor-core MLP phase (up / down, 64 or 128 rows, bf16 or "
+             "int8 weights) has no HGMMA instruction")
 
 
 AB_KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention",
@@ -2713,6 +3313,10 @@ def main() -> int:
     check_fused_mlp_routed(res, rng, dev, cfg.d_model, cfg.d_ff)
     check_decode(res, rng, dev, H, K, Dh, 1024)
     check_paged_decode(res, rng, dev, H, K, Dh, 1024)
+    print(f"int8 operand forms at {cfg.name} shapes [{device_line}]:")
+    check_int8_decode(res, rng, dev, H, K, Dh, 1024)
+    check_int8_paged(res, rng, dev, H, K, Dh, 1024)
+    check_int8_mlp(res, dev, cfg.d_model, cfg.d_ff)
     torch.cuda.synchronize()
     done("build, kernel checks")
 
@@ -2731,6 +3335,12 @@ def main() -> int:
         args, res, dev, device_line, spec, params, rp, requests, ring)
     free()
     done("paged serving")
+    paths.update(check_quant_serving(args, res, dev, device_line, spec,
+                                     params, rp, requests, ring, paged))
+    free()
+    check_int8_fork_preemption(params, rp, spec, dev, args.seed)
+    free()
+    done("int8 serving")
     check_gradients(params, rp, spec, dev, args.seed)
     free()
     paths["training"] = check_training(args, params, rp, spec, dev,
@@ -2780,14 +3390,25 @@ def main() -> int:
     free()
     done("expert gradients, training")
     with PathCalls("moe_gmm") as rec:
-        paths["native_serving"] = check_native_serving(args, dev,
-                                                       device_line)
+        paths["native_serving"], native = check_native_serving(
+            args, dev, device_line)
     free()
     print(f"moe_gmm at the native MoE serving path's calls [{device_line}]:")
     check_moe_gmm(res, dev, "native qwen1.5-moe serving", rec.gmm_cases(),
                   native_weights(dev, get_config("qwen2-moe-a2.7b")),
                   timed=False, tile_rows=args.gmm_tile_rows)
+    free()
     done("native MoE serving")
+    with PathCalls("moe_gmm") as rec:
+        paths["quant_native_serving"] = check_native_int8_serving(
+            dev, device_line, native)
+    del native
+    free()
+    print(f"int8 moe_gmm at the native MoE int8 path's calls "
+          f"[{device_line}]:")
+    check_int8_gmm(res, dev, "native int8", rec.gmm_cases(),
+                   get_config("qwen2-moe-a2.7b"))
+    done("native MoE int8 serving")
     kernels = [dict(name=n, route="cuda", source=SOURCES[n][0],
                     replaces=SOURCES[n][1],
                     launches=sum(p[n] for p in paths.values()),

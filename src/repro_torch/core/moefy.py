@@ -19,7 +19,14 @@ from __future__ import annotations
 
 def moefy_mlp(params: dict, n_experts: int) -> dict:
     """params: {'wi': (D,F), 'wo': (F,D), optional 'wg': (D,F)} ->
-    {'wi': (E,D,F/E), 'wo': (E,F/E,D), optional 'wg': (E,D,F/E)}, views."""
+    {'wi': (E,D,F/E), 'wo': (E,F/E,D), optional 'wg': (E,D,F/E)}, views.
+    Engine-quantized (int8) weights raise: the JAX package's ``moefy_mlp``
+    drops their scale leaves, so the reference defines no int8 result for
+    a moefied MLP, and the port invents none (ROADMAP Queue C)."""
+    if any(k.endswith("_scale") for k in params):
+        raise NotImplementedError(
+            "a moefied MLP with int8 weights: the reference drops the scale "
+            "leaves there and defines no result (ROADMAP Queue C)")
     wi, wo = params["wi"], params["wo"]
     d, f = wi.shape
     assert f % n_experts == 0, f"d_ff={f} not divisible by {n_experts} experts"

@@ -51,8 +51,14 @@ class ElasticSpec:
     # auto = kernels on CUDA tensors, plain versions on CPU ones; cuda =
     # kernels only; ref = plain versions (see kernels/ops.py)
     kernel_backend: str = "auto"
-    kv_dtype: str = "fp32"
-    weight_dtype: str = "fp32"
+    kv_dtype: str = "fp32"             # fp32 | bf16 | int8 (models/quant.py)
+    weight_dtype: str = "fp32"         # fp32 | bf16 | int8
+
+    def __post_init__(self):
+        from repro_torch.models.quant import (check_kv_dtype,
+                                              check_weight_dtype)
+        check_kv_dtype(self.kv_dtype)
+        check_weight_dtype(self.weight_dtype)
 
     def applies_to_layer(self, idx: int) -> bool:
         return self.layers == "all" or idx % 2 == 0

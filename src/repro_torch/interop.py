@@ -10,8 +10,10 @@ names and layouts unchanged, whatever the layer tree holds: a native MoE
 layer's ``mlp`` (``router``, ``wi``/``wg``/``wo`` as ``(E, ...)`` stacks,
 ``shared.{wi,wg,wo}``) and the ``expert`` routers come over like any other
 leaf. A moefied spec adds no base weights (the experts are views of the
-dense MLP). Serving state comes over too: a JAX paged KV pool tree
-(``paged_caches_from_numpy``).
+dense MLP). Engine-quantized trees come over the same way: int8 weights
+keep their codes and their f32 ``{name}_scale`` siblings, leaf for leaf.
+Serving state comes over too: a JAX ring cache or paged KV pool tree, with
+an int8 cache's ``kscale``/``vscale`` leaves (``caches_from_numpy``).
 """
 from __future__ import annotations
 
@@ -161,12 +163,14 @@ def train_state_to_numpy(state, cfg, spec=None):
     return layered_to_numpy({}, cfg, spec, trees), int(state.opt.step)
 
 
-def paged_caches_from_numpy(tree: dict, cfg, *, device=None) -> dict:
-    """A JAX paged KV cache tree (``repro.models.paged_cache_init``'s
-    ``{"scan": [...], "tail": [...]}``, numpy leaves; scan leaves carry a
-    leading period dimension) as the port's pools ``{"layers": [{"attn":
-    {"kp", "vp", "pvalid"}}, ...]}``, bit for bit. The JAX pool stacks by
-    the layer pattern alone (no elastic spec)."""
+def caches_from_numpy(tree: dict, cfg, *, device=None) -> dict:
+    """A JAX KV cache tree (``repro.models.cache_init``'s ring caches or
+    ``paged_cache_init``'s pools: ``{"scan": [...], "tail": [...]}``, numpy
+    leaves; scan leaves carry a leading period dimension) as the port's
+    ``{"layers": [{"attn": {...}}, ...]}`` (ring: ``k``, ``v``, ``valid``,
+    ``pos``; paged: ``kp``, ``vp``, ``pvalid``; int8: ``kscale`` and
+    ``vscale`` beside them), bit for bit. The JAX caches stack by the
+    layer pattern alone (no elastic spec)."""
     device = resolve_device(device)
     _, P, _ = build_pattern(cfg, None)
     return {"layers": _layers_from(_tree_to_torch(tree, device), P)}

@@ -34,25 +34,26 @@ ENTRIES = {
         _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
         _P]),
     "fused_mlp_launch": ("fused_mlp", [
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _I, _P]),
     "fused_mlp_routed_launch": ("fused_mlp", [
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
         _P]),
     "decode_attention_launch": ("decode_attention", [
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-        _F, _P]),
+        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _I, _I, _I, _F, _P]),
     "paged_decode_attention_launch": ("decode_attention", [
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-        _F, _P]),
+        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _I, _I, _I, _F, _P]),
     "fused_mlp_tc_launch": ("fused_mlp", [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-        _I, _P]),
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+        _I, _I, _I, _I, _I, _P]),
     "moe_gmm_launch": ("fused_mlp", [
-        _I, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I,
-        _I, _I, _P]),
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _P]),
     "moe_gmm_tc_launch": ("fused_mlp", [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-        _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,6 @@
 // Shared helpers for the port's hand-written Hopper kernels: element loads
-// and stores in the working type, and the f32 activations the MLP uses.
+// and stores in the working type (int8 codes widen exactly: |q| <= 127), and
+// the f32 activations the MLP uses.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,6 +13,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
@@ -33,5 +35,6 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // dtype codes shared with the Python wrappers
 constexpr int DT_F32 = 0;
 constexpr int DT_BF16 = 1;
+constexpr int DT_I8 = 2;  // int8 codes with f32 scales (storage only)
 
 }  // namespace rt

@@ -45,8 +45,20 @@
 //   the dot products and P V on the tensor cores (decode_split_mma, below);
 //   f32 on the CUDA cores (decode_split: two threads per key, then each
 //   thread two columns of Dh over a subset of the keys), which keeps f32
-//   within the 1e-4 tolerance. An int8 K/V row would be dequantized where
-//   the notes below say.
+//   within the 1e-4 tolerance.
+// * K and V arrive in their storage type and are read as such: the query's
+//   type (f32 or bf16), bf16 under an f32 query (the bf16 cache of an f32
+//   model: the CUDA-core body templated on the storage type), or int8 codes
+//   with f32 scales per (key, kv-head) (ring kscale/vscale (B,L,K), paged
+//   scale pools (N,ps,K), read through the same row as the key). An int8
+//   row is half a bf16 row's bytes, which is what bounds decode. The
+//   CUDA-core body widens the codes to f32 in registers; the tensor-core
+//   body stages the int8 rows with cp.async and one pass widens them into
+//   the bf16 rows mma.sync reads (exact: |q| <= 127). The scales fold in
+//   where they cost one multiply a key: s_j = kscale_j * (q . k^_j) *
+//   sm_scale after the score, and vscale_j into p_j before the P V
+//   product (the row sum l keeps the unscaled p_j). The cache is never
+//   widened in device memory.
 // * decode_merge: one block per (q-head, slot) combines the splits in split
 //   order. So a slot's output depends only on its own keys (staggered ==
 //   solo stays bit-exact), and there are no atomics.
@@ -54,6 +66,7 @@
 // One call of a wrapper is these two launches; ops.launch_counts() counts
 // the call.
 #include <type_traits>
+#include <stdint.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -128,41 +141,75 @@ struct PagedKeys {
 
 // -------------------------- f32: the CUDA-core body --------------------------
 //
-// Shared memory of a split block. K and V rows are padded by 16 bytes, so
-// one thread per row reading 16-byte chunks hits distinct banks.
+// Shared memory of a split block, K and V in their storage type T. K and V
+// rows are padded by 16 bytes, so one thread per row reading 16-byte chunks
+// hits distinct banks. The final reduction ([NT / (DH/2)][GMAX][DH] f32)
+// reuses k, v and pad.
 template <typename T, int DH>
 struct Smem {
   static constexpr int E = 16 / (int)sizeof(T);  // elements per 16 bytes
+  static constexpr int KV = 2 * NK * (DH + E) * (int)sizeof(T);
+  static constexpr int RED = NT / (DH / 2) * GMAX * DH * 4;
   T k[NK][DH + E];
   T v[NK][DH + E];
-  float q[GMAX][DH];     // the group's query rows, times sm_scale
-  float p[NK][GMAX];     // each key's probabilities for the group's rows
+  float pad[KV >= RED ? 4 : (RED - KV) / 4];
+  alignas(16) float q[GMAX][DH];  // the group's query rows, times sm_scale
+  alignas(16) float p[NK][GMAX];  // each key's probabilities, the group's rows
   float red[NT / 32][GH];  // per-warp max, then per-warp sum
+  float ks[NK], vs[NK];  // int8 K/V: each key's scales (0 when masked)
   long row[NK];          // the chunk's K/V rows, -1 = masked
 };
 
 
-// 16 bytes of a row in shared memory -> f32 (the f32 body's loads; the
-// place an int8 row would be dequantized)
+// 16 bytes of a row in shared memory -> f32 (the CUDA-core body's loads:
+// an int8 or bf16 row widens here)
 __device__ __forceinline__ void chunk_f(const float* p, float (&f)[4]) {
   const float4 u = *reinterpret_cast<const float4*>(p);
   f[0] = u.x, f[1] = u.y, f[2] = u.z, f[3] = u.w;
+}
+__device__ __forceinline__ void chunk_f(const __nv_bfloat16* p,
+                                        float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = t.x, f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void chunk_f(const int8_t* p, float (&f)[16]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    f[i] = (float)(int8_t)(w[i / 4] >> (8 * (i % 4)));
 }
 // two neighbouring elements -> f32
 __device__ __forceinline__ float2 pair_f(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
+__device__ __forceinline__ float2 pair_f(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 pair_f(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2((float)c.x, (float)c.y);
+}
 
-template <typename T, int DH, typename Keys>
+template <typename TQ, typename T, int DH, typename Keys>
 __global__ void __launch_bounds__(NT) decode_split(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    float* __restrict__ part_acc, float2* __restrict__ part_ml,
-    const int* __restrict__ t, const Keys keys, int H, int K, int split_keys,
-    int n_split, float sm_scale) {
+    const TQ* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ kscale,
+    const float* __restrict__ vscale, float* __restrict__ part_acc,
+    float2* __restrict__ part_ml, const int* __restrict__ t, const Keys keys,
+    int H, int K, int split_keys, int n_split, float sm_scale) {
   using S = Smem<T, DH>;
+  constexpr bool Q8 = std::is_same<T, int8_t>::value;
   constexpr int E = S::E, CH = DH / E;          // 16-byte chunks per row
   constexpr int NDP = DH / 2, NKS = NT / NDP;   // P V: column pairs x key sets
-  static_assert(sizeof(S::k) + sizeof(S::v) >= NKS * GMAX * DH * 4,
+  static_assert(sizeof(S::k) + sizeof(S::v) + sizeof(S::pad) >=
+                    NKS * GMAX * DH * 4,
                 "the final reduction reuses the K and V buffers");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   S& sm = *reinterpret_cast<S*>(smem_raw);
@@ -197,7 +244,13 @@ __global__ void __launch_bounds__(NT) decode_split(
     long r = -1;
     if (tid < NK && j0 + tid < j_end) r = slot.row(j0 + tid);
     __syncthreads();  // the previous chunk is consumed
-    if (tid < NK) sm.row[tid] = r;
+    if (tid < NK) {
+      sm.row[tid] = r;
+      if constexpr (Q8) {
+        sm.ks[tid] = r >= 0 ? __ldg(kscale + r * K + kh) : 0.f;
+        sm.vs[tid] = r >= 0 ? __ldg(vscale + r * K + kh) : 0.f;
+      }
+    }
     if (!__syncthreads_or(r >= 0)) continue;  // nothing to read here
     r = sm.row[key];
 
@@ -227,7 +280,7 @@ __global__ void __launch_bounds__(NT) decode_split(
 #pragma unroll 4
       for (int c = 0; c < CH; ++c) {
         float kf[E];
-        chunk_f(&sm.k[key][c * E], kf);  // int8 K: dequantize here
+        chunk_f(&sm.k[key][c * E], kf);  // int8 / bf16 K: widened here
 #pragma unroll
         for (int g = 0; g < GH; ++g)
 #pragma unroll
@@ -238,6 +291,9 @@ __global__ void __launch_bounds__(NT) decode_split(
                     qq.w * kf[e + 3];
           }
       }
+      if constexpr (Q8)  // s = kscale * (q . k^) * sm_scale
+#pragma unroll
+        for (int g = 0; g < GH; ++g) s[g] *= sm.ks[key];
     }
     float x[GH];
 #pragma unroll
@@ -265,8 +321,14 @@ __global__ void __launch_bounds__(NT) decode_split(
 #pragma unroll
     for (int g = 0; g < GH; ++g)
       x[g] = r >= 0 ? expf(s[g] - (half ? m_run[GH + g] : m_run[g])) : 0.f;
-    *reinterpret_cast<float4*>(&sm.p[key][half * GH]) =
-        make_float4(x[0], x[1], x[2], x[3]);
+    if constexpr (Q8) {  // vscale folds into p; the row sum keeps p
+      const float vsc = sm.vs[key];
+      *reinterpret_cast<float4*>(&sm.p[key][half * GH]) =
+          make_float4(x[0] * vsc, x[1] * vsc, x[2] * vsc, x[3] * vsc);
+    } else {
+      *reinterpret_cast<float4*>(&sm.p[key][half * GH]) =
+          make_float4(x[0], x[1], x[2], x[3]);
+    }
 #pragma unroll
     for (int g = 0; g < GH; ++g)
 #pragma unroll
@@ -293,7 +355,7 @@ __global__ void __launch_bounds__(NT) decode_split(
     // loaded and are skipped
     for (int kk = ks; kk < NK; kk += NKS) {
       if (sm.row[kk] < 0) continue;
-      const float2 vv = pair_f(&sm.v[kk][2 * dp]);  // int8 V: dequantize here
+      const float2 vv = pair_f(&sm.v[kk][2 * dp]);  // int8 / bf16 V: widened
       const float4 pa = *reinterpret_cast<const float4*>(&sm.p[kk][0]);
       const float4 pb = *reinterpret_cast<const float4*>(&sm.p[kk][4]);
       const float pk[GMAX] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
@@ -341,16 +403,50 @@ __global__ void __launch_bounds__(NT) decode_split(
 // shared memory through ldmatrix.trans. Masked keys are staged as zeros
 // (cp.async with no source bytes: nothing is read), so no 0 * NaN reaches
 // the product. Shared-memory traffic is K and V once per chunk, where the
-// CUDA-core body reads the query rows once per key.
+// CUDA-core body reads the query rows once per key. int8 K/V (Q8): the
+// rows land as int8 (k8, v8; masked rows zeros) and one pass of the block
+// widens them into k and v, after which the chunk runs as for bf16, with
+// the scales folded into the score and into P.
 
 template <int DH>
-struct SmemMma {
+struct SmemMmaBase {
   __nv_bfloat16 k[NK][DH + 8];  // padded rows: conflict-free fragment reads
   __nv_bfloat16 v[NK][DH + 8];
   float red[2][NT / 32][GMAX];  // per-warp row max, row sum
   float alpha[GMAX];            // this chunk's rescale of each row
   long row[NK];                 // the chunk's K/V rows, -1 = masked
 };
+template <int DH, bool Q8>
+struct SmemMma : SmemMmaBase<DH> {};
+template <int DH>
+struct SmemMma<DH, true> : SmemMmaBase<DH> {
+  alignas(16) int8_t k8[NK][DH + 16];  // the int8 rows as they land
+  int8_t v8[NK][DH + 16];
+  float ks[NK], vs[NK];    // each key's scales (0 when masked)
+};
+
+// int8 rows of a chunk (row stride DH + 16) -> the bf16 rows mma.sync
+// reads (row stride DH + 8), exactly
+template <int DH>
+__device__ __forceinline__ void widen_rows(const int8_t* src,
+                                           __nv_bfloat16* dst, int tid) {
+  for (int i = tid; i < NK * (DH / 16); i += NT) {
+    const int r = i / (DH / 16), c = (i % (DH / 16)) * 16;
+    const uint4 u = *reinterpret_cast<const uint4*>(src + r * (DH + 16) + c);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    uint32_t o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float lo = (float)(int8_t)(w[j / 2] >> (16 * (j % 2)));
+      const float hi = (float)(int8_t)(w[j / 2] >> (16 * (j % 2) + 8));
+      __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+      o[j] = *reinterpret_cast<uint32_t*>(&b);
+    }
+    __nv_bfloat16* d = dst + r * (DH + 8) + c;
+    *reinterpret_cast<uint4*>(d) = make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(d + 8) = make_uint4(o[4], o[5], o[6], o[7]);
+  }
+}
 
 // D(16 x 8) += A(16 x 16) B(16 x 8), A's rows 8-15 zero: a0 = row lane/4,
 // columns 2*(lane%4) + {0, 1}; a2 = the same row, columns + 8
@@ -378,13 +474,16 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-template <int DH, typename Keys>
+template <int DH, typename Keys, bool Q8>
 __global__ void __launch_bounds__(NT) decode_split_mma(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, float* __restrict__ part_acc,
-    float2* __restrict__ part_ml, const int* __restrict__ t, const Keys keys,
-    int H, int K, int split_keys, int n_split, float sm_scale) {
-  using S = SmemMma<DH>;
+    const __nv_bfloat16* __restrict__ q,
+    const std::conditional_t<Q8, int8_t, __nv_bfloat16>* __restrict__ k,
+    const std::conditional_t<Q8, int8_t, __nv_bfloat16>* __restrict__ v,
+    const float* __restrict__ kscale, const float* __restrict__ vscale,
+    float* __restrict__ part_acc, float2* __restrict__ part_ml,
+    const int* __restrict__ t, const Keys keys, int H, int K, int split_keys,
+    int n_split, float sm_scale) {
+  using S = SmemMma<DH, Q8>;
   constexpr int CH = DH / 8;             // 16-byte chunks per row
   constexpr int NW = NT / 32;            // warps, 16 keys each
   constexpr int NV = GMAX * DH / NT;     // output values per thread
@@ -428,26 +527,58 @@ __global__ void __launch_bounds__(NT) decode_split_mma(
     long r = -1;
     if (tid < NK && j0 + tid < j_end) r = slot.row(j0 + tid);
     __syncthreads();  // the previous chunk is consumed
-    if (tid < NK) sm.row[tid] = r;
+    if (tid < NK) {
+      sm.row[tid] = r;
+      if constexpr (Q8) {
+        sm.ks[tid] = r >= 0 ? __ldg(kscale + r * K + kh) : 0.f;
+        sm.vs[tid] = r >= 0 ? __ldg(vscale + r * K + kh) : 0.f;
+      }
+    }
     if (!__syncthreads_or(r >= 0)) continue;  // nothing to read here
 
     // stage K then V; a masked key's rows become zeros, unread
-    for (int i = tid; i < NK * CH; i += NT) {
-      const long rr = sm.row[i / CH];
-      cp_async16_or_zero(&sm.k[i / CH][(i % CH) * 8],
-                         k + ((rr < 0 ? 0 : rr) * K + kh) * DH + (i % CH) * 8,
-                         rr >= 0 ? 16 : 0);
+    if constexpr (Q8) {
+      constexpr int C8 = DH / 16;  // 16-byte chunks of an int8 row
+      for (int i = tid; i < NK * C8; i += NT) {
+        const long rr = sm.row[i / C8];
+        cp_async16_or_zero(&sm.k8[i / C8][(i % C8) * 16],
+                           k + ((rr < 0 ? 0 : rr) * K + kh) * DH +
+                               (i % C8) * 16,
+                           rr >= 0 ? 16 : 0);
+      }
+      cp_commit();
+      for (int i = tid; i < NK * C8; i += NT) {
+        const long rr = sm.row[i / C8];
+        cp_async16_or_zero(&sm.v8[i / C8][(i % C8) * 16],
+                           v + ((rr < 0 ? 0 : rr) * K + kh) * DH +
+                               (i % C8) * 16,
+                           rr >= 0 ? 16 : 0);
+      }
+      cp_commit();
+    } else {
+      for (int i = tid; i < NK * CH; i += NT) {
+        const long rr = sm.row[i / CH];
+        cp_async16_or_zero(&sm.k[i / CH][(i % CH) * 8],
+                           k + ((rr < 0 ? 0 : rr) * K + kh) * DH +
+                               (i % CH) * 8,
+                           rr >= 0 ? 16 : 0);
+      }
+      cp_commit();
+      for (int i = tid; i < NK * CH; i += NT) {
+        const long rr = sm.row[i / CH];
+        cp_async16_or_zero(&sm.v[i / CH][(i % CH) * 8],
+                           v + ((rr < 0 ? 0 : rr) * K + kh) * DH +
+                               (i % CH) * 8,
+                           rr >= 0 ? 16 : 0);
+      }
+      cp_commit();
     }
-    cp_commit();
-    for (int i = tid; i < NK * CH; i += NT) {
-      const long rr = sm.row[i / CH];
-      cp_async16_or_zero(&sm.v[i / CH][(i % CH) * 8],
-                         v + ((rr < 0 ? 0 : rr) * K + kh) * DH + (i % CH) * 8,
-                         rr >= 0 ? 16 : 0);
-    }
-    cp_commit();
     cp_wait<1>();  // this thread's K copies
     __syncthreads();
+    if constexpr (Q8) {  // int8 K -> bf16
+      widen_rows<DH>(&sm.k8[0][0], &sm.k[0][0], tid);
+      __syncthreads();
+    }
 
     // S = Q K^T: this warp's keys 16w + 8j + {0..7}, B column gq
     float sc[2][4];
@@ -456,7 +587,7 @@ __global__ void __launch_bounds__(NT) decode_split_mma(
       sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
       const __nv_bfloat16* kr = &sm.k[16 * w + 8 * j + gq][2 * tq];
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)  // int8 K: dequantize here
+      for (int kk = 0; kk < DH / 16; ++kk)
         mma16816(sc[j], qa[kk][0], qa[kk][1],
                  *reinterpret_cast<const uint32_t*>(kr + 16 * kk),
                  *reinterpret_cast<const uint32_t*>(kr + 16 * kk + 8));
@@ -467,8 +598,12 @@ __global__ void __launch_bounds__(NT) decode_split_mma(
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        x[j][e] = sm.row[16 * w + 8 * j + 2 * tq + e] >= 0
-                      ? sc[j][e] * sm_scale : -INFINITY;
+        const int kj = 16 * w + 8 * j + 2 * tq + e;
+        if constexpr (Q8)  // s = kscale * (q . k^) * sm_scale
+          x[j][e] = sm.row[kj] >= 0 ? sc[j][e] * sm.ks[kj] * sm_scale
+                                    : -INFINITY;
+        else
+          x[j][e] = sm.row[kj] >= 0 ? sc[j][e] * sm_scale : -INFINITY;
         mx = fmaxf(mx, x[j][e]);
       }
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -501,14 +636,25 @@ __global__ void __launch_bounds__(NT) decode_split_mma(
       for (int g = 0; g < GMAX; ++g) sm.alpha[g] = alpha[g];
     cp_wait<0>();  // this thread's V copies
     __syncthreads();
+    if constexpr (Q8) {  // int8 V -> bf16
+      widen_rows<DH>(&sm.v8[0][0], &sm.v[0][0], tid);
+      __syncthreads();
+    }
 
     // O_w = P V over this warp's 16 keys, two 8-column tiles per ldmatrix
-    const uint32_t pa0 = pack2(x[0][0], x[0][1]), pa2 = pack2(x[1][0],
-                                                              x[1][1]);
+    uint32_t pa0, pa2;
+    if constexpr (Q8) {  // vscale folds into P; the row sum keeps p
+      const float* vs = &sm.vs[16 * w + 2 * tq];
+      pa0 = pack2(x[0][0] * vs[0], x[0][1] * vs[1]);
+      pa2 = pack2(x[1][0] * vs[8], x[1][1] * vs[9]);
+    } else {
+      pa0 = pack2(x[0][0], x[0][1]);
+      pa2 = pack2(x[1][0], x[1][1]);
+    }
     float o[DH / 8][4];
 #pragma unroll
     for (int dt = 0; dt < DH / 8; dt += 2) {
-      uint32_t bv[4];  // int8 V: dequantize here
+      uint32_t bv[4];
       ldsm_x4_trans(bv, &sm.v[16 * w + ((lane >> 3) & 1) * 8 + (lane & 7)]
                              [8 * (dt + (lane >> 4))]);
       o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
@@ -587,50 +733,68 @@ cudaError_t start(F fn, int smem, dim3 grid, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-template <typename T, int DH, typename Keys>
-int launch(const void* q, const void* k, const void* v, void* out,
-           float* part_acc, float* part_ml, const int* t, const Keys& keys,
-           int B, int H, int K, int split_keys, int n_split, float sm_scale,
-           cudaStream_t stream) {
+// T: the query's (and the output's) type; TKV: K and V's storage type.
+template <typename T, typename TKV, int DH, typename Keys>
+int launch(const void* q, const void* k, const void* v, const float* ks,
+           const float* vs, void* out, float* part_acc, float* part_ml,
+           const int* t, const Keys& keys, int B, int H, int K,
+           int split_keys, int n_split, float sm_scale, cudaStream_t stream) {
   const dim3 grid(K, B, n_split * ((H / K + GMAX - 1) / GMAX));
+  constexpr bool Q8 = std::is_same<TKV, int8_t>::value;
   cudaError_t e;
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    e = start(decode_split_mma<DH, Keys>, (int)sizeof(SmemMma<DH>), grid,
-              stream, (const T*)q, (const T*)k, (const T*)v, part_acc,
-              (float2*)part_ml, t, keys, H, K, split_keys, n_split,
-              sm_scale);
+    e = start(decode_split_mma<DH, Keys, Q8>, (int)sizeof(SmemMma<DH, Q8>),
+              grid, stream, (const T*)q, (const TKV*)k, (const TKV*)v, ks,
+              vs, part_acc, (float2*)part_ml, t, keys, H, K, split_keys,
+              n_split, sm_scale);
   else
-    e = start(decode_split<T, DH, Keys>, (int)sizeof(Smem<T, DH>), grid,
-              stream, (const T*)q, (const T*)k, (const T*)v, part_acc,
-              (float2*)part_ml, t, keys, H, K, split_keys, n_split,
-              sm_scale);
+    e = start(decode_split<T, TKV, DH, Keys>, (int)sizeof(Smem<TKV, DH>),
+              grid, stream, (const T*)q, (const TKV*)k, (const TKV*)v, ks,
+              vs, part_acc, (float2*)part_ml, t, keys, H, K, split_keys,
+              n_split, sm_scale);
   if (e != cudaSuccess) return (int)e;
   decode_merge<T, DH><<<dim3(H, B), DH, 0, stream>>>(
       part_acc, (const float2*)part_ml, (T*)out, n_split);
   return (int)cudaGetLastError();
 }
 
+// (query type, K/V storage type): f32 over f32, bf16 or int8; bf16 over
+// bf16 or int8
 template <typename Keys>
-int dispatch(int dtype, int dh, const void* q, const void* k, const void* v,
+int dispatch(int dtype, int kv_dtype, int dh, const void* q, const void* k,
+             const void* v, const void* kscale, const void* vscale,
              void* out, void* scratch, const void* t, const Keys& keys,
              int B, int H, int K, int split_keys, int n_split, float sm_scale,
              void* stream) {
   const int* tt = (const int*)t;
+  const float* ks = (const float*)kscale;
+  const float* vs = (const float*)vscale;
   float* pa = (float*)scratch;                    // (B, H, n_split, Dh)
   float* pm = pa + (long)B * H * n_split * dh;    // (B, H, n_split, 2)
   cudaStream_t s = (cudaStream_t)stream;
-#define DECODE_DH(T)                                                          \
+  if ((kv_dtype == rt::DT_I8) != (ks != nullptr && vs != nullptr))
+    return (int)cudaErrorInvalidValue;
+#define DECODE_DH(T, TKV)                                                     \
   switch (dh) {                                                               \
-    case 32: return launch<T, 32>(q, k, v, out, pa, pm, tt, keys, B, H, K,    \
-                                  split_keys, n_split, sm_scale, s);          \
-    case 64: return launch<T, 64>(q, k, v, out, pa, pm, tt, keys, B, H, K,    \
-                                  split_keys, n_split, sm_scale, s);          \
-    case 128: return launch<T, 128>(q, k, v, out, pa, pm, tt, keys, B, H, K,  \
-                                    split_keys, n_split, sm_scale, s);        \
+    case 32: return launch<T, TKV, 32>(q, k, v, ks, vs, out, pa, pm, tt,      \
+                                       keys, B, H, K, split_keys, n_split,    \
+                                       sm_scale, s);                          \
+    case 64: return launch<T, TKV, 64>(q, k, v, ks, vs, out, pa, pm, tt,      \
+                                       keys, B, H, K, split_keys, n_split,    \
+                                       sm_scale, s);                          \
+    case 128: return launch<T, TKV, 128>(q, k, v, ks, vs, out, pa, pm, tt,    \
+                                         keys, B, H, K, split_keys, n_split,  \
+                                         sm_scale, s);                        \
     default: return (int)cudaErrorInvalidValue;                               \
   }
-  if (dtype == rt::DT_F32) DECODE_DH(float)
-  if (dtype == rt::DT_BF16) DECODE_DH(__nv_bfloat16)
+  if (dtype == rt::DT_F32 && kv_dtype == rt::DT_F32) DECODE_DH(float, float)
+  if (dtype == rt::DT_F32 && kv_dtype == rt::DT_BF16)
+    DECODE_DH(float, __nv_bfloat16)
+  if (dtype == rt::DT_F32 && kv_dtype == rt::DT_I8) DECODE_DH(float, int8_t)
+  if (dtype == rt::DT_BF16 && kv_dtype == rt::DT_BF16)
+    DECODE_DH(__nv_bfloat16, __nv_bfloat16)
+  if (dtype == rt::DT_BF16 && kv_dtype == rt::DT_I8)
+    DECODE_DH(__nv_bfloat16, int8_t)
 #undef DECODE_DH
   return (int)cudaErrorInvalidValue;
 }
@@ -638,25 +802,31 @@ int dispatch(int dtype, int dh, const void* q, const void* k, const void* v,
 }  // namespace
 
 // C entry points bound with ctypes. Each returns the first failing launch's
-// cudaError_t, or 0. scratch: B*H*n_split*(Dh + 2) f32, the splits'
-// partial outputs (B,H,n_split,Dh) then their (max, sum) (B,H,n_split,2).
+// cudaError_t, or 0. dtype: q's (and out's) rt::DT_*; kv_dtype: K and V's
+// storage, with kscale / vscale the f32 scales of int8 K/V (ring (B,L,K),
+// paged (N,ps,K)), else NULL. scratch: B*H*n_split*(Dh + 2) f32, the
+// splits' partial outputs (B,H,n_split,Dh) then their (max, sum)
+// (B,H,n_split,2).
 extern "C" int decode_attention_launch(
-    int dtype, int dh, const void* q, const void* k, const void* v, void* out,
+    int dtype, int kv_dtype, int dh, const void* q, const void* k,
+    const void* v, const void* kscale, const void* vscale, void* out,
     void* scratch, const void* kv_pos, const void* t, const void* kv_valid,
     int B, int L, int H, int K, int window, int split_keys, int n_split,
     float sm_scale, void* stream) {
   const RingKeys keys{(const int*)kv_pos, (const uint8_t*)kv_valid, L,
                       window};
-  return dispatch(dtype, dh, q, k, v, out, scratch, t, keys, B, H, K,
-                  split_keys, n_split, sm_scale, stream);
+  return dispatch(dtype, kv_dtype, dh, q, k, v, kscale, vscale, out, scratch,
+                  t, keys, B, H, K, split_keys, n_split, sm_scale, stream);
 }
 
 extern "C" int paged_decode_attention_launch(
-    int dtype, int dh, const void* q, const void* kp, const void* vp,
-    void* out, void* scratch, const void* table, const void* t,
-    const void* pvalid, int B, int P, int ps, int H, int K, int split_keys,
-    int n_split, float sm_scale, void* stream) {
+    int dtype, int kv_dtype, int dh, const void* q, const void* kp,
+    const void* vp, const void* kscale, const void* vscale, void* out,
+    void* scratch, const void* table, const void* t, const void* pvalid,
+    int B, int P, int ps, int H, int K, int split_keys, int n_split,
+    float sm_scale, void* stream) {
   const PagedKeys keys{(const int*)table, (const uint8_t*)pvalid, P, ps};
-  return dispatch(dtype, dh, q, kp, vp, out, scratch, t, keys, B, H, K,
-                  split_keys, n_split, sm_scale, stream);
+  return dispatch(dtype, kv_dtype, dh, q, kp, vp, kscale, vscale, out,
+                  scratch, t, keys, B, H, K, split_keys, n_split, sm_scale,
+                  stream);
 }

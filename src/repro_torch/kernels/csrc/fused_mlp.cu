@@ -74,6 +74,23 @@
 //   body: one block per (64 buffer rows, 64 columns), x / H rows and weight
 //   tiles staged through shared memory in f32 per 16-deep step, f32 FMAs,
 //   H in an f32 scratch.
+//
+// Weights in another storage type than x (the serving engine's
+// weight_dtype; dense and grouped modes): bf16 weights of an f32 model, or
+// int8 codes with f32 per-output-channel scales (dense wi/wg (F,), wo (D,);
+// grouped (E,Fe) and (E,D), expert e's row). The weights are read in their
+// storage type (an int8 weight is half a bf16 weight's bytes, which is what
+// bounds a prefill chunk) and widened in registers as the tile is staged
+// (exact: |q| <= 127). A per-output-channel scale commutes with the
+// reduction, x (q * s) = (x q) * s, so the scales are applied in the
+// epilogues: on the up and gate accumulators before the activation, and on
+// the down accumulator before the token weight and the store. int8 weights
+// under bf16 x at widths that are multiples of 64 (Qwen2-7B, the native
+// MoE) run the tensor-core body's int8 form (below); f32 x with int8 or
+// bf16 weights, and the toy widths, the CUDA-core body, which widens the
+// weights in registers as it stages them (kernels/ops.py::mlp_plan).
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -95,6 +112,12 @@ struct Experts {
   long w_es, w_rs, wo_es, wo_rs;
 };
 
+// f32 per-output-channel scales of int8 weights (NULL otherwise): wi and wg
+// (F per expert), wo (D per expert); expert e's start at e * F / e * D.
+struct Scales {
+  const float *wi, *wg, *wo;
+};
+
 // Row of x (up) or out (down) that buffer row m0 + r maps to: the gather
 // index in routed mode, the row itself otherwise.
 __device__ __forceinline__ void load_rows(int* rows, const int* gidx, int g,
@@ -112,12 +135,12 @@ __device__ __forceinline__ void load_rows(int* rows, const int* gidx, int g,
 // At least 4 blocks per SM: the grouped mode's offsets would otherwise take
 // the compiler to 80 registers (3 blocks per SM) in the dense mode too,
 // ~2.5 % slower on the H100.
-template <typename T, bool GROUPED>
+template <typename T, typename TW, bool GROUPED>
 __global__ void __launch_bounds__(NT, 4) mlp_up(
     const T* __restrict__ x, const int* __restrict__ gidx,
-    const T* __restrict__ wi, const T* __restrict__ wg, Experts ex,
-    float* __restrict__ hbuf, const int* __restrict__ cnt, int T_, int S,
-    int D, int F, int act) {
+    const TW* __restrict__ wi, const TW* __restrict__ wg, Experts ex,
+    Scales sc, float* __restrict__ hbuf, const int* __restrict__ cnt,
+    int T_, int S, int D, int F, int act) {
   __shared__ float Xs[BK][BM + PAD];  // transposed x tile
   __shared__ float Wis[BK][BN + PAD];
   __shared__ float Wgs[BK][BN + PAD];
@@ -128,8 +151,8 @@ __global__ void __launch_bounds__(NT, 4) mlp_up(
   const T* xb = x + (long)g * S * D;
   const long w_off = GROUPED ? (long)(g % ex.E) * ex.w_es : 0;
   const long w_rs = GROUPED ? ex.w_rs : F;
-  const T* wie = wi + w_off;
-  const T* wge = gated ? wg + w_off : nullptr;
+  const TW* wie = wi + w_off;
+  const TW* wge = gated ? wg + w_off : nullptr;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   load_rows(rows, gidx, g, m0, T_, S);
   __syncthreads();
@@ -176,6 +199,7 @@ __global__ void __launch_bounds__(NT, 4) mlp_up(
     __syncthreads();
   }
 
+  const long s_off = GROUPED ? (long)(g % ex.E) * F : 0;  // expert e's scales
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = m0 + ty + 16 * i;
@@ -184,6 +208,10 @@ __global__ void __launch_bounds__(NT, 4) mlp_up(
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= F) continue;
+      if constexpr (std::is_same<TW, int8_t>::value) {  // x (q s) = (x q) s
+        au[i][j] *= sc.wi[s_off + n];
+        if (gated) ag[i][j] *= sc.wg[s_off + n];
+      }
       float hv;
       if (gated)
         hv = (act == 0 ? rt::silu(ag[i][j]) : rt::gelu_tanh(ag[i][j])) * au[i][j];
@@ -194,12 +222,12 @@ __global__ void __launch_bounds__(NT, 4) mlp_up(
   }
 }
 
-template <typename T, bool GROUPED>
+template <typename T, typename TW, bool GROUPED>
 __global__ void __launch_bounds__(NT) mlp_down(
     const float* __restrict__ hbuf, const int* __restrict__ gidx,
-    const T* __restrict__ wo, Experts ex, const float* __restrict__ tw,
-    const int* __restrict__ cnt, T* __restrict__ out, int T_, int S, int D,
-    int F) {
+    const TW* __restrict__ wo, Experts ex, Scales sc,
+    const float* __restrict__ tw, const int* __restrict__ cnt,
+    T* __restrict__ out, int T_, int S, int D, int F) {
   __shared__ float Hs[BK][BM + PAD];  // transposed hidden tile
   __shared__ float Ws[BK][BN + PAD];
   __shared__ int rows[BM];
@@ -220,7 +248,10 @@ __global__ void __launch_bounds__(NT) mlp_down(
     return;
   }
   const float* hb = hbuf + (long)g * T_ * F;
-  const T* woe = GROUPED ? wo + (long)(g % ex.E) * ex.wo_es : wo;
+  const TW* woe = GROUPED ? wo + (long)(g % ex.E) * ex.wo_es : wo;
+  constexpr bool Q8 = std::is_same<TW, int8_t>::value;
+  const float* wos = Q8 ? sc.wo + (GROUPED ? (long)(g % ex.E) * D : 0)
+                        : nullptr;
   const long wo_rs = GROUPED ? ex.wo_rs : D;
   load_rows(rows, gidx, g, m0, T_, S);
   float acc[4][4];
@@ -266,43 +297,60 @@ __global__ void __launch_bounds__(NT) mlp_down(
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= D) continue;
-      ob[orow * D + n] = rt::from_f<T>(r < c ? acc[i][j] * wr : 0.f);
+      float a = acc[i][j];
+      if constexpr (Q8) a *= wos[n];  // int8 weights: (h q) s
+      ob[orow * D + n] = rt::from_f<T>(r < c ? a * wr : 0.f);
     }
   }
 }
 
-// G groups (grid z), each with T_ buffer rows.
-template <typename T, bool GROUPED>
+// G groups (grid z), each with T_ buffer rows; T: x's and out's type, TW:
+// the weights' storage type.
+template <typename T, typename TW, bool GROUPED>
 int launch(const void* x, const int* gidx, const void* wi, const void* wg,
-           const void* wo, const Experts& ex, const float* tw, const int* cnt,
-           float* hbuf, void* out, int G, int T_, int S, int D, int F,
-           int act, cudaStream_t stream) {
+           const void* wo, const Experts& ex, const Scales& sc,
+           const float* tw, const int* cnt, float* hbuf, void* out, int G,
+           int T_, int S, int D, int F, int act, cudaStream_t stream) {
   const int mt = (T_ + BM - 1) / BM;
   if (G > 65535 || mt > 65535) return (int)cudaErrorInvalidConfiguration;
-  mlp_up<T, GROUPED><<<dim3((F + BN - 1) / BN, mt, G), NT, 0, stream>>>(
-      (const T*)x, gidx, (const T*)wi, (const T*)wg, ex, hbuf, cnt, T_, S, D,
-      F, act);
+  mlp_up<T, TW, GROUPED><<<dim3((F + BN - 1) / BN, mt, G), NT, 0, stream>>>(
+      (const T*)x, gidx, (const TW*)wi, (const TW*)wg, ex, sc, hbuf, cnt, T_,
+      S, D, F, act);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  mlp_down<T, GROUPED><<<dim3((D + BN - 1) / BN, mt, G), NT, 0, stream>>>(
-      hbuf, gidx, (const T*)wo, ex, tw, cnt, (T*)out, T_, S, D, F);
+  mlp_down<T, TW, GROUPED><<<dim3((D + BN - 1) / BN, mt, G), NT, 0,
+                              stream>>>(hbuf, gidx, (const TW*)wo, ex, sc, tw,
+                                        cnt, (T*)out, T_, S, D, F);
   return (int)cudaGetLastError();
 }
 
+// (x type, weight storage): f32 over f32, bf16 or int8; bf16 over bf16 or
+// int8; int8 weights come with their three scales (wg's when gated)
 template <bool GROUPED>
-int dispatch(int dtype, const void* x, const int* gidx, const void* wi,
-             const void* wg, const void* wo, const Experts& ex,
-             const void* tw, const void* cnt, void* hbuf, void* out, int G,
-             int T_, int S, int D, int F, int act, cudaStream_t s) {
+int dispatch(int dtype, int w_dtype, const void* x, const int* gidx,
+             const void* wi, const void* wg, const void* wo,
+             const Experts& ex, const Scales& sc, const void* tw,
+             const void* cnt, void* hbuf, void* out, int G, int T_, int S,
+             int D, int F, int act, cudaStream_t s) {
   const float* w = (const float*)tw;
   const int* c = (const int*)cnt;
   float* h = (float*)hbuf;
-  if (dtype == rt::DT_F32)
-    return launch<float, GROUPED>(x, gidx, wi, wg, wo, ex, w, c, h, out, G,
-                                  T_, S, D, F, act, s);
-  if (dtype == rt::DT_BF16)
-    return launch<__nv_bfloat16, GROUPED>(x, gidx, wi, wg, wo, ex, w, c, h,
-                                          out, G, T_, S, D, F, act, s);
+  if ((w_dtype == rt::DT_I8) !=
+      (sc.wi != nullptr && sc.wo != nullptr &&
+       (wg == nullptr || sc.wg != nullptr)))
+    return (int)cudaErrorInvalidValue;
+#define MLP_LAUNCH(T, TW)                                                     \
+  return launch<T, TW, GROUPED>(x, gidx, wi, wg, wo, ex, sc, w, c, h, out, G, \
+                                T_, S, D, F, act, s)
+  if (dtype == rt::DT_F32 && w_dtype == rt::DT_F32) MLP_LAUNCH(float, float);
+  if (dtype == rt::DT_F32 && w_dtype == rt::DT_BF16)
+    MLP_LAUNCH(float, __nv_bfloat16);
+  if (dtype == rt::DT_F32 && w_dtype == rt::DT_I8) MLP_LAUNCH(float, int8_t);
+  if (dtype == rt::DT_BF16 && w_dtype == rt::DT_BF16)
+    MLP_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (dtype == rt::DT_BF16 && w_dtype == rt::DT_I8)
+    MLP_LAUNCH(__nv_bfloat16, int8_t);
+#undef MLP_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -357,6 +405,20 @@ int dispatch(int dtype, const void* x, const int* gidx, const void* wi,
 // * Block order: one grid axis over (expert, column tile, batch row, row
 //   tile), row tile fastest (for one expert, as in the dense and routed
 //   modes: row tiles, then column tiles).
+// * int8 weights (Q8: the dense and grouped modes of a bf16 model served
+//   with weight_dtype int8): the TMA ring loads each B tile as int8, a
+//   [64 k][128 columns] box of 8 KB (half the bf16 tile's bytes) landed
+//   unswizzled in the second half of the stage's bf16 B buffer. Once the
+//   stage is full the consumer warpgroups widen it, matrix by matrix, into
+//   the stage's bf16 buffer in the 128-byte-swizzled layout wgmma reads
+//   (chunk c of row k at c ^ (k & 7), as TMA's swizzle lays it out): each
+//   thread reads its 8-byte pieces into registers, a named barrier of the
+//   consumers, the exact widening stores (|q| <= 127), a proxy fence and a
+//   second barrier; then the stage's wgmma run as for bf16. The stage is
+//   released after its products, as before, so the bf16 buffer it writes
+//   is free. The per-output-channel scales are applied in the epilogues:
+//   on the up and gate accumulators before the activation, on the down
+//   accumulator before the store or the partials (x (q s) = (x q) s).
 // Tile shape and split come from the wrapper (kernels/ops.py::mlp_plan)
 // and depend on the shape only; every output element is summed
 // in one fixed order, no atomics, and a row's products read only that row
@@ -401,6 +463,9 @@ struct Params {
   int E, bcs, brs, nt;
   bf16* out;
   const float* tw;
+  // int8 weights: the f32 scales of this phase's B matrices (up: wi, wg;
+  // down: wo), N per expert
+  const float* bs[2];
 };
 
 // Where a phase's B matrix lies (wi and wg share one): a 2-D map of `rows`
@@ -440,10 +505,57 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+// Named barrier 1 over the block's `n` consumer threads (the producer
+// warps do not take part).
+__device__ __forceinline__ void consumer_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+// Q8: widens stage buffer `b` (its first `nb` matrices of two boxes; each
+// matrix's int8 [64 k][128 columns] tile in its second box) into the bf16
+// boxes, 128-byte swizzled; thread `ct` of the `CT` consumers. Ends with
+// the tiles complete and visible to wgmma.
+template <int CT, int NB>
+__device__ __forceinline__ void widen_b(bf16 (*b)[2][BOX], int nb, int ct) {
+  constexpr int IT = 64 * 16 / CT;  // 8-element pieces per thread a matrix
+#pragma unroll
+  for (int m = 0; m < NB; ++m) {
+    if (m >= nb) break;
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(b[m][1]);
+    uint2 v[IT];
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int j = ct + it * CT;  // row j / 16, piece j % 16
+      v[it] = *reinterpret_cast<const uint2*>(src + (j >> 4) * 128 +
+                                              (j & 15) * 8);
+    }
+    consumer_sync(CT);  // every piece of matrix m read before any store
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int j = ct + it * CT, r = j >> 4, c = j & 15;
+      const uint32_t w[2] = {v[it].x, v[it].y};
+      uint32_t o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t word = w[e / 2] >> (16 * (e % 2));
+        __nv_bfloat162 h = __floats2bfloat162_rn((float)(int8_t)word,
+                                                 (float)(int8_t)(word >> 8));
+        o[e] = *reinterpret_cast<uint32_t*>(&h);
+      }
+      *reinterpret_cast<uint4*>(b[m][c >> 3] + r * 64 +
+                                (((c & 7) ^ (r & 7)) << 3)) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  }
+  fence_proxy_async();  // the stores, for wgmma
+  consumer_sync(CT);
+}
+
 // Grid: (G * mt row tiles * N / 128 column tiles, 1, split). ta: the A
 // map, 3-D (K, T_, G); tb0 / tb1: the B maps, 2-D over every expert's
-// (N, K) tile (WMap; tb1: wg, gated up only).
-template <bool UP, int WGS>
+// (N, K) tile (WMap; tb1: wg, gated up only); int8 B maps (Q8) have
+// [64 k][128 columns] unswizzled boxes.
+template <bool UP, int WGS, bool Q8>
 __global__ void __launch_bounds__(WGS * 128 + producer_warps<WGS>() * 32,
                                   WGS == 1 ? 2 : 1) mlp_tc(
     const __grid_constant__ CUtensorMap ta,
@@ -506,7 +618,8 @@ __global__ void __launch_bounds__(WGS * 128 + producer_warps<WGS>() * 32,
   if (tid >= WGS * 128) {  // the producer warps
     const int lane = tid - WGS * 128;  // 0 .. PT - 1
     if (!routed && lane >= 32) return;  // TMA needs one thread
-    const int tx = (routed ? 0 : BM * 64 * 2) + (two ? 2 : 1) * 2 * BOX * 2;
+    const int tx = (routed ? 0 : BM * 64 * 2) +
+                   (two ? 2 : 1) * (Q8 ? BOX * 2 : 2 * BOX * 2);
     const bf16* xb = routed ? p.x + (long)g * p.S_ * p.D : nullptr;
     const int bn = n0 + ex * p.bcs, bk = ex * p.brs;  // this expert's tile
     for (int i = 0; i < nk; ++i) {
@@ -516,12 +629,18 @@ __global__ void __launch_bounds__(WGS * 128 + producer_warps<WGS>() * 32,
       if (lane == 0) {
         mbar_expect_tx(&sm.full[s], tx);
         if (!routed) tma_load(sm.a[s][0], &ta, &sm.full[s], k0, m0, g);
-        tma_load(sm.b[s][0][0], &tb0, &sm.full[s], bn, bk + k0);
-        tma_load(sm.b[s][0][1], &tb0, &sm.full[s], bn + 64, bk + k0);
-        if constexpr (UP) {
-          if (two) {
-            tma_load(sm.b[s][1][0], &tb1, &sm.full[s], bn, bk + k0);
-            tma_load(sm.b[s][1][1], &tb1, &sm.full[s], bn + 64, bk + k0);
+        if constexpr (Q8) {  // one int8 box per matrix, in its second box
+          tma_load(sm.b[s][0][1], &tb0, &sm.full[s], bn, bk + k0);
+          if (UP && two)
+            tma_load(sm.b[s][1][1], &tb1, &sm.full[s], bn, bk + k0);
+        } else {
+          tma_load(sm.b[s][0][0], &tb0, &sm.full[s], bn, bk + k0);
+          tma_load(sm.b[s][0][1], &tb0, &sm.full[s], bn + 64, bk + k0);
+          if constexpr (UP) {
+            if (two) {
+              tma_load(sm.b[s][1][0], &tb1, &sm.full[s], bn, bk + k0);
+              tma_load(sm.b[s][1][1], &tb1, &sm.full[s], bn + 64, bk + k0);
+            }
           }
         }
       }
@@ -553,6 +672,7 @@ __global__ void __launch_bounds__(WGS * 128 + producer_warps<WGS>() * 32,
     const int s = i % S;
     mbar_wait(&sm.full[s], (i / S) & 1);
     if (routed) fence_proxy_async();  // the gathered rows, for wgmma
+    if constexpr (Q8) widen_b<WGS * 128, Sm::NB>(sm.b[s], two ? 2 : 1, tid);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -576,6 +696,24 @@ __global__ void __launch_bounds__(WGS * 128 + producer_warps<WGS>() * 32,
   // this thread's rows r0 and r0 + 8, columns 8 j + c0 + {0, 1}
   const int r0 = m0 + wg * 64 + wq * 16 + (lane >> 2);
   const int c0 = n0 + (lane & 3) * 2;
+  if constexpr (Q8) {  // per-output-channel scales: (x q) s
+    const int N = UP ? p.F : p.D;
+    const float* s0 = p.bs[0] + (long)ex * N;
+    const float* s1 = UP && two ? p.bs[1] + (long)ex * N : nullptr;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = c0 + j * 8 + e;
+        if (n >= N) continue;
+        const float a0 = s0[n];
+        acc[j * 4 + e] *= a0, acc[j * 4 + 2 + e] *= a0;
+        if (UP && two) {
+          const float a1 = s1[n];
+          acg[j * 4 + e] *= a1, acg[j * 4 + 2 + e] *= a1;
+        }
+      }
+  }
   if constexpr (UP) {
     bf16* hb = p.h + (long)g * p.T_ * p.F;
 #pragma unroll
@@ -675,16 +813,17 @@ __global__ void __launch_bounds__(256) mlp_finalize(
                  *reinterpret_cast<uint32_t*>(&hi));
 }
 
-template <bool UP, int WGS>
+template <bool UP, int WGS, bool Q8>
 int launch_phase(const CUtensorMap& ta, const CUtensorMap& tb0,
                  const CUtensorMap& tb1, const Params& p, dim3 grid,
                  cudaStream_t stream) {
   const int smem = (int)sizeof(Smem<UP, WGS>) + 1024;  // + alignment slack
   cudaError_t e = cudaFuncSetAttribute(
-      mlp_tc<UP, WGS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      mlp_tc<UP, WGS, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
-  mlp_tc<UP, WGS><<<grid, WGS * 128 + producer_warps<WGS>() * 32, smem,
-                    stream>>>(ta, tb0, tb1, p);
+  mlp_tc<UP, WGS, Q8><<<grid, WGS * 128 + producer_warps<WGS>() * 32, smem,
+                        stream>>>(ta, tb0, tb1, p);
   return (int)cudaGetLastError();
 }
 
@@ -701,51 +840,61 @@ CUresult map3(EncodeTiled enc, CUtensorMap* map, const void* base, int cols,
 }
 
 // The map of a bf16 (rows, cols) weight, cols contiguous: 2-D, boxes of 64
-// columns x 64 rows.
+// columns x 64 rows. int8 (q8): boxes of 128 columns x 64 rows (one B
+// tile), unswizzled.
 CUresult map2(EncodeTiled enc, CUtensorMap* map, const void* base, int cols,
-              int rows) {
+              int rows, bool q8 = false) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, 64};
-  return make_map_bf16(enc, map, base, 2, dims, strides, box);
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (q8 ? 1 : 2)};
+  if (!q8) {
+    const cuuint32_t box[2] = {64, 64};
+    return make_map_bf16(enc, map, base, 2, dims, strides, box);
+  }
+  const cuuint32_t box[2] = {128, 64}, one[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+             dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // G groups of T_ buffer rows; expert e = g % E of group g (E = 1 but in
-// grouped mode) reads its B tiles through wim (wi, wg) and wom (wo).
-template <int WGS>
-int launch(const bf16* x, const int* gidx, const bf16* wi, const bf16* wg,
-           const bf16* wo, const float* tw, const int* cnt, bf16* h,
-           float* part, bf16* out, int G, int T_, int S_, int D, int F,
-           int act, int split, int E, const WMap& wim, const WMap& wom,
-           cudaStream_t stream) {
+// grouped mode) reads its B tiles through wim (wi, wg) and wom (wo). Q8:
+// the weights are int8 with f32 scales sc = {wi, wg, wo} (N per expert).
+template <int WGS, bool Q8>
+int launch(const bf16* x, const int* gidx, const void* wi, const void* wg,
+           const void* wo, const float* const* sc, const float* tw,
+           const int* cnt, bf16* h, float* part, bf16* out, int G, int T_,
+           int S_, int D, int F, int act, int split, int E, const WMap& wim,
+           const WMap& wom, cudaStream_t stream) {
   constexpr int BM = 64 * WGS;
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
   CUtensorMap mx, mwi, mwg, mh, mwo;
-  CUresult r = map2(enc, &mwi, wi, wim.cols, wim.rows);
+  CUresult r = map2(enc, &mwi, wi, wim.cols, wim.rows, Q8);
   if (r == CUDA_SUCCESS && wg != nullptr)
-    r = map2(enc, &mwg, wg, wim.cols, wim.rows);
+    r = map2(enc, &mwg, wg, wim.cols, wim.rows, Q8);
   if (r == CUDA_SUCCESS && gidx == nullptr)
     r = map3(enc, &mx, x, D, T_, G, BM);
   if (r == CUDA_SUCCESS) r = map3(enc, &mh, h, F, T_, G, BM);
-  if (r == CUDA_SUCCESS) r = map2(enc, &mwo, wo, wom.cols, wom.rows);
+  if (r == CUDA_SUCCESS) r = map2(enc, &mwo, wo, wom.cols, wom.rows, Q8);
   if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
   if (wg == nullptr) mwg = mwi;   // unread
   if (gidx != nullptr) mx = mwi;  // unread: the producer gathers x rows
   const int mt = (T_ + BM - 1) / BM;
   Params p{x, gidx, cnt, h, part, G, T_, S_, D, F, mt, act,
            wg != nullptr ? 1 : 0, 1, E, wim.cs, wim.rs, (F + BN - 1) / BN,
-           nullptr, nullptr};
+           nullptr, nullptr, {Q8 ? sc[0] : nullptr, Q8 ? sc[1] : nullptr}};
   // one grid axis over every (expert, column tile, batch row, row tile)
-  int e = launch_phase<true, WGS>(mx, mwi, mwg, p, dim3(G * mt * p.nt),
-                                  stream);
+  int e = launch_phase<true, WGS, Q8>(mx, mwi, mwg, p, dim3(G * mt * p.nt),
+                                      stream);
   if (e != 0) return e;
   p.x = nullptr, p.gidx = nullptr, p.split = split;
   p.bcs = wom.cs, p.brs = wom.rs, p.nt = (D + BN - 1) / BN;
+  p.bs[0] = Q8 ? sc[2] : nullptr, p.bs[1] = nullptr;
   // one part and no scatter: the down phase stores the output itself
   if (split == 1 && gidx == nullptr) p.out = out, p.tw = tw;
-  e = launch_phase<false, WGS>(mh, mwo, mwo, p,
-                               dim3(G * mt * p.nt, 1, split), stream);
+  e = launch_phase<false, WGS, Q8>(mh, mwo, mwo, p,
+                                   dim3(G * mt * p.nt, 1, split), stream);
   if (e != 0 || p.out != nullptr) return e;
   const long n = (long)G * T_ * (D / 4);
   mlp_finalize<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
@@ -760,14 +909,20 @@ int launch(const bf16* x, const int* gidx, const bf16* wi, const bf16* wg,
 // C entry points bound with ctypes: both phases on `stream`; `hbuf` is the
 // caller's (B*T*F, B*Kb*F or B*E*C*Fe) f32 scratch. act: 0 = silu, 1 =
 // tanh-GELU; wg == NULL for an ungated MLP; tw == NULL for unit token
-// weights. Each returns the launches' cudaError_t.
-extern "C" int fused_mlp_launch(int dtype, const void* x, const void* wi,
-                                const void* wg, const void* wo,
+// weights. dtype: x's (and out's) rt::DT_*; w_dtype: the weights' storage,
+// with wi_s / wg_s / wo_s their f32 scales when int8, else NULL. Each
+// returns the launches' cudaError_t.
+extern "C" int fused_mlp_launch(int dtype, int w_dtype, const void* x,
+                                const void* wi, const void* wg,
+                                const void* wo, const void* wi_s,
+                                const void* wg_s, const void* wo_s,
                                 const void* tw, const void* cnt, void* hbuf,
                                 void* out, int B, int T, int D, int F,
                                 int act, void* stream) {
-  return dispatch<false>(dtype, x, nullptr, wi, wg, wo, Experts{}, tw, cnt,
-                         hbuf, out, B, T, T, D, F, act, (cudaStream_t)stream);
+  const Scales sc{(const float*)wi_s, (const float*)wg_s, (const float*)wo_s};
+  return dispatch<false>(dtype, w_dtype, x, nullptr, wi, wg, wo, Experts{},
+                         sc, tw, cnt, hbuf, out, B, T, T, D, F, act,
+                         (cudaStream_t)stream);
 }
 
 // Routed mode: x and out are (B,S,D), idx (B,Kb) int32; out is zero-filled
@@ -783,8 +938,9 @@ extern "C" int fused_mlp_routed_launch(int dtype, const void* x,
   const size_t esz = dtype == rt::DT_BF16 ? 2 : 4;
   cudaError_t e = cudaMemsetAsync(out, 0, (size_t)B * S * D * esz, s);
   if (e != cudaSuccess) return (int)e;
-  return dispatch<false>(dtype, x, (const int*)idx, wi, wg, wo, Experts{},
-                         tw, cnt, hbuf, out, B, Kb, S, D, F, act, s);
+  return dispatch<false>(dtype, dtype, x, (const int*)idx, wi, wg, wo,
+                         Experts{}, Scales{}, tw, cnt, hbuf, out, B, Kb, S, D,
+                         F, act, s);
 }
 
 // The tensor-core body of the dense and routed modes (bf16, D and F
@@ -794,10 +950,14 @@ extern "C" int fused_mlp_routed_launch(int dtype, const void* x,
 // (split,G,T_,D) scratch (NULL in dense mode with split 1: the down phase
 // then stores the output); wgs: consumer warpgroups per block (1: 64-row
 // tiles, 2: 128-row tiles); split: parts of the down phase's F reduction.
-// Returns the launches' cudaError_t or an hp::ERR_* code.
-extern "C" int fused_mlp_tc_launch(const void* x, const void* idx,
-                                   const void* wi, const void* wg,
-                                   const void* wo, const void* tw,
+// w_dtype: rt::DT_BF16, or rt::DT_I8 for int8 weights (dense mode) with
+// their f32 scales wi_s / wg_s (F,) and wo_s (D,). Returns the launches'
+// cudaError_t or an hp::ERR_* code.
+extern "C" int fused_mlp_tc_launch(int w_dtype, const void* x,
+                                   const void* idx, const void* wi,
+                                   const void* wg, const void* wo,
+                                   const void* wi_s, const void* wg_s,
+                                   const void* wo_s, const void* tw,
                                    const void* cnt, void* h, void* part,
                                    void* out, int G, int T_, int S_, int D,
                                    int F, int act, int wgs, int split,
@@ -809,31 +969,43 @@ extern "C" int fused_mlp_tc_launch(const void* x, const void* idx,
     if (e != cudaSuccess) return (int)e;
   }
   if (G == 0 || T_ == 0) return 0;
-  if (D % 64 != 0 || F % 64 != 0 || split < 1 || split > F / 64)
+  const bool q8 = w_dtype == rt::DT_I8;
+  if (D % 64 != 0 || F % 64 != 0 || split < 1 || split > F / 64 ||
+      (!q8 && w_dtype != rt::DT_BF16) ||
+      (q8 && (idx != nullptr || wi_s == nullptr || wo_s == nullptr ||
+              (wg != nullptr && wg_s == nullptr))))
     return (int)cudaErrorInvalidValue;
   const tc::WMap wim{F, D, 0, 0}, wom{D, F, 0, 0};
-#define TC_ARGS (const bf16*)x, (const int*)idx, (const bf16*)wi, \
-    (const bf16*)wg, (const bf16*)wo, (const float*)tw, (const int*)cnt, \
-    (bf16*)h, (float*)part, (bf16*)out, G, T_, S_, D, F, act, split, 1, \
-    wim, wom, s
-  if (wgs == 1) return tc::launch<1>(TC_ARGS);
-  if (wgs == 2) return tc::launch<2>(TC_ARGS);
+  const float* sc[3] = {(const float*)wi_s, (const float*)wg_s,
+                        (const float*)wo_s};
+#define TC_ARGS (const bf16*)x, (const int*)idx, wi, wg, wo, sc, \
+    (const float*)tw, (const int*)cnt, (bf16*)h, (float*)part, (bf16*)out, \
+    G, T_, S_, D, F, act, split, 1, wim, wom, s
+  if (wgs == 1) return q8 ? tc::launch<1, true>(TC_ARGS)
+                          : tc::launch<1, false>(TC_ARGS);
+  if (wgs == 2) return q8 ? tc::launch<2, true>(TC_ARGS)
+                          : tc::launch<2, false>(TC_ARGS);
 #undef TC_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // Grouped-expert mode: x and out are (B,E,C,D); strides in elements (wg,
 // when given, has wi's); `cnt` (B*E) int32 counts clipped to [0, C]; w
-// (B*E*C) f32 or NULL.
-extern "C" int moe_gmm_launch(int dtype, const void* x, const void* wi,
-                              const void* wg, const void* wo, long long w_es,
+// (B*E*C) f32 or NULL; w_dtype and the scales as in fused_mlp_launch, the
+// scales contiguous (E,Fe) / (E,D).
+extern "C" int moe_gmm_launch(int dtype, int w_dtype, const void* x,
+                              const void* wi, const void* wg, const void* wo,
+                              const void* wi_s, const void* wg_s,
+                              const void* wo_s, long long w_es,
                               long long w_rs, long long wo_es,
                               long long wo_rs, const void* w, const void* cnt,
                               void* hbuf, void* out, int B, int E, int C,
                               int D, int Fe, int act, void* stream) {
   const Experts ex{E, w_es, w_rs, wo_es, wo_rs};
-  return dispatch<true>(dtype, x, nullptr, wi, wg, wo, ex, w, cnt, hbuf, out,
-                        B * E, C, C, D, Fe, act, (cudaStream_t)stream);
+  const Scales sc{(const float*)wi_s, (const float*)wg_s, (const float*)wo_s};
+  return dispatch<true>(dtype, w_dtype, x, nullptr, wi, wg, wo, ex, sc, w,
+                        cnt, hbuf, out, B * E, C, C, D, Fe, act,
+                        (cudaStream_t)stream);
 }
 
 // The tensor-core body of the grouped-expert mode (bf16, D and Fe multiples
@@ -845,28 +1017,38 @@ extern "C" int moe_gmm_launch(int dtype, const void* x, const void* wi,
 // read in place through 2-D maps of wi_rows x wi_cols and wo_rows x
 // wo_cols elements (cols = the row stride), expert e's tile at column and
 // row offset (e * *_cs, e * *_rs) (kernels/ops.py::gmm_map derives them
-// from the strides). Returns the launches' cudaError_t or an hp::ERR_*
-// code.
-extern "C" int moe_gmm_tc_launch(const void* x, const void* wi,
+// from the strides). w_dtype and the scales as in fused_mlp_tc_launch, the
+// scales (E,Fe) / (E,D) contiguous. Returns the launches' cudaError_t or
+// an hp::ERR_* code.
+extern "C" int moe_gmm_tc_launch(int w_dtype, const void* x, const void* wi,
                                  const void* wg, const void* wo,
-                                 const void* w, const void* cnt, void* h,
-                                 void* part, void* out, int B, int E, int C,
-                                 int D, int Fe, int act, int wgs, int split,
+                                 const void* wi_s, const void* wg_s,
+                                 const void* wo_s, const void* w,
+                                 const void* cnt, void* h, void* part,
+                                 void* out, int B, int E, int C, int D,
+                                 int Fe, int act, int wgs, int split,
                                  int wi_cols, int wi_rows, int wi_cs,
                                  int wi_rs, int wo_cols, int wo_rows,
                                  int wo_cs, int wo_rs, void* stream) {
   using hp::bf16;
   if (B * E == 0 || C == 0) return 0;
-  if (D % 64 != 0 || Fe % 64 != 0 || split < 1 || split > Fe / 64)
+  const bool q8 = w_dtype == rt::DT_I8;
+  if (D % 64 != 0 || Fe % 64 != 0 || split < 1 || split > Fe / 64 ||
+      (!q8 && w_dtype != rt::DT_BF16) ||
+      (q8 && (wi_s == nullptr || wo_s == nullptr ||
+              (wg != nullptr && wg_s == nullptr))))
     return (int)cudaErrorInvalidValue;
   const tc::WMap wim{wi_cols, wi_rows, wi_cs, wi_rs};
   const tc::WMap wom{wo_cols, wo_rows, wo_cs, wo_rs};
-#define TC_ARGS (const bf16*)x, nullptr, (const bf16*)wi, (const bf16*)wg, \
-    (const bf16*)wo, (const float*)w, (const int*)cnt, (bf16*)h, \
-    (float*)part, (bf16*)out, B * E, C, C, D, Fe, act, split, E, wim, wom, \
-    (cudaStream_t)stream
-  if (wgs == 1) return tc::launch<1>(TC_ARGS);
-  if (wgs == 2) return tc::launch<2>(TC_ARGS);
+  const float* sc[3] = {(const float*)wi_s, (const float*)wg_s,
+                        (const float*)wo_s};
+#define TC_ARGS (const bf16*)x, nullptr, wi, wg, wo, sc, (const float*)w, \
+    (const int*)cnt, (bf16*)h, (float*)part, (bf16*)out, B * E, C, C, D, \
+    Fe, act, split, E, wim, wom, (cudaStream_t)stream
+  if (wgs == 1) return q8 ? tc::launch<1, true>(TC_ARGS)
+                          : tc::launch<1, false>(TC_ARGS);
+  if (wgs == 2) return q8 ? tc::launch<2, true>(TC_ARGS)
+                          : tc::launch<2, false>(TC_ARGS);
 #undef TC_ARGS
   return (int)cudaErrorInvalidValue;
 }

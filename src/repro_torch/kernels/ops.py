@@ -11,8 +11,15 @@ package's ``kernels/ops.py``. ``backend``:
 
 There is no fallback: a build failure, a refused launch or an unsupported
 shape raises. Each wrapper adds one to its count in ``launch_counts()``
-exactly when it launches its kernel. The int8/bf16 scale operands wait for
-the quantisation slice and raise ``NotImplementedError``.
+exactly when it launches its kernel.
+
+Quantized operands (the serving engine's ``kv_dtype`` / ``weight_dtype``,
+``models/quant.py``): a weight, K or V tensor arrives in its storage dtype
+(the activation dtype, bf16 under f32 activations, or int8 with its f32
+scales) and the kernel built for that storage reads it as such: no wrapper
+widens a cache or a weight before a launch. ``fused_mlp_routed`` alone
+still refuses scale operands (``QUANT_TODO``): training, its only caller,
+never quantizes its weights.
 
 Autograd cannot see a launch through ``ctypes``, so every kernel that
 training crosses (``flash_attention``, ``fused_mlp``, ``fused_mlp_routed``,
@@ -38,10 +45,12 @@ BACKENDS = ("auto", "cuda", "ref")
 KERNELS = ("flash_attention", "fused_mlp", "fused_mlp_routed",
            "decode_attention", "moe_gmm", "paged_decode_attention")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # rt::DT_F32 / rt::DT_BF16
+DT_I8 = 2                                         # rt::DT_I8 (storage only)
 _launches = {name: 0 for name in KERNELS}
 
-QUANT_TODO = ("int8/bf16 scale operands arrive with the quantisation slice "
-              "(ROADMAP Queue A item 9)")
+QUANT_TODO = ("int8 weights of fused_mlp_routed (the training path's routed "
+              "MLP; no entry point trains quantized weights): ROADMAP Queue "
+              "B item 2")
 
 
 class KernelOp(torch.autograd.Function):
@@ -104,6 +113,44 @@ def _dtype_code(*ts) -> int:
         raise TypeError(f"kernels take matching float32 or bfloat16 tensors, "
                         f"got {[t.dtype for t in ts]}")
     return _DTYPES[dt]
+
+
+def storage_code(act_dtype, tensors, scales, what: str) -> int:
+    """rt dtype code of ``tensors`` (K and V, or an MLP's weights), all
+    of one storage dtype, under activations of ``act_dtype``: that dtype,
+    bf16 under f32, or int8 with every one of ``scales`` given. Raises
+    TypeError / ValueError for anything else."""
+    dt = tensors[0].dtype
+    if dt == act_dtype and dt in _DTYPES and all(
+            t.dtype == dt for t in tensors) and all(
+            sc is None for sc in scales):         # the float path, first
+        return _DTYPES[dt]
+    if any(t.dtype != dt for t in tensors):
+        raise TypeError(f"{what} must share one storage dtype, got "
+                        f"{[t.dtype for t in tensors]}")
+    if dt == torch.int8:
+        if any(sc is None for sc in scales):
+            raise ValueError(f"int8 {what} need their f32 scales")
+        return DT_I8
+    if any(sc is not None for sc in scales):
+        raise ValueError(f"scales given for {dt} {what}")
+    if act_dtype in _DTYPES and (dt == act_dtype or (
+            dt == torch.bfloat16 and act_dtype == torch.float32)):
+        return _DTYPES[dt]
+    raise TypeError(f"{what} stored as {dt} under {act_dtype} activations: "
+                    f"the kernels take the activation dtype, bf16 under "
+                    f"f32, or int8 with scales")
+
+
+def _scale_ptr(sc, shape, device):
+    """An f32 scale operand as a contiguous tensor of ``shape`` on
+    ``device`` -> (keep-alive, pointer); (None, None) for None."""
+    if sc is None:
+        return None, None
+    if tuple(sc.shape) != tuple(shape):
+        raise ValueError(f"scale {tuple(sc.shape)}, want {tuple(shape)}")
+    sc = sc.to(device=device, dtype=torch.float32).contiguous()
+    return sc, sc.data_ptr()
 
 
 def _counts_vec(count, batch: int, limit: int, device) -> torch.Tensor:
@@ -232,7 +279,8 @@ class MlpPlan(NamedTuple):
     split: int = 0
 
 
-def mlp_plan(dtype, B: int, T: int, D: int, F: int) -> MlpPlan:
+def mlp_plan(dtype, B: int, T: int, D: int, F: int,
+             weights=None) -> MlpPlan:
     """The body, tile rows and split of an MLP call over B groups of T
     buffer rows (T = Kb in routed mode; ``moe_gmm``: B·E groups of C
     slots), from dtype and shape only — never from the counts, the
@@ -243,8 +291,13 @@ def mlp_plan(dtype, B: int, T: int, D: int, F: int) -> MlpPlan:
     128; the down phase's F reduction is split when its B * row tiles *
     D/128 column tiles are fewer than MLP_FILL_BLOCKS. f32 stays on the
     CUDA cores on purpose (TF32 would break the f32 1e-4 tolerance), as do
-    widths that are not multiples of 64 (the toy configs)."""
-    if dtype != torch.bfloat16 or D % 64 or F % 64:
+    widths that are not multiples of 64 (the toy configs). ``weights``:
+    the weights' storage dtype (default ``dtype``): int8 weights under bf16
+    take the tensor-core body too (its int8 form: int8 tiles through the
+    TMA ring, widened to bf16 in shared memory), bf16 weights under f32 x
+    the CUDA-core body."""
+    if dtype != torch.bfloat16 or D % 64 or F % 64 or (
+            weights not in (None, dtype, torch.int8)):
         return MlpPlan("cuda_core")
     rows = 64 if T <= 64 else 128
     tiles = B * -(-T // rows) * -(-D // 128)
@@ -252,13 +305,18 @@ def mlp_plan(dtype, B: int, T: int, D: int, F: int) -> MlpPlan:
     return MlpPlan("wgmma", rows, split)
 
 
-def _mlp_weights(x3, wi, wo, wg):
-    """Raises unless the weights fit x's width and share its dtype."""
+def _mlp_weights(x3, wi, wo, wg, scales=(None, None, None)):
+    """The weights' storage code (``storage_code``); raises unless they fit
+    x's width and are stored as the kernels take them. ``scales``: (wi_s,
+    wg_s, wo_s)."""
     D, F = x3.shape[-1], wi.shape[1]
     if wi.shape != (D, F) or wo.shape != (F, D) or (
             wg is not None and wg.shape != (D, F)):
         raise ValueError("fused_mlp kernel: weight shapes do not match x")
-    _dtype_code(x3, wi, wo, *([wg] if wg is not None else []))
+    _dtype_code(x3)
+    ws = [wi, wo] + ([wg] if wg is not None else [])
+    sc = [scales[0], scales[2]] + ([scales[1]] if wg is not None else [])
+    return storage_code(x3.dtype, ws, sc, "MLP weights")
 
 
 def _act_code(act, gated: bool) -> int:
@@ -272,16 +330,24 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _launch_mlp(name, x, idx, wi, wo, wg, tw, cnt, out, act, G, T_, S_):
+def _launch_mlp(name, x, idx, wi, wo, wg, tw, cnt, out, act, G, T_, S_,
+                w_code=None, scales=(None, None, None)):
     """One dense (idx None; x (G, T_, D)) or routed (x (G, S_, D), idx
     (G, T_) int32) MLP call of csrc/fused_mlp.cu into ``out``, by the body
-    ``mlp_plan`` picks; tw (G, T_) f32 or None, cnt (G,) int32. Allocates
-    the hidden scratch (and the tensor-core body's partials of the down
-    phase, unless it stores the output itself: one part, dense mode)."""
+    ``mlp_plan`` picks; tw (G, T_) f32 or None, cnt (G,) int32; w_code the
+    weights' storage code (default x's), ``scales`` (wi_s, wg_s, wo_s) of
+    int8 weights (dense mode). Allocates the hidden scratch (and the
+    tensor-core body's partials of the down phase, unless it stores the
+    output itself: one part, dense mode)."""
     D, F = x.shape[-1], wi.shape[1]
-    plan = mlp_plan(x.dtype, G, T_, D, F)
+    plan = mlp_plan(x.dtype, G, T_, D, F, weights=wi.dtype)
     act_code = _act_code(act, wg is not None)
     lib = build.load("fused_mlp")
+    dt = _DTYPES[x.dtype]
+    wdt = dt if w_code is None else w_code
+    keep = [(None, None)] * 3 if all(sc is None for sc in scales) else [
+        _scale_ptr(sc, shape, x.device)
+        for sc, shape in zip(scales, ((F,), (F,), (D,)))]
     if plan.body == "wgmma":
         x, wi, wo = _aligned(x), _aligned(wi), _aligned(wo)
         wg = _aligned(wg) if wg is not None else None
@@ -291,19 +357,20 @@ def _launch_mlp(name, x, idx, wi, wo, wg, tw, cnt, out, act, G, T_, S_):
             if plan.split > 1 or idx is not None else None
         with torch.cuda.device(x.device):
             rc = lib.fused_mlp_tc_launch(
-                x.data_ptr(), _ptr(idx), wi.data_ptr(), _ptr(wg),
-                wo.data_ptr(), _ptr(tw), cnt.data_ptr(), hbuf.data_ptr(),
-                _ptr(part), out.data_ptr(), G, T_, S_, D, F, act_code,
-                plan.rows // 64, plan.split, _stream(x))
+                wdt, x.data_ptr(), _ptr(idx), wi.data_ptr(), _ptr(wg),
+                wo.data_ptr(), *(p for _, p in keep), _ptr(tw),
+                cnt.data_ptr(), hbuf.data_ptr(), _ptr(part), out.data_ptr(),
+                G, T_, S_, D, F, act_code, plan.rows // 64, plan.split,
+                _stream(x))
     else:
         hbuf = torch.empty((G, T_, F), dtype=torch.float32, device=x.device)
-        dt = _DTYPES[x.dtype]
         with torch.cuda.device(x.device):
             if idx is None:
                 rc = lib.fused_mlp_launch(
-                    dt, x.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
-                    _ptr(tw), cnt.data_ptr(), hbuf.data_ptr(),
-                    out.data_ptr(), G, T_, D, F, act_code, _stream(x))
+                    dt, wdt, x.data_ptr(), wi.data_ptr(), _ptr(wg),
+                    wo.data_ptr(), *(p for _, p in keep), _ptr(tw),
+                    cnt.data_ptr(), hbuf.data_ptr(), out.data_ptr(), G, T_,
+                    D, F, act_code, _stream(x))
             else:
                 rc = lib.fused_mlp_routed_launch(
                     dt, x.data_ptr(), idx.data_ptr(), wi.data_ptr(),
@@ -316,20 +383,22 @@ def _launch_mlp(name, x, idx, wi, wo, wg, tw, cnt, out, act, G, T_, S_):
 def fused_mlp(x, wi, wo, wg=None, token_weights=None, valid_count=None,
               wi_scale=None, wo_scale=None, wg_scale=None, *, act="swiglu",
               backend=None):
-    """x: (T, D) or (B, T, D); wi/wg: (D, F); wo: (F, D); token_weights:
-    (T,) or (B, T); valid_count: None, scalar or (B,) count of real leading
-    rows (rows past it are 0). Returns x-shaped output in x's dtype."""
-    if wi_scale is not None or wo_scale is not None or wg_scale is not None:
-        raise NotImplementedError(QUANT_TODO)
-
+    """x: (T, D) or (B, T, D); wi/wg: (D, F); wo: (F, D), stored as x, as
+    bf16 under f32 x, or int8 with f32 scales wi_scale/wg_scale (F,) and
+    wo_scale (D,); token_weights: (T,) or (B, T); valid_count: None,
+    scalar or (B,) count of real leading rows (rows past it are 0).
+    Returns x-shaped output in x's dtype."""
+    # the scales ride in the closures: they never ask for a gradient
     def plain(x, wi, wo, wg, tw, cnt):
-        return fused_mlp_ref(x, wi, wo, wg, tw, act=act, valid_count=cnt)
+        return fused_mlp_ref(x, wi, wo, wg, tw, act=act, valid_count=cnt,
+                             wi_scale=wi_scale, wo_scale=wo_scale,
+                             wg_scale=wg_scale)
 
     if not use_kernel(backend, x):
         return plain(x, wi, wo, wg, token_weights, valid_count)
     squeeze = x.dim() == 2
     B, T, D = (x[None] if squeeze else x).shape
-    _mlp_weights(x, wi, wo, wg)
+    w_code = _mlp_weights(x, wi, wo, wg, (wi_scale, wg_scale, wo_scale))
 
     def kernel(x, wi, wo, wg, tw, cnt):
         x3 = (x[None] if squeeze else x).contiguous()
@@ -341,7 +410,7 @@ def fused_mlp(x, wi, wo, wg=None, token_weights=None, valid_count=None,
         cnt = _counts_vec(cnt, B, T, x.device)
         out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         _launch_mlp("fused_mlp", x3, None, wi, wo, wg, tw, cnt, out, act, B,
-                    T, T)
+                    T, T, w_code, (wi_scale, wg_scale, wo_scale))
         return out
 
     return KernelOp.apply(kernel, plain, x, wi, wo, wg, token_weights,
@@ -365,7 +434,8 @@ def fused_mlp_routed(x, idx, wi, wo, wg=None, token_weights=None,
     indices (no duplicates in a row); token_weights: (B, Kb); valid_count:
     None, scalar or (B,) selected count. Returns the (B, S, D) delta in x's
     dtype: row idx[b, i] with i < count[b] gets token_weights[b, i] *
-    MLP(x[b, idx[b, i]]), every other row is exactly zero."""
+    MLP(x[b, idx[b, i]]), every other row is exactly zero. Scale operands
+    (int8 weights) raise ``NotImplementedError`` (``QUANT_TODO``)."""
     if wi_scale is not None or wo_scale is not None or wg_scale is not None:
         raise NotImplementedError(QUANT_TODO)
 
@@ -380,7 +450,10 @@ def fused_mlp_routed(x, idx, wi, wo, wg=None, token_weights=None,
     if idx.shape != (B, Kb) or Kb > S:
         raise ValueError(f"fused_mlp_routed kernel: idx {tuple(idx.shape)} "
                          f"does not index x {tuple(x.shape)}")
-    _mlp_weights(x, wi, wo, wg)
+    if _mlp_weights(x, wi, wo, wg) != _DTYPES[x.dtype]:
+        raise TypeError(f"fused_mlp_routed kernel: weights stored as "
+                        f"{wi.dtype} under {x.dtype} x; the routed mode takes "
+                        f"x's dtype")
 
     def kernel(x, idx, wi, wo, wg, tw, cnt):
         x = x.contiguous()
@@ -441,7 +514,8 @@ def gmm_map(w, shape, name) -> tuple:
     16-byte aligned (TMA's rules)."""
     es, rs = _expert_strides(w, shape, name)
     E, rows, cols = shape
-    if rs % 8 == 0 and w.data_ptr() % 16 == 0 and cols <= rs:
+    if rs * w.element_size() % 16 == 0 and w.data_ptr() % 16 == 0 \
+            and cols <= rs:
         if E == 1 or (E - 1) * es + cols <= rs:
             return rs, rows, es if E > 1 else 0, 0
         if es % rs == 0:
@@ -457,25 +531,30 @@ def moe_gmm(x, wi, wo, wg=None, weights=None, group_counts=None,
             backend=None):
     """x: (E, C, D) or (B, E, C, D) dispatched tokens; wi/wg: (E, D, Fe)
     and wo: (E, Fe, D), any strides with a contiguous last dimension (wg
-    with wi's; on the tensor-core body one of the two ``gmm_map`` layouts);
+    with wi's; on the tensor-core body one of the two ``gmm_map`` layouts),
+    stored as x, as bf16 under f32 x, or int8 with f32 per-(expert,
+    channel) scales wi_scale/wg_scale (E, Fe) and wo_scale (E, D);
     weights: (E, C) / (B, E, C); group_counts: (E,) / (B, E) count of real
     leading slots per group (None = C). Returns x's shape and dtype; slots
     at or past their group's count are exactly zero."""
-    if wi_scale is not None or wo_scale is not None or wg_scale is not None:
-        raise NotImplementedError(QUANT_TODO)
-
+    # the scales ride in the closures: they never ask for a gradient
     def plain(x, wi, wo, wg, w, cnt):
-        return moe_gmm_ref(x, wi, wo, wg, w, act=act, group_counts=cnt)
+        return moe_gmm_ref(x, wi, wo, wg, w, act=act, group_counts=cnt,
+                           wi_scale=wi_scale, wo_scale=wo_scale,
+                           wg_scale=wg_scale)
 
     if not use_kernel(backend, x):
         return plain(x, wi, wo, wg, weights, group_counts)
     squeeze = x.dim() == 3
     B, E, C, D = (x[None] if squeeze else x).shape
     Fe = wi.shape[-1]
-    dt = _dtype_code(x, wi, wo, *([wg] if wg is not None else []))
+    dt = _dtype_code(x)
+    ws = [wi, wo] + ([wg] if wg is not None else [])
+    w_code = storage_code(x.dtype, ws, [wi_scale, wo_scale] + (
+        [wg_scale] if wg is not None else []), "expert weights")
 
     def kernel(x, wi, wo, wg, w, cnt):
-        plan = mlp_plan(x.dtype, B * E, C, D, Fe)
+        plan = mlp_plan(x.dtype, B * E, C, D, Fe, weights=wi.dtype)
         strides = [*_expert_strides(wi, (E, D, Fe), "wi"),
                    *_expert_strides(wo, (E, Fe, D), "wo")]
         if wg is not None and _expert_strides(wg, (E, D, Fe), "wg") != \
@@ -499,6 +578,9 @@ def moe_gmm(x, wi, wo, wg=None, weights=None, group_counts=None,
         out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         act_code = _act_code(act, wg is not None)
         lib = build.load("fused_mlp")
+        keep = [_scale_ptr(sc, shape, x.device) for sc, shape in
+                zip((wi_scale, wg_scale, wo_scale),
+                    ((E, Fe), (E, Fe), (E, D)))]
         if plan.body == "wgmma":
             x4 = _aligned(x4)
             hbuf = torch.empty((B, E, C, Fe), dtype=torch.bfloat16,
@@ -508,20 +590,20 @@ def moe_gmm(x, wi, wo, wg=None, weights=None, group_counts=None,
                                device=x.device) if plan.split > 1 else None
             with torch.cuda.device(x.device):
                 rc = lib.moe_gmm_tc_launch(
-                    x4.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(),
-                    _ptr(w), cnt.data_ptr(), hbuf.data_ptr(), _ptr(part),
-                    out.data_ptr(), B, E, C, D, Fe,
-                    act_code, plan.rows // 64, plan.split, *maps,
-                    _stream(x))
+                    w_code, x4.data_ptr(), wi.data_ptr(), _ptr(wg),
+                    wo.data_ptr(), *(p for _, p in keep), _ptr(w),
+                    cnt.data_ptr(), hbuf.data_ptr(), _ptr(part),
+                    out.data_ptr(), B, E, C, D, Fe, act_code,
+                    plan.rows // 64, plan.split, *maps, _stream(x))
         else:
             hbuf = torch.empty((B, E, C, Fe), dtype=torch.float32,
                                device=x.device)
             with torch.cuda.device(x.device):
                 rc = lib.moe_gmm_launch(
-                    dt, x4.data_ptr(), wi.data_ptr(), _ptr(wg),
-                    wo.data_ptr(), *strides, _ptr(w), cnt.data_ptr(),
-                    hbuf.data_ptr(), out.data_ptr(), B, E, C, D, Fe,
-                    act_code, _stream(x))
+                    dt, w_code, x4.data_ptr(), wi.data_ptr(), _ptr(wg),
+                    wo.data_ptr(), *(p for _, p in keep), *strides, _ptr(w),
+                    cnt.data_ptr(), hbuf.data_ptr(), out.data_ptr(), B, E, C,
+                    D, Fe, act_code, _stream(x))
         _check(rc, "moe_gmm")
         return out
 
@@ -575,21 +657,25 @@ def _int32(x, shape, device):
 
 def decode_attention(q, k, v, kv_pos, t, kv_valid=None, kscale=None,
                      vscale=None, *, window=0, backend=None):
-    """q: (B,1,H,Dh); k, v: (B,L,K,Dh) ring caches; kv_pos: (B,L) absolute
-    positions (-1 = empty); t: (B,) per-slot positions; kv_valid: (B,L)
-    bool. Returns (B,1,H,Dh); slots with no attendable key get zeros."""
-    if kscale is not None or vscale is not None:
-        raise NotImplementedError(QUANT_TODO)
+    """q: (B,1,H,Dh); k, v: (B,L,K,Dh) ring caches, stored as q, as bf16
+    under an f32 q, or int8 with f32 scales kscale/vscale (B,L,K); kv_pos:
+    (B,L) absolute positions (-1 = empty); t: (B,) per-slot positions;
+    kv_valid: (B,L) bool. Returns (B,1,H,Dh); slots with no attendable key
+    get zeros."""
     if not use_kernel(backend, q):
         return decode_attention_ref(q, k, v, kv_pos, t, window=window,
-                                    kv_valid=kv_valid)
+                                    kv_valid=kv_valid, kscale=kscale,
+                                    vscale=vscale)
     B, Sq, H, Dh = q.shape
     L, K = k.shape[1], k.shape[2]
     check_attention_shapes("decode_attention", q, k, v, (32, 64, 128))
     if Sq != 1 or k.shape[0] != B:
         raise ValueError(f"decode_attention kernel: q {tuple(q.shape)} is "
                          f"not one query row per slot of k {tuple(k.shape)}")
-    dt = _dtype_code(q, k, v)
+    dt = _dtype_code(q)
+    kv_dt = storage_code(q.dtype, [k, v], [kscale, vscale], "K and V")
+    ks, ks_ptr = _scale_ptr(kscale, (B, L, K), q.device)
+    vs, vs_ptr = _scale_ptr(vscale, (B, L, K), q.device)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     pos = _int32(kv_pos, (B, L), q.device)
     tv = _int32(t, (B,), q.device)
@@ -600,10 +686,10 @@ def decode_attention(q, k, v, kv_pos, t, kv_valid=None, kscale=None,
     lib = build.load("decode_attention")
     with torch.cuda.device(q.device):
         rc = lib.decode_attention_launch(
-            dt, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), pos.data_ptr(), tv.data_ptr(), valid_ptr, B,
-            L, H, K, int(window or 0), split, n_split, float(Dh ** -0.5),
-            _stream(q))
+            dt, kv_dt, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), ks_ptr,
+            vs_ptr, out.data_ptr(), scratch.data_ptr(), pos.data_ptr(),
+            tv.data_ptr(), valid_ptr, B, L, H, K, int(window or 0), split,
+            n_split, float(Dh ** -0.5), _stream(q))
     _check(rc, "decode_attention")
     return out
 
@@ -620,14 +706,14 @@ def decode_attention(q, k, v, kv_pos, t, kv_valid=None, kscale=None,
 
 def paged_decode_attention(q, kp, vp, table, t, pvalid, kscale=None,
                            vscale=None, *, backend=None):
-    """q: (B,1,H,Dh); kp, vp: (N, ps, K, Dh) page pool; table: (B, P)
-    page-table rows (-1 = unused); t: (B,) per-slot positions; pvalid:
-    (N, ps) bool. Returns (B,1,H,Dh); slots with no attendable key get
-    zeros."""
-    if kscale is not None or vscale is not None:
-        raise NotImplementedError(QUANT_TODO)
+    """q: (B,1,H,Dh); kp, vp: (N, ps, K, Dh) page pool, stored as q, as
+    bf16 under an f32 q, or int8 with f32 scale pools kscale/vscale (N, ps,
+    K); table: (B, P) page-table rows (-1 = unused); t: (B,) per-slot
+    positions; pvalid: (N, ps) bool. Returns (B,1,H,Dh); slots with no
+    attendable key get zeros."""
     if not use_kernel(backend, q):
-        return paged_decode_attention_ref(q, kp, vp, table, t, pvalid)
+        return paged_decode_attention_ref(q, kp, vp, table, t, pvalid,
+                                          kscale=kscale, vscale=vscale)
     B, Sq, H, Dh = q.shape
     N, ps, K = kp.shape[0], kp.shape[1], kp.shape[2]
     P = table.shape[-1]
@@ -637,7 +723,10 @@ def paged_decode_attention(q, kp, vp, table, t, pvalid, kscale=None,
                          f"q {tuple(q.shape)}, kp {tuple(kp.shape)}, table "
                          f"{tuple(table.shape)}, pvalid "
                          f"{tuple(pvalid.shape)}")
-    dt = _dtype_code(q, kp, vp)
+    dt = _dtype_code(q)
+    kv_dt = storage_code(q.dtype, [kp, vp], [kscale, vscale], "K and V")
+    ks, ks_ptr = _scale_ptr(kscale, (N, ps, K), q.device)
+    vs, vs_ptr = _scale_ptr(vscale, (N, ps, K), q.device)
     q, kp, vp = _aligned(q), _aligned(kp), _aligned(vp)
     tbl = _int32(table, (B, P), q.device)
     tv = _int32(t, (B,), q.device)
@@ -648,9 +737,9 @@ def paged_decode_attention(q, kp, vp, table, t, pvalid, kscale=None,
     lib = build.load("decode_attention")
     with torch.cuda.device(q.device):
         rc = lib.paged_decode_attention_launch(
-            dt, Dh, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), tbl.data_ptr(), tv.data_ptr(),
-            pv_ptr, B, P, ps, H, K, split, n_split, float(Dh ** -0.5),
-            _stream(q))
+            dt, kv_dt, Dh, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            ks_ptr, vs_ptr, out.data_ptr(), scratch.data_ptr(),
+            tbl.data_ptr(), tv.data_ptr(), pv_ptr, B, P, ps, H, K, split,
+            n_split, float(Dh ** -0.5), _stream(q))
     _check(rc, "paged_decode_attention")
     return out

@@ -4,8 +4,9 @@ Each has the contract of its oracle in the JAX package's ``kernels/ref.py``.
 The CPU path and the tests run them; on the card ``chip_smoke.py`` holds
 each hand-written kernel against them, and the kernels' backward passes
 replay them (``kernels/ops.py``). They compute in f32 (f64 inputs stay f64,
-for ``gradcheck``). The int8/bf16 scale operands wait for the quantisation
-slice.
+for ``gradcheck``). An int8 weight, K or V operand comes with its f32
+scales (per output channel; per (token, kv-head) for K/V) and is
+dequantized as ``q.float() * scale``, the JAX oracles' expression.
 
 One deliberate difference: a flash-attention query row with NO attendable
 key is undefined in the JAX oracle (uniform softmax over every key) and in
@@ -25,6 +26,17 @@ NEG_INF = -1e30
 def _f(t):
     """The compute type: f32, or f64 for f64 inputs."""
     return t if t.dtype == torch.float64 else t.float()
+
+
+def _dq_kv(x, scale):
+    """int8 K/V + per-(token, head) scale -> f32 (x itself without one)."""
+    return x if scale is None else x.float() * scale.float()[..., None]
+
+
+def _dq_w(w, scale):
+    """int8 weight + per-output-channel scale -> f32: the scale spans the
+    last axis ((F,) / (D,) dense, (E, F) / (E, D) expert stacks)."""
+    return w if scale is None else w.float() * scale.float()[..., None, :]
 
 
 def _counts(count, batch: int, limit: int, device) -> torch.Tensor:
@@ -71,11 +83,13 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, kv_valid=None,
 
 
 def decode_attention_ref(q, k, v, kv_pos, t, *, window=0, kv_valid=None,
-                         sm_scale=None):
+                         kscale=None, vscale=None, sm_scale=None):
     """Ring-cache decode attention. q: (B,1,H,Dh); k,v: (B,L,K,Dh);
     kv_pos: (B,L) absolute positions (-1 = empty); t: (B,) per-slot decode
-    positions. Masks by the cache's position array, not by slot index;
-    rows with no attendable key are exact zeros."""
+    positions; kscale/vscale: (B,L,K) f32 scales of int8 k/v. Masks by the
+    cache's position array, not by slot index; rows with no attendable key
+    are exact zeros."""
+    k, v = _dq_kv(k, kscale), _dq_kv(v, vscale)
     B, Sq, H, Dh = q.shape
     L, K = k.shape[1], k.shape[2]
     G = H // K
@@ -103,15 +117,17 @@ def decode_attention_ref(q, k, v, kv_pos, t, *, window=0, kv_valid=None,
     return ctx.to(q.dtype)
 
 
-def paged_decode_attention_ref(q, kp, vp, table, t, pvalid, *,
-                               sm_scale=None):
+def paged_decode_attention_ref(q, kp, vp, table, t, pvalid, *, kscale=None,
+                               vscale=None, sm_scale=None):
     """Paged-pool decode attention. q: (B,1,H,Dh); kp, vp: (N, ps, K, Dh)
     global page pool; table: (B, P) int page-table rows (-1 = unused); t:
     (B,) per-slot decode positions; pvalid: (N, ps) bool routing validity.
     Gathers each slot's pages in table order (key j of slot b at page
     ``table[b, j // ps]``, lane ``j % ps``) and masks by the implicit
     position j: attendable iff the entry is >= 0, j <= t[b] and the lane
-    is valid. Rows with no attendable key are exact zeros."""
+    is valid; kscale/vscale: (N, ps, K) f32 scale pools of int8 kp/vp.
+    Rows with no attendable key are exact zeros."""
+    kp, vp = _dq_kv(kp, kscale), _dq_kv(vp, vscale)
     B, Sq, H, Dh = q.shape
     ps, K = kp.shape[1], kp.shape[2]
     P = table.shape[1]
@@ -151,10 +167,14 @@ def _act(name):
 
 
 def fused_mlp_ref(x, wi, wo, wg=None, token_weights=None, *, act="swiglu",
-                  valid_count=None):
+                  valid_count=None, wi_scale=None, wo_scale=None,
+                  wg_scale=None):
     """y = w * (act(x Wg) * (x Wi)) Wo in f32. x: (T, D) or (B, T, D);
     valid_count: None | scalar | (B,) count of real leading rows (rows past
-    it are zeros)."""
+    it are zeros); wi_scale/wg_scale (F,) and wo_scale (D,): the scales of
+    int8 weights."""
+    wi, wo = _dq_w(wi, wi_scale), _dq_w(wo, wo_scale)
+    wg = _dq_w(wg, wg_scale) if wg is not None else None
     xf = _f(x)
     h = xf @ _f(wi)
     if wg is not None:
@@ -178,24 +198,30 @@ def fused_mlp_ref(x, wi, wo, wg=None, token_weights=None, *, act="swiglu",
 
 
 def fused_mlp_routed_ref(x, idx, wi, wo, wg=None, token_weights=None, *,
-                         act="swiglu", valid_count=None):
+                         act="swiglu", valid_count=None, wi_scale=None,
+                         wo_scale=None, wg_scale=None):
     """Gather / MLP / scatter: x (B, S, D), idx (B, Kb) gather indices (no
     duplicates in a row), token_weights (B, Kb), valid_count None | scalar
     | (B,). Returns the (B, S, D) delta: row idx[b, i] with i < count[b]
     gets tw[b, i] * MLP(x[b, idx[b, i]]), every other row is zero."""
     ix = idx.long()[..., None].expand(idx.shape + (x.shape[-1],))
     y = fused_mlp_ref(torch.gather(x, 1, ix), wi, wo, wg, token_weights,
-                      act=act, valid_count=valid_count)
+                      act=act, valid_count=valid_count, wi_scale=wi_scale,
+                      wo_scale=wo_scale, wg_scale=wg_scale)
     return torch.zeros_like(x).scatter(1, ix, y)
 
 
 def moe_gmm_ref(x, wi, wo, wg=None, weights=None, *, act="swiglu",
-                group_counts=None):
+                group_counts=None, wi_scale=None, wo_scale=None,
+                wg_scale=None):
     """Grouped expert MLP: y[b,e,c] = w[b,e,c] * (act(x Wg[e]) * (x Wi[e]))
     Wo[e] in f32. x: (E, C, D) or (B, E, C, D); wi/wg: (E, D, Fe); wo:
     (E, Fe, D); weights: (E, C) / (B, E, C); group_counts: (E,) / (B, E)
     count of real leading slots per group (slots at or past it are exact
-    zeros). Returns x's shape and dtype."""
+    zeros); wi_scale/wg_scale (E, Fe) and wo_scale (E, D): the scales of
+    int8 expert stacks. Returns x's shape and dtype."""
+    wi, wo = _dq_w(wi, wi_scale), _dq_w(wo, wo_scale)
+    wg = _dq_w(wg, wg_scale) if wg is not None else None
     xf = _f(x)
     h = torch.einsum("...ecd,edf->...ecf", xf, _f(wi))
     if wg is not None:

@@ -7,6 +7,14 @@ kernel, and paged decode and paged prefill chunks the paged decode kernel
 the CPU). Both keep f32 probabilities where the JAX package's
 ``sdpa`` twin casts them to v's dtype; the port follows the kernels. Head
 padding (``cfg.n_heads_p != cfg.n_heads``) waits for the multi-GPU slice.
+
+Quantized serving (``kv_dtype``, ``weight_dtype``; ``models/quant.py``):
+the projections read engine-quantized weights through ``quant.widened`` /
+``quant.scaled``; an int8 cache carries ``kscale``/``vscale`` beside its
+codes, and K/V are quantized ONCE, at each write site (ring decode, paged
+decode, the paged chunk; the ring prefill in ``blocks._pad_cache``). A
+token the gate skipped keeps its old codes and scales. The decode kernels
+read the stored codes with their scales; no cache is ever widened.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import torch
 
 from repro_torch.core.lora import lora_apply
 from repro_torch.kernels import ops as OPS
+from repro_torch.models import quant as Q
 from repro_torch.models.layers import dense_init, dtype_of, rope_apply, rope_tables
 
 
@@ -60,8 +69,14 @@ def _rope(positions, cfg):
     return cos, sin
 
 
+def _proj(p, name, x):
+    """x (B,S,D) times the (D, heads, Dh) projection ``name``."""
+    return Q.scaled(torch.einsum("bsd,dhk->bshk", x,
+                                 Q.widened(p, name, x.dtype)), p, name)
+
+
 def _project_q(p, x, positions, cfg, lora):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = _proj(p, "wq", x)
     if lora is not None and "q" in lora:
         dq = lora_apply(lora["q"], x).reshape(
             x.shape[0], x.shape[1], cfg.n_heads, cfg.d_head)
@@ -75,8 +90,8 @@ def _project_q(p, x, positions, cfg, lora):
 
 
 def _project_kv(p, x, positions, cfg, lora):
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = _proj(p, "wk", x)
+    v = _proj(p, "wv", x)
     if lora is not None and "v" in lora:
         K, Dh = p["wv"].shape[1], p["wv"].shape[2]
         dv = lora_apply(lora["v"], x).reshape(x.shape[0], x.shape[1], K, Dh)
@@ -92,7 +107,8 @@ def _project_kv(p, x, positions, cfg, lora):
 def _out_proj(p, ctx, head_weights):
     if head_weights is not None:
         ctx = ctx * head_weights[..., None].to(ctx.dtype)
-    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"])
+    return Q.scaled(torch.einsum("bshk,hkd->bsd", ctx,
+                                 Q.widened(p, "wo", ctx.dtype)), p, "wo")
 
 
 def attn_apply(p, x, *, cfg, positions, causal: bool = True, window: int = 0,
@@ -145,30 +161,57 @@ def attn_decode(p, x, cache, t, *, cfg, window: int = 0, head_weights=None,
         if write is None else write
     slots = torch.remainder(t, L).long()
     bi = torch.arange(B, device=x.device)
-    for name, new in (("k", k_new), ("v", v_new)):
+    for name, new in _stored(cache, "k", "v", k_new, v_new):
         c = cache[name]
-        old = c[bi, slots]                                    # (B, K, Dh)
-        c[bi, slots] = torch.where(wr[:, None, None], new[:, 0].to(c.dtype),
-                                   old)
+        old = c[bi, slots]                       # (B, K, Dh) / scales (B, K)
+        keep = wr.reshape((B,) + (1,) * (old.dim() - 1))
+        c[bi, slots] = torch.where(keep, new[:, 0].to(c.dtype), old)
     cache["valid"][bi, slots] = wr
     cache["pos"][bi, slots] = t
     ctx = OPS.decode_attention(q, cache["k"], cache["v"], cache["pos"], t,
-                               cache["valid"], window=window or 0,
+                               cache["valid"], cache.get("kscale"),
+                               cache.get("vscale"), window=window or 0,
                                backend=backend)
     return _out_proj(p, ctx, head_weights), cache
 
 
+def _stored(cache, kname, vname, k_new, v_new):
+    """The (leaf name, new rows) pairs a write site stores: k and v as
+    they are, or (``kscale`` in the cache) their int8 codes and f32
+    scales, quantized here, once."""
+    if "kscale" not in cache:
+        return ((kname, k_new), (vname, v_new))
+    kq, ks = Q.quantize_kv(k_new)
+    vq, vs = Q.quantize_kv(v_new)
+    return ((kname, kq), (vname, vq), ("kscale", ks), ("vscale", vs))
+
+
+def _scale_leaves(cache: dict, shape, kv_dtype: str, device) -> dict:
+    """An int8 cache's ``kscale``/``vscale`` leaves of ``shape``, set to
+    1.0 as the JAX package sets them."""
+    if kv_dtype == "int8":
+        for name in ("kscale", "vscale"):
+            cache[name] = torch.ones(shape, dtype=torch.float32,
+                                     device=device)
+    return cache
+
+
 def attn_cache_init(cfg, batch: int, max_seq: int, window: int = 0,
-                    device=None) -> dict:
-    """Ring cache of length window (local layers) or max_seq (global)."""
+                    device=None, kv_dtype: str = "fp32") -> dict:
+    """Ring cache of length window (local layers) or max_seq (global).
+    ``kv_dtype``: "fp32" stores the config dtype, "bf16" a plain cast,
+    "int8" codes with per-(slot, token, kv-head) f32 ``kscale``/``vscale``
+    leaves."""
     L = min(max_seq, window) if window and window > 0 else max_seq
-    K, Dh, dt = cfg.n_kv_heads, cfg.d_head, dtype_of(cfg)
-    return {
+    K, Dh = cfg.n_kv_heads, cfg.d_head
+    dt = Q.kv_store_dtype(Q.check_kv_dtype(kv_dtype), dtype_of(cfg))
+    cache = {
         "k": torch.zeros((batch, L, K, Dh), dtype=dt, device=device),
         "v": torch.zeros((batch, L, K, Dh), dtype=dt, device=device),
         "valid": torch.zeros((batch, L), dtype=torch.bool, device=device),
         "pos": torch.full((batch, L), -1, dtype=torch.int32, device=device),
     }
+    return _scale_leaves(cache, (batch, L, K), kv_dtype, device)
 
 
 # ------------------------------ paged KV pool --------------------------------
@@ -182,10 +225,12 @@ def attn_cache_init(cfg, batch: int, max_seq: int, window: int = 0,
 
 
 def attn_paged_cache_init(cfg, n_pages: int, page_size: int,
-                          device=None) -> dict:
-    """One layer's slice of the global page pool, in the model's dtype."""
-    K, Dh, dt = cfg.n_kv_heads, cfg.d_head, dtype_of(cfg)
-    return {
+                          device=None, kv_dtype: str = "fp32") -> dict:
+    """One layer's slice of the global page pool; ``kv_dtype`` as in
+    ``attn_cache_init`` (int8: per-(page, lane, kv-head) scale pools)."""
+    K, Dh = cfg.n_kv_heads, cfg.d_head
+    dt = Q.kv_store_dtype(Q.check_kv_dtype(kv_dtype), dtype_of(cfg))
+    cache = {
         "kp": torch.zeros((n_pages, page_size, K, Dh), dtype=dt,
                           device=device),
         "vp": torch.zeros((n_pages, page_size, K, Dh), dtype=dt,
@@ -193,6 +238,7 @@ def attn_paged_cache_init(cfg, n_pages: int, page_size: int,
         "pvalid": torch.zeros((n_pages, page_size), dtype=torch.bool,
                               device=device),
     }
+    return _scale_leaves(cache, (n_pages, page_size, K), kv_dtype, device)
 
 
 def attn_decode_paged(p, x, cache, t, table, trash, *, cfg,
@@ -223,14 +269,15 @@ def attn_decode_paged(p, x, cache, t, table, trash, *, cfg,
     entries = table.gather(1, ent[:, None])[:, 0]
     pages = torch.where(entries >= 0, entries, trash).long()
     offs = torch.remainder(t, ps).long()
-    for name, new in (("kp", k_new), ("vp", v_new)):
+    for name, new in _stored(cache, "kp", "vp", k_new, v_new):
         c = cache[name]
-        old = c[pages, offs]                                  # (B, K, Dh)
-        c[pages, offs] = torch.where(wr[:, None, None], new[:, 0].to(c.dtype),
-                                     old)
+        old = c[pages, offs]                     # (B, K, Dh) / scales (B, K)
+        keep = wr.reshape((B,) + (1,) * (old.dim() - 1))
+        c[pages, offs] = torch.where(keep, new[:, 0].to(c.dtype), old)
     cache["pvalid"][pages, offs] = wr
     ctx = OPS.paged_decode_attention(q, cache["kp"], cache["vp"], table, t,
-                                     cache["pvalid"], backend=backend)
+                                     cache["pvalid"], cache.get("kscale"),
+                                     cache.get("vscale"), backend=backend)
     return _out_proj(p, ctx, head_weights), cache
 
 
@@ -255,11 +302,12 @@ def attn_chunk(p, x, cache, write_page: int, table_row, pos0: int,
     wr = torch.ones((B, C), dtype=torch.bool, device=x.device) \
         if keep is None else keep
     wr = wr & (positions < plen)
-    cache["kp"][write_page] = k_new[0].to(cache["kp"].dtype)
-    cache["vp"][write_page] = v_new[0].to(cache["vp"].dtype)
+    for name, new in _stored(cache, "kp", "vp", k_new, v_new):
+        cache[name][write_page] = new[0].to(cache[name].dtype)
     cache["pvalid"][write_page] = wr[0]
     table = table_row.reshape(1, -1).expand(C, -1)
     ctx = OPS.paged_decode_attention(
         q.reshape(C, 1, H, Dh), cache["kp"], cache["vp"], table,
-        positions[0], cache["pvalid"], backend=backend)
+        positions[0], cache["pvalid"], cache.get("kscale"),
+        cache.get("vscale"), backend=backend)
     return _out_proj(p, ctx.reshape(B, C, H, Dh), head_weights), cache

@@ -40,6 +40,7 @@ from repro_torch.core.lora import lora_init
 from repro_torch.core.moefy import moefy_mlp
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import attention as A
+from repro_torch.models import quant as Q
 from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
 from repro_torch.models.moe import moe_apply, moe_decode, moe_init
 
@@ -175,7 +176,10 @@ def _mlp_fn(p, rp, cfg, spec, pol, elastic_on, mode, auxes, backend):
             return y
         mp = p["mlp"]
         return OPS.fused_mlp(h, mp["wi"], mp["wo"], mp.get("wg"),
-                             valid_count=token_count, act=cfg.act,
+                             valid_count=token_count,
+                             wi_scale=mp.get("wi_scale"),
+                             wo_scale=mp.get("wo_scale"),
+                             wg_scale=mp.get("wg_scale"), act=cfg.act,
                              backend=backend)
     return f
 
@@ -397,7 +401,9 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
         y, k, v = attn(h, positions, kv_valid=keep, head_weights=hw)
         delta = y * wtok[..., None].to(y.dtype)
     if collect_cache:
-        cache["attn"] = _pad_cache(k, v, keep, max_cache_len or S, window)
+        cache["attn"] = _pad_cache(
+            k, v, keep, max_cache_len or S, window,
+            kv_dtype=spec.kv_dtype if spec is not None else "fp32")
     x = x + delta
 
     # ---- MLP ----
@@ -482,30 +488,49 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
     return (x, aux, cache) if collect_cache else (x, aux)
 
 
-def _pad_cache(k, v, keep, max_len: int, window: int = 0) -> dict:
-    """Lay prefill k/v into the ring-cache format (slot = pos % L)."""
+def _pad_cache(k, v, keep, max_len: int, window: int = 0,
+               kv_dtype: str = "fp32") -> dict:
+    """Lay prefill k/v into the ring-cache format (slot = pos % L).
+
+    ``kv_dtype`` "int8" quantizes here, the ring's one-shot-prefill WRITE
+    site: the codes a later decode reads are what a decode-time write of
+    the same token would have stored (the prefill's own attention ran on
+    the unquantized k/v, as in the JAX package); unwritten slots keep
+    scale 1.0. "bf16" narrows at the row splice (``cache_row_insert``)."""
     B, S = k.shape[:2]
     L = min(max_len, window) if window and window > 0 else max_len
     dev = k.device
     pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    rows = {"k": k, "v": v}
+    if kv_dtype == "int8":
+        (rows["k"], rows["kscale"]), (rows["v"], rows["vscale"]) = \
+            Q.quantize_kv(k), Q.quantize_kv(v)
+    # an unwritten slot: zero codes, scale 1.0
+    blank = lambda name, a, shape: torch.full(
+        shape, 1.0 if name.endswith("scale") else 0, dtype=a.dtype,
+        device=dev)
     if S <= L:
-        kc = torch.zeros((B, L) + k.shape[2:], dtype=k.dtype, device=dev)
-        vc = torch.zeros_like(kc)
-        kc[:, :S], vc[:, :S] = k, v
-        valid = torch.zeros((B, L), dtype=torch.bool, device=dev)
-        valid[:, :S] = keep
-        cpos = torch.full((B, L), -1, dtype=torch.int32, device=dev)
-        cpos[:, :S] = pos
-        return {"k": kc, "v": vc, "valid": valid, "pos": cpos}
+        out = {}
+        for name, a in rows.items():
+            out[name] = blank(name, a, (B, L) + a.shape[2:])
+            out[name][:, :S] = a
+        out["valid"] = torch.zeros((B, L), dtype=torch.bool, device=dev)
+        out["valid"][:, :S] = keep
+        out["pos"] = torch.full((B, L), -1, dtype=torch.int32, device=dev)
+        out["pos"][:, :S] = pos
+        return out
     # keep the last L positions, at their ring slots
-    k, v, keep, pos = k[:, -L:], v[:, -L:], keep[:, -L:], pos[:, -L:]
+    keep, pos = keep[:, -L:], pos[:, -L:]
     slots = (pos % L).long()
     bi = torch.arange(B, device=dev)[:, None]
-    out = {"k": torch.zeros_like(k), "v": torch.zeros_like(v),
-           "valid": torch.zeros_like(keep), "pos": torch.full_like(pos, -1)}
-    out["k"][bi, slots] = k
-    out["v"][bi, slots] = v
+    out = {}
+    for name, a in rows.items():
+        a = a[:, -L:]
+        out[name] = blank(name, a, a.shape)
+        out[name][bi, slots] = a
+    out["valid"] = torch.zeros_like(keep)
     out["valid"][bi, slots] = keep
+    out["pos"] = torch.full_like(pos, -1)
     out["pos"][bi, slots] = pos
     return out
 
@@ -673,17 +698,19 @@ def block_chunk(kind: str, p, rp, x, cache, write_page: int, table_row,
 
 
 def block_paged_cache_init(kind: str, cfg, n_pages: int, page_size: int,
-                           device=None) -> dict:
+                           device=None, kv_dtype: str = "fp32") -> dict:
     """Paged twin of ``block_cache_init``: one layer's slice of the global
     page pool."""
     _only_attn(kind)
     return {"attn": A.attn_paged_cache_init(cfg, n_pages, page_size,
-                                            device=device)}
+                                            device=device,
+                                            kv_dtype=kv_dtype)}
 
 
 def cache_row_insert(full: dict, row: dict, slot: int) -> None:
     """Copy a single-request block cache (batch dim 1) into row ``slot`` of
-    a live slot-array cache, in place."""
+    a live slot-array cache, in place. int8 codes and their scale leaves
+    move verbatim; a bf16 cache narrows the prefill's k/v here."""
     for name, leaf in full.items():
         if isinstance(leaf, dict):
             cache_row_insert(leaf, row[name], slot)
@@ -692,7 +719,8 @@ def cache_row_insert(full: dict, row: dict, slot: int) -> None:
 
 
 def block_cache_init(kind: str, cfg, batch: int, max_seq: int,
-                     window: int = 0, device=None) -> dict:
+                     window: int = 0, device=None,
+                     kv_dtype: str = "fp32") -> dict:
     _only_attn(kind)
     return {"attn": A.attn_cache_init(cfg, batch, max_seq, window,
-                                      device=device)}
+                                      device=device, kv_dtype=kv_dtype)}

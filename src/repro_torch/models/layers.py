@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ref import gelu_tanh
+from repro_torch.models import quant as Q
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -85,10 +86,12 @@ def mlp_init(gen, cfg, device=None) -> dict:
 
 def mlp_apply(p, x, act: str):
     """Plain dense MLP in x's dtype (the decode path; prefill runs the
-    fused_mlp kernel)."""
-    h = x @ p["wi"]
+    fused_mlp kernel). Engine-quantized weights: int8 codes widened to x's
+    dtype, the products' output channels scaled (``models/quant.py``)."""
+    w = lambda name: Q.widened(p, name, x.dtype)
+    h = Q.scaled(x @ w("wi"), p, "wi")
     if is_gated(act):
-        h = act_fn(act)(x @ p["wg"]) * h
+        h = act_fn(act)(Q.scaled(x @ w("wg"), p, "wg")) * h
     else:
         h = act_fn(act)(h)
-    return (h @ p["wo"]).to(x.dtype)
+    return Q.scaled(h @ w("wo"), p, "wo").to(x.dtype)

@@ -194,11 +194,14 @@ def forward(params, rparams, batch, cfg, ecfg=None, mode: str = "base",
 
 # ------------------------------ serving --------------------------------------
 
-def cache_init(cfg, batch: int, max_seq: int, device=None) -> dict:
+def cache_init(cfg, batch: int, max_seq: int, device=None,
+               kv_dtype: str = "fp32") -> dict:
+    """Every layer's ring cache; ``kv_dtype`` fp32 | bf16 | int8 (int8 adds
+    the ``kscale``/``vscale`` leaves)."""
     device = resolve_device(device)
     return {"layers": [block_cache_init(k, cfg, batch, max_seq,
                                         window=cfg.layer_windows[i],
-                                        device=device)
+                                        device=device, kv_dtype=kv_dtype)
                        for i, k in enumerate(cfg.layer_kinds)]}
 
 
@@ -263,12 +266,15 @@ def decode_step(params, rparams, token, caches, t, cfg, ecfg=None,
 
 # --------------------------- paged serving -----------------------------------
 
-def paged_cache_init(cfg, n_pages: int, page_size: int, device=None) -> dict:
+def paged_cache_init(cfg, n_pages: int, page_size: int, device=None,
+                     kv_dtype: str = "fp32") -> dict:
     """Paged twin of ``cache_init``: every layer's slice of the GLOBAL page
-    pool, ``{"layers": [{"attn": {"kp", "vp", "pvalid"}}, ...]}``."""
+    pool, ``{"layers": [{"attn": {"kp", "vp", "pvalid"[, "kscale",
+    "vscale"]}}, ...]}``."""
     device = resolve_device(device)
     return {"layers": [block_paged_cache_init(k, cfg, n_pages, page_size,
-                                              device=device)
+                                              device=device,
+                                              kv_dtype=kv_dtype)
                        for k in cfg.layer_kinds]}
 
 

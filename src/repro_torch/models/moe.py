@@ -23,6 +23,7 @@ import torch
 from repro_torch.core.routing import RouteAux, bcast_to, is_full, topk_mask, \
     topk_mask_dyn
 from repro_torch.kernels import ops as OPS
+from repro_torch.models import quant as Q
 from repro_torch.models.layers import act_fn, dense_init, dtype_of, is_gated
 
 
@@ -60,9 +61,12 @@ def _top(scores, k: int):
 def _expert_ffn(p, x_sel, act, backend=None, counts=None):
     """x_sel: (B, E, C, D) -> (B, E, C, D) through the ``moe_gmm`` kernel;
     ``counts`` (B, E) per-expert occupancy (the dispatch keeps the valid
-    slots a prefix of each group, so the counts are exact)."""
+    slots a prefix of each group, so the counts are exact). Engine-
+    quantized stacks pass their per-(expert, channel) scales."""
     return OPS.moe_gmm(x_sel, p["wi"], p["wo"], p.get("wg"),
-                       group_counts=counts, act=act, backend=backend)
+                       group_counts=counts, wi_scale=p.get("wi_scale"),
+                       wo_scale=p.get("wo_scale"), wg_scale=p.get("wg_scale"),
+                       act=act, backend=backend)
 
 
 def moe_apply(p, x, *, act: str, top_k: int, router_w=None,
@@ -192,13 +196,15 @@ def moe_apply(p, x, *, act: str, top_k: int, router_w=None,
 
 
 def _dense_ffn(p, x, act):
-    """The shared expert path: a plain dense MLP in x's dtype."""
-    h = x @ p["wi"]
+    """The shared expert path: a plain dense MLP in x's dtype (quantized
+    weights widened, the products' channels scaled: ``models/quant.py``)."""
+    w = lambda name: Q.widened(p, name, x.dtype)
+    h = Q.scaled(x @ w("wi"), p, "wi")
     if "wg" in p:
-        h = act_fn(act)(x @ p["wg"]) * h
+        h = act_fn(act)(Q.scaled(x @ w("wg"), p, "wg")) * h
     else:
         h = act_fn(act)(h)
-    return (h @ p["wo"]).to(x.dtype)
+    return Q.scaled(h @ w("wo"), p, "wo").to(x.dtype)
 
 
 def moe_decode(p, x, *, act: str, top_k: int, router_w=None,
@@ -230,12 +236,16 @@ def moe_decode(p, x, *, act: str, top_k: int, router_w=None,
     xt = x[:, 0]                                              # (B, D)
     we = torch.zeros((B, E), dtype=vals.dtype, device=x.device)
     we = we.scatter(1, idx, vals)
-    h = torch.matmul(xt, p["wi"])                             # (E, B, Fe)
+    # engine-quantized stacks: codes widened, (E, 1, channel) scales
+    mm = lambda a, name: Q.scaled(
+        torch.matmul(a, Q.widened(p, name, x.dtype)), p, name,
+        (E, 1, p[name].shape[-1]))
+    h = mm(xt, "wi")                                          # (E, B, Fe)
     if "wg" in p:
-        h = act_fn(act)(torch.matmul(xt, p["wg"])) * h
+        h = act_fn(act)(mm(xt, "wg")) * h
     else:
         h = act_fn(act)(h)
-    y = torch.einsum("ebd,be->bd", torch.matmul(h, p["wo"]).float(), we)
+    y = torch.einsum("ebd,be->bd", mm(h, "wo").float(), we)
     y = y[:, None].to(x.dtype)
     if "shared" in p:
         y = y + _dense_ffn(p["shared"], x, act)

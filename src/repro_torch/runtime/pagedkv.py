@@ -179,12 +179,15 @@ def copy_page_in_tree(caches, src: int, dst: int, n_keep: int) -> None:
     """Copy page ``src`` -> ``dst`` in every layer's pool, in place,
     keeping only the first ``n_keep`` positions valid — the copy-on-write
     step of ``ServingEngine.fork`` for the parent's partial tail page.
-    ``kp``/``vp`` are copied verbatim; positions ``>= n_keep`` are masked
-    through ``pvalid`` only."""
+    ``kp``/``vp`` and an int8 pool's ``kscale``/``vscale`` are copied
+    verbatim (re-quantizing a dequantized tail would drift from the
+    parent's bytes); positions ``>= n_keep`` are masked through ``pvalid``
+    only."""
     for layer in caches["layers"]:
         pool = layer["attn"]
         ps = pool["pvalid"].shape[1]
         keep = torch.arange(ps, device=pool["pvalid"].device) < n_keep
-        for name in ("kp", "vp"):
-            pool[name][dst] = pool[name][src].clone()
+        for name in ("kp", "vp", "kscale", "vscale"):
+            if name in pool:
+                pool[name][dst] = pool[name][src].clone()
         pool["pvalid"][dst] = pool["pvalid"][src] & keep

@@ -26,6 +26,13 @@ latest-admitted slot is preempted and re-queued at the front as a
 continuation. The (B, pages_per_slot) table and the (B,) trash pages are
 device tensors built from the host's numpy mirror each step.
 
+``kv_dtype`` / ``weight_dtype`` (``fp32`` = the config dtype, ``bf16``,
+``int8``; ``models/quant.py``) set the storage of the caches and of the
+base weights: the engine quantizes (or casts) the weights once, at init,
+into a new tree (the caller's stays as it is), and builds its caches in
+``kv_dtype``; int8 K/V are quantized once at each cache write and the
+kernels read the stored codes with their scales.
+
 Decode runs the ElastiFormer threshold path (§B.1). Each slot samples with
 its request's temperature, top-k and seed (``sample_tokens``): the noise
 of a token is keyed on (seed, its position) only, so a request's stream is
@@ -45,8 +52,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.core.policy import ElasticPolicy, as_spec_policy, solve_budget
+from repro_torch.core.policy import (ElasticPolicy, ElasticSpec,
+                                     as_spec_policy, solve_budget)
 from repro_torch.device import resolve_device
+from repro_torch.models.quant import (check_kv_dtype, check_weight_dtype,
+                                      quantize_params_tree)
 from repro_torch.models.model import (cache_init, decode_step,
                                      paged_cache_init, prefill_chunk_step,
                                      prefill_into_slot)
@@ -108,8 +118,10 @@ class ServingEngine:
     slots only). ``kv_layout``: ``"ring"`` or ``"paged"`` (``page_size``
     tokens per page, ``n_pages`` pages in the pool, default the
     ring-equivalent ``batch_size * ceil(max_seq / page_size) + 1`` with
-    the trash page). ``device``: None = the CUDA card (raises without
-    one); ``"cpu"`` runs on the CPU. The params must already live there.
+    the trash page). ``kv_dtype`` / ``weight_dtype``: the storage of the
+    caches and of the base weights (module docstring). ``device``: None =
+    the CUDA card (raises without one); ``"cpu"`` runs on the CPU. The
+    params must already live there.
     """
 
     def __init__(self, params, router_params, cfg, elastic=None,
@@ -128,11 +140,10 @@ class ServingEngine:
         self.cfg, self.mode = cfg, mode
         self.spec, self._base_policy = as_spec_policy(elastic)
         self.kv_layout, self.page_size = kv_layout, int(page_size)
-        self.kv_dtype = kv_dtype
+        self.kv_dtype = check_kv_dtype(kv_dtype)
+        self.weight_dtype = check_weight_dtype(weight_dtype)
         if kv_layout == "paged":
             self._validate_paged(mode)
-        if (kv_dtype, weight_dtype) != ("fp32", "fp32"):
-            raise _todo("quantized KV caches and weights", "item 9")
         if controller is not None:
             raise _todo("the SLO controller", "item 10")
         if mode not in ("infer", "base"):
@@ -141,7 +152,17 @@ class ServingEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine on {self.device}")
-        self.params, self.rp = params, router_params
+        # the base weights quantized (or cast) once, into a new tree
+        self.params = quantize_params_tree(params, self.weight_dtype)
+        self.rp = router_params
+        if (self.kv_dtype, self.weight_dtype) != ("fp32", "fp32"):
+            # the spec carries the dtypes into the cache write sites, also
+            # for plain dense serving (no elastic config), as in JAX
+            base = self.spec if self.spec is not None else ElasticSpec()
+            self.spec = dataclasses.replace(base, kv_dtype=self.kv_dtype,
+                                            weight_dtype=self.weight_dtype)
+            if self._base_policy is None:
+                self._base_policy = ElasticPolicy.uniform(1.0, static=True)
         if self._base_policy is not None:
             self._base_policy = self._base_policy.replace(theta=theta)
         self.B, self.max_seq = batch_size, max_seq
@@ -161,7 +182,8 @@ class ServingEngine:
                 n_pages = B * self.pages_per_slot + 1
             self.pool = PagePool(n_pages, self.page_size)
             self._caches = paged_cache_init(cfg, n_pages, self.page_size,
-                                            device=self.device)
+                                            device=self.device,
+                                            kv_dtype=self.kv_dtype)
             # the host's page table, mirrored to the device every step
             self._table = np.full((B, self.pages_per_slot), -1, np.int32)
             self._trash = np.array(
@@ -170,7 +192,8 @@ class ServingEngine:
             self._admit_counter = itertools.count()
             self._admit_seq = np.full((B,), -1, np.int64)
         else:
-            self._caches = cache_init(cfg, B, max_seq, device=self.device)
+            self._caches = cache_init(cfg, B, max_seq, device=self.device,
+                                      kv_dtype=self.kv_dtype)
         self._live_policy = (self._base_policy.broadcast_rows(B).to(
             self.device) if self._use_policy else None)
         self._tok = torch.zeros((B,), dtype=torch.int64, device=self.device)

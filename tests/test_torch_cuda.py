@@ -805,3 +805,171 @@ def test_toy_depth_engine_on_the_card(cuda, layout):
         assert list(mk("infer").generate([reqs[i]])[0]) == list(out[i])
     if layout == "paged":
         assert eng.paged_stats()["allocated"] == 0
+
+
+# ------------------- quantized operands (int8, bf16 storage) -----------------
+#
+# The serving engine's int8 K/V (per (key, kv-head) scales) and int8 weights
+# (per output channel), and bf16 storage under f32 activations: each kernel
+# reads the storage type as it is, against its plain version, which
+# dequantizes as q.float() * scale.
+
+def _int8_kv(k, v, cuda):
+    from repro_torch.models.quant import quantize_kv
+    kq, ks = quantize_kv(as_t(k, device=cuda))
+    vq, vs = quantize_kv(as_t(v, device=cuda))
+    return kq, vq, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 24])
+def test_int8_decode_kernel_matches_plain(cuda, dtype, window):
+    B, L, H, K, Dh = 4, 64, 8, 2, 32
+    t = np.asarray([0, 5, 63, 150], np.int32)
+    k, v, pos, valid = ring(6, B, L, K, Dh, t)
+    valid[0] = False                            # slot 0: no attendable key
+    q = np.random.default_rng(7).standard_normal((B, 1, H, Dh),
+                                                 dtype=np.float32)
+    kq, vq, ks, vs = _int8_kv(k, v, cuda)
+    args = [as_t(q, device=cuda, dtype=dtype), kq, vq,
+            as_t(pos, device=cuda), as_t(t, device=cuda),
+            as_t(valid, device=cuda), ks, vs]
+    n0 = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == n0 + 1
+    want = ops.decode_attention(*args, window=window, backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_CASES, ids=range(len(PAGED_CASES)))
+def test_int8_paged_decode_kernel_matches_plain(cuda, case, dtype):
+    q, kp, vp, table, t, pvalid = paged_inputs(case, 8)
+    kq, vq, ks, vs = _int8_kv(kp, vp, cuda)
+    args = [as_t(q, device=cuda, dtype=dtype), kq, vq,
+            as_t(table, device=cuda), as_t(t, device=cuda),
+            as_t(pvalid, device=cuda), ks, vs]
+    got = ops.paged_decode_attention(*args)
+    want = ops.paged_decode_attention(*args, backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    dead = (table < 0).all(1)
+    assert not got[torch.from_numpy(dead).to(cuda)].any()
+
+
+@pytest.mark.cuda
+def test_bf16_kv_under_f32_decode_kernels(cuda):
+    """bf16 K/V of an f32 model: the CUDA-core body templated on the
+    storage type, against the plain version (which widens exactly)."""
+    B, L, H, K, Dh = 3, 64, 8, 2, 64
+    t = np.asarray([5, 63, 150], np.int32)
+    k, v, pos, valid = ring(9, B, L, K, Dh, t)
+    q = np.random.default_rng(3).standard_normal((B, 1, H, Dh),
+                                                 dtype=np.float32)
+    args = [as_t(q, device=cuda), as_t(k, device=cuda, dtype=torch.bfloat16),
+            as_t(v, device=cuda, dtype=torch.bfloat16),
+            as_t(pos, device=cuda), as_t(t, device=cuda),
+            as_t(valid, device=cuda)]
+    got = ops.decode_attention(*args)
+    torch.testing.assert_close(got, ops.decode_attention(*args,
+                                                         backend="ref"),
+                               **CUDA_TOL[torch.float32])
+    q, kp, vp, table, t, pvalid = paged_inputs(PAGED_CASES[1], 4)
+    args = [as_t(q, device=cuda)] + [
+        as_t(a, device=cuda, dtype=torch.bfloat16) for a in (kp, vp)] + [
+        as_t(a, device=cuda) for a in (table, t, pvalid)]
+    got = ops.paged_decode_attention(*args)
+    torch.testing.assert_close(got, ops.paged_decode_attention(
+        *args, backend="ref"), **CUDA_TOL[torch.float32])
+
+
+def _int8_weights(cuda, *ws):
+    """Each weight quantized per output channel (its last axis)."""
+    from repro_torch.models.quant import quantize_weight
+    return [quantize_weight(w.float(), (-2,)) if w is not None else
+            (None, None) for w in ws]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLP_CASES + [
+    ((1, 16, 256), 512, "swiglu", True, False, None),    # a paged chunk
+    ((1, 70, 128), 192, "swiglu", True, True, [41])])
+def test_int8_fused_mlp_kernel_matches_plain(cuda, case, dtype):
+    x, wi, wo, wg, tw, cnt, act = mlp_inputs(case, 5, device=cuda,
+                                             dtype=dtype)
+    (wiq, wis), (woq, wos), (wgq, wgs) = _int8_weights(cuda, wi, wo, wg)
+    kw = dict(wi_scale=wis, wo_scale=wos, wg_scale=wgs, act=act)
+    n0 = ops.launch_counts()["fused_mlp"]
+    got = ops.fused_mlp(x, wiq, woq, wgq, tw, cnt, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_mlp"] == n0 + 1
+    want = ops.fused_mlp(x, wiq, woq, wgq, tw, cnt, backend="ref", **kw)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    assert torch.equal(got, ops.fused_mlp(x, wiq, woq, wgq, tw, cnt, **kw))
+
+
+@pytest.mark.cuda
+def test_bf16_weights_under_f32_fused_mlp(cuda):
+    x, wi, wo, wg, tw, cnt, act = mlp_inputs(MLP_CASES[4], 6, device=cuda)
+    b = lambda w: w.to(torch.bfloat16)
+    got = ops.fused_mlp(x, b(wi), b(wo), b(wg), tw, cnt, act=act)
+    want = ops.fused_mlp(x, b(wi), b(wo), b(wg), tw, cnt, act=act,
+                         backend="ref")
+    torch.testing.assert_close(got, want, **CUDA_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c in GMM_CASES if c[0] == "native"],
+                         ids=range(5))
+def test_int8_moe_gmm_kernel_matches_plain(cuda, case, dtype):
+    """Native expert stacks as int8 codes with (E, Fe) / (E, D) scales."""
+    x, wi, wo, wg, w, cnt, act = gmm_inputs(case, 10, cuda, dtype)
+    (wiq, wis), (woq, wos), (wgq, wgs) = _int8_weights(cuda, wi, wo, wg)
+    kw = dict(wi_scale=wis, wo_scale=wos, wg_scale=wgs, act=act)
+    got = ops.moe_gmm(x, wiq, woq, wgq, w, cnt, **kw)
+    want = ops.moe_gmm(x, wiq, woq, wgq, w, cnt, backend="ref", **kw)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    live = torch.arange(x.shape[2], device=cuda) < cnt[..., None]
+    assert got[~live].count_nonzero() == 0
+    assert torch.equal(got, ops.moe_gmm(x, wiq, woq, wgq, w, cnt, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_toy_int8_engine_on_the_card(cuda, layout):
+    """toy-lm (bf16) served with int8 weights and KV: the int8 kernels
+    launch, budget 1.0 equals the int8 teacher and a request alone equals
+    its staggered run, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticSpec
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = dataclasses.replace(get_config("toy-lm"), dtype="bfloat16")
+    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                       mha_head_routed=True, lora_rank=1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model_init(gen, cfg, spec, device=cuda)
+    rp = router_init(gen, cfg, spec, device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [GenRequest(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                       6, budget=b)
+            for n, b in zip((9, 33, 17, 70), (1.0, 0.5, 0.75, 1.0))]
+    kw = dict(kv_layout="paged", page_size=16) if layout == "paged" else {}
+    mk = lambda mode: ServingEngine(params, rp, cfg, spec, mode=mode,
+                                    batch_size=2, max_seq=128, device=cuda,
+                                    kv_dtype="int8", weight_dtype="int8",
+                                    **kw)
+    ops.reset_launch_counts()
+    out = mk("infer").generate(reqs)
+    counts = ops.launch_counts()
+    want = ("fused_mlp", "paged_decode_attention") if layout == "paged" \
+        else ("flash_attention", "fused_mlp", "decode_attention")
+    assert all(counts[k] > 0 for k in want), counts
+    base = mk("base").generate(reqs)
+    assert [list(o) for o in out[::3]] == [list(o) for o in base[::3]]
+    assert list(mk("infer").generate([reqs[2]])[0]) == list(out[2])

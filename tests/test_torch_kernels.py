@@ -110,9 +110,21 @@ def test_wrappers_take_plain_version_on_cpu():
     assert ops.launch_counts() == {n: 0 for n in ops.KERNELS}
     with pytest.raises(ValueError):
         ops.flash_attention(as_t(q), as_t(k), as_t(v), backend="cuda")
+    # int8 weights: fused_mlp takes them (the plain version on the CPU);
+    # fused_mlp_routed, which only training calls, still refuses them
+    x = as_t(q[0, :, 0])
+    wi8, wo8 = torch.ones(32, 8, dtype=torch.int8), torch.ones(
+        8, 32, dtype=torch.int8)
+    got = ops.fused_mlp(x, wi8, wo8, wi_scale=torch.full((8,), 0.5),
+                        wo_scale=torch.full((32,), 0.25), act="gelu")
+    want = fused_mlp_ref(x, torch.full((32, 8), 0.5),
+                         torch.full((8, 32), 0.25), act="gelu")
+    assert torch.equal(got, want)
     with pytest.raises(NotImplementedError):
-        ops.fused_mlp(as_t(q[0, :, 0]), torch.ones(32, 8), torch.ones(8, 32),
-                      wi_scale=torch.ones(8))
+        ops.fused_mlp_routed(x[None], torch.zeros(1, 4, dtype=torch.int64),
+                             wi8, wo8, wi_scale=torch.ones(8),
+                             wo_scale=torch.ones(32))
+    assert ops.launch_counts() == {n: 0 for n in ops.KERNELS}
 
 
 # ------------------- the tensor-core MLP body's numerics ---------------------
@@ -260,7 +272,10 @@ def test_decode_wrappers_pass_a_fixed_split_plan(fake_launch, op):
     ops.reset_launch_counts()
     for B, t in ((1, 0), (8, 5), (1, 1023), (8, 700)):
         _decode_call(op, B, t)
-    plans = {(args[15], args[16]) for _, args in fake_launch.calls}
+    # (split keys, splits): after the dtype and storage codes, Dh, the
+    # q, k, v, kscale, vscale, out, scratch and three mask pointers and five
+    # ints
+    plans = {(args[18], args[19]) for _, args in fake_launch.calls}
     split, n = ops.decode_split_plan(1024, 1 if op == "ring" else 16)
     assert plans == {(split, n)}
     assert [c for c, _ in fake_launch.calls] == [f"{name}_launch"] * 4
@@ -319,12 +334,14 @@ def test_mlp_wrappers_pass_the_plan(fake_launch, routed):
             rows = T
         entry, args = fake_launch.calls[-1]
         plan = ops.mlp_plan(dt, 2, rows, D, Fd)
-        if plan.body == "wgmma":
+        if plan.body == "wgmma":     # after the weights' storage code
             assert entry == "fused_mlp_tc_launch"
-            assert args[10:13] == (2, rows, T) and args[16:18] == (
+            assert args[0] == 1            # bf16 weights: no scales
+            assert args[6:9] == (None, None, None)
+            assert args[14:17] == (2, rows, T) and args[20:22] == (
                 plan.rows // 64, plan.split)
-            assert (args[1] is not None) == routed
-            assert (args[8] is None) == (plan.split == 1 and not routed)
+            assert (args[2] is not None) == routed
+            assert (args[12] is None) == (plan.split == 1 and not routed)
         else:
             assert entry == f"{name}_launch"
     assert ops.launch_counts()[name] == 5
@@ -390,20 +407,20 @@ def test_moe_gmm_wrapper_passes_the_plan_and_maps(fake_launch, layout):
         x = torch.zeros(B, E, C, D, dtype=dt)
         ops.moe_gmm(x, wi, wo, wg, None, torch.tensor([[130, 0, 1]] * B))
         entry, args = fake_launch.calls[-1]
-        if dt == torch.float32:
+        if dt == torch.float32:      # after the dtype and storage codes
             assert entry == "moe_gmm_launch"
-            assert args[5:9] == (*wi.stride()[:2], *wo.stride()[:2])
+            assert args[9:13] == (*wi.stride()[:2], *wo.stride()[:2])
             continue
         plan = ops.mlp_plan(dt, B * E, C, D, Fe)
         assert plan.body == "wgmma"
-        assert entry == "moe_gmm_tc_launch"
-        assert args[1:4] == (wi.data_ptr(), wg.data_ptr(), wo.data_ptr())
-        assert args[9:17] == (B, E, C, D, Fe, 0, plan.rows // 64,
-                              plan.split)
-        assert (args[7] is None) == (plan.split == 1)
+        assert entry == "moe_gmm_tc_launch"   # after the storage code
+        assert args[2:5] == (wi.data_ptr(), wg.data_ptr(), wo.data_ptr())
+        assert args[13:21] == (B, E, C, D, Fe, 0, plan.rows // 64,
+                               plan.split)
+        assert (args[11] is None) == (plan.split == 1)
         wi_map = ((E * Fe, D, Fe, 0) if layout == "moefied"
                   else (Fe, E * D, 0, D))
-        assert args[17:25] == (*wi_map, D, E * Fe, 0, Fe)
+        assert args[21:29] == (*wi_map, D, E * Fe, 0, Fe)
     assert ops.launch_counts()["moe_gmm"] == 2
     # experts neither side by side nor stacked by whole rows, or a row
     # stride of 136 bytes (TMA takes multiples of 16): no tensor-core map;

@@ -321,8 +321,18 @@ def test_kernel_op_moe_gmm_gradients():
     # frozen weights (as on the model path): only x asks for a gradient
     _check_kernel_op(plain, (x, wi.detach(), wo.detach(), wg.detach(), None,
                              cnt))
-    with pytest.raises(NotImplementedError):
-        ops.moe_gmm(x, wi, wo, wi_scale=torch.ones(3, 5))
+    # int8 stacks with per-(expert, channel) scales: the plain version on
+    # the CPU, the dequantized weights' result
+    q8 = lambda w: torch.clamp(torch.round(w.float() * 40), -127, 127).to(
+        torch.int8)
+    scale = lambda *shape: torch.full(shape, 1 / 40)
+    got = ops.moe_gmm(x.float(), q8(wi), q8(wo), q8(wg), w.float(), cnt,
+                      wi_scale=scale(3, 5), wo_scale=scale(3, 6),
+                      wg_scale=scale(3, 5))
+    want = moe_gmm_ref(x.float(), q8(wi).float() / 40, q8(wo).float() / 40,
+                       q8(wg).float() / 40, w.float(), act="swiglu",
+                       group_counts=cnt)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 # ------------------------- moe_apply / moe_decode ----------------------------

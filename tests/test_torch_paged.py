@@ -33,7 +33,7 @@ from repro.runtime import scheduler as jsched  # noqa: E402
 from repro.training import GenRequest as JaxRequest  # noqa: E402
 from repro.training import ServingEngine as JaxEngine  # noqa: E402
 from repro_torch.core.policy import ElasticPolicy  # noqa: E402
-from repro_torch.interop import paged_caches_from_numpy  # noqa: E402
+from repro_torch.interop import caches_from_numpy  # noqa: E402
 from repro_torch.kernels.ref import paged_decode_attention_ref  # noqa: E402
 from repro_torch.models import decode_step, prefill_chunk_step  # noqa: E402
 from repro_torch.runtime import pagedkv as tpk  # noqa: E402
@@ -212,7 +212,7 @@ def test_paged_plain_matches_pallas(case):
 
 def _filled_pools(s, n_pages, seed):
     """A JAX paged cache filled with random K/V and validity, and the same
-    pools carried into the port by ``interop.paged_caches_from_numpy``."""
+    pools carried into the port by ``interop.caches_from_numpy``."""
     rng = np.random.default_rng(seed)
     tree = jax.tree.map(np.asarray,
                         jax_paged_cache_init(s["jcfg"], n_pages, PS))
@@ -222,7 +222,7 @@ def _filled_pools(s, n_pages, seed):
             return rng.random(a.shape) < 0.8
         return rng.standard_normal(a.shape).astype(a.dtype)
     tree = jax.tree.map(fill, tree)
-    return tree, paged_caches_from_numpy(tree, s["tcfg"], device="cpu")
+    return tree, caches_from_numpy(tree, s["tcfg"], device="cpu")
 
 
 def _check_pools(tree, jc, tc):

@@ -161,5 +161,10 @@ def test_no_silent_cpu_fallback(setup):
         ServingEngine(s["tparams"], s["trp"], s["tcfg"], s["tspec"])
     with pytest.raises(NotImplementedError):       # the SLO controller
         _port_engine(s, controller=object())
-    with pytest.raises(NotImplementedError):
-        _port_engine(s, kv_dtype="int8")
+    # quantized serving is ported: on the CPU an int8 engine builds
+    eng = _port_engine(s, kv_dtype="int8", weight_dtype="int8")
+    attn = eng._caches["layers"][0]["attn"]
+    assert attn["k"].dtype == torch.int8 and "kscale" in attn
+    assert eng.params["layers"][0]["mlp"]["wi"].dtype == torch.int8
+    with pytest.raises(ValueError):
+        _port_engine(s, kv_dtype="int4")
