@@ -62,9 +62,15 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    Qwen2-7B full width (random bf16 weights from --seed; --layers cuts depth
    only) and fails unless budget-1.0 requests equal a mode="base" engine
    bit for bit, a request served alone equals its staggered tokens, and
-   every serving kernel launched during the run. Prints prefill and decode
-   rates of the main run and of the (warm) teacher run, and the device
-   kernel time of the solo run under torch.profiler.
+   every serving kernel launched during the run. The engines capture their
+   entry points as CUDA graphs (the default): the main run is held bit for
+   bit to a ``cuda_graphs=False`` twin at the same depth (tokens and every
+   cache leaf), and both engines' ``compile_counts()`` are printed and
+   gated (ring: prefill 0, decode at most 2 forms). Prints prefill and
+   decode rates of the main run, of its twin and of the (warm) teacher
+   run, warm decode ms/step, prefill tok/s and the device's busy share
+   graphed and eager (in turns, then profiled), and the device kernel time
+   of the solo run under torch.profiler.
 3b. Paged serving: the same weights and requests through
    ``ServingEngine(kv_layout="paged")`` (page size 16, --pages pages,
    default the ring-equivalent 4 * 64 + 1): fails unless staggered ==
@@ -168,6 +174,19 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    beside the kernel on bf16 stacks.
 10. Prints one JSON line of per-kernel results (launches by path), the card
    line again, and as the last line {"ok": true, "device": {...}}.
+
+Every serving phase holds its graphed engines to ``cuda_graphs=False``
+twins on the same weights and requests, bit for bit (tokens, every cache
+and pool leaf, the page table and pool stats): the slice's ring and paged
+infer engines at the served depth, the others (teachers, int8, depth,
+sampled, moefied, native MoE and its int8 form) at ``TWIN_LAYERS`` layers,
+the sampled preemption at its 2 f32 layers; every engine's
+``compile_counts()`` must be prefill 1 (paged) or 0 (ring) and decode 1
+or 2. A graph replay calls no Python wrapper: the launch counts add each
+replayed graph's launches (``ops.count_replay``), and the kernel calls
+that the path-call checks replay against the plain versions, and the
+sampled phase's ``decode_step`` / ``sample_tokens`` records, come from the
+eager twins.
 
 The kernel build prints ptxas's registers, shared memory and spills for
 every instantiation (the ring and paged modes of the decode kernel among
@@ -811,7 +830,9 @@ class PathCalls:
     (masks, positions, page tables, counts; the caches change after the
     call), and the other arguments. The model calls the kernels through
     the ``ops`` module, so a delegating wrapper put there sees each call;
-    the kernel wrappers and their launch counts are untouched."""
+    the kernel wrappers and their launch counts are untouched. A captured
+    graph's replay calls no wrapper: record a ``cuda_graphs=False``
+    engine."""
 
     DATA = {"flash_attention": ("kv_valid", "kv_count"),
             "decode_attention": ("kv_pos", "t", "kv_valid"),
@@ -1133,7 +1154,8 @@ def native_weights(dev, cfg):
 def serve(engine, requests, stagger: bool, after_step=None):
     """Submit two requests, step twice, submit the rest, run to the end.
     A request is (prompt, max_new_tokens, budget[, GenRequest kwargs]);
-    ``after_step(handles)`` runs after every step."""
+    ``after_step(handles)`` runs after every step. A graphed engine's
+    ``compile_counts()`` is gated after the run (``check_counts``)."""
     from repro_torch.training import GenRequest
     first = 2 if stagger else len(requests)
     make = lambda r: GenRequest(r[0], r[1], budget=r[2],
@@ -1152,7 +1174,109 @@ def serve(engine, requests, stagger: bool, after_step=None):
     while not all(h.done for h in handles):
         if step() == 0:
             fail("serving engine stalled")
+    if getattr(engine, "cuda_graphs", False):    # (--ab: an older tree's)
+        check_counts(f"a graphed {engine.kv_layout} engine", engine)
     return [list(h.output) for h in handles]
+
+
+def cache_tensors(tree):
+    """Every tensor of a cache tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in cache_tensors(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in cache_tensors(v)]
+    return [tree]
+
+
+def check_counts(label, engine):
+    """Fails unless ``engine.compile_counts()`` is what a graphed engine
+    builds whatever its budgets, slots and sampling settings: one chunk
+    form on the paged layout (none on the ring: its admission is eager)
+    and at most two decode forms, greedy-only and sampling."""
+    counts = engine.compile_counts()
+    paged = engine.kv_layout == "paged"
+    if counts["prefill"] != int(paged) or not 1 <= counts["decode"] <= 2:
+        fail(f"{label}: compile_counts {counts}, want prefill "
+             f"{int(paged)} and decode 1 or 2")
+    return counts
+
+
+def check_twin(label, graphed, eager, got, want):
+    """A graphed engine against its ``cuda_graphs=False`` twin after the
+    same requests: the same tokens, every cache (and pool) leaf and, paged,
+    the same page table and pool stats, bit for bit; prints both engines'
+    ``compile_counts()``."""
+    import torch
+    if not graphed.cuda_graphs or eager.cuda_graphs:
+        fail(f"{label}: not a graphed engine and its eager twin")
+    if got != want:
+        fail(f"{label}: graphed tokens {got} != cuda_graphs=False {want}")
+    for a, b in zip(cache_tensors(graphed._caches),
+                    cache_tensors(eager._caches)):
+        if not torch.equal(a, b):
+            fail(f"{label}: a cache leaf of the graphed engine differs from "
+                 f"its cuda_graphs=False twin's")
+    what = "tokens, caches"
+    if graphed.kv_layout == "paged":
+        if not np.array_equal(graphed._table, eager._table) or \
+                graphed.pool.stats() != eager.pool.stats():
+            fail(f"{label}: page table or pool stats differ from the "
+                 f"cuda_graphs=False twin's")
+        what += ", page table, pool stats"
+    counts = check_counts(label, graphed)
+    print(f"{label}: graphed == cuda_graphs=False twin, bit for bit "
+          f"({what}): ok; compile_counts {counts} (twin "
+          f"{eager.compile_counts()})")
+
+
+def twins(label, mk, run, rec=None):
+    """``mk(cuda_graphs)`` -> an engine, ``run(engine)`` -> its tokens:
+    runs a graphed engine, then its ``cuda_graphs=False`` twin (inside
+    ``rec``, a ``PathCalls`` or any context, when given: a replay calls no
+    wrapper, so the path's kernel calls are recorded from the twin), and
+    holds them equal (``check_twin``). Returns the graphed engine's
+    tokens."""
+    graphed = mk(True)
+    got = run(graphed)
+    eager = mk(False)
+    with (rec or contextlib.nullcontext()):
+        want = run(eager)
+    check_twin(label, graphed, eager, got, want)
+    return got
+
+
+def reserved_over(fn, label, device_line):
+    """``fn()`` after the allocator's cache is emptied: prints the device
+    memory it reserved beyond what was in use before it (the peak; for a
+    graphed engine's first run this includes its graph pool). Returns
+    fn's result."""
+    import torch
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r0 = torch.cuda.memory_reserved()
+    out = fn()
+    torch.cuda.synchronize()
+    print(f"{label}: {(torch.cuda.max_memory_reserved() - r0) / 1e6:.1f} MB "
+          f"of device memory reserved over the run, peak "
+          f"[{device_line}]")
+    return out
+
+
+def cut(params, n_layers):
+    """The first ``n_layers`` layers of a param or router tree (the
+    twins' reduced depth; no copy)."""
+    return dict(params, layers=params["layers"][:n_layers])
+
+
+TWIN_LAYERS = 4     # the depth of the graphed-vs-eager twins of later phases
+
+
+def twin_depth(cfg) -> int:
+    """The reduced twins' depth: ``TWIN_LAYERS``, or the served depth when
+    that is less."""
+    return min(TWIN_LAYERS, cfg.n_layers)
 
 
 def print_timing(label, tm, device_line):
@@ -1228,23 +1352,43 @@ def check_serving(args, dev, device_line, spec):
     budgets = [1.0, 0.75, 0.5, 1.0, 0.5, 0.75]
     requests = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 16, b)
                 for n, b in zip(lens, budgets)]
-    mk = lambda mode: ServingEngine(params, rp, cfg, spec, mode=mode,
-                                    batch_size=4, max_seq=1024, device=dev)
+    mk = lambda mode, graphs=True: ServingEngine(
+        params, rp, cfg, spec, mode=mode, batch_size=4, max_seq=1024,
+        device=dev, cuda_graphs=graphs)
 
     engine = mk("infer")
     ops.reset_launch_counts()
-    tokens = serve(engine, requests, stagger=True)    # the main path
-    torch.cuda.synchronize()
+    tokens = reserved_over(lambda: serve(engine, requests, stagger=True),
+                           "ring infer, graphed (first run)",
+                           device_line)               # the main path
     launches = ops.launch_counts()
     check_launches("serving", launches)
-    print_timing("main path (first run, cold)", engine.timing, device_line)
+    first = dict(engine.timing)
+    print_timing("main path (first run, cold)", first, device_line)
     for toks in tokens:
         if len(toks) != 16 or not all(0 <= x < cfg.vocab_size for x in toks):
             fail(f"bad generated tokens {toks}")
+    eager = mk("infer", graphs=False)
+    check_twin(f"ring infer, {cfg.n_layers} layers", engine, eager, tokens,
+               reserved_over(lambda: serve(eager, requests, stagger=True),
+                             "ring infer, cuda_graphs=False twin",
+                             device_line))
+    print_timing("ring infer, cuda_graphs=False twin (first run)",
+                 eager.timing, device_line)
+    graph_vs_eager({"ring graphed": engine, "ring eager": eager},
+                   (requests[1][0], 16, 0.75), device_line)
+    del eager
 
     base = mk("base")
     teacher = serve(base, requests, stagger=True)
     print_timing("teacher, mode='base' (warm)", base.timing, device_line)
+    nt = twin_depth(cfg)
+    cfg_t = dataclasses.replace(cfg, n_layers=nt)
+    twins(f"ring teacher (mode='base'), {nt} layers",
+          lambda g: ServingEngine(cut(params, nt), rp, cfg_t, spec,
+                                  mode="base", batch_size=4, max_seq=1024,
+                                  device=dev, cuda_graphs=g),
+          lambda e: serve(e, requests, stagger=True))
     for i, b in enumerate(budgets):
         if b == 1.0 and tokens[i] != teacher[i]:
             fail(f"budget-1.0 request {i} differs from the teacher: "
@@ -1260,24 +1404,36 @@ def check_serving(args, dev, device_line, spec):
         fail(f"request {solo_i} alone {solo} != staggered {tokens[solo_i]}")
     print(f"staggered == solo (request {solo_i}, budget "
           f"{budgets[solo_i]}): ok")
-    ring = {"tokens": tokens, "timing": dict(engine.timing)}
+    ring = {"tokens": tokens, "timing": first}
     return launches, params, rp, requests, teacher, ring
 
 
 def decode_turns(engines, req, device_line):
-    """Warm decode of one request on each of two engines (name -> engine)
-    in turns (a b b a), ms per step from ``engine.timing``. Reported, not
-    gated."""
+    """Warm serving of one request on each of two engines (name -> engine)
+    in turns (a b b a): decode ms per step and prefill tok/s from
+    ``engine.timing``. Reported, not gated."""
     a, b = engines
-    turns = []
+    turns, rates = [], []
     for name in (a, b, b, a):
         tm = engines[name].timing
-        tm.update(decode_s=0.0, decode_steps=0)
+        tm.update(decode_s=0.0, decode_steps=0, prefill_s=0.0,
+                  prefill_tokens=0)
         serve(engines[name], [req], stagger=False)
         turns.append(f"{name} {tm['decode_s'] * 1e3 / tm['decode_steps']:.2f}")
-    print(f"warm decode in turns, one request ({len(req[0])}-token prompt, "
-          f"{req[1]} new tokens, budget {req[2]}), ms/step: "
-          f"{' / '.join(turns)} [{device_line}]")
+        rates.append(f"{name} {tm['prefill_tokens'] / tm['prefill_s']:.1f}")
+    print(f"warm serving in turns, one request ({len(req[0])}-token prompt, "
+          f"{req[1]} new tokens, budget {req[2]}): decode ms/step "
+          f"{' / '.join(turns)}; prefill tok/s {' / '.join(rates)} "
+          f"[{device_line}]")
+
+
+def graph_vs_eager(engines, req, device_line):
+    """A graphed engine and its ``cuda_graphs=False`` twin (name ->
+    engine), both warm: decode ms/step and prefill tok/s in turns, then
+    decode under the profiler (wall and device ms per step, the device's
+    busy share, operations per step). Reported, not gated."""
+    decode_turns(engines, req, device_line)
+    decode_profile(engines, req)
 
 
 def decode_profile(engines, req, prof_tokens=7):
@@ -1342,10 +1498,11 @@ def check_paged_serving(args, res, dev, device_line, spec, params, rp,
     from repro_torch.training import GenRequest, ServingEngine
     cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=args.layers)
 
-    def mk(mode="infer", n_pages=args.pages):
+    def mk(mode="infer", n_pages=args.pages, graphs=True):
         return ServingEngine(params, rp, cfg, spec, mode=mode, batch_size=4,
                              max_seq=1024, device=dev, kv_layout="paged",
-                             page_size=PAGE_SIZE, n_pages=n_pages)
+                             page_size=PAGE_SIZE, n_pages=n_pages,
+                             cuda_graphs=graphs)
 
     def drained(eng, what):
         st = eng.paged_stats()
@@ -1364,18 +1521,28 @@ def check_paged_serving(args, res, dev, device_line, spec, params, rp,
           f"layers [{device_line}]")
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    with PathCalls("paged_decode_attention") as rec:
-        tokens = serve(engine, requests, stagger=True)    # the main path
-        torch.cuda.synchronize()
+    tokens = reserved_over(lambda: serve(engine, requests, stagger=True),
+                           "paged infer, graphed (first run)",
+                           device_line)               # the main path
     launches = ops.launch_counts()
     check_launches("paged_serving", launches)
+    first = dict(engine.timing)
     st = drained(engine, "staggered run")
+    eager = mk(graphs=False)
+    with PathCalls("paged_decode_attention") as rec:   # replays call none
+        want = reserved_over(lambda: serve(eager, requests, stagger=True),
+                             "paged infer, cuda_graphs=False twin",
+                             device_line)
+    check_twin(f"paged infer, {cfg.n_layers} layers", engine, eager, tokens,
+               want)
+    print_timing("paged infer, cuda_graphs=False twin (first run)",
+                 eager.timing, device_line)
     print(f"paged_decode_attention at the paged serving path's calls "
-          f"[{device_line}]:")
+          f"(recorded from the twin) [{device_line}]:")
     check_paged_calls(res, dev, rec.paged_cases(), {4: "decode step",
                                               PAGE_SIZE: "prefill chunk"})
     del rec
-    print_timing("paged serving (first run)", engine.timing, device_line)
+    print_timing("paged serving (first run)", first, device_line)
     print_timing("ring serving, same call (first run)", ring["timing"],
                  device_line)
     print(f"paged pool peak: {st['peak_allocated']} of {st['usable']} pages")
@@ -1390,11 +1557,23 @@ def check_paged_serving(args, res, dev, device_line, spec, params, rp,
           f"{len(tokens)} requests identical, {agree} of "
           f"{sum(map(len, tokens))} tokens agree position by position")
 
+    graph_vs_eager({"paged graphed": engine, "paged eager": eager},
+                   (requests[1][0], 16, 0.75), device_line)
+    del eager
+
     base = mk("base")
     teacher = serve(base, requests, stagger=True)
     drained(base, "teacher run")
     print_timing("paged teacher, mode='base' (warm)", base.timing,
                  device_line)
+    nt = twin_depth(cfg)
+    cfg_t = dataclasses.replace(cfg, n_layers=nt)
+    twins(f"paged teacher (mode='base'), {nt} layers",
+          lambda g: ServingEngine(cut(params, nt), rp, cfg_t, spec,
+                                  mode="base", batch_size=4, max_seq=1024,
+                                  device=dev, kv_layout="paged",
+                                  page_size=PAGE_SIZE, cuda_graphs=g),
+          lambda e: serve(e, requests, stagger=True))
     for i, (_, _, b) in enumerate(requests):
         if b == 1.0 and tokens[i] != teacher[i]:
             fail(f"paged: budget-1.0 request {i} differs from the paged "
@@ -1488,7 +1667,7 @@ def check_paged_serving(args, res, dev, device_line, spec, params, rp,
           f"uninterrupted run (reported, not gated): "
           f"{[list(h.output) == a for h, a in zip(hs, alone)]}")
     check_chunked_prefill_f32(params, rp, spec, dev, requests[2][0])
-    return launches, {"tokens": tokens, "timing": dict(engine.timing),
+    return launches, {"tokens": tokens, "timing": first,
                       "teacher": teacher}
 
 
@@ -1570,8 +1749,9 @@ def check_expert_serving(args, dev, device_line, spec, params, requests,
     print(f"expert serving: {cfg.name} depth {cfg.n_layers}, MLPs moefied "
           f"into {espec.mlp_n_experts} experts (views of the dense weights), "
           f"fresh routers [{device_line}]")
-    mk = lambda: ServingEngine(params, rp, cfg, espec, mode="infer",
-                               batch_size=4, max_seq=1024, device=dev)
+    mk = lambda n=cfg.n_layers, g=True: ServingEngine(
+        cut(params, n), rp, dataclasses.replace(cfg, n_layers=n), espec,
+        mode="infer", batch_size=4, max_seq=1024, device=dev, cuda_graphs=g)
     engine = mk()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1579,6 +1759,9 @@ def check_expert_serving(args, dev, device_line, spec, params, requests,
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     check_launches("expert_serving", launches)
+    twins(f"moefied ring infer, {twin_depth(cfg)} layers",
+          lambda g: mk(twin_depth(cfg), g),
+          lambda e: serve(e, requests, stagger=True))
     print_timing("expert serving (first run)", engine.timing, device_line)
     for toks in tokens:
         if len(toks) != 16 or not all(0 <= x < cfg.vocab_size for x in toks):
@@ -1933,8 +2116,9 @@ def check_native_serving(args, dev, device_line):
     budgets = [1.0, 0.75, 0.5, None, 0.5]
     requests = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), 16, b)
                 for n, b in zip(lens, budgets)]
-    mk = lambda: ServingEngine(params, rp, cfg, spec, mode="infer",
-                               batch_size=4, max_seq=1024, device=dev)
+    mk = lambda n=cfg.n_layers, g=True: ServingEngine(
+        cut(params, n), rp, dataclasses.replace(cfg, n_layers=n), spec,
+        mode="infer", batch_size=4, max_seq=1024, device=dev, cuda_graphs=g)
     engine = mk()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1942,6 +2126,9 @@ def check_native_serving(args, dev, device_line):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     check_launches("native_serving", launches)
+    twins(f"native MoE ring infer, {twin_depth(cfg)} layers",
+          lambda g: mk(twin_depth(cfg), g),
+          lambda e: serve(e, requests, stagger=True))
     print_timing("native MoE serving (first run)", engine.timing,
                  device_line)
     for toks in tokens:
@@ -2338,12 +2525,14 @@ def check_quant_serving(args, res, dev, device_line, spec, params, rp,
     # the weights cover the training depth too: count the served layers
     served = dict(params, layers=params["layers"][:cfg.n_layers])
 
-    def mk(mode="infer", layout="ring", dtype="int8", n_pages=args.pages):
+    def mk(mode="infer", layout="ring", dtype="int8", n_pages=args.pages,
+           n_layers=cfg.n_layers, graphs=True):
         kw = dict(kv_layout="paged", page_size=PAGE_SIZE, n_pages=n_pages) \
             if layout == "paged" else {}
-        return ServingEngine(served, rp, cfg, spec, mode=mode, batch_size=4,
-                             max_seq=1024, device=dev, kv_dtype=dtype,
-                             weight_dtype=dtype, **kw)
+        return ServingEngine(cut(served, n_layers), rp, dataclasses.replace(
+            cfg, n_layers=n_layers), spec, mode=mode, batch_size=4,
+            max_seq=1024, device=dev, kv_dtype=dtype, weight_dtype=dtype,
+            cuda_graphs=graphs, **kw)
 
     launches = {}
     for layout, bf in (("ring", ring), ("paged", paged)):
@@ -2359,11 +2548,8 @@ def check_quant_serving(args, res, dev, device_line, spec, params, rp,
               f"({w8 / w16:.3f}x)")
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        names = ("fused_mlp", "paged_decode_attention") if layout == "paged" \
-            else ("fused_mlp", "decode_attention")
-        with PathCalls(*names) as rec:
-            tokens = serve(eng, requests, stagger=True)   # the main path
-            torch.cuda.synchronize()
+        tokens = serve(eng, requests, stagger=True)   # the main path
+        torch.cuda.synchronize()
         launches[path] = ops.launch_counts()
         check_launches(path, launches[path])
         if layout == "paged" and eng.paged_stats()["allocated"] != 0:
@@ -2372,7 +2558,15 @@ def check_quant_serving(args, res, dev, device_line, spec, params, rp,
             if len(toks) != 16 or not all(0 <= x < cfg.vocab_size
                                           for x in toks):
                 fail(f"bad generated tokens {toks}")
+        rec = PathCalls(*(("fused_mlp", "paged_decode_attention")
+                          if layout == "paged" else
+                          ("fused_mlp", "decode_attention")))
+        nt = twin_depth(cfg)
+        twins(f"int8 {layout} infer, {nt} layers",
+              lambda g: mk(layout=layout, n_layers=nt, graphs=g),
+              lambda e: serve(e, requests, stagger=True), rec=rec)
         print(f"int8 {layout} kernel calls at the path's own shapes "
+              f"(recorded from the {nt}-layer twin) "
               f"[{device_line}]:")
         check_int8_path_calls(res, dev, f"int8 {layout}", rec)
         if layout == "paged":
@@ -2496,13 +2690,15 @@ def check_native_int8_serving(dev, device_line, state):
     """The native MoE of ``check_native_serving`` (its weights, routers and
     requests) served with int8 weights and K/V: staggered == solo bit for
     bit, moe_gmm launched; prints the rates. Returns the launches."""
+    import dataclasses
     import torch
     from repro_torch.kernels import ops
     from repro_torch.training import ServingEngine
     params, rp, cfg, spec, requests = state
-    mk = lambda: ServingEngine(params, rp, cfg, spec, mode="infer",
-                               batch_size=4, max_seq=1024, device=dev,
-                               kv_dtype="int8", weight_dtype="int8")
+    mk = lambda n=cfg.n_layers, g=True: ServingEngine(
+        cut(params, n), rp, dataclasses.replace(cfg, n_layers=n), spec,
+        mode="infer", batch_size=4, max_seq=1024, device=dev,
+        kv_dtype="int8", weight_dtype="int8", cuda_graphs=g)
     engine = mk()
     print(f"native MoE int8 serving: weights {tree_bytes(engine.params) / 1e9:.3f}"
           f" GB (bf16 {tree_bytes(params) / 1e9:.3f}), KV "
@@ -2513,6 +2709,9 @@ def check_native_int8_serving(dev, device_line, state):
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     check_launches("quant_native_serving", launches)
+    twins(f"native MoE int8 ring infer, {twin_depth(cfg)} layers",
+          lambda g: mk(twin_depth(cfg), g),
+          lambda e: serve(e, requests, stagger=True))
     print_timing("native MoE int8 serving (first run)", engine.timing,
                  device_line)
     del engine
@@ -2701,18 +2900,23 @@ def check_depth_serving(args, res, dev, device_line, spec, params, rp,
         path = "depth_serving" if layout == "ring" else "depth_paged_serving"
         kw = dict(kv_layout="paged", page_size=PAGE_SIZE,
                   n_pages=args.pages) if layout == "paged" else {}
-        mk = lambda: ServingEngine(params, rp_d, cfg, dspec, mode="infer",
-                                   batch_size=4, max_seq=1024, device=dev,
-                                   **kw)
+        mk = lambda n=cfg.n_layers, g=True: ServingEngine(
+            cut(params, n), rp_d, dataclasses.replace(cfg, n_layers=n),
+            dspec, mode="infer", batch_size=4, max_seq=1024, device=dev,
+            cuda_graphs=g, **kw)
         engine = mk()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         skips = DepthPromptSkips(rp_d, cfg, dspec, requests) \
             if layout == "ring" else None
-        with PathCalls() as rec, (skips or contextlib.nullcontext()):
+        with (skips or contextlib.nullcontext()):
             tokens, holes = serve_holes(engine, requests)   # the main path
             torch.cuda.synchronize()
         launches[path] = ops.launch_counts()
+        rec = PathCalls()
+        twins(f"depth {layout} infer, {twin_depth(cfg)} layers",
+              lambda g: mk(twin_depth(cfg), g),
+              lambda e: serve(e, requests, stagger=True), rec=rec)
         check_launches(path, launches[path])
         print(f"{path}: {cfg.name} depth {cfg.n_layers}, the slice's spec "
               f"and routers plus a depth router per layer [{device_line}]")
@@ -2762,7 +2966,8 @@ def check_depth_serving(args, res, dev, device_line, spec, params, rp,
               f"budget (depth or attention token router; ring valid / "
               f"paged pvalid): " + ", ".join(f"{b}: {100 * s:.2f} %"
                                              for b, s in share.items()))
-        print(f"depth kernel calls of the {layout} path [{device_line}]:")
+        print(f"depth kernel calls of the {layout} path (recorded from the "
+              f"{twin_depth(cfg)}-layer twin) [{device_line}]:")
         check_path_calls(res, dev, f"depth {layout}", rec)
         if layout == "paged":
             check_paged_calls(res, dev, rec.paged_cases(),
@@ -2812,8 +3017,9 @@ def check_sampled_serving(args, dev, device_line, spec, params, rp,
              dict(temperature=0.7, seed=7),
              dict(temperature=1.0, top_k=40, seed=123)]
     reqs = [r + (k,) for r, k in zip(requests, knobs)]
-    mk = lambda: ServingEngine(params, rp, cfg, spec, mode="infer",
-                               batch_size=4, max_seq=1024, device=dev)
+    mk = lambda n=cfg.n_layers, g=True: ServingEngine(
+        cut(params, n), rp, dataclasses.replace(cfg, n_layers=n), spec,
+        mode="infer", batch_size=4, max_seq=1024, device=dev, cuda_graphs=g)
     engine = mk()
     steps = []     # per decode step: [decode_step's, sample_tokens' tensors]
     real_step, real_sample = serve_mod.decode_step, serve_mod.sample_tokens
@@ -2827,17 +3033,24 @@ def check_sampled_serving(args, dev, device_line, spec, params, rp,
             steps[-1].append(tensor_signature((a, kw)))
         return real_sample(*a, **kw)
 
+    @contextlib.contextmanager
+    def recording():             # a replay calls neither: the eager twin
+        serve_mod.decode_step, serve_mod.sample_tokens = step, sample
+        try:
+            yield
+        finally:
+            serve_mod.decode_step, serve_mod.sample_tokens = real_step, \
+                real_sample
+
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    serve_mod.decode_step, serve_mod.sample_tokens = step, sample
-    try:
-        tokens = serve(engine, reqs, stagger=True)       # the main path
-        torch.cuda.synchronize()
-    finally:
-        serve_mod.decode_step, serve_mod.sample_tokens = real_step, \
-            real_sample
+    tokens = serve(engine, reqs, stagger=True)       # the main path
+    torch.cuda.synchronize()
     launches = ops.launch_counts()
     check_launches("sampled_serving", launches)
+    twins(f"sampled ring infer, {twin_depth(cfg)} layers",
+          lambda g: mk(twin_depth(cfg), g),
+          lambda e: serve(e, reqs, stagger=True), rec=recording())
     print(f"sampled serving: {cfg.name} depth {cfg.n_layers}, the six "
           f"requests with {[k.get('temperature', 0.0) for k in knobs]} "
           f"temperatures, top-k {[k.get('top_k', 0) for k in knobs]} "
@@ -2867,7 +3080,8 @@ def check_sampled_serving(args, dev, device_line, spec, params, rp,
              f"sampling ones handed sample_tokens "
              f"{len({st[1] for st in sampled})}, not one each with (B,) "
              f"settings")
-    print(f"sampled serving: {len(greedy)} greedy-only and {len(sampled)} "
+    print(f"sampled serving ({twin_depth(cfg)}-layer twin): {len(greedy)} "
+          f"greedy-only and {len(sampled)} "
           f"sampling decode steps handed decode_step tensors of the same "
           f"shapes and dtypes; the sampling ones handed sample_tokens "
           f"({B},) temperature, top-k, seed and position tensors, the "
@@ -2925,13 +3139,17 @@ def check_sampled_preemption(params, rp, spec, dev, seed, n_layers=2):
     reqs = [(rng.integers(0, cfg.vocab_size, 512).astype(np.int32), 16, 0.75,
              dict(temperature=0.8, top_k=40, seed=s)) for s in (21, 22)]
     need = -(-(512 + 16) // PAGE_SIZE)
-    mk = lambda n_pages=None: ServingEngine(
+    mk = lambda n_pages=None, g=True: ServingEngine(
         p32, r32, cfg, spec, mode="infer", batch_size=2, max_seq=1024,
-        device=dev, kv_layout="paged", page_size=PAGE_SIZE, n_pages=n_pages)
+        device=dev, kv_layout="paged", page_size=PAGE_SIZE, n_pages=n_pages,
+        cuda_graphs=g)
     eng = mk(2 * need)                  # one page short, plus the trash page
     got = serve(eng, reqs, stagger=False)
     if eng.n_preempted < 1:
         fail("sampled preemption: none on the short pool")
+    twin = mk(2 * need, False)
+    check_twin(f"sampled preemption, f32, {n_layers} layers", eng, twin, got,
+               serve(twin, reqs, stagger=False))
     alone = [serve(mk(), [r], stagger=False)[0] for r in reqs]
     if got != alone:
         fail(f"sampled preemption: {got} != uninterrupted {alone}")
@@ -3091,9 +3309,10 @@ def ab_decode(dev, layers, reps=2):
     """``--ab``'s serving turn: item 3's six staggered requests, seed 0,
     greedy, through a ring and a paged infer engine and a ring mode="base"
     engine of the tree on the path (Qwen2-7B width, ``layers`` deep, the
-    slice's spec), each served once cold and ``reps`` times warm. Returns
-    each engine's tokens (one (6, 16) tensor, equal across its warm runs)
-    and its warm decode ms/step."""
+    slice's spec; each tree's default engine: a tree whose engine captures
+    CUDA graphs runs graphed, an older one eagerly), each served once cold
+    and ``reps`` times warm. Returns each engine's tokens (one (6, 16)
+    tensor, equal across its warm runs) and its warm decode ms/step."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -3126,6 +3345,9 @@ def ab_decode(dev, layers, reps=2):
                         / eng.timing["decode_steps"])
         outs[f"decode {name} tokens"] = torch.tensor(tokens)
         ms[name] = warm
+        print(f"--ab decode {name}: " + (
+            f"graphed, compile_counts {eng.compile_counts()}"
+            if getattr(eng, "cuda_graphs", False) else "eager"))
         del eng
     return outs, ms
 

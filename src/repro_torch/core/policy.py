@@ -132,17 +132,39 @@ class ElasticPolicy:
                     .expand(batch).clone(), self)
 
     def set_row(self, i: int, row: "ElasticPolicy") -> "ElasticPolicy":
-        """A copy of this (B,)-leaf policy with slot ``i`` set to ``row``'s
-        scalar leaves (the admission splice; the JAX package's functional
-        update, so the caller's policy is left as it was). The SLO
-        controller's capacity ``floor`` arrives with it (ROADMAP Queue A
+        """A copy of this (B,)- or (L, B)-leaf policy with slot ``i`` set to
+        ``row``'s leaves: the JAX package's functional update, which leaves
+        the caller's policy as it was (model-level callers and tests). The
+        serving engine splices in place (``set_row_``). The SLO
+        controller's capacity ``floor`` arrives with them (ROADMAP Queue A
         item 10)."""
-        def upd(live, r):
-            out = live.clone()
-            out[i] = torch.as_tensor(r, dtype=torch.float32,
-                                     device=live.device)
-            return out
-        return _map(upd, self, row)
+        return self.replace(**{
+            f.name: getattr(self, f.name).clone()
+            for f in dataclasses.fields(self)}).set_row_(i, row)
+
+    def set_row_(self, i: int, row: "ElasticPolicy") -> "ElasticPolicy":
+        """Slot ``i`` of this (B,)- or (L, B)-leaf policy set to ``row``'s
+        leaves (scalars, or (L, 1) / (L,) per-layer rows) IN PLACE: the
+        serving engine's admission and fork splice. Every leaf keeps its
+        storage, so a captured decode step that reads the leaves sees the
+        new row. Returns self."""
+        for f in dataclasses.fields(self):
+            live = getattr(self, f.name)
+            r = torch.as_tensor(getattr(row, f.name), dtype=torch.float32,
+                                device=live.device)
+            if r.dim() and r.dim() == live.dim():     # (L, 1): one row
+                r = r[..., 0]
+            live[..., i] = r
+        return self
+
+    def copy_(self, src: "ElasticPolicy") -> "ElasticPolicy":
+        """Every tensor leaf of this policy overwritten in place with
+        ``src``'s leaf of the same shape (the serving engine's static
+        policy of the captured prefill chunk). Returns self."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).copy_(torch.as_tensor(
+                getattr(src, f.name), dtype=torch.float32))
+        return self
 
     # ---- per-layer schedules ----
     @property

@@ -11,7 +11,9 @@ package's ``kernels/ops.py``. ``backend``:
 
 There is no fallback: a build failure, a refused launch or an unsupported
 shape raises. Each wrapper adds one to its count in ``launch_counts()``
-exactly when it launches its kernel.
+exactly when it launches its kernel; a call captured into a CUDA graph
+(the serving engine's entry points) counts once per replay of the graph
+instead (``captured_launches``, ``count_replay``).
 
 Quantized operands (the serving engine's ``kv_dtype`` / ``weight_dtype``,
 ``models/quant.py``): a weight, K or V tensor arrives in its storage dtype
@@ -92,6 +94,29 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+class captured_launches:
+    """``with captured_launches() as per_replay:`` around a CUDA-graph
+    capture: the wrappers' launches inside are recorded, not counted (a
+    capture launches nothing); on exit ``per_replay`` holds each kernel's
+    launches per replay of the graph, for ``count_replay``."""
+
+    def __enter__(self) -> dict:
+        self._before, self._per_replay = dict(_launches), {}
+        return self._per_replay
+
+    def __exit__(self, *exc) -> None:
+        for name, n in self._before.items():
+            self._per_replay[name] = _launches[name] - n
+            _launches[name] = n
+
+
+def count_replay(per_replay: dict) -> None:
+    """One replay of a captured graph launched ``per_replay``'s kernels
+    (``captured_launches``): each count goes up by them."""
+    for name, n in per_replay.items():
+        _launches[name] += n
 
 
 def use_kernel(backend, t: torch.Tensor) -> bool:

@@ -281,9 +281,18 @@ def attn_decode_paged(p, x, cache, t, table, trash, *, cfg,
     return _out_proj(p, ctx, head_weights), cache
 
 
-def attn_chunk(p, x, cache, write_page: int, table_row, pos0: int,
-               plen: int, *, cfg, keep=None, head_weights=None, lora=None,
-               backend=None):
+def as_index(v, device) -> torch.Tensor:
+    """A page id or a row as a (1,) int64 index on ``device``: a 0-d
+    device tensor (the serving engine's captured chunk reads its operands
+    from static buffers) stays on the device, never read by the host; a
+    Python int becomes a one-element tensor."""
+    if torch.is_tensor(v):
+        return v.reshape(1).long()
+    return torch.tensor([int(v)], dtype=torch.int64, device=device)
+
+
+def attn_chunk(p, x, cache, write_page, table_row, pos0, plen, *, cfg,
+               keep=None, head_weights=None, lora=None, backend=None):
     """One CHUNK of a paged prefill, shaped like a decode: x is (1, C, D)
     with C == page_size, covering absolute positions [pos0, pos0 + C). The
     chunk's K/V fill exactly ONE page (``write_page``; the trash page when
@@ -291,8 +300,9 @@ def attn_chunk(p, x, cache, write_page: int, table_row, pos0: int,
     queries), in place; then each of the C queries attends over the pages
     of ``table_row`` (P,) up to its own position — C rows of the paged
     decode op with the same table row. ``keep``: (1, C) token gate; lanes
-    at positions >= plen (chunk padding) are never marked valid. Returns
-    (out (1, C, D), cache)."""
+    at positions >= plen (chunk padding) are never marked valid.
+    ``write_page``, ``pos0`` and ``plen``: Python ints or 0-d int device
+    tensors (no host read either way). Returns (out (1, C, D), cache)."""
     B, C, _ = x.shape
     H, Dh = cfg.n_heads, cfg.d_head
     positions = pos0 + torch.arange(C, dtype=torch.int32,
@@ -302,9 +312,10 @@ def attn_chunk(p, x, cache, write_page: int, table_row, pos0: int,
     wr = torch.ones((B, C), dtype=torch.bool, device=x.device) \
         if keep is None else keep
     wr = wr & (positions < plen)
+    wp = as_index(write_page, x.device)
     for name, new in _stored(cache, "kp", "vp", k_new, v_new):
-        cache[name][write_page] = new[0].to(cache[name].dtype)
-    cache["pvalid"][write_page] = wr[0]
+        cache[name].index_copy_(0, wp, new.to(cache[name].dtype))
+    cache["pvalid"].index_copy_(0, wp, wr)
     table = table_row.reshape(1, -1).expand(C, -1)
     ctx = OPS.paged_decode_attention(
         q.reshape(C, 1, H, Dh), cache["kp"], cache["vp"], table,

@@ -628,9 +628,8 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
     return x + y, cache
 
 
-def block_chunk(kind: str, p, rp, x, cache, write_page: int, table_row,
-                pos0: int, plen: int, *, cfg, spec, pol=None, mode: str,
-                elastic_on: bool):
+def block_chunk(kind: str, p, rp, x, cache, write_page, table_row, pos0,
+                plen, *, cfg, spec, pol=None, mode: str, elastic_on: bool):
     """One CHUNK of a paged prefill: x is (1, C, D) with C == page_size,
     covering absolute positions [pos0, pos0 + C) of a plen-token prompt
     (the last chunk arrives zero-padded). The inference-threshold branch of
@@ -639,8 +638,9 @@ def block_chunk(kind: str, p, rp, x, cache, write_page: int, table_row,
     chunk takes the one-shot prefill's keep decisions; K/V go into ONE
     pool page (``write_page``; a token the depth router skips leaves a
     ``pvalid`` hole) and attention reads through ``table_row`` (see
-    ``attention.attn_chunk``). Paged serving runs dense MLPs only (the
-    engine validates it). Returns (x', cache)."""
+    ``attention.attn_chunk``). ``write_page``, ``pos0`` and ``plen``:
+    Python ints or 0-d int device tensors. Paged serving runs dense MLPs
+    only (the engine validates it). Returns (x', cache)."""
     if mode not in ("infer", "base"):
         raise ValueError(f"block_chunk serves infer/base modes, got {mode!r}")
     _only_attn(kind)

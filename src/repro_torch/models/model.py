@@ -24,6 +24,7 @@ import torch.utils.checkpoint
 from repro_torch.core.policy import as_spec_policy
 from repro_torch.device import resolve_device
 from repro_torch.core.routing import RouteAux
+from repro_torch.models.attention import as_index
 from repro_torch.models.blocks import (block_apply, block_cache_init,
                                        block_chunk, block_decode, block_init,
                                        block_paged_cache_init,
@@ -232,12 +233,13 @@ def prefill_into_slot(params, rparams, batch, caches, slot: int, cfg,
                       policy=None, live_policy=None):
     """Admission path for continuous batching: prefill ONE request, copy its
     caches into row ``slot`` and splice its policy row into the live
-    (B,)-leaf policy. Returns (logits (1, V), caches, live_policy)."""
+    (B,)-leaf policy, both in place (every live tensor keeps its storage).
+    Returns (logits (1, V), caches, live_policy)."""
     logits, row = prefill(params, rparams, batch, cfg, ecfg, mode=mode,
                           max_cache_len=max_cache_len, policy=policy)
     caches = cache_insert(caches, row, slot)
     if live_policy is not None and policy is not None:
-        live_policy = live_policy.set_row(slot, policy)
+        live_policy.set_row_(slot, policy)
     return logits, caches, live_policy
 
 
@@ -278,18 +280,21 @@ def paged_cache_init(cfg, n_pages: int, page_size: int, device=None,
                        for k in cfg.layer_kinds]}
 
 
-def prefill_chunk_step(params, rparams, tokens, caches, write_page: int,
-                       table_row, pos0: int, plen: int, cfg, ecfg=None,
+def prefill_chunk_step(params, rparams, tokens, caches, write_page,
+                       table_row, pos0, plen, cfg, ecfg=None,
                        mode: str = "infer", policy=None):
     """One CHUNK of a paged prefill through the whole stack: tokens is
     (1, C) int with C == page_size, zero-padded past ``plen``;
     ``write_page`` is the pool page this chunk's K/V land in at EVERY layer
     (the same id in each layer's pool slice); ``table_row`` (P,) int32 is
     the slot's page-table row (entries up to this chunk present); the
-    chunk covers positions [pos0, pos0 + C). Chaining ceil(plen / C) calls
-    prefills any prompt length with the same shapes. The pools are updated
-    in place. Returns (logits (1, V) at the chunk's LAST REAL position, and
-    the caches)."""
+    chunk covers positions [pos0, pos0 + C). ``write_page``, ``pos0`` and
+    ``plen`` are Python ints or 0-d int device tensors: given tensors, the
+    step reads no value on the host, so one captured chunk serves every
+    chunk of every prompt (the serving engine's). Chaining ceil(plen / C)
+    calls prefills any prompt length with the same shapes. The pools are
+    updated in place. Returns (logits (1, V) at the chunk's LAST REAL
+    position, and the caches)."""
     spec, pol = as_spec_policy(ecfg, policy)
     x = _embed(params, tokens)
     has_rp = rparams is not None and mode != "base"
@@ -300,6 +305,9 @@ def prefill_chunk_step(params, rparams, tokens, caches, write_page: int,
             rparams["layers"][i] if has_rp else None, x,
             caches["layers"][i], write_page, table_row, pos0, plen, cfg=cfg,
             spec=spec, pol=pols[i], mode=mode, elastic_on=ent.elastic)
-    lidx = min(max(plen - 1 - pos0, 0), x.shape[1] - 1)
-    x = norm_apply(params["final_norm"], x[:, lidx], cfg.norm)
+    last = plen - 1 - pos0           # the last real row, clamped to the chunk
+    last = last.clamp(0, x.shape[1] - 1) if torch.is_tensor(last) else \
+        min(max(last, 0), x.shape[1] - 1)
+    x = x.index_select(1, as_index(last, x.device))[:, 0]
+    x = norm_apply(params["final_norm"], x, cfg.norm)
     return _logits(params, cfg, x), caches

@@ -1,5 +1,4 @@
-"""Continuous-batching greedy serving over the port's ring or paged KV
-cache.
+"""Continuous-batching serving over the port's ring or paged KV cache.
 
     engine = ServingEngine(params, rp, cfg, spec, mode="infer")
     h = engine.submit(GenRequest(prompt, 64, budget=0.5))
@@ -9,12 +8,34 @@ cache.
 
 ``engine.step()`` admits queued requests into free slots (a single-request
 prefill copied into the slot's cache row, and the request's solved policy
-row spliced into the live (B,)-leaf ``ElasticPolicy``), then runs ONE decode
-step over the fixed array of B slots; finished and empty slots are masked.
-Admission is packed by ``runtime.scheduler.SlotScheduler`` against a
-per-step FLOP budget (a request costs its budget fraction). Budgets,
-slots and positions are tensor arguments, so every decode step has the same
-shapes and dtypes whatever the budget mix.
+row spliced in place into the live (B,)-leaf ``ElasticPolicy``), then runs
+ONE decode step over the fixed array of B slots; finished and empty slots
+are masked. Admission is packed by ``runtime.scheduler.SlotScheduler``
+against a per-step FLOP budget (a request costs its budget fraction).
+
+The engine's entry points are compiled, as the JAX engine jits its own
+(``compile_counts()``). Every tensor the decode step reads or writes is
+allocated once, at init, and never rebound: the tokens, positions and
+``active`` mask, the paged table and trash pages, the per-slot
+temperature, top-k and seeds, the live policy leaves and the caches. The
+host keeps numpy mirrors of the per-slot state; they are views of one
+staging buffer (pinned on the card) that reaches the device in ONE copy a
+step, and the new tokens come back in one copy, the step's only sync. On
+the card the first call of each form of an entry point runs eagerly (a
+real step: its results are the step's) and is then captured into a
+``torch.cuda.CUDAGraph``; every later call replays it. The forms: the
+decode step greedy-only or sampling (the host tests whether a live slot
+samples, as JAX's step branches on the device), and one paged prefill
+chunk whose tokens, table row, write page, offsets and policy row are
+staged into static buffers, so it is captured ONCE for any mix of prompt
+lengths, shared prefixes, forks and preemptions. All graphs of an engine
+share one memory pool and are freed with it. A failed capture, or a body
+that syncs or reads the host, raises: there is no fallback to eager.
+``cuda_graphs=False`` runs every step eagerly on the card (the
+counterpart of ``jax.disable_jit()``); a CPU engine builds the same static
+state and runs its bodies eagerly, counted the same way. The ring's
+one-shot admission prefill, ``fork``'s page copy and the first-token
+sampling stay eager.
 
 ``kv_layout="paged"`` (``runtime/pagedkv.py``) replaces the ring's
 ``max_seq`` reservation per slot with a global pool of ``page_size``-token
@@ -24,7 +45,7 @@ page, full prompt pages are shared between requests with the same prefix
 copies only the partial tail page, and when the pool runs dry the
 latest-admitted slot is preempted and re-queued at the front as a
 continuation. The (B, pages_per_slot) table and the (B,) trash pages are
-device tensors built from the host's numpy mirror each step.
+among the staged per-slot state.
 
 ``kv_dtype`` / ``weight_dtype`` (``fp32`` = the config dtype, ``bf16``,
 ``int8``; ``models/quant.py``) set the storage of the caches and of the
@@ -37,9 +58,8 @@ Decode runs the ElastiFormer threshold path (§B.1). Each slot samples with
 its request's temperature, top-k and seed (``sample_tokens``): the noise
 of a token is keyed on (seed, its position) only, so a request's stream is
 the same served alone or staggered, forked with its seed, or preempted and
-resumed. Temperature 0 (the default) is the exact argmax. A decode step
-copies the per-slot settings to the device as (B,) tensors only when a
-live slot samples; a greedy-only step takes the argmax alone.
+resumed. Temperature 0 (the default) is the exact argmax; a greedy-only
+step takes the argmax alone.
 """
 from __future__ import annotations
 
@@ -55,6 +75,8 @@ from repro_torch.core import prng
 from repro_torch.core.policy import (ElasticPolicy, ElasticSpec,
                                      as_spec_policy, solve_budget)
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as OPS
+from repro_torch.models.layers import dtype_of
 from repro_torch.models.quant import (check_kv_dtype, check_weight_dtype,
                                       quantize_params_tree)
 from repro_torch.models.model import (cache_init, decode_step,
@@ -108,6 +130,30 @@ def _todo(what: str, item: str):
     return NotImplementedError(f"{what} arrives with ROADMAP Queue A {item}")
 
 
+def _staging(fields, device):
+    """One host staging buffer for the step's per-slot state (pinned when
+    ``device`` is a card, so the copy is asynchronous) and its device
+    twin, each laid out as ``fields`` ((name, numpy dtype, shape), every
+    field 8-byte aligned). Returns (host buffer, device buffer, {name:
+    numpy view of the host buffer}, {name: tensor view of the device
+    buffer}): the host writes the views, ONE copy moves them all."""
+    offs, n = [], 0
+    for _, dt, shape in fields:
+        offs.append(n)
+        n += -(-int(np.prod(shape)) * np.dtype(dt).itemsize // 8) * 8
+    host = torch.zeros((n,), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    dev = torch.zeros((n,), dtype=torch.uint8, device=device)
+    arr = host.numpy()
+    hv, dv = {}, {}
+    for (name, dt, shape), o in zip(fields, offs):
+        nb = int(np.prod(shape)) * np.dtype(dt).itemsize
+        tdt = torch.from_numpy(np.zeros((), dt)).dtype
+        hv[name] = arr[o:o + nb].view(dt).reshape(shape)
+        dv[name] = dev[o:o + nb].view(tdt).reshape(shape)
+    return host, dev, hv, dv
+
+
 class ServingEngine:
     """Continuous-batching generation over a frozen base model + routers.
 
@@ -121,7 +167,11 @@ class ServingEngine:
     the trash page). ``kv_dtype`` / ``weight_dtype``: the storage of the
     caches and of the base weights (module docstring). ``device``: None =
     the CUDA card (raises without one); ``"cpu"`` runs on the CPU. The
-    params must already live there.
+    params must already live there. ``cuda_graphs``: None = True on a CUDA
+    engine (the decode step and the paged prefill chunk captured once per
+    form and replayed, module docstring); False runs them eagerly on the
+    card, as a CPU engine always does. ``compile_counts()`` counts the
+    forms built.
     """
 
     def __init__(self, params, router_params, cfg, elastic=None,
@@ -131,7 +181,8 @@ class ServingEngine:
                  step_flop_budget: Optional[float] = None, mesh=None,
                  kv_layout: str = "ring", page_size: int = 16,
                  n_pages: Optional[int] = None, kv_dtype: str = "fp32",
-                 weight_dtype: str = "fp32", controller=None, device=None):
+                 weight_dtype: str = "fp32", controller=None, device=None,
+                 cuda_graphs: Optional[bool] = None):
         if mesh is not None:
             raise _todo("SPMD serving (mesh=)", "item 11")
         if kv_layout not in ("ring", "paged"):
@@ -149,6 +200,11 @@ class ServingEngine:
         if mode not in ("infer", "base"):
             raise _todo(f"mode={mode!r} prefill", "items 3-4")
         self.device = resolve_device(device)
+        on_card = self.device.type == "cuda"
+        self.cuda_graphs = on_card if cuda_graphs is None else bool(cuda_graphs)
+        if self.cuda_graphs and not on_card:
+            raise ValueError("cuda_graphs=True captures CUDA graphs: it needs "
+                             "an engine on a CUDA device")
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine on {self.device}")
@@ -174,6 +230,13 @@ class ServingEngine:
         B = batch_size
         self.scheduler = SlotScheduler(B, step_flop_budget)
         self.pool: Optional[PagePool] = None
+        # the per-slot state every decode step reads: host mirrors that are
+        # views of one staging buffer, and their device copies, which the
+        # compiled step reads (never rebound)
+        fields = [("seeds", np.int64, (B,)),      # uint32 values
+                  ("temp", np.float32, (B,)), ("topk", np.int32, (B,)),
+                  ("t", np.int32, (B,)),          # per-slot decode position
+                  ("active", np.bool_, (B,))]
         if kv_layout == "paged":
             self.pages_per_slot = n_pages_for(max_seq, self.page_size)
             if n_pages is None:
@@ -184,26 +247,47 @@ class ServingEngine:
             self._caches = paged_cache_init(cfg, n_pages, self.page_size,
                                             device=self.device,
                                             kv_dtype=self.kv_dtype)
-            # the host's page table, mirrored to the device every step
-            self._table = np.full((B, self.pages_per_slot), -1, np.int32)
-            self._trash = np.array(
-                [self.pool.trash_page(self.scheduler.replica_of(s))
-                 for s in range(B)], np.int32)
+            fields += [("table", np.int32, (B, self.pages_per_slot)),
+                       ("trash", np.int32, (B,))]
             self._admit_counter = itertools.count()
             self._admit_seq = np.full((B,), -1, np.int64)
         else:
             self._caches = cache_init(cfg, B, max_seq, device=self.device,
                                       kv_dtype=self.kv_dtype)
+        self._stage_host, self._stage_dev, host, self._dev = _staging(
+            fields, self.device)
+        self._seeds, self._temp, self._topk = (host["seeds"], host["temp"],
+                                               host["topk"])
+        self._t, self._active = host["t"], host["active"]
+        if kv_layout == "paged":
+            self._table, self._trash = host["table"], host["trash"]
+            self._table[:] = -1
+            self._trash[:] = [self.pool.trash_page(
+                self.scheduler.replica_of(s)) for s in range(B)]
+            # the captured chunk's inputs: every chunk of one admission
+            # staged at once (tokens, table row, write page, pos0, plen per
+            # row), one row copied into ``_chunk_in`` before each replay
+            C, P = self.page_size, self.pages_per_slot
+            self._chunk_host = torch.zeros(
+                (P, C + P + 3), dtype=torch.int32, pin_memory=on_card)
+            self._chunk_dev = torch.zeros((P, C + P + 3), dtype=torch.int32,
+                                          device=self.device)
+            self._chunk_in = torch.zeros((C + P + 3,), dtype=torch.int32,
+                                         device=self.device)
+            self._chunk_logits = torch.zeros(
+                (1, cfg.padded_vocab), dtype=dtype_of(cfg), device=self.device)
+            self._chunk_policy = (ElasticPolicy.uniform(1.0, static=True).to(
+                self.device) if self._use_policy else None)
         self._live_policy = (self._base_policy.broadcast_rows(B).to(
             self.device) if self._use_policy else None)
         self._tok = torch.zeros((B,), dtype=torch.int64, device=self.device)
-        self._t = np.zeros((B,), np.int32)        # per-slot decode position
-        # per-slot sampling settings (host; copied when a live slot samples)
-        self._temp = np.zeros((B,), np.float32)
-        self._topk = np.zeros((B,), np.int32)
-        self._seeds = np.zeros((B,), np.int64)    # uint32 values
-        self._active = np.zeros((B,), bool)
         self._ngen = np.zeros((B,), np.int64)
+        # the compiled entry points: (entry, form) -> None (eager) or
+        # (captured graph, kernel launches per replay)
+        self._forms: dict = {}
+        self._compiles = {"prefill": 0, "decode": 0}
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self.cuda_graphs else None)
         self.n_preempted = 0                      # paged: evictions so far
         # host wall time of admissions (prefill) and decode steps; both end
         # in a device-to-host copy, which waits for the device
@@ -326,7 +410,9 @@ class ServingEngine:
         t0 = time.perf_counter()
         tokens = torch.as_tensor(prompt[None], device=self.device)
         b_eff = self._budget_of(req)
-        logits, self._caches, self._live_policy = prefill_into_slot(
+        # eager (one form per prompt length would need its own graph); the
+        # cache row and the policy row are spliced in place
+        logits, _, _ = prefill_into_slot(
             self.params, self.rp, {"tokens": tokens}, self._caches, slot,
             self.cfg, self.spec, mode=self.mode, max_cache_len=self.max_seq,
             policy=self._policy_for(b_eff), live_policy=self._live_policy)
@@ -343,7 +429,8 @@ class ServingEngine:
 
     def _first_token(self, logits, slot: int, req: GenRequest, plen: int):
         """Records the request's sampling settings in ``slot`` and samples
-        its first token (position ``plen``) from the prefill's logits."""
+        its first token (position ``plen``) from the prefill's logits
+        (eager)."""
         self._temp[slot] = req.temperature
         self._topk[slot] = req.top_k
         self._seeds[slot] = int(req.seed) & 0xFFFFFFFF
@@ -412,20 +499,28 @@ class ServingEngine:
         pol_row = self._policy_for(b_eff)
         trash = self.pool.trash_page(r)
         t0 = time.perf_counter()
-        table_row = torch.as_tensor(row, device=self.device)
-        for c in list(range(matched, n_chunks)) or [n_chunks - 1]:
+        # stage every chunk this admission runs in one copy, then replay
+        # the captured chunk once per chunk from its row of the staging
+        runs = list(range(matched, n_chunks)) or [n_chunks - 1]
+        P = self.pages_per_slot
+        stage = self._chunk_host.numpy()
+        for j, c in enumerate(runs):
             lo = c * ps
             n = min(ps, plen - lo)
-            ck = np.zeros((1, ps), np.int32)
-            ck[0, :n] = prompt[lo:lo + n]
-            wp = int(row[c]) if c >= matched else trash
-            logits, self._caches = prefill_chunk_step(
-                self.params, self.rp, torch.as_tensor(ck, device=self.device),
-                self._caches, wp, table_row, lo, plen, self.cfg, self.spec,
-                mode=self.mode, policy=pol_row)
+            stage[j, :ps] = 0
+            stage[j, :n] = prompt[lo:lo + n]
+            stage[j, ps:ps + P] = row
+            stage[j, ps + P:] = (row[c] if c >= matched else trash, lo, plen)
+        self._chunk_dev[:len(runs)].copy_(self._chunk_host[:len(runs)],
+                                          non_blocking=True)
+        if pol_row is not None:
+            self._chunk_policy.copy_(pol_row)
+        for j in range(len(runs)):
+            self._chunk_in.copy_(self._chunk_dev[j])
+            self._run_form("prefill", "chunk", self._chunk_body)
         if self._live_policy is not None and pol_row is not None:
-            self._live_policy = self._live_policy.set_row(slot, pol_row)
-        tok0 = self._first_token(logits, slot, req, plen)
+            self._live_policy.set_row_(slot, pol_row)
+        tok0 = self._first_token(self._chunk_logits, slot, req, plen)
         self._tok[slot] = tok0
         tok0 = int(tok0)                          # waits for the device
         self.timing["prefill_s"] += time.perf_counter() - t0
@@ -543,25 +638,11 @@ class ServingEngine:
         live = [(s, h) for s, h in enumerate(self.scheduler.slots)
                 if h is not None and self._active[s]]
         t0 = time.perf_counter()
-        dev = self.device
-        t = torch.as_tensor(self._t, device=dev)
-        active = torch.as_tensor(self._active, device=dev)
-        paged_kw = {}
-        if paged:
-            paged_kw = dict(table=torch.as_tensor(self._table, device=dev),
-                            trash=torch.as_tensor(self._trash, device=dev))
-        logits, self._caches = decode_step(
-            self.params, self.rp, self._tok[:, None], self._caches, t,
-            self.cfg, self.spec, mode=self.mode, policy=self._live_policy,
-            **paged_kw)
-        if (self._temp[self._active] > 0).any():   # the new token: t + 1
-            nxt = sample_tokens(
-                logits, torch.as_tensor(self._temp, device=dev),
-                torch.as_tensor(self._topk, device=dev),
-                torch.as_tensor(self._seeds, device=dev), t + 1)
-        else:                      # every live slot greedy: no sort, no noise
-            nxt = sample_tokens(logits)
-        self._tok = torch.where(active, nxt, torch.zeros_like(self._tok))
+        # the per-slot state in one copy; the greedy-only or sampling form
+        self._stage_dev.copy_(self._stage_host, non_blocking=True)
+        sampling = bool((self._temp[self._active] > 0).any())
+        self._run_form("decode", "sampling" if sampling else "greedy",
+                       lambda: self._decode_body(sampling))
         toks = self._tok.cpu().numpy()            # waits for the device
         self.timing["decode_s"] += time.perf_counter() - t0
         self.timing["decode_steps"] += 1
@@ -571,6 +652,82 @@ class ServingEngine:
             self._t[slot] += 1
             self._append(slot, handle, int(toks[slot]))
         return len(admitted) + len(live)
+
+    # --------------------------- compiled entry points ------------------------
+
+    def _decode_body(self, sampling: bool) -> None:
+        """The decode entry point: one ``decode_step`` over the slot array,
+        ``sample_tokens`` (the new token sits at t + 1) and the ``active``
+        mask, reading and writing only the engine's static buffers; the new
+        tokens land in ``_tok``."""
+        dev = self._dev
+        paged_kw = {}
+        if self.kv_layout == "paged":
+            paged_kw = dict(table=dev["table"], trash=dev["trash"])
+        logits, _ = decode_step(
+            self.params, self.rp, self._tok[:, None], self._caches, dev["t"],
+            self.cfg, self.spec, mode=self.mode, policy=self._live_policy,
+            **paged_kw)
+        if sampling:
+            nxt = sample_tokens(logits, dev["temp"], dev["topk"],
+                                dev["seeds"], dev["t"] + 1)
+        else:                      # every live slot greedy: no sort, no noise
+            nxt = sample_tokens(logits)
+        self._tok.copy_(torch.where(dev["active"], nxt,
+                                    torch.zeros_like(nxt)))
+
+    def _chunk_body(self) -> None:
+        """The paged prefill entry point: one ``prefill_chunk_step`` whose
+        tokens, table row, write page, pos0 and plen are views of
+        ``_chunk_in`` and whose policy is ``_chunk_policy``; its logits
+        land in ``_chunk_logits``."""
+        C, P = self.page_size, self.pages_per_slot
+        ci = self._chunk_in
+        logits, _ = prefill_chunk_step(
+            self.params, self.rp, ci[None, :C], self._caches, ci[C + P],
+            ci[C:C + P], ci[C + P + 1], ci[C + P + 2], self.cfg, self.spec,
+            mode=self.mode, policy=self._chunk_policy)
+        self._chunk_logits.copy_(logits)
+
+    def _run_form(self, entry: str, form: str, body) -> None:
+        """Runs ``body``, the form ``form`` of the entry point ``entry``.
+        A form's first call builds it (``compile_counts``): the body runs
+        eagerly, a real step, and on a graphed engine is then captured
+        into a CUDA graph in the engine's pool (a failed capture raises;
+        nothing the capture records runs). Every later call replays the
+        graph, which counts the kernel launches it makes, or runs the body
+        eagerly (``cuda_graphs=False``, the CPU)."""
+        key = (entry, form)
+        with torch.no_grad():
+            if key in self._forms:
+                built = self._forms[key]
+                if built is None:
+                    body()
+                else:
+                    graph, launches = built
+                    graph.replay()
+                    OPS.count_replay(launches)
+                return
+            self._compiles[entry] += 1
+            body()
+            if not self.cuda_graphs:
+                self._forms[key] = None
+                return
+            graph = torch.cuda.CUDAGraph()
+            with OPS.captured_launches() as launches, \
+                    torch.cuda.graph(graph, pool=self._graph_pool):
+                body()
+            self._forms[key] = (graph, launches)
+
+    def compile_counts(self) -> dict:
+        """``{"prefill": n, "decode": m}``: the forms of each entry point
+        this engine has built (on the card each is one captured CUDA
+        graph), the JAX engine's ``compile_counts()``. A paged engine
+        builds one chunk form (prefill 1 after its first admission; a ring
+        engine's admission is eager: 0) and at most two decode forms,
+        greedy-only and sampling, whatever the budgets, slots, prompt
+        lengths and sampling settings."""
+        return dict(self._compiles)
 
     # ------------------------------- fork ------------------------------------
 
@@ -636,8 +793,8 @@ class ServingEngine:
         self._ngen[cs] = 0
         self._admit_seq[cs] = next(self._admit_counter)
         if self._live_policy is not None:
-            self._live_policy = self._live_policy.set_row(
-                cs, self._policy_for(self._budget_of(req)))
+            self._live_policy.set_row_(cs, self._policy_for(
+                self._budget_of(req)))
         return child
 
     def generate(self, requests: List[GenRequest],

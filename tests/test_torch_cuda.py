@@ -973,3 +973,151 @@ def test_toy_int8_engine_on_the_card(cuda, layout):
     base = mk("base").generate(reqs)
     assert [list(o) for o in out[::3]] == [list(o) for o in base[::3]]
     assert list(mk("infer").generate([reqs[2]])[0]) == list(out[2])
+
+
+# ------------------- captured entry points (CUDA graphs) ---------------------
+#
+# The serving engine captures its decode step (greedy-only and sampling
+# forms) and, paged, its prefill chunk into CUDA graphs; ``cuda_graphs=False``
+# runs the same bodies eagerly. Both must give the same bits.
+
+def _toy_serving(cuda, storage):
+    """toy-lm (4 layers) in f32 for "fp32", else bf16, with the slice's
+    routers; greedy and sampled requests at mixed budgets. Returns (make
+    engine, requests)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticSpec
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = dataclasses.replace(get_config("toy-lm"), dtype=(
+        "float32" if storage == "fp32" else "bfloat16"))
+    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                       mha_head_routed=True, lora_rank=1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model_init(gen, cfg, spec, device=cuda)
+    rp = router_init(gen, cfg, spec, device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [GenRequest(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                       new, budget=b, temperature=t, top_k=k, seed=s)
+            for n, new, b, t, k, s in (
+                (9, 8, 1.0, 0.0, 0, 0), (33, 4, 0.5, 0.8, 40, 3),
+                (17, 6, 0.75, 0.0, 0, 0), (70, 5, None, 1.0, 0, 4),
+                (40, 6, 0.5, 0.0, 0, 0))]
+    q = "int8" if storage == "int8" else "fp32"
+
+    def mk(layout, graphs=True, mode="infer"):
+        kw = dict(kv_layout="paged", page_size=16) if layout == "paged" \
+            else {}
+        return ServingEngine(params, rp, cfg, spec, mode=mode, batch_size=2,
+                             max_seq=128, device=cuda, kv_dtype=q,
+                             weight_dtype=q, cuda_graphs=graphs, **kw)
+    return mk, reqs
+
+
+def _staggered_run(eng, reqs):
+    hs = [eng.submit(r) for r in reqs[:2]]
+    eng.step()
+    eng.step()
+    hs += [eng.submit(r) for r in reqs[2:]]
+    while not all(h.done for h in hs):
+        assert eng.step() > 0
+    return [list(h.output) for h in hs]
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tensors(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _tensors(v)]
+    return [tree]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_graphed_engine_equals_eager_bit_for_bit(cuda, layout, storage):
+    """The captured entry points against ``cuda_graphs=False`` on the same
+    weights and staggered greedy and sampled requests: the same tokens,
+    the same caches (every K/V, scale, validity and position leaf) and the
+    same page table; each replay counts the kernels it launches."""
+    mk, reqs = _toy_serving(cuda, storage)
+    ops.reset_launch_counts()
+    graphed = mk(layout)
+    got = _staggered_run(graphed, reqs)
+    counts = ops.launch_counts()
+    eager = mk(layout, graphs=False)
+    ops.reset_launch_counts()
+    want = _staggered_run(eager, reqs)
+    assert got == want
+    for a, b in zip(_tensors(graphed._caches), _tensors(eager._caches)):
+        assert torch.equal(a, b)
+    decode = "paged_decode_attention" if layout == "paged" \
+        else "decode_attention"
+    assert counts[decode] == ops.launch_counts()[decode] > 0
+    want_counts = {"prefill": int(layout == "paged"), "decode": 2}
+    assert graphed.compile_counts() == eager.compile_counts() == want_counts
+    if layout == "paged":
+        assert np.array_equal(graphed._table, eager._table)
+        assert graphed.paged_stats() == eager.paged_stats()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_graph_counts_stay_flat_on_the_card(cuda, layout):
+    """More requests at other budgets, slots and sampling settings on an
+    engine whose forms are built add no capture."""
+    from repro_torch.training import GenRequest
+    mk, reqs = _toy_serving(cuda, "bf16")
+    eng = mk(layout)
+    _staggered_run(eng, reqs)
+    built = eng.compile_counts()
+    assert built == {"prefill": int(layout == "paged"), "decode": 2}
+    rng = np.random.default_rng(1)
+    more = [GenRequest(rng.integers(0, 2048, n).astype(np.int32), 5,
+                       budget=b, temperature=t, top_k=k, seed=s)
+            for n, b, t, k, s in ((50, 0.25, 0.7, 5, 9), (3, None, 0.0, 0, 0),
+                                  (90, 0.9, 0.0, 0, 0),
+                                  (16, 0.6, 1.2, 0, 2 ** 32 - 1))]
+    _staggered_run(eng, more)
+    assert eng.compile_counts() == built
+
+
+@pytest.mark.cuda
+def test_engines_built_and_freed_leave_memory_where_it_was(cuda):
+    """Each engine's graphs live in its own pool and go with it: engines
+    built, run and freed in turn leave ``memory_reserved`` where the first
+    one left it."""
+    import gc
+    mk, reqs = _toy_serving(cuda, "bf16")
+    reserved = []
+    for layout in ("paged", "ring", "paged", "ring"):
+        eng = mk(layout)
+        _staggered_run(eng, reqs)
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+    assert reserved[2:] == reserved[:2], reserved
+
+
+@pytest.mark.cuda
+def test_host_sync_in_the_body_makes_capture_raise(cuda, monkeypatch):
+    """A host read inside the decode body runs in the eager first call and
+    fails the capture after it: the engine raises, never falls back."""
+    from repro_torch.training import serve as serve_mod
+    real = serve_mod.decode_step
+
+    def syncing(*a, **kw):
+        logits, caches = real(*a, **kw)
+        float(logits.sum())                       # a host read
+        return logits, caches
+    mk, reqs = _toy_serving(cuda, "bf16")
+    monkeypatch.setattr(serve_mod, "decode_step", syncing)
+    eng = mk("ring")
+    eng.submit(reqs[0])
+    with pytest.raises(RuntimeError):
+        eng.step()
+    torch.cuda.synchronize()
+    eager = mk("ring", graphs=False)          # the caller's explicit choice
+    assert len(eager.generate([reqs[0]])[0]) == reqs[0].max_new_tokens

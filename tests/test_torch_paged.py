@@ -339,10 +339,11 @@ def test_paged_engine_matches_jax_paged_engine(setup, monkeypatch):
 def test_paged_equals_ring_and_shapes_never_change(setup, monkeypatch):
     """Port paged == port ring (each request served alone), token for
     token; every decode step of the staggered run sees the same tensor
-    shapes and dtypes, page table and trash pages included."""
+    shapes, dtypes and storage, page table and trash pages included, one
+    call a step."""
     s = setup
     prompts = _prompts(s, 0, LENS)
-    sigs = set()
+    sigs, calls = set(), []
     real = serve_mod.decode_step
 
     def recording(params, rp, tok, caches, t, cfg, spec, mode, policy,
@@ -352,13 +353,16 @@ def test_paged_equals_ring_and_shapes_never_change(setup, monkeypatch):
             "theta", "student")]
         leaves += [c for layer in caches["layers"]
                    for c in layer["attn"].values()]
-        sigs.add(tuple((tuple(x.shape), x.dtype) for x in leaves))
+        sigs.add(tuple((tuple(x.shape), x.dtype, x.data_ptr())
+                       for x in leaves))
+        calls.append(1)
         return real(params, rp, tok, caches, t, cfg, spec, mode=mode,
                     policy=policy, table=table, trash=trash)
 
     monkeypatch.setattr(serve_mod, "decode_step", recording)
-    got = _staggered(_engine(s), GenRequest, prompts)
-    assert len(sigs) == 1
+    eng = _engine(s)
+    got = _staggered(eng, GenRequest, prompts)
+    assert len(sigs) == 1 and len(calls) == eng.timing["decode_steps"]
     monkeypatch.undo()
     ring = [_ring_solo(s, p, 6, b) for p, b in zip(prompts, BUDGETS)]
     assert got == ring

@@ -63,10 +63,11 @@ def test_greedy_tokens_match_jax_engine(setup, monkeypatch):
 
 def test_staggered_equals_solo_and_shapes_never_change(setup, monkeypatch):
     """Each request served alone gives its staggered tokens; every decode
-    step of the mixed-budget run sees the same tensor shapes and dtypes
-    (the port's counterpart of one compiled decode graph)."""
+    step of the mixed-budget run sees the same tensor shapes, dtypes and
+    storage (the port's counterpart of one compiled decode graph, and the
+    precondition of replaying a captured one), one call a step."""
     s = setup
-    sigs = set()
+    sigs, calls = set(), []
     real = serve_mod.decode_step
 
     def recording(params, rp, tok, caches, t, cfg, spec, mode, policy):
@@ -75,13 +76,16 @@ def test_staggered_equals_solo_and_shapes_never_change(setup, monkeypatch):
             "theta", "student")]
         leaves += [c for layer in caches["layers"]
                    for c in layer["attn"].values()]
-        sigs.add(tuple((tuple(x.shape), x.dtype) for x in leaves))
+        sigs.add(tuple((tuple(x.shape), x.dtype, x.data_ptr())
+                       for x in leaves))
+        calls.append(1)
         return real(params, rp, tok, caches, t, cfg, spec, mode=mode,
                     policy=policy)
 
     monkeypatch.setattr(serve_mod, "decode_step", recording)
-    stag = _staggered(_port_engine(s), GenRequest, s["prompts"], BUDGETS)
-    assert len(sigs) == 1
+    eng = _port_engine(s)
+    stag = _staggered(eng, GenRequest, s["prompts"], BUDGETS)
+    assert len(sigs) == 1 and len(calls) == eng.timing["decode_steps"]
     for i in (1, 3, 4):
         solo = _port_engine(s).generate(
             [GenRequest(s["prompts"][i], NEW, budget=BUDGETS[i])])[0]
