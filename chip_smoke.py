@@ -107,6 +107,19 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    fork child mid-page equals its independent run, and two 512-token
    requests on a pool one page short (a preemption) each equal their
    uninterrupted runs, bit for bit.
+3e. Train-mode serving: the same weights and requests through
+   ``ServingEngine(mode="train")`` on the ring (each admission routes by
+   top-k into the request's ragged capacity bucket; the dense MLPs run
+   ``fused_mlp_routed``), in bf16 and with int8 weights and K/V (the
+   routed kernel's int8 form): fails unless the tokens are in the
+   vocabulary, budget-1.0 requests equal the teacher of item 3 (int8:
+   item 3c's int8 teacher), request 4 alone equals its staggered run, bit
+   for bit, ``compile_counts()`` is {prefill 0, decode 1} and the path's
+   kernels launched. Every ``fused_mlp_routed`` call of the int8 run is
+   replayed against the plain version (unselected rows exact zeros), the
+   heaviest timed beside the kernel on bf16 weights at the same shape.
+   Prints each warm admission's bucket and time beside an infer engine's,
+   the profiled device time of one admission of each, and the rates.
 4. Gradients: the router gradients of one distillation loss at full width,
    2 layers, f32, through the kernels against the same through the plain
    versions.
@@ -178,8 +191,9 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
 Every serving phase holds its graphed engines to ``cuda_graphs=False``
 twins on the same weights and requests, bit for bit (tokens, every cache
 and pool leaf, the page table and pool stats): the slice's ring and paged
-infer engines at the served depth, the others (teachers, int8, depth,
-sampled, moefied, native MoE and its int8 form) at ``TWIN_LAYERS`` layers,
+infer engines at the served depth, the others (teachers, int8,
+train-mode, depth, sampled, moefied, native MoE and its int8 form) at
+``TWIN_LAYERS`` layers,
 the sampled preemption at its 2 f32 layers; every engine's
 ``compile_counts()`` must be prefill 1 (paged) or 0 (ring) and decode 1
 or 2. A graph replay calls no Python wrapper: the launch counts add each
@@ -247,6 +261,10 @@ PATH_KERNELS = {
     "quant_paged_serving": ("fused_mlp", "paged_decode_attention"),
     "quant_native_serving": ("flash_attention", "moe_gmm",
                              "decode_attention"),
+    "train_serving": ("flash_attention", "fused_mlp", "fused_mlp_routed",
+                      "decode_attention"),
+    "quant_train_serving": ("flash_attention", "fused_mlp",
+                            "fused_mlp_routed", "decode_attention"),
 }
 
 
@@ -328,8 +346,10 @@ class Results:
     def __init__(self):
         self.rows = {n: {"max_abs_err": 0.0} for n in SOURCES}
 
-    def compare(self, name, case, got, want, kind):
-        """Per element: |got - want| <= atol + rtol * |want|."""
+    def compare(self, name, case, got, want, kind, quiet=False):
+        """Per element: |got - want| <= atol + rtol * |want|. ``quiet``:
+        print only a failure (the caller prints a summary). Returns the
+        worst err/tol."""
         import torch
         diff = (got.float() - want.float()).abs()
         atol, rtol = TOL[kind]
@@ -338,14 +358,16 @@ class Results:
         worst = float((diff / tol).max())       # <= 1 everywhere to pass
         ok = bool(torch.isfinite(got.float()).all()) and worst <= 1.0
         n_diff = int((got != want).sum())
-        print(f"  {name:17s} {case:44s} max_abs_err {err:.3e}  worst "
-              f"err/tol {worst:.3f} (tol atol {atol:g} + rtol {rtol:g} * "
-              f"|plain| per element; {n_diff} of {got.numel()} elements "
-              f"differ)  {'ok' if ok else 'FAIL'}")
+        if not quiet or not ok:
+            print(f"  {name:17s} {case:44s} max_abs_err {err:.3e}  worst "
+                  f"err/tol {worst:.3f} (tol atol {atol:g} + rtol {rtol:g} "
+                  f"* |plain| per element; {n_diff} of {got.numel()} "
+                  f"elements differ)  {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{name} {case}: kernel disagrees with its plain version")
         row = self.rows[name]
         row["max_abs_err"] = max(row["max_abs_err"], err)
+        return worst
 
     def timing(self, name, ms, plain_ms, flops, nbytes, kind, library_ms):
         """Each time is the sorted list from ``cuda_ms``, or a (graphed,
@@ -837,6 +859,7 @@ class PathCalls:
     DATA = {"flash_attention": ("kv_valid", "kv_count"),
             "decode_attention": ("kv_pos", "t", "kv_valid"),
             "fused_mlp": ("token_weights", "valid_count"),
+            "fused_mlp_routed": ("idx", "token_weights", "valid_count"),
             "paged_decode_attention": ("table", "t", "pvalid"),
             "moe_gmm": ("group_counts",)}
     # the kernels check_path_calls replays (the others have their own)
@@ -896,6 +919,11 @@ class PathCalls:
             if c.get("kv_valid") is not None:
                 att &= c["kv_valid"]
             return int(att.sum())
+        if name == "fused_mlp_routed":      # the selected rows
+            B, Kb = c["idx"].shape
+            cnt = c.get("valid_count")
+            return B * Kb if cnt is None else int(
+                torch.as_tensor(cnt).clamp(0, Kb).expand(B).sum())
         return int(np.prod(c["x"][1][:-1]))
 
     def heaviest(self):
@@ -2586,6 +2614,8 @@ def check_quant_serving(args, res, dev, device_line, spec, params, rp,
               f"{sum(map(len, tokens))} tokens agree position by position")
         base = mk("base", layout)
         teacher = serve(base, requests, stagger=True)
+        if layout == "ring":    # for the train-mode phase
+            bf.update(int8_teacher=teacher, int8_timing=dict(eng.timing))
         for i, (_, _, b) in enumerate(requests):
             if b == 1.0 and tokens[i] != teacher[i]:
                 fail(f"int8 {layout}: budget-1.0 request {i} differs from "
@@ -2684,6 +2714,207 @@ def check_int8_fork_preemption(params, rp, spec, dev, seed, n_layers=2):
           f"independent run; preemption ({2 * need}-page pool, "
           f"{eng.n_preempted} preemption(s)) == uninterrupted runs; bit for "
           f"bit: ok")
+
+
+def admission_times(engine, requests, profile=False):
+    """Serves ``requests`` (staggered) on ``engine`` and returns each
+    admission's (prompt length, bucket, ms): the host time of its
+    ``prefill_into_slot`` call between two synchronizations (the bucket
+    None on an infer engine). ``profile``: each call also runs under
+    torch.profiler (device activity only) and its row adds (device ms,
+    kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as profiler
+    from repro_torch.training import serve as serve_mod
+    real, out = serve_mod.prefill_into_slot, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (profiler(activities=[ProfilerActivity.CUDA]) if profile
+              else contextlib.nullcontext()) as prof:
+            r = real(*a, **kw)
+            torch.cuda.synchronize()
+        row = (a[2]["tokens"].shape[1], kw.get("bucket"),
+               (time.perf_counter() - t0) * 1e3)
+        if profile:
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            row += (sum(e.self_device_time_total for e in kern) / 1e3,
+                    sum(e.count for e in kern))
+        out.append(row)
+        return r
+    serve_mod.prefill_into_slot = timed
+    try:
+        serve(engine, requests, stagger=True)
+    finally:
+        serve_mod.prefill_into_slot = real
+    return out
+
+
+def check_int8_routed_calls(res, dev, label, calls):
+    """Replays every ``fused_mlp_routed`` call an int8 train-mode path made
+    (its recorded gather indices, token weights and count, random bf16 x of
+    its shape) on random int8 weights of its shapes with their scales,
+    against the plain version: within TOL, rows outside the selection exact
+    zeros. The heaviest call (most selected rows) is timed beside the same
+    kernel on the bf16 weights the codes came from, at the same shape
+    (``int8_timing``)."""
+    import torch
+    from repro_torch.kernels import ops
+    c0 = calls[0]
+    D, Fd = c0["wi"][1]
+    w = lambda a, b: torch.randn(a, b, device=dev) / a ** 0.5
+    wf = [w(D, Fd), w(Fd, D), w(D, Fd)]
+    (wi, wis), (wo, wos), (wg, wgs) = (int8_weight(a) for a in wf)
+    worst, zeros = 0.0, 0
+
+    def runner(c, x, ws, scales, backend=None):
+        return lambda backend=backend: ops.fused_mlp_routed(
+            x, c["idx"], *ws, c.get("token_weights"), c.get("valid_count"),
+            *scales, act=c.get("act", "swiglu"), backend=backend)
+    for c in calls:
+        x = torch.randn(c["x"][1], device=dev).to(torch.bfloat16)
+        run = runner(c, x, (wi, wo, wg), (wis, wos, wgs))
+        got = run()
+        worst = max(worst, res.compare(
+            "fused_mlp_routed", f"int8 {label} call {tuple(x.shape)}", got,
+            run("ref"), "bf16", quiet=True))
+        B, Kb = c["idx"].shape
+        live = torch.zeros(x.shape[:2], dtype=torch.bool, device=dev)
+        cnt = torch.as_tensor(c["valid_count"], device=dev).expand(B)
+        for b in range(B):
+            live[b, c["idx"][b, :int(cnt[b])]] = True
+        if got[~live].count_nonzero() != 0:
+            fail(f"int8 fused_mlp_routed, a {label} call: a row outside the "
+                 f"selection is not zero")
+        zeros += int((~live).sum())
+    rows = [PathCalls._work("fused_mlp_routed", c) for c in calls]
+    print(f"  fused_mlp_routed  int8 {label}: {len(calls)} calls replayed "
+          f"(selected rows {min(rows)}-{max(rows)}, buckets "
+          f"{sorted({c['idx'].shape[1] for c in calls})}), worst err/tol "
+          f"{worst:.3f} (bf16 TOL), {zeros} unselected rows all exactly "
+          f"zero: ok")
+    c = max(calls, key=lambda c: PathCalls._work("fused_mlp_routed", c))
+    x = torch.randn(c["x"][1], device=dev).to(torch.bfloat16)
+    B, S, _ = x.shape
+    Kb, n = c["idx"].shape[1], PathCalls._work("fused_mlp_routed", c)
+    run = runner(c, x, (wi, wo, wg), (wis, wos, wgs))
+    bf16 = runner(c, x, [a.to(torch.bfloat16) for a in wf], (None,) * 3)
+    # each int8 weight once with its scales, the selected x rows, the whole
+    # (B, S, D) delta, idx and token weights (4 bytes each) and the counts
+    nbytes = 3 * D * Fd + (2 * Fd + D) * 4 + (n * D + B * S * D) * 2 \
+        + B * Kb * 8 + B * 4
+    int8_timing(res, "fused_mlp_routed", f"{label} ({B}, {S}) Kb={Kb}",
+                cuda_ms(run, 5), cuda_ms(lambda: run("ref"), 3),
+                cuda_ms(bf16, 5), 2 * n * D * Fd * 3, nbytes, "bf16")
+
+
+def check_train_serving(args, res, dev, device_line, spec, params, rp,
+                        requests, ring):
+    """Qwen2-7B (``--layers`` deep) served by ``ServingEngine(mode="train")``
+    on the ring: each admission routes by top-k into the request's ragged
+    capacity bucket (the routed MLP through ``fused_mlp_routed``), decode
+    is the threshold step. The six staggered requests in bf16, then with
+    int8 weights and K/V (the routed kernel's int8 form); fails unless the
+    tokens are in the vocabulary, budget-1.0 requests equal the teacher
+    (the ring ``mode="base"`` run of item 3; for int8, item 3c's int8
+    teacher), request 4 (budget 0.5) alone equals its staggered run, bit
+    for bit, ``compile_counts()`` is {prefill 0, decode 1}, the graphed
+    engine equals its ``cuda_graphs=False`` twin at ``twin_depth`` and the
+    path's kernels launched. Every ``fused_mlp_routed`` call of the int8
+    run is replayed against the plain version (``check_int8_routed_calls``).
+    Prints each admission's bucket and time (warm) beside an infer engine's
+    and both engines' rates. Returns the launches by path."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.training import ServingEngine
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=args.layers)
+    served = cut(params, cfg.n_layers)
+
+    def mk(dtype, mode="train", n_layers=cfg.n_layers, graphs=True):
+        return ServingEngine(cut(served, n_layers), rp, dataclasses.replace(
+            cfg, n_layers=n_layers), spec, mode=mode, batch_size=4,
+            max_seq=1024, device=dev, kv_dtype=dtype, weight_dtype=dtype,
+            cuda_graphs=graphs)
+
+    launches = {}
+    for dtype, path in (("fp32", "train_serving"),
+                        ("int8", "quant_train_serving")):
+        label = "bf16" if dtype == "fp32" else "int8"
+        teacher = ring["teacher" if dtype == "fp32" else "int8_teacher"]
+        eng = mk(dtype)
+        rec = PathCalls("fused_mlp_routed") if dtype == "int8" else None
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with (rec or contextlib.nullcontext()):
+            tokens = serve(eng, requests, stagger=True)   # the main path
+        torch.cuda.synchronize()
+        launches[path] = ops.launch_counts()
+        check_launches(path, launches[path])
+        timing = dict(eng.timing)
+        for toks in tokens:
+            if len(toks) != 16 or not all(0 <= x < cfg.vocab_size
+                                          for x in toks):
+                fail(f"train {label}: bad generated tokens {toks}")
+        if eng.compile_counts() != {"prefill": 0, "decode": 1}:
+            fail(f"train {label}: compile_counts {eng.compile_counts()}, "
+                 f"want prefill 0, decode 1")
+        for i, (_, _, b) in enumerate(requests):
+            if b == 1.0 and tokens[i] != teacher[i]:
+                fail(f"train {label}: budget-1.0 request {i} differs from "
+                     f"the teacher: {tokens[i]} vs {teacher[i]}")
+        solo = serve(mk(dtype), [requests[4]], stagger=False)[0]
+        if solo != tokens[4]:
+            fail(f"train {label}: request 4 alone {solo} != staggered "
+                 f"{tokens[4]}")
+        print(f"train {label} ring serving, {cfg.name} depth {cfg.n_layers} "
+              f"[{device_line}]: budget 1.0 == the {label} mode='base' "
+              f"teacher, staggered == solo (request 4), bit for bit; "
+              f"compile_counts {eng.compile_counts()}; launches "
+              f"{launches[path]}: ok")
+        nt = twin_depth(cfg)
+        twins(f"train {label} ring, {nt} layers",
+              lambda g: mk(dtype, n_layers=nt, graphs=g),
+              lambda e: serve(e, requests, stagger=True))
+        if rec is not None:
+            print(f"int8 fused_mlp_routed at the train-mode path's own calls "
+                  f"(the {cfg.n_layers}-layer run's admissions) "
+                  f"[{device_line}]:")
+            check_int8_routed_calls(res, dev, "train admission",
+                                    rec.calls["fused_mlp_routed"])
+            del rec
+        # warm: each admission's bucket and time beside an infer engine's
+        train = admission_times(eng, requests)
+        infer = mk(dtype, mode="infer")
+        serve(infer, requests, stagger=True)            # its cold run
+        inf = admission_times(infer, requests)
+        print(f"train {label} admissions, warm, bucket and ms (tok/s) "
+              f"against the {label} infer engine's [{device_line}]:")
+        for (n, bucket, ms), (_, _, ims), r in zip(train, inf, requests):
+            print(f"  prompt {n:4d} budget {r[2]}: bucket "
+                  f"{'identity' if bucket == -1 else bucket} {ms:8.2f} ms "
+                  f"({n / ms * 1e3:8.1f} tok/s); infer {ims:8.2f} ms "
+                  f"({n / ims * 1e3:8.1f} tok/s)")
+        (tms, tk), (ims, ik) = (
+            admission_times(e, requests[1:2], profile=True)[0][3:]
+            for e in (eng, infer))
+        print(f"train {label} admission of request 1 ({len(requests[1][0])} "
+              f"tokens, budget {requests[1][2]}) under the profiler: "
+              f"{tms:.2f} device ms, {tk} kernels; infer {ims:.2f} device "
+              f"ms, {ik} kernels [{device_line}]")
+        print_timing(f"train {label} ring serving (first run)", timing,
+                     device_line)
+        print_timing(f"{label} ring infer serving, same call (first run)",
+                     ring["timing" if dtype == "fp32" else "int8_timing"],
+                     device_line)
+        del eng, infer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
 
 
 def check_native_int8_serving(dev, device_line, state):
@@ -3563,6 +3794,10 @@ def main() -> int:
     check_int8_fork_preemption(params, rp, spec, dev, args.seed)
     free()
     done("int8 serving")
+    paths.update(check_train_serving(args, res, dev, device_line, spec,
+                                     params, rp, requests, ring))
+    free()
+    done("train-mode serving")
     check_gradients(params, rp, spec, dev, args.seed)
     free()
     paths["training"] = check_training(args, params, rp, spec, dev,

@@ -37,8 +37,8 @@ ENTRIES = {
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _I, _P]),
     "fused_mlp_routed_launch": ("fused_mlp", [
-        _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-        _P]),
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+        _I, _I, _I, _P]),
     "decode_attention_launch": ("decode_attention", [
         _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _I, _I, _I, _F, _P]),

@@ -76,8 +76,8 @@
 //   H in an f32 scratch.
 //
 // Weights in another storage type than x (the serving engine's
-// weight_dtype; dense and grouped modes): bf16 weights of an f32 model, or
-// int8 codes with f32 per-output-channel scales (dense wi/wg (F,), wo (D,);
+// weight_dtype; every mode): bf16 weights of an f32 model, or int8 codes
+// with f32 per-output-channel scales (dense and routed wi/wg (F,), wo (D,);
 // grouped (E,Fe) and (E,D), expert e's row). The weights are read in their
 // storage type (an int8 weight is half a bf16 weight's bytes, which is what
 // bounds a prefill chunk) and widened in registers as the tile is staged
@@ -86,7 +86,8 @@
 // epilogues: on the up and gate accumulators before the activation, and on
 // the down accumulator before the token weight and the store. int8 weights
 // under bf16 x at widths that are multiples of 64 (Qwen2-7B, the native
-// MoE) run the tensor-core body's int8 form (below); f32 x with int8 or
+// MoE) run the tensor-core body's int8 form (below), in the routed mode
+// too (a train-mode serving engine's admissions); f32 x with int8 or
 // bf16 weights, and the toy widths, the CUDA-core body, which widens the
 // weights in registers as it stages them (kernels/ops.py::mlp_plan).
 #include <type_traits>
@@ -405,8 +406,8 @@ int dispatch(int dtype, int w_dtype, const void* x, const int* gidx,
 // * Block order: one grid axis over (expert, column tile, batch row, row
 //   tile), row tile fastest (for one expert, as in the dense and routed
 //   modes: row tiles, then column tiles).
-// * int8 weights (Q8: the dense and grouped modes of a bf16 model served
-//   with weight_dtype int8): the TMA ring loads each B tile as int8, a
+// * int8 weights (Q8: a bf16 model served with weight_dtype int8, in all
+//   three modes): the TMA ring loads each B tile as int8, a
 //   [64 k][128 columns] box of 8 KB (half the bf16 tile's bytes) landed
 //   unswizzled in the second half of the stage's bf16 B buffer. Once the
 //   stage is full the consumer warpgroups widen it, matrix by matrix, into
@@ -418,7 +419,12 @@ int dispatch(int dtype, int w_dtype, const void* x, const int* gidx,
 //   released after its products, as before, so the bf16 buffer it writes
 //   is free. The per-output-channel scales are applied in the epilogues:
 //   on the up and gate accumulators before the activation, on the down
-//   accumulator before the store or the partials (x (q s) = (x q) s).
+//   accumulator before the store or the partials (x (q s) = (x q) s). In
+//   the routed up phase the int8 B boxes and the cp.async row gather share
+//   a stage: its full barrier takes lane 0's expect_tx (the B boxes' bytes
+//   only: the A tile is not TMA's) and one arrival per copier thread; the
+//   consumers fence the async proxy once for the gathered rows, then widen
+//   (whose closing fence covers its own stores) before wgmma.
 // Tile shape and split come from the wrapper (kernels/ops.py::mlp_plan)
 // and depend on the shape only; every output element is summed
 // in one fixed order, no atomics, and a row's products read only that row
@@ -926,21 +932,24 @@ extern "C" int fused_mlp_launch(int dtype, int w_dtype, const void* x,
 }
 
 // Routed mode: x and out are (B,S,D), idx (B,Kb) int32; out is zero-filled
-// on the stream first, then the selected rows are written.
-extern "C" int fused_mlp_routed_launch(int dtype, const void* x,
+// on the stream first, then the selected rows are written. w_dtype and the
+// scales as in fused_mlp_launch.
+extern "C" int fused_mlp_routed_launch(int dtype, int w_dtype, const void* x,
                                        const void* idx, const void* wi,
                                        const void* wg, const void* wo,
-                                       const void* tw, const void* cnt,
-                                       void* hbuf, void* out, int B, int S,
-                                       int Kb, int D, int F, int act,
-                                       void* stream) {
+                                       const void* wi_s, const void* wg_s,
+                                       const void* wo_s, const void* tw,
+                                       const void* cnt, void* hbuf, void* out,
+                                       int B, int S, int Kb, int D, int F,
+                                       int act, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const size_t esz = dtype == rt::DT_BF16 ? 2 : 4;
   cudaError_t e = cudaMemsetAsync(out, 0, (size_t)B * S * D * esz, s);
   if (e != cudaSuccess) return (int)e;
-  return dispatch<false>(dtype, dtype, x, (const int*)idx, wi, wg, wo,
-                         Experts{}, Scales{}, tw, cnt, hbuf, out, B, Kb, S, D,
-                         F, act, s);
+  const Scales sc{(const float*)wi_s, (const float*)wg_s, (const float*)wo_s};
+  return dispatch<false>(dtype, w_dtype, x, (const int*)idx, wi, wg, wo,
+                         Experts{}, sc, tw, cnt, hbuf, out, B, Kb, S, D, F,
+                         act, s);
 }
 
 // The tensor-core body of the dense and routed modes (bf16, D and F
@@ -950,7 +959,7 @@ extern "C" int fused_mlp_routed_launch(int dtype, const void* x,
 // (split,G,T_,D) scratch (NULL in dense mode with split 1: the down phase
 // then stores the output); wgs: consumer warpgroups per block (1: 64-row
 // tiles, 2: 128-row tiles); split: parts of the down phase's F reduction.
-// w_dtype: rt::DT_BF16, or rt::DT_I8 for int8 weights (dense mode) with
+// w_dtype: rt::DT_BF16, or rt::DT_I8 for int8 weights (either mode) with
 // their f32 scales wi_s / wg_s (F,) and wo_s (D,). Returns the launches'
 // cudaError_t or an hp::ERR_* code.
 extern "C" int fused_mlp_tc_launch(int w_dtype, const void* x,
@@ -972,7 +981,7 @@ extern "C" int fused_mlp_tc_launch(int w_dtype, const void* x,
   const bool q8 = w_dtype == rt::DT_I8;
   if (D % 64 != 0 || F % 64 != 0 || split < 1 || split > F / 64 ||
       (!q8 && w_dtype != rt::DT_BF16) ||
-      (q8 && (idx != nullptr || wi_s == nullptr || wo_s == nullptr ||
+      (q8 && (wi_s == nullptr || wo_s == nullptr ||
               (wg != nullptr && wg_s == nullptr))))
     return (int)cudaErrorInvalidValue;
   const tc::WMap wim{F, D, 0, 0}, wom{D, F, 0, 0};

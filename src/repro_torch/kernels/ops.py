@@ -19,9 +19,7 @@ Quantized operands (the serving engine's ``kv_dtype`` / ``weight_dtype``,
 ``models/quant.py``): a weight, K or V tensor arrives in its storage dtype
 (the activation dtype, bf16 under f32 activations, or int8 with its f32
 scales) and the kernel built for that storage reads it as such: no wrapper
-widens a cache or a weight before a launch. ``fused_mlp_routed`` alone
-still refuses scale operands (``QUANT_TODO``): training, its only caller,
-never quantizes its weights.
+widens a cache or a weight before a launch.
 
 Autograd cannot see a launch through ``ctypes``, so every kernel that
 training crosses (``flash_attention``, ``fused_mlp``, ``fused_mlp_routed``,
@@ -49,10 +47,6 @@ KERNELS = ("flash_attention", "fused_mlp", "fused_mlp_routed",
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # rt::DT_F32 / rt::DT_BF16
 DT_I8 = 2                                         # rt::DT_I8 (storage only)
 _launches = {name: 0 for name in KERNELS}
-
-QUANT_TODO = ("int8 weights of fused_mlp_routed (the training path's routed "
-              "MLP; no entry point trains quantized weights): ROADMAP Queue "
-              "B item 2")
 
 
 class KernelOp(torch.autograd.Function):
@@ -361,7 +355,7 @@ def _launch_mlp(name, x, idx, wi, wo, wg, tw, cnt, out, act, G, T_, S_,
     (G, T_) int32) MLP call of csrc/fused_mlp.cu into ``out``, by the body
     ``mlp_plan`` picks; tw (G, T_) f32 or None, cnt (G,) int32; w_code the
     weights' storage code (default x's), ``scales`` (wi_s, wg_s, wo_s) of
-    int8 weights (dense mode). Allocates the hidden scratch (and the
+    int8 weights. Allocates the hidden scratch (and the
     tensor-core body's partials of the down phase, unless it stores the
     output itself: one part, dense mode)."""
     D, F = x.shape[-1], wi.shape[1]
@@ -398,10 +392,10 @@ def _launch_mlp(name, x, idx, wi, wo, wg, tw, cnt, out, act, G, T_, S_,
                     D, F, act_code, _stream(x))
             else:
                 rc = lib.fused_mlp_routed_launch(
-                    dt, x.data_ptr(), idx.data_ptr(), wi.data_ptr(),
-                    _ptr(wg), wo.data_ptr(), _ptr(tw), cnt.data_ptr(),
-                    hbuf.data_ptr(), out.data_ptr(), G, S_, T_, D, F,
-                    act_code, _stream(x))
+                    dt, wdt, x.data_ptr(), idx.data_ptr(), wi.data_ptr(),
+                    _ptr(wg), wo.data_ptr(), *(p for _, p in keep),
+                    _ptr(tw), cnt.data_ptr(), hbuf.data_ptr(),
+                    out.data_ptr(), G, S_, T_, D, F, act_code, _stream(x))
     _check(rc, name)
 
 
@@ -448,25 +442,28 @@ def fused_mlp(x, wi, wo, wg=None, token_weights=None, valid_count=None,
 # and bodies as fused_mlp (csrc/fused_mlp.cu, routed mode): the up phase
 # gathers x rows through idx (cp.async on the tensor-core body) and the
 # stores scatter the weighted rows back, into an output zero-filled first.
-# The TPU kernel's resident (S, D) output slab and its VMEM limit have no
-# counterpart here. Bound on the H100 at a training step: FLOPs
-# (tensor-core rate), as for fused_mlp.
+# The weights are stored as fused_mlp's are: int8 ones with their scales
+# come from a train-mode serving engine's admissions, and on the
+# tensor-core body their int8 B tiles share each stage with the gathered
+# rows. The TPU kernel's resident (S, D) output slab and its VMEM limit
+# have no counterpart here. Bound on the H100 at a training step and at a
+# 512-token admission: FLOPs (tensor-core rate), as for fused_mlp.
 
 def fused_mlp_routed(x, idx, wi, wo, wg=None, token_weights=None,
                      valid_count=None, wi_scale=None, wo_scale=None,
                      wg_scale=None, *, act="swiglu", backend=None):
     """x: (B, S, D) full residual stream; idx: (B, Kb) RoutingPlan gather
     indices (no duplicates in a row); token_weights: (B, Kb); valid_count:
-    None, scalar or (B,) selected count. Returns the (B, S, D) delta in x's
-    dtype: row idx[b, i] with i < count[b] gets token_weights[b, i] *
-    MLP(x[b, idx[b, i]]), every other row is exactly zero. Scale operands
-    (int8 weights) raise ``NotImplementedError`` (``QUANT_TODO``)."""
-    if wi_scale is not None or wo_scale is not None or wg_scale is not None:
-        raise NotImplementedError(QUANT_TODO)
-
+    None, scalar or (B,) selected count; wi/wg: (D, F), wo: (F, D), stored
+    as x, as bf16 under f32 x, or int8 with f32 scales wi_scale/wg_scale
+    (F,) and wo_scale (D,). Returns the (B, S, D) delta in x's dtype: row
+    idx[b, i] with i < count[b] gets token_weights[b, i] *
+    MLP(x[b, idx[b, i]]), every other row is exactly zero."""
+    # the scales ride in the closures: they never ask for a gradient
     def plain(x, idx, wi, wo, wg, tw, cnt):
         return fused_mlp_routed_ref(x, idx, wi, wo, wg, tw, act=act,
-                                    valid_count=cnt)
+                                    valid_count=cnt, wi_scale=wi_scale,
+                                    wo_scale=wo_scale, wg_scale=wg_scale)
 
     if not use_kernel(backend, x):
         return plain(x, idx, wi, wo, wg, token_weights, valid_count)
@@ -475,10 +472,7 @@ def fused_mlp_routed(x, idx, wi, wo, wg=None, token_weights=None,
     if idx.shape != (B, Kb) or Kb > S:
         raise ValueError(f"fused_mlp_routed kernel: idx {tuple(idx.shape)} "
                          f"does not index x {tuple(x.shape)}")
-    if _mlp_weights(x, wi, wo, wg) != _DTYPES[x.dtype]:
-        raise TypeError(f"fused_mlp_routed kernel: weights stored as "
-                        f"{wi.dtype} under {x.dtype} x; the routed mode takes "
-                        f"x's dtype")
+    w_code = _mlp_weights(x, wi, wo, wg, (wi_scale, wg_scale, wo_scale))
 
     def kernel(x, idx, wi, wo, wg, tw, cnt):
         x = x.contiguous()
@@ -491,7 +485,7 @@ def fused_mlp_routed(x, idx, wi, wo, wg=None, token_weights=None,
         cnt = _counts_vec(cnt, B, Kb, x.device)
         out = torch.empty_like(x)
         _launch_mlp("fused_mlp_routed", x, ix, wi, wo, wg, tw, cnt, out, act,
-                    B, Kb, S)
+                    B, Kb, S, w_code, (wi_scale, wg_scale, wo_scale))
         return out
 
     return KernelOp.apply(kernel, plain, x, idx, wi, wo, wg, token_weights,

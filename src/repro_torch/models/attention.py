@@ -127,7 +127,7 @@ def attn_apply(p, x, *, cfg, positions, causal: bool = True, window: int = 0,
         raise NotImplementedError(
             "windowed attention over a gathered RoutingPlan buffer: the "
             "kernel masks the window by index; it arrives with ROADMAP "
-            "Queue A item 3 (windowed gathered attention)")
+            "Queue A item 12 (windowed configs)")
     q = _project_q(p, x, positions, cfg, lora)
     k, v = _project_kv(p, x, positions, cfg, lora)
     if kv_valid is not None and kv_valid.dim() == 1:

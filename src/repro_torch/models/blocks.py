@@ -386,10 +386,8 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
         delta = R.plan_scatter(
             plan, x, y_sel * w_sel[..., None].to(y_sel.dtype))
         keep = plan.keep
-        if collect_cache:
-            raise NotImplementedError(
-                "a train-mode prefill (the plan's k/v scattered into a "
-                "cache) has no caller yet; serving prefills in infer mode")
+        if collect_cache:           # the plan's k/v back at full positions
+            k, v = _scatter_kv(k, plan.idx, S), _scatter_kv(v, plan.idx, S)
     else:                           # threshold (infer) or dense train path
         keep, wtok = mixer_gate(h)
         if train:
@@ -440,8 +438,11 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
             mp = p["mlp"]
             delta = OPS.fused_mlp_routed(h, plan.idx, mp["wi"], mp["wo"],
                                          mp.get("wg"), w_sel,
-                                         valid_count=plan.count, act=cfg.act,
-                                         backend=backend)
+                                         valid_count=plan.count,
+                                         wi_scale=mp.get("wi_scale"),
+                                         wo_scale=mp.get("wo_scale"),
+                                         wg_scale=mp.get("wg_scale"),
+                                         act=cfg.act, backend=backend)
         else:                       # expert layers: the bucket buffer
             y_sel = f(R.plan_gather(h, plan), None, token_valid=plan.valid,
                       token_count=plan.count)
@@ -486,6 +487,17 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
     for a in auxes[1:]:
         aux = aux + a
     return (x, aux, cache) if collect_cache else (x, aux)
+
+
+def _scatter_kv(t, idx, s: int):
+    """A plan's (B, bucket, K, Dh) k or v rows back at their positions of
+    a (B, s, K, Dh) tensor, zeros elsewhere: buffer row i goes to position
+    idx[b, i] (no duplicates in a row), the masked tail included, as the
+    JAX package scatters it; ``keep`` marks the live ones."""
+    out = t.new_zeros((t.shape[0], s) + tuple(t.shape[2:]))
+    bi = torch.arange(t.shape[0], device=t.device)[:, None]
+    out[bi, idx] = t
+    return out
 
 
 def _pad_cache(k, v, keep, max_len: int, window: int = 0,

@@ -207,14 +207,17 @@ def cache_init(cfg, batch: int, max_seq: int, device=None,
 
 
 def prefill(params, rparams, batch, cfg, ecfg=None, mode: str = "infer",
-            max_cache_len: int = 0, policy=None):
+            max_cache_len: int = 0, policy=None, bucket=None):
     """Forward + cache collection. Returns (last-token logits (B,V), caches
-    laid out as ring caches of length ``max_cache_len`` (default S))."""
+    laid out as ring caches of length ``max_cache_len`` (default S)).
+    ``bucket``: the static ragged bucket hint of a train-mode (top-k)
+    prefill under a tensor policy (``policy.ragged_bucket``)."""
     spec, pol = as_spec_policy(ecfg, policy)
     x = _embed(params, batch["tokens"])
     x, _, caches = _run(params, rparams, x, cfg=cfg, spec=spec, pol=pol,
                         mode=mode, collect_cache=True,
-                        max_cache_len=max_cache_len or x.shape[1])
+                        max_cache_len=max_cache_len or x.shape[1],
+                        bucket=bucket)
     x = norm_apply(params["final_norm"], x[:, -1], cfg.norm)
     return _logits(params, cfg, x), {"layers": caches}
 
@@ -230,13 +233,15 @@ def cache_insert(caches, row_caches, slot: int):
 
 def prefill_into_slot(params, rparams, batch, caches, slot: int, cfg,
                       ecfg=None, mode: str = "infer", max_cache_len: int = 0,
-                      policy=None, live_policy=None):
+                      policy=None, live_policy=None, bucket=None):
     """Admission path for continuous batching: prefill ONE request, copy its
     caches into row ``slot`` and splice its policy row into the live
     (B,)-leaf policy, both in place (every live tensor keeps its storage).
-    Returns (logits (1, V), caches, live_policy)."""
+    ``bucket``: as in ``prefill``. Returns (logits (1, V), caches,
+    live_policy)."""
     logits, row = prefill(params, rparams, batch, cfg, ecfg, mode=mode,
-                          max_cache_len=max_cache_len, policy=policy)
+                          max_cache_len=max_cache_len, policy=policy,
+                          bucket=bucket)
     caches = cache_insert(caches, row, slot)
     if live_policy is not None and policy is not None:
         live_policy.set_row_(slot, policy)

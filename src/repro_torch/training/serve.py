@@ -54,6 +54,17 @@ into a new tree (the caller's stays as it is), and builds its caches in
 ``kv_dtype``; int8 K/V are quantized once at each cache write and the
 kernels read the stored codes with their scales.
 
+``mode`` is ``"infer"`` (the threshold routing of §B.1 at admission and
+decode), ``"base"`` (the frozen teacher) or, on the ring layout,
+``"train"``: each admission prefills with the top-k (train-mode) routing,
+its one ``RoutingPlan`` per block sized by the request's static ragged
+capacity bucket (``policy.ragged_bucket``: at most
+``routing.RAGGED_N_BUCKETS`` per prompt length, the identity path at full
+budget), its k/v scattered back to their positions for the ring; through
+the plan the dense MLPs run the ``fused_mlp_routed`` kernel, with int8
+weights too. The admission is eager like the infer one, and decode is the
+same threshold step in every mode, so the decode forms do not change.
+
 Decode runs the ElastiFormer threshold path (§B.1). Each slot samples with
 its request's temperature, top-k and seed (``sample_tokens``): the noise
 of a token is keyed on (seed, its position) only, so a request's stream is
@@ -73,7 +84,8 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.policy import (ElasticPolicy, ElasticSpec,
-                                     as_spec_policy, solve_budget)
+                                     as_spec_policy, ragged_bucket,
+                                     solve_budget)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as OPS
 from repro_torch.models.layers import dtype_of
@@ -197,8 +209,9 @@ class ServingEngine:
             self._validate_paged(mode)
         if controller is not None:
             raise _todo("the SLO controller", "item 10")
-        if mode not in ("infer", "base"):
-            raise _todo(f"mode={mode!r} prefill", "items 3-4")
+        if mode not in ("infer", "base", "train"):
+            raise ValueError(f"mode must be 'infer', 'base' or 'train', "
+                             f"got {mode!r}")
         self.device = resolve_device(device)
         on_card = self.device.type == "cuda"
         self.cuda_graphs = on_card if cuda_graphs is None else bool(cuda_graphs)
@@ -410,12 +423,19 @@ class ServingEngine:
         t0 = time.perf_counter()
         tokens = torch.as_tensor(prompt[None], device=self.device)
         b_eff = self._budget_of(req)
+        pol_row = self._policy_for(b_eff)
+        # top-k (train-mode) routing plans its blocks into the request's
+        # static capacity bucket; threshold (infer) prefill takes none
+        bucket = None
+        if (self._use_policy and self.mode == "train"
+                and self.spec.routing_impl == "ragged"):
+            bucket = ragged_bucket(pol_row, prompt.size, spec=self.spec)
         # eager (one form per prompt length would need its own graph); the
         # cache row and the policy row are spliced in place
         logits, _, _ = prefill_into_slot(
             self.params, self.rp, {"tokens": tokens}, self._caches, slot,
             self.cfg, self.spec, mode=self.mode, max_cache_len=self.max_seq,
-            policy=self._policy_for(b_eff), live_policy=self._live_policy)
+            policy=pol_row, live_policy=self._live_policy, bucket=bucket)
         tok0 = self._first_token(logits, slot, req, prompt.size)
         self._tok[slot] = tok0
         tok0 = int(tok0)                          # waits for the device
@@ -724,8 +744,10 @@ class ServingEngine:
         this engine has built (on the card each is one captured CUDA
         graph), the JAX engine's ``compile_counts()``. A paged engine
         builds one chunk form (prefill 1 after its first admission; a ring
-        engine's admission is eager: 0) and at most two decode forms,
-        greedy-only and sampling, whatever the budgets, slots, prompt
+        engine's admission is eager: 0, in every mode, where the JAX
+        engine compiles one prefill per prompt length and, train mode,
+        per capacity bucket) and at most two decode forms, greedy-only and
+        sampling, whatever the mode, budgets, buckets, slots, prompt
         lengths and sampling settings."""
         return dict(self._compiles)
 

@@ -940,6 +940,99 @@ def test_int8_moe_gmm_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ROUTED_CASES)
+def test_int8_fused_mlp_routed_kernel_matches_plain(cuda, case, dtype):
+    """The routed MLP on int8 weights with (F,) / (D,) scales (a train-mode
+    serving engine's admissions): bf16 at widths of 64 on the tensor-core
+    body's int8 form (its int8 B tiles beside the cp.async row gather), the
+    rest on the CUDA-core body; empty and full buckets among the cases."""
+    x, idx, wi, wo, wg, tw, cnt, act = routed_inputs(case, 13, cuda, dtype)
+    (wiq, wis), (woq, wos), (wgq, wgs) = _int8_weights(cuda, wi, wo, wg)
+    kw = dict(wi_scale=wis, wo_scale=wos, wg_scale=wgs, act=act)
+    n0 = ops.launch_counts()["fused_mlp_routed"]
+    got = ops.fused_mlp_routed(x, idx, wiq, woq, wgq, tw, cnt, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_mlp_routed"] == n0 + 1
+    want = ops.fused_mlp_routed(x, idx, wiq, woq, wgq, tw, cnt,
+                                backend="ref", **kw)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    live = torch.zeros(x.shape[:2], dtype=torch.bool, device=cuda)
+    for b, c in enumerate(cnt.tolist()):
+        live[b, idx[b, :c]] = True
+    assert got[~live].count_nonzero() == 0
+    assert torch.equal(got, ops.fused_mlp_routed(x, idx, wiq, woq, wgq, tw,
+                                                 cnt, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [16, 65, 200])
+def test_int8_fused_mlp_routed_row_ignores_other_rows(cuda, dtype, T):
+    """Staggered == solo at the kernel on int8 weights: a selected row's
+    output is the same bits whether the other rows of the stream hold
+    random values or zeros."""
+    xs, idx, wi, wo, wg, tw, cnt, act = routed_inputs(
+        (1, 2 * T, T, 128, 256, "swiglu", True, [T]), 14, cuda, dtype)
+    (wiq, wis), (woq, wos), (wgq, wgs) = _int8_weights(cuda, wi, wo, wg)
+    kw = dict(wi_scale=wis, wo_scale=wos, wg_scale=wgs, act=act)
+    row = idx[0, T // 2]
+    alone = torch.zeros_like(xs)
+    alone[0, row] = xs[0, row]
+    full = ops.fused_mlp_routed(xs, idx, wiq, woq, wgq, tw, cnt, **kw)
+    solo = ops.fused_mlp_routed(alone, idx, wiq, woq, wgq, tw, cnt, **kw)
+    assert torch.equal(full[0, row], solo[0, row])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["bf16", "int8"])
+@pytest.mark.parametrize("d_ff", [352, 384])
+def test_graphed_train_engine_equals_eager_bit_for_bit(cuda, storage, d_ff):
+    """A train-mode (top-k) ring engine on toy-lm in bf16 (d_ff 352: the
+    routed MLP on the CUDA-core body; 384: on the tensor-core body), int8
+    or bf16 weights and K/V: the graphed engine equals its
+    ``cuda_graphs=False`` twin (tokens, every cache leaf), the admissions
+    launch fused_mlp_routed, budget 1.0 equals the ``mode="base"`` engine
+    and a request alone equals its staggered run, bit for bit; one decode
+    form, no prefill form."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticSpec
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = dataclasses.replace(get_config("toy-lm"), dtype="bfloat16",
+                              d_ff=d_ff)
+    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                       mha_head_routed=True, lora_rank=1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model_init(gen, cfg, spec, device=cuda)
+    rp = router_init(gen, cfg, spec, device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [GenRequest(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                       6, budget=b)
+            for n, b in zip((9, 70, 33, 17, 40), (1.0, 0.5, 0.75, 1.0, 0.3))]
+    mk = lambda mode="train", graphs=True: ServingEngine(
+        params, rp, cfg, spec, mode=mode, batch_size=2, max_seq=128,
+        device=cuda, kv_dtype=storage, weight_dtype=storage,
+        cuda_graphs=graphs)
+    graphed = mk()
+    got = _staggered_run(graphed, reqs)
+    eager = mk(graphs=False)
+    ops.reset_launch_counts()
+    want = _staggered_run(eager, reqs)
+    counts = ops.launch_counts()
+    assert got == want
+    for a, b in zip(_tensors(graphed._caches), _tensors(eager._caches)):
+        assert torch.equal(a, b)
+    assert all(counts[k] > 0 for k in ("flash_attention", "fused_mlp",
+                                       "fused_mlp_routed",
+                                       "decode_attention")), counts
+    assert graphed.compile_counts() == {"prefill": 0, "decode": 1}
+    base = _staggered_run(mk("base"), reqs)
+    assert [got[0], got[3]] == [base[0], base[3]]
+    assert _staggered_run(mk(), [reqs[1]]) == [got[1]]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["ring", "paged"])
 def test_toy_int8_engine_on_the_card(cuda, layout):
     """toy-lm (bf16) served with int8 weights and KV: the int8 kernels

@@ -17,7 +17,8 @@ from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: 
 from repro.kernels.fused_mlp import fused_mlp as jax_fused_mlp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ref import (decode_attention_ref,  # noqa: E402
-                                     flash_attention_ref, fused_mlp_ref)
+                                     flash_attention_ref, fused_mlp_ref,
+                                     fused_mlp_routed_ref)
 from tests.test_torch_cuda import (FLASH_CASES, MLP_CASES, as_t,  # noqa: E402
                                    attn_inputs, mlp_inputs, ring)
 
@@ -110,20 +111,23 @@ def test_wrappers_take_plain_version_on_cpu():
     assert ops.launch_counts() == {n: 0 for n in ops.KERNELS}
     with pytest.raises(ValueError):
         ops.flash_attention(as_t(q), as_t(k), as_t(v), backend="cuda")
-    # int8 weights: fused_mlp takes them (the plain version on the CPU);
-    # fused_mlp_routed, which only training calls, still refuses them
+    # int8 weights: fused_mlp and fused_mlp_routed (a train-mode serving
+    # engine's admissions) take them (the plain versions on the CPU)
     x = as_t(q[0, :, 0])
     wi8, wo8 = torch.ones(32, 8, dtype=torch.int8), torch.ones(
         8, 32, dtype=torch.int8)
-    got = ops.fused_mlp(x, wi8, wo8, wi_scale=torch.full((8,), 0.5),
-                        wo_scale=torch.full((32,), 0.25), act="gelu")
-    want = fused_mlp_ref(x, torch.full((32, 8), 0.5),
-                         torch.full((8, 32), 0.25), act="gelu")
+    wf = (torch.full((32, 8), 0.5), torch.full((8, 32), 0.25))
+    sc = dict(wi_scale=torch.full((8,), 0.5),
+              wo_scale=torch.full((32,), 0.25))
+    got = ops.fused_mlp(x, wi8, wo8, act="gelu", **sc)
+    want = fused_mlp_ref(x, *wf, act="gelu")
     assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError):
-        ops.fused_mlp_routed(x[None], torch.zeros(1, 4, dtype=torch.int64),
-                             wi8, wo8, wi_scale=torch.ones(8),
-                             wo_scale=torch.ones(32))
+    idx = torch.tensor([[3, 0, 7, 1]])
+    got = ops.fused_mlp_routed(x[None], idx, wi8, wo8, valid_count=3,
+                               act="gelu", **sc)
+    want = fused_mlp_routed_ref(x[None], idx, *wf, valid_count=3, act="gelu")
+    assert torch.equal(got, want) and got[0, 3].abs().sum() > 0
+    assert not got[0, 1].any()                  # past the count: zero
     assert ops.launch_counts() == {n: 0 for n in ops.KERNELS}
 
 

@@ -41,6 +41,8 @@ from repro.core.policy import ElasticPolicy as JaxPolicy  # noqa: E402
 from repro.kernels.decode_attention import \
     decode_attention as jax_decode  # noqa: E402
 from repro.kernels.fused_mlp import fused_mlp as jax_fused_mlp  # noqa: E402
+from repro.kernels.fused_mlp import \
+    fused_mlp_routed as jax_fused_mlp_routed  # noqa: E402
 from repro.kernels.moe_gmm import moe_gmm as jax_moe_gmm  # noqa: E402
 from repro.kernels.paged_decode_attention import \
     paged_decode_attention as jax_paged  # noqa: E402
@@ -253,6 +255,25 @@ def test_int8_wrappers_hand_the_kernels_codes_and_scales(fake_launch,
         assert entry == "fused_mlp_launch" and args[:2] == (0, ops.DT_I8)
         assert args[3:6] == (wi.data_ptr(), wg.data_ptr(), wo.data_ptr())
         assert None not in args[6:9]
+    # the routed mode (a train-mode engine's admissions): the same entry
+    # points with the gather indices, the code and the three scales
+    idx = torch.arange(8).expand(2, 8)
+    ops.fused_mlp_routed(x, idx, wi, wo, wg, wi_scale=sf, wo_scale=sd,
+                         wg_scale=sf)
+    entry, args = fake_launch.calls[-1]
+    if dt == torch.bfloat16:
+        assert entry == "fused_mlp_tc_launch" and args[0] == ops.DT_I8
+        assert args[2] is not None and args[3:6] == (
+            wi.data_ptr(), wg.data_ptr(), wo.data_ptr())
+        assert None not in args[6:9]
+    else:
+        assert entry == "fused_mlp_routed_launch"
+        assert args[:2] == (0, ops.DT_I8) and args[3] is not None
+        assert args[4:7] == (wi.data_ptr(), wg.data_ptr(), wo.data_ptr())
+        assert None not in args[7:10]
+    assert ops.launch_counts()["fused_mlp_routed"] == 1
+    with pytest.raises(ValueError):            # int8 weights without scales
+        ops.fused_mlp_routed(x, idx, wi, wo, wg, wi_scale=sf, wo_scale=sd)
     ws = [torch.zeros(E, D, F, dtype=i8), torch.zeros(E, D, F, dtype=i8),
           torch.zeros(E, F, D, dtype=i8)]
     ops.moe_gmm(torch.zeros(1, E, 16, D, dtype=dt), ws[0], ws[2], ws[1],
@@ -308,6 +329,38 @@ def test_fused_mlp_plain_int8_matches_pallas():
                         wg_scale=as_t(wgs))
     np.testing.assert_allclose(_np(got), want, **TOL)
     assert not _np(got)[1, 17:].any()
+
+
+@pytest.mark.parametrize("act,gated", [("swiglu", True), ("gelu", False)])
+def test_fused_mlp_routed_plain_int8_matches_pallas(act, gated):
+    """The routed MLP's plain version on int8 weights with (F,) / (D,)
+    scales against the JAX kernel's int8 form in interpret mode: a
+    RoutingPlan's layout (the selection ascending, then the rest), an
+    empty and a partial count, token weights; unselected rows zero."""
+    rng = np.random.default_rng(4)
+    B, S, Kb, D, F = 2, 24, 12, 32, 96
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    (wi, wis), (wo, wos) = _q8(rng, (D, F), (-2,)), _q8(rng, (F, D), (-2,))
+    wg, wgs = _q8(rng, (D, F), (-2,)) if gated else (None, None)
+    cnt = np.asarray([0, 7], np.int32)
+    idx = np.stack([np.concatenate([np.sort(p[:c]), np.sort(p[c:Kb])])
+                    for p, c in ((rng.permutation(S), c) for c in cnt)])
+    idx = idx.astype(np.int32)
+    tw = rng.random((B, Kb)).astype(np.float32)
+    j = lambda a: None if a is None else jnp.asarray(a)
+    want = np.asarray(jax_fused_mlp_routed(
+        *(j(a) for a in (x, idx, wi, wo, wg, tw)), act=act,
+        valid_count=j(cnt), wi_scale=j(wis), wo_scale=j(wos),
+        wg_scale=j(wgs), interpret=True))
+    t = lambda a: None if a is None else as_t(a)
+    got = ops.fused_mlp_routed(*(t(a) for a in (x, idx, wi, wo, wg, tw,
+                                                cnt)),
+                               wi_scale=t(wis), wo_scale=t(wos),
+                               wg_scale=t(wgs), act=act)
+    np.testing.assert_allclose(_np(got), want, **TOL)
+    live = np.zeros((B, S), bool)
+    live[1, idx[1, :7]] = True
+    assert not _np(got)[~live].any() and _np(got)[live].any()
 
 
 def test_moe_gmm_plain_int8_matches_pallas():
