@@ -155,7 +155,33 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    at (depth, token) = (1.0, 1.0), (0.75, 1.0), (0.5, 1.0), (0.5, 0.5)
    (wall time), and the last once more under torch.profiler (device
    time).
-5e. Sampled serving: the six requests of item 3 with temperature 0 on the
+5e. Controller serving: the slice's weights with item 5b's depth routers
+   under an ``SLOController`` (``runtime/controller.py``), 24 requests of
+   a ``launch/workloads`` trace (prompts 64-512 and 16-64 new tokens,
+   heavy-tailed; interactive 0.75 with p95 TTFT and ITL targets, batch
+   0.25 shed first and with a queue deadline; bursty arrivals) on an
+   injected ``StepClock`` advanced a fixed tick per step, through
+   ``replay``, on the ring (a) and the paged pool (b): fails unless the
+   controller walks degrade_admission, degrade_depth, degrade_inflight
+   and shed in that order and restores after, shed requests are rejected
+   with a Retry-After hint and expired ones deadline_exceeded, none
+   prefilled, the controller escalates and ``maybe_escalate`` declines,
+   ``compile_counts()`` does not grow after the first degrade, and the
+   graphed engine at ``TWIN_LAYERS`` equals its ``cuda_graphs=False`` twin
+   in trajectory, events, statuses, tokens and caches (the in-flight
+   splices read by a replayed graph). (c1) the fault drill: the requests
+   without a controller, all at once, through ``serve_resilient`` with a
+   failure injected mid-run and a straggler watchdog: one restart (a
+   shape of 8 devices skipped, then ``reshard(None)``), every request
+   finished with its fault-free tokens, ``compile_counts()`` restarted at
+   the re-mesh and flat after it. (c2) the ring trace on the wall clock:
+   every request terminal, ``compile_counts()`` flat; prints
+   ``summarize`` (attainment, goodput, TTFT and ITL percentiles, shed and
+   expired), the controller's summary and, for (a) and (c2), decode
+   ms/step over the degraded steps against the undegraded ones. The
+   path's flash, decode, MLP and paged calls are replayed against the
+   plain versions, as in item 5b.
+5f. Sampled serving: the six requests of item 3 with temperature 0 on the
    first two and 0.7 / 1.0, top-k 0 / 40 and seeds on the rest: fails
    unless the temperature-0 rows equal item 3's greedy tokens, a sampled
    request alone equals its staggered tokens, greedy-only and sampling
@@ -265,6 +291,11 @@ PATH_KERNELS = {
                       "decode_attention"),
     "quant_train_serving": ("flash_attention", "fused_mlp",
                             "fused_mlp_routed", "decode_attention"),
+    "controller_serving": ("flash_attention", "fused_mlp",
+                           "decode_attention"),
+    "controller_paged_serving": ("fused_mlp", "paged_decode_attention"),
+    "controller_fault_drill": ("flash_attention", "fused_mlp",
+                               "decode_attention"),
 }
 
 
@@ -1229,18 +1260,44 @@ def check_counts(label, engine):
     return counts
 
 
+def engine_cache_tensors(engine):
+    """``cache_tensors`` of an engine's caches; a paged pool's leaves
+    without the trash page. That page is the sink of the writes no live
+    page may take (inactive slots, tokens a router skipped, a shared final
+    chunk): several slots write one lane of it in one scatter, in no fixed
+    order, so its content is unspecified. Nothing reads it: the paged
+    kernel reads only the pages of a slot's table row, and this fails
+    unless the trash page is out of every table row, every freelist and
+    the refcounts (it was never allocated)."""
+    import torch
+    leaves = cache_tensors(engine._caches)
+    if engine.kv_layout != "paged":
+        return leaves
+    pool = engine.pool
+    trash = [pool.trash_page(r) for r in range(pool.n_replicas)]
+    if np.isin(engine._table, trash).any() or \
+            any(t in pool._ref for t in trash) or \
+            any(t in free for free in pool._free for t in trash):
+        fail("the trash page is in a page-table row, a freelist or the "
+             "refcounts")
+    keep = torch.ones(pool.n_pages, dtype=torch.bool, device=engine.device)
+    keep[trash] = False
+    return [x[keep] for x in leaves]
+
+
 def check_twin(label, graphed, eager, got, want):
     """A graphed engine against its ``cuda_graphs=False`` twin after the
-    same requests: the same tokens, every cache (and pool) leaf and, paged,
-    the same page table and pool stats, bit for bit; prints both engines'
+    same requests: the same tokens, every cache (and pool) leaf (a pool
+    without its trash page, ``engine_cache_tensors``) and, paged, the same
+    page table and pool stats, bit for bit; prints both engines'
     ``compile_counts()``."""
     import torch
     if not graphed.cuda_graphs or eager.cuda_graphs:
         fail(f"{label}: not a graphed engine and its eager twin")
     if got != want:
         fail(f"{label}: graphed tokens {got} != cuda_graphs=False {want}")
-    for a, b in zip(cache_tensors(graphed._caches),
-                    cache_tensors(eager._caches)):
+    for a, b in zip(engine_cache_tensors(graphed),
+                    engine_cache_tensors(eager)):
         if not torch.equal(a, b):
             fail(f"{label}: a cache leaf of the graphed engine differs from "
                  f"its cuda_graphs=False twin's")
@@ -1250,7 +1307,7 @@ def check_twin(label, graphed, eager, got, want):
                 graphed.pool.stats() != eager.pool.stats():
             fail(f"{label}: page table or pool stats differ from the "
                  f"cuda_graphs=False twin's")
-        what += ", page table, pool stats"
+        what += " but the trash page, page table, pool stats"
     counts = check_counts(label, graphed)
     print(f"{label}: graphed == cuda_graphs=False twin, bit for bit "
           f"({what}): ok; compile_counts {counts} (twin "
@@ -3208,6 +3265,348 @@ def check_depth_serving(args, res, dev, device_line, spec, params, rp,
     return launches, rp_d
 
 
+# --------------------- SLO controller, fault tolerance ------------------------
+
+CTRL_N = 24            # requests in the controller phase's trace
+CTRL_TICK_S = 0.02     # the injected clock's tick per engine step
+CTRL_RATE = 4.0        # base arrivals per second of the trace (burst 4x)
+CTRL_FAIL_STEP = 60    # the fault drill's failing step
+
+
+def controller_trace(vocab, seed):
+    """The controller phase's trace: ``CTRL_N`` requests from
+    ``launch/workloads.make_requests`` (prompts 64-512 tokens and 16-64 new
+    tokens, both heavy-tailed; classes interactive 0.75 / batch 0.25;
+    request seeds 0-23), arrival times from ``bursty_times`` (the middle
+    40 % at 4x ``CTRL_RATE``), and the classes' SLO targets: interactive
+    p95 TTFT and ITL, batch shed first and with a queue deadline."""
+    from repro_torch.launch import workloads as W
+    from repro_torch.runtime.controller import SLOTarget
+    reqs = W.make_requests(
+        CTRL_N, vocab, prompt_lo=64, prompt_hi=512, max_new_lo=16,
+        max_new_hi=64, class_mix={"interactive": 0.75, "batch": 0.25},
+        seed=seed)
+    arrive = W.bursty_times(np.random.default_rng(seed), CTRL_RATE, CTRL_N,
+                            burst_factor=4, burst_frac=0.4)
+    targets = {"interactive": SLOTarget(p95_ttft_ms=200.0,
+                                        p95_itl_ms=2.5e3 * CTRL_TICK_S),
+               "batch": SLOTarget(shed_order=1, deadline_ms=400.0)}
+    return reqs, arrive, targets
+
+
+def make_controller(targets):
+    """The phase's ``SLOController``: floor 0.25 in steps of 0.25, one
+    evaluation every two ticks, restore after two healthy evaluations."""
+    from repro_torch.runtime.controller import SLOController
+    return SLOController(targets=targets, floor=0.25, step_down=0.25,
+                         step_up=0.25, window=16, min_samples=2,
+                         eval_interval_s=2 * CTRL_TICK_S, hysteresis=0.7,
+                         patience=2, queue_factor=0.5, escalate_after=4,
+                         sample_ttl_s=0.5)
+
+
+def run_controlled(engine, reqs, arrive, clock=None):
+    """``launch/workloads.replay`` of the trace on ``engine`` (with a
+    controller; ``clock``: the ``StepClock(CTRL_TICK_S)`` it was built
+    with, ticked once per step, or None for the wall clock). A ring engine
+    gets no fallback shape and a paged one (1, 1), so an escalation is
+    declined on both (the paged engine cannot reshard). Records per step
+    whether the
+    controller was degraded when it began, the decode wall time and steps
+    it added to ``engine.timing``, its ``compile_counts()`` after it and
+    the controller's event count. Returns (handles, elapsed, replay info,
+    the records)."""
+    from repro_torch.launch.workloads import replay
+    real, ctrl, rows = engine.step, engine.controller, []
+
+    def step():
+        degraded = min(ctrl.admission_budget, ctrl.depth_budget,
+                       ctrl.inflight_budget) < 1.0
+        tm = engine.timing
+        d0, n0 = tm["decode_s"], tm["decode_steps"]
+        n = real()
+        rows.append((degraded, tm["decode_s"] - d0, tm["decode_steps"] - n0,
+                     engine.compile_counts(), len(ctrl.events)))
+        return n
+    engine.step = step
+    try:
+        handles, elapsed, info = replay(
+            engine, reqs, arrive, clock=clock,
+            fallback_shapes=[(1, 1)] if engine.kv_layout == "paged" else ())
+    finally:
+        del engine.step
+    return handles, elapsed, info, rows
+
+
+def check_terminal(label, handles):
+    """Every request reached a terminal state: served (``done``), shed
+    (``rejected`` with a Retry-After hint) or expired
+    (``deadline_exceeded``); no shed or expired request was prefilled.
+    Returns (served, shed, expired)."""
+    served = [h for h in handles if h.status == "done"]
+    shed = [h for h in handles if h.finish_reason == "rejected"]
+    expired = [h for h in handles if h.finish_reason == "deadline_exceeded"]
+    if len(served) + len(shed) + len(expired) != len(handles):
+        fail(f"{label}: a request did not reach a terminal state: "
+             f"{[(h.status, h.finish_reason) for h in handles]}")
+    for h in shed + expired:
+        if h.status != "rejected" or h.t_first is not None or h.output:
+            fail(f"{label}: a {h.finish_reason} request was prefilled or is "
+                 f"not typed rejected")
+    if any(h.retry_after is None for h in shed):
+        fail(f"{label}: a shed request has no Retry-After hint")
+    return served, shed, expired
+
+
+def check_ladder(label, engine, handles, info, rows):
+    """The gates of a controlled run on the injected clock: the events
+    reach degrade_admission, degrade_depth, degrade_inflight and shed in
+    that order and restore after the shed; shed requests are rejected with
+    a Retry-After hint and expired ones deadline_exceeded, none prefilled,
+    as the engine counted them; the controller escalated and
+    ``maybe_escalate`` declined (``run_controlled``); ``compile_counts()``
+    after the first degrade is what it is at the end. Prints the counts,
+    the events and the served share."""
+    ctrl = engine.controller
+    kinds = [k for _t, k, _v in ctrl.events]
+    ladder = ("degrade_admission", "degrade_depth", "degrade_inflight",
+              "shed")
+    missing = [k for k in ladder if k not in kinds]
+    if missing:
+        fail(f"{label}: the controller never reached {missing}: {kinds}")
+    first = [kinds.index(k) for k in ladder]
+    if first != sorted(first):
+        fail(f"{label}: stages out of ladder order: {kinds}")
+    if not any(k.startswith("restore_") for k in kinds[first[-1]:]):
+        fail(f"{label}: no restore after the shed: {kinds}")
+    served, shed, expired = check_terminal(label, handles)
+    if not expired:
+        fail(f"{label}: no request expired in the queue")
+    if (engine.n_rejected, engine.n_expired) != (len(shed), len(expired)):
+        fail(f"{label}: n_rejected / n_expired {engine.n_rejected} / "
+             f"{engine.n_expired} != {len(shed)} / {len(expired)}")
+    if "escalate" not in kinds or info["escalations"] or \
+            engine.remeshed_at is not None:
+        fail(f"{label}: no escalation, or maybe_escalate re-meshed "
+             f"({info['escalations']} escalations)")
+    at_degrade = next(r[3] for r in rows if r[4] > 0)
+    if engine.compile_counts() != at_degrade:
+        fail(f"{label}: compile_counts {engine.compile_counts()} grew after "
+             f"the first degrade ({at_degrade})")
+    print(f"{label}: {len(served)} served, {len(shed)} shed (rejected, "
+          f"Retry-After {sorted({h.retry_after for h in shed})} s), "
+          f"{len(expired)} expired in the queue, none prefilled; "
+          f"{info['steps']} steps, queue peak {info['queue_peak']}; "
+          f"compile_counts {at_degrade} at the first degrade and at the "
+          f"end: ok")
+    print(f"{label}: events " + ", ".join(
+        f"{k}{'' if k in ('escalate',) else f' {v:g}'}@{t:.2f}s"
+        for t, k, v in ctrl.events))
+    return served, shed, expired
+
+
+SPLIT_MIN_STEPS = 10   # steps on each side before degraded_ms compares
+
+
+def degraded_ms(label, rows, device_line):
+    """Mean decode wall ms per step over the steps that began degraded and
+    over the others (steps that built a form left out); no comparison
+    unless each side has ``SPLIT_MIN_STEPS`` steps."""
+    out = {}
+    for deg in (False, True):
+        ts = [r[1] for i, r in enumerate(rows) if r[0] == deg and r[2] == 1
+              and (i == 0 or r[3] == rows[i - 1][3])]
+        out[deg] = (1e3 * sum(ts) / len(ts), len(ts)) if ts else (0.0, 0)
+    if min(out[True][1], out[False][1]) < SPLIT_MIN_STEPS:
+        print(f"{label}: degraded/undegraded decode split not measured "
+              f"({out[True][1]} degraded and {out[False][1]} undegraded "
+              f"steps, fewer than {SPLIT_MIN_STEPS} on a side)")
+        return
+    print(f"{label}: decode {out[True][0]:.2f} ms/step over {out[True][1]} "
+          f"degraded steps, {out[False][0]:.2f} ms/step over "
+          f"{out[False][1]} undegraded ones (wall, engine.timing) "
+          f"[{device_line}]")
+
+
+def check_fault_drill(mk, reqs, device_line):
+    """(c1): the trace's requests without a controller, all submitted at
+    once, through ``serve_resilient`` with a failure injected at step
+    ``CTRL_FAIL_STEP`` (fallback shapes (8, 1), refused until the mesh
+    slice and skipped, then (1, 1): ``reshard(None)``) and a straggler
+    watchdog, against a fault-free run of the same requests: one restart,
+    every request finished with ``length`` or ``eos`` and its fault-free
+    tokens, ``compile_counts()`` restarted at the re-mesh and flat after
+    it. Returns the faulty run's launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import fault_tolerance as FT
+    clean = mk()
+    hs = [clean.submit(r) for r in reqs]
+    FT.serve_resilient(clean)
+    want = [h.output for h in hs]
+    eng = mk()
+    hs = [eng.submit(r) for r in reqs]
+    at_reshard, real = [], eng.reshard
+
+    def reshard(mesh):
+        real(mesh)
+        at_reshard.append(eng.compile_counts())
+    eng.reshard = reshard
+    wd = FT.StragglerWatchdog()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps, restarts = FT.serve_resilient(
+        eng, fallback_shapes=[(8, 1), (1, 1)], max_restarts=1,
+        injector=FT.FailureInjector(at_steps=(CTRL_FAIL_STEP,)),
+        watchdog=wd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if restarts != 1:
+        fail(f"fault drill: {restarts} restarts, want 1")
+    if any(h.finish_reason not in ("length", "eos") for h in hs):
+        fail(f"fault drill: a request was lost: "
+             f"{[h.finish_reason for h in hs]}")
+    if [h.output for h in hs] != want:
+        fail("fault drill: tokens differ from the fault-free run")
+    if at_reshard != [{"prefill": 0, "decode": 0}] or \
+            eng.compile_counts() != {"prefill": 0, "decode": 1}:
+        fail(f"fault drill: compile_counts {at_reshard} at the re-mesh, "
+             f"{eng.compile_counts()} at the end")
+    slow = ", ".join(f"{s}: {1e3 * dt:.1f} ms" for s, dt, _ in wd.flagged[:4])
+    print(f"fault drill: failure at step {CTRL_FAIL_STEP} of {steps}, "
+          f"{restarts} restart ((8, 1) skipped, re-meshed onto one device), "
+          f"all {len(hs)} requests finished with their fault-free tokens, "
+          f"compile_counts restarted at the re-mesh and "
+          f"{eng.compile_counts()} at the end: ok; watchdog ewma "
+          f"{1e3 * wd.ewma:.2f} ms, {len(wd.flagged)} step(s) flagged "
+          f"({slow}); {wall:.1f} s [{device_line}]")
+    return launches
+
+
+def check_controller_serving(args, res, dev, device_line, spec, params,
+                             rp_d):
+    """The SLO controller, fault tolerance and the trace workloads on the
+    serving engine: Qwen2-7B (``--layers`` deep, bf16) with the depth
+    routers of the depth phase, the trace of ``controller_trace`` on an
+    injected ``StepClock`` (a fixed tick per step) on the ring (a) and the
+    paged pool (b), each graphed engine held to its ``cuda_graphs=False``
+    twin at ``TWIN_LAYERS`` (trajectory, events, statuses, tokens, caches);
+    the fault drill (c1); the ring trace on the wall clock (c2). Returns
+    the launches by path."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import workloads as W
+    from repro_torch.training import ServingEngine
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=args.layers)
+    dspec = depth_spec(spec)
+    reqs, arrive, targets = controller_trace(cfg.vocab_size, args.seed)
+    print(f"controller trace: {len(reqs)} requests, prompts "
+          f"{min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)} tokens, "
+          f"{min(r.max_new_tokens for r in reqs)}-"
+          f"{max(r.max_new_tokens for r in reqs)} new, classes "
+          f"{sorted({r.slo_class for r in reqs})}, arrivals over "
+          f"{arrive[-1]:.2f} s on a clock of {CTRL_TICK_S} s per step")
+
+    def mk(n=cfg.n_layers, g=True, layout="ring", ctrl=True, clock=None):
+        kw = dict(kv_layout="paged", page_size=PAGE_SIZE,
+                  n_pages=args.pages) if layout == "paged" else {}
+        return ServingEngine(
+            cut(params, n), rp_d, dataclasses.replace(cfg, n_layers=n),
+            dspec, mode="infer", batch_size=4, max_seq=1024, device=dev,
+            cuda_graphs=g, controller=make_controller(targets) if ctrl
+            else None, clock=clock, **kw)
+
+    launches = {}
+    for layout in ("ring", "paged"):
+        path = ("controller_serving" if layout == "ring"
+                else "controller_paged_serving")
+        label = f"controller {layout} (injected clock)"
+        clock = W.StepClock(CTRL_TICK_S)
+        engine = mk(layout=layout, clock=clock)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        handles, _, info, rows = run_controlled(engine, reqs, arrive,
+                                                clock)   # the main path
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = ops.launch_counts()
+        check_launches(path, launches[path])
+        check_ladder(f"{label}, {cfg.n_layers} layers", engine, handles,
+                     info, rows)
+        degraded_ms(f"{label}, {cfg.n_layers} layers", rows, device_line)
+        tm = engine.timing
+        n_adm = len(reqs) - engine.n_rejected - engine.n_expired
+        print(f"{label}, {cfg.n_layers} layers: {wall:.1f} s of wall, "
+              f"{tm['prefill_s']:.1f} s in {n_adm} admissions, "
+              f"{tm['decode_s']:.1f} s in {tm['decode_steps']} decode steps "
+              f"[{device_line}]")
+        nt = twin_depth(cfg)
+        rec = PathCalls()
+        twin, outs = {}, {}
+        for g in (True, False):     # the eager twin's kernel calls recorded
+            clock = W.StepClock(CTRL_TICK_S)
+            twin[g] = mk(nt, g, layout, clock=clock)
+            with (contextlib.nullcontext() if g else rec):
+                hs, _, _, _ = run_controlled(twin[g], reqs, arrive, clock)
+            ctrl = twin[g].controller
+            outs[g] = (ctrl.trajectory, ctrl.events,
+                       [(h.status, h.finish_reason, h.output) for h in hs])
+        if outs[True] != outs[False]:
+            fail(f"{label}: the graphed {nt}-layer engine's trajectory, "
+                 f"events, statuses or tokens differ from its "
+                 f"cuda_graphs=False twin's")
+        print(f"{label}, {nt} layers: graphed == cuda_graphs=False twin: "
+              f"trajectory ({len(outs[True][0])} evaluations), events, "
+              f"statuses: ok")
+        check_twin(f"{label}, {nt} layers", twin[True], twin[False],
+                   [h[2] for h in outs[True][2]],
+                   [h[2] for h in outs[False][2]])
+        print(f"{label}: controller {engine.controller.summary()}")
+        print(f"controller kernel calls of the {layout} path (recorded from "
+              f"the {nt}-layer twin) [{device_line}]:")
+        check_path_calls(res, dev, f"controller {layout}", rec)
+        if layout == "paged":
+            check_paged_calls(res, dev, rec.paged_cases(),
+                              {4: "controller decode step",
+                               PAGE_SIZE: "controller prefill chunk"})
+        del rec, engine, twin
+        gc.collect()
+
+    launches["controller_fault_drill"] = check_fault_drill(
+        lambda: mk(ctrl=False), reqs, device_line)
+    gc.collect()
+
+    engine = mk()                                # (c2): the wall clock
+    handles, elapsed, info, rows = run_controlled(engine, reqs, arrive)
+    check_terminal("controller ring (wall clock)", handles)
+    built = [r[3] for r in rows if r[3]["decode"]]
+    if engine.compile_counts() != {"prefill": 0, "decode": 1} or any(
+            c != engine.compile_counts() for c in built):
+        fail(f"controller ring (wall clock): compile_counts not flat: "
+             f"{built}")
+    summ = W.summarize(handles, elapsed, targets)
+    keys = ("attainment", "goodput_tok_s", "ttft_p50_ms", "ttft_p95_ms",
+            "itl_mean_ms", "itl_p95_ms", "shed", "expired")
+    print(f"controller ring (wall clock), {cfg.n_layers} layers: "
+          f"{summ['served']} of {summ['n']} served in {elapsed:.2f} s, "
+          + ", ".join(f"{k} {summ[k]:.4g}" if isinstance(summ[k], float)
+                      else f"{k} {summ[k]}" for k in keys)
+          + f"; compile_counts {engine.compile_counts()} throughout "
+          f"[{device_line}]")
+    print(f"controller ring (wall clock): controller "
+          f"{engine.controller.summary()}")
+    degraded_ms("controller ring (wall clock)", rows, device_line)
+    print(f"controller serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def tensor_signature(obj):
     """Shapes and dtypes of every tensor in ``obj`` (tuples, lists, dicts
     and dataclasses such as the policy walked in order)."""
@@ -3814,9 +4213,13 @@ def main() -> int:
     free()
     paths["depth_training"] = check_training(
         args, params, rp_d, depth_spec(spec), dev, device_line)
-    del rp_d
     free()
     done("depth gradients, training")
+    paths.update(check_controller_serving(args, res, dev, device_line, spec,
+                                          params, rp_d))
+    del rp_d
+    free()
+    done("controller serving")
     paths["sampled_serving"] = check_sampled_serving(
         args, dev, device_line, spec, params, rp, requests, ring)
     free()

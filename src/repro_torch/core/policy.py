@@ -131,23 +131,41 @@ class ElasticPolicy:
         return _map(lambda v: torch.as_tensor(v, dtype=torch.float32)
                     .expand(batch).clone(), self)
 
+    def clamp_capacities(self, floor: float) -> "ElasticPolicy":
+        """Every capacity fraction bounded below by ``floor`` (in (0, 1]),
+        as float32 tensors. The SLO controller's degradation stages go
+        through this so a misconfigured or runaway controller can never
+        drive a live row to a vanishing capacity; top-k leaves already
+        floor at 1 in the roofline solver and ``theta``/``student`` are
+        not budgets."""
+        clamp = lambda v: torch.clamp(
+            torch.as_tensor(v, dtype=torch.float32), min=float(floor))
+        return self.replace(
+            mlp_token_capacity=clamp(self.mlp_token_capacity),
+            mha_token_capacity=clamp(self.mha_token_capacity),
+            depth_capacity=clamp(self.depth_capacity),
+            vlm_token_capacity=clamp(self.vlm_token_capacity))
+
     def set_row(self, i: int, row: "ElasticPolicy") -> "ElasticPolicy":
         """A copy of this (B,)- or (L, B)-leaf policy with slot ``i`` set to
         ``row``'s leaves: the JAX package's functional update, which leaves
         the caller's policy as it was (model-level callers and tests). The
-        serving engine splices in place (``set_row_``). The SLO
-        controller's capacity ``floor`` arrives with them (ROADMAP Queue A
-        item 10)."""
+        serving engine splices in place (``set_row_``)."""
         return self.replace(**{
             f.name: getattr(self, f.name).clone()
             for f in dataclasses.fields(self)}).set_row_(i, row)
 
-    def set_row_(self, i: int, row: "ElasticPolicy") -> "ElasticPolicy":
+    def set_row_(self, i: int, row: "ElasticPolicy", *,
+                 floor: Optional[float] = None) -> "ElasticPolicy":
         """Slot ``i`` of this (B,)- or (L, B)-leaf policy set to ``row``'s
         leaves (scalars, or (L, 1) / (L,) per-layer rows) IN PLACE: the
-        serving engine's admission and fork splice. Every leaf keeps its
-        storage, so a captured decode step that reads the leaves sees the
-        new row. Returns self."""
+        serving engine's admission, fork and in-flight degradation splice.
+        Every leaf keeps its storage, so a captured decode step that reads
+        the leaves sees the new row. ``floor`` (optional) bounds the row's
+        capacities from below first (``clamp_capacities``), the
+        degradation path's safety rail. Returns self."""
+        if floor is not None:
+            row = row.clamp_capacities(floor)
         for f in dataclasses.fields(self):
             live = getattr(self, f.name)
             r = torch.as_tensor(getattr(row, f.name), dtype=torch.float32,

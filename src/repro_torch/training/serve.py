@@ -41,11 +41,11 @@ sampling stay eager.
 ``max_seq`` reservation per slot with a global pool of ``page_size``-token
 pages and a per-slot page table: a prompt is prefilled in chunks of one
 page, full prompt pages are shared between requests with the same prefix
-(refcounted, namespaced by mode, budget, theta and KV dtype), ``fork``
-copies only the partial tail page, and when the pool runs dry the
-latest-admitted slot is preempted and re-queued at the front as a
-continuation. The (B, pages_per_slot) table and the (B,) trash pages are
-among the staged per-slot state.
+(refcounted, namespaced by mode, effective budget, theta, KV dtype and
+the controller's depth cap), ``fork`` copies only the partial tail page,
+and when the pool runs dry the latest-admitted slot is preempted and
+re-queued at the front as a continuation. The (B, pages_per_slot) table
+and the (B,) trash pages are among the staged per-slot state.
 
 ``kv_dtype`` / ``weight_dtype`` (``fp32`` = the config dtype, ``bf16``,
 ``int8``; ``models/quant.py``) set the storage of the caches and of the
@@ -64,6 +64,21 @@ budget), its k/v scattered back to their positions for the ring; through
 the plan the dense MLPs run the ``fused_mlp_routed`` kernel, with int8
 weights too. The admission is eager like the infer one, and decode is the
 same threshold step in every mode, so the decode forms do not change.
+
+``controller`` (``runtime/controller.SLOController``) closes the loop on
+the budget knob, as in the JAX engine: queued requests whose deadline
+passed are dropped before admission (``deadline_exceeded``), admissions
+are capped at the controller's degraded budget and depth (policy row and
+scheduler cost), and after each decode the controller evaluates; its
+in-flight and depth stages splice degraded rows into the live policy in
+place (``ElasticPolicy.set_row_``), which a replayed decode graph reads,
+so no stage captures anything new, and its shed stage rejects queued
+requests with a Retry-After hint. Every request timestamp comes from one
+injected ``clock`` (default ``time.perf_counter``), so a fake clock gives
+a deterministic budget trajectory; ``timing`` stays on the wall clock.
+``reshard(None)`` drains the engine and drops its graphs (the JAX
+engine's re-mesh onto one device); ``runtime/fault_tolerance`` drives it
+on a failure or an escalation.
 
 Decode runs the ElastiFormer threshold path (§B.1). Each slot samples with
 its request's temperature, top-k and seed (``sample_tokens``): the noise
@@ -108,6 +123,8 @@ class GenRequest:
     temperature: float = 0.0         # 0.0 = greedy (the exact argmax)
     top_k: int = 0                   # sample from the top-k logits; 0 = all
     seed: int = 0                    # per-request PRNG seed (32 bits used)
+    slo_class: str = "default"       # tenant SLO class (runtime/controller.py)
+    deadline_ms: Optional[float] = None  # queue deadline; None = class default
 
 
 def sample_tokens(logits, temperature=None, top_k=None, seeds=None,
@@ -183,7 +200,9 @@ class ServingEngine:
     engine (the decode step and the paged prefill chunk captured once per
     form and replayed, module docstring); False runs them eagerly on the
     card, as a CPU engine always does. ``compile_counts()`` counts the
-    forms built.
+    forms built. ``controller``: an ``SLOController`` (module docstring);
+    ``clock``: the clock of every request timestamp and controller
+    evaluation (default ``time.perf_counter``).
     """
 
     def __init__(self, params, router_params, cfg, elastic=None,
@@ -193,22 +212,28 @@ class ServingEngine:
                  step_flop_budget: Optional[float] = None, mesh=None,
                  kv_layout: str = "ring", page_size: int = 16,
                  n_pages: Optional[int] = None, kv_dtype: str = "fp32",
-                 weight_dtype: str = "fp32", controller=None, device=None,
-                 cuda_graphs: Optional[bool] = None):
+                 weight_dtype: str = "fp32", controller=None, clock=None,
+                 device=None, cuda_graphs: Optional[bool] = None):
         if mesh is not None:
             raise _todo("SPMD serving (mesh=)", "item 11")
         if kv_layout not in ("ring", "paged"):
             raise ValueError(f"kv_layout must be 'ring' or 'paged', "
                              f"got {kv_layout!r}")
         self.cfg, self.mode = cfg, mode
+        # SLO controller (runtime/controller.py) + injectable clock: every
+        # request timestamp (handle t_submit/t_tokens, deadlines, controller
+        # evaluations) reads this one clock, so tests drive a fully
+        # deterministic time; ``timing`` stays on the host's wall clock
+        self.controller = controller
+        self._clock = clock if clock is not None else time.perf_counter
+        self.mesh = None                          # one device (item 11)
+        self.remeshed_at: Optional[float] = None  # last reshard(), clock time
         self.spec, self._base_policy = as_spec_policy(elastic)
         self.kv_layout, self.page_size = kv_layout, int(page_size)
         self.kv_dtype = check_kv_dtype(kv_dtype)
         self.weight_dtype = check_weight_dtype(weight_dtype)
         if kv_layout == "paged":
             self._validate_paged(mode)
-        if controller is not None:
-            raise _todo("the SLO controller", "item 10")
         if mode not in ("infer", "base", "train"):
             raise ValueError(f"mode must be 'infer', 'base' or 'train', "
                              f"got {mode!r}")
@@ -295,6 +320,15 @@ class ServingEngine:
             self.device) if self._use_policy else None)
         self._tok = torch.zeros((B,), dtype=torch.int64, device=self.device)
         self._ngen = np.zeros((B,), np.int64)
+        # per-slot budget bookkeeping for in-flight degradation: the budget
+        # the slot was ADMITTED at (None = engine default / base policy),
+        # the budget currently APPLIED to its live policy row, and the
+        # controller depth cap applied to it (None = undegraded)
+        self._slot_budget_key: list = [None] * B
+        self._slot_applied_key: list = [None] * B
+        self._slot_applied_depth: list = [None] * B
+        self.n_rejected = 0                       # shed under overload
+        self.n_expired = 0                        # queue deadline passed
         # the compiled entry points: (entry, form) -> None (eager) or
         # (captured graph, kernel launches per replay)
         self._forms: dict = {}
@@ -329,18 +363,17 @@ class ServingEngine:
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {self.page_size}")
 
-    def _budget_of(self, req: GenRequest) -> Optional[float]:
-        """A request's serving budget: its own, or the engine default."""
-        return req.budget if req.budget is not None else self.default_budget
-
     def _prefix_namespace(self, req: GenRequest) -> tuple:
         """Prefix-sharing hash namespace: pages hold post-gate K/V, so two
         requests may share a page only when every knob that shapes the
-        written values agrees — mode, budget, theta and the KV storage
-        dtype."""
-        b = self._budget_of(req)
+        written values agrees — mode, the solved budget (capped by the
+        controller), theta, the KV storage dtype and the controller's depth
+        cap (sampling knobs don't touch K/V)."""
+        b = self._effective_budget(req)
+        d = self._depth_cap()
         return (self.mode, None if b is None else round(float(b), 6),
-                round(float(self.theta), 6), self.kv_dtype)
+                round(float(self.theta), 6), self.kv_dtype,
+                None if d is None else round(float(d), 6))
 
     def paged_stats(self) -> dict:
         """Pool stats plus live-token page efficiency (host side only)."""
@@ -354,17 +387,60 @@ class ServingEngine:
         return st
 
     # ---- budgets -> per-request policy rows ----
-    def _policy_for(self, budget: Optional[float]) -> Optional[ElasticPolicy]:
-        """Solved policy row for ``budget`` as f32 tensors on the device,
-        cached per budget."""
+    def _effective_budget(self, req: GenRequest) -> Optional[float]:
+        """A request's serving budget: its own (or the engine default),
+        capped by the controller's degraded admission budget. A requested
+        budget BELOW the cap is kept as it is: the cap only degrades, never
+        upgrades."""
+        b = req.budget if req.budget is not None else self.default_budget
+        if self.controller is not None:
+            cap = self.controller.admission_cap()
+            if cap is not None:
+                b = cap if b is None else min(float(b), cap)
+        return b
+
+    def _depth_cap(self) -> Optional[float]:
+        """The controller's depth-stage cap (whole-layer skips), honoured
+        only when the spec routes depth: otherwise the knob has nothing to
+        act on and is ignored."""
+        if (self.controller is None or self.spec is None
+                or not self.spec.depth_routed):
+            return None
+        return self.controller.depth_cap()
+
+    def _policy_for(self, budget: Optional[float],
+                    depth: Optional[float] = None) -> Optional[ElasticPolicy]:
+        """Solved policy row for (budget, depth cap) as f32 tensors on the
+        device. ``depth`` caps ``depth_capacity`` below what the roofline
+        solver chose for the budget (the controller's depth stage); rows
+        are cached per (budget, depth) key, so repeat admissions and
+        splices never re-solve."""
         if not self._use_policy:
             return None
-        key = None if budget is None else round(float(budget), 6)
+        key = (None if budget is None else round(float(budget), 6),
+               None if depth is None else round(float(depth), 6))
         if key not in self._policy_cache:
-            pol = (self._base_policy if key is None else solve_budget(
-                self.cfg, self.spec, key, theta=self.theta, static=True))
+            pol = (self._base_policy if key[0] is None else solve_budget(
+                self.cfg, self.spec, key[0], theta=self.theta, static=True))
+            if depth is not None:
+                cur = pol.depth_capacity
+                pol = pol.replace(depth_capacity=(
+                    min(float(cur), key[1]) if isinstance(cur, (int, float))
+                    else torch.minimum(
+                        torch.as_tensor(cur, dtype=torch.float32),
+                        torch.tensor(key[1], dtype=torch.float32))))
             self._policy_cache[key] = pol.to(self.device)
         return self._policy_cache[key]
+
+    @staticmethod
+    def _composed_cost(budget: Optional[float],
+                       depth: Optional[float]) -> float:
+        """Scheduler cost of a (budget, depth cap) pair: the budget fraction
+        times the depth fraction. Depth skips whole layers, so the two
+        compose multiplicatively, like the roofline solver's active-FLOP
+        model."""
+        return min(1.0, (1.0 if budget is None else float(budget))
+                   * (1.0 if depth is None else float(depth)))
 
     # ------------------------- request lifecycle -----------------------------
 
@@ -387,7 +463,13 @@ class ServingEngine:
                 raise ValueError(
                     f"request needs {need} pages but the pool only has "
                     f"{self.pool.usable_per_replica} usable pages")
-        handle = RequestHandle(request, engine=self)
+        handle = RequestHandle(request, engine=self, clock=self._clock)
+        handle.tenant = request.slo_class or "default"
+        dl_ms = request.deadline_ms
+        if dl_ms is None and self.controller is not None:
+            dl_ms = self.controller.target_for(handle.tenant).deadline_ms
+        if dl_ms is not None:
+            handle.deadline = handle.t_submit + float(dl_ms) / 1e3
         cost = b if b is not None else (self.default_budget or 1.0)
         self.scheduler.enqueue(handle, cost=min(1.0, float(cost)))
         return handle
@@ -422,8 +504,9 @@ class ServingEngine:
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         t0 = time.perf_counter()
         tokens = torch.as_tensor(prompt[None], device=self.device)
-        b_eff = self._budget_of(req)
-        pol_row = self._policy_for(b_eff)
+        b_eff = self._effective_budget(req)
+        d_eff = self._depth_cap()
+        pol_row = self._policy_for(b_eff, depth=d_eff)
         # top-k (train-mode) routing plans its blocks into the request's
         # static capacity bucket; threshold (infer) prefill takes none
         bucket = None
@@ -444,8 +527,29 @@ class ServingEngine:
         self._t[slot] = prompt.size
         self._active[slot] = True
         self._ngen[slot] = 0
-        handle.budget_served = min(1.0, 1.0 if b_eff is None else float(b_eff))
         self._append(slot, handle, tok0)
+        self._note_admitted(slot, handle, b_eff, d_eff)
+
+    def _note_admitted(self, slot: int, handle: RequestHandle,
+                       b_eff: Optional[float],
+                       d_eff: Optional[float] = None) -> None:
+        """Records the admitted budget (and depth cap) for in-flight
+        degradation and restore, the served-budget weight for goodput
+        accounting, and the TTFT sample for the controller. The slot's
+        scheduler cost is re-priced to the COMPOSED budget x depth
+        fraction, so a depth-degraded engine's admission headroom grows to
+        match the FLOPs it actually spends."""
+        self._slot_budget_key[slot] = b_eff
+        self._slot_applied_key[slot] = b_eff
+        self._slot_applied_depth[slot] = d_eff
+        cost = self._composed_cost(b_eff, d_eff)
+        handle.budget_served = cost
+        if d_eff is not None:
+            self.scheduler.reprice(slot, cost)
+        if self.controller is not None and handle.ttft is not None:
+            self.controller.record_ttft(
+                handle.tenant, self.scheduler.replica_of(slot),
+                handle.ttft * 1e3, t=handle.t_first)
 
     def _first_token(self, logits, slot: int, req: GenRequest, plen: int):
         """Records the request's sampling settings in ``slot`` and samples
@@ -515,8 +619,9 @@ class ServingEngine:
         for j, pg in enumerate(fresh):
             row[matched + j] = pg
         self._table[slot] = row
-        b_eff = self._budget_of(req)
-        pol_row = self._policy_for(b_eff)
+        b_eff = self._effective_budget(req)
+        d_eff = self._depth_cap()
+        pol_row = self._policy_for(b_eff, depth=d_eff)
         trash = self.pool.trash_page(r)
         t0 = time.perf_counter()
         # stage every chunk this admission runs in one copy, then replay
@@ -551,8 +656,8 @@ class ServingEngine:
         self._active[slot] = True
         self._ngen[slot] = 0
         self._admit_seq[slot] = next(self._admit_counter)
-        handle.budget_served = min(1.0, 1.0 if b_eff is None else float(b_eff))
         self._append(slot, handle, tok0)
+        self._note_admitted(slot, handle, b_eff, d_eff)
         return True
 
     def _pick_victim(self, replica: int) -> Optional[int]:
@@ -627,21 +732,95 @@ class ServingEngine:
         self.scheduler.free(slot)
         self._active[slot] = False
 
+    def _expire(self) -> int:
+        """Drops queued requests whose deadline has passed, BEFORE they
+        burn a prefill (reason ``deadline_exceeded``)."""
+        expired = self.scheduler.expire_deadlines(self._clock())
+        self.n_expired += len(expired)
+        return len(expired)
+
+    def _apply_inflight(self) -> None:
+        """In-flight degradation: splices the controller's depth cap and
+        in-flight budget into every active slot's live policy row in place
+        (``set_row_``, floored at the controller's floor; a replayed decode
+        graph reads the leaves, so nothing is captured again) and re-prices
+        the slot's scheduler cost to the composed budget x depth fraction.
+        Restores splice the ADMITTED row back when the controller
+        releases."""
+        c = self.controller
+        if c is None or self._live_policy is None:
+            return
+        tgt = c.inflight_budget
+        dcap = self._depth_cap()
+        for s in np.nonzero(self._active)[0]:
+            s = int(s)
+            adm = self._slot_budget_key[s]
+            if tgt < 1.0:
+                want = tgt if adm is None else min(float(adm), tgt)
+            else:
+                want = adm
+            if (want == self._slot_applied_key[s]
+                    and dcap == self._slot_applied_depth[s]):
+                continue
+            self._live_policy.set_row_(s, self._policy_for(want, depth=dcap),
+                                       floor=c.floor)
+            self._slot_applied_key[s] = want
+            self._slot_applied_depth[s] = dcap
+            cost = self._composed_cost(want, dcap)
+            self.scheduler.reprice(s, cost)
+            handle = self.scheduler.slots[s]
+            if handle is not None:
+                handle.budget_served = min(handle.budget_served, cost)
+
+    def _control(self) -> int:
+        """One controller evaluation (rate-limited inside ``update``):
+        applies in-flight budget moves and sheds queued requests with a
+        Retry-After hint. Returns the number of shed requests (they are
+        resolved: progress events)."""
+        c = self.controller
+        if c is None:
+            return 0
+        dec = c.update(self._clock(), queue_depth=self.scheduler.pending,
+                       capacity=self.B)
+        if not dec["evaluated"]:
+            return 0
+        self._apply_inflight()
+        if not dec["shed"]:
+            return 0
+        victims = self.scheduler.shed(
+            dec["shed"],
+            priority=lambda h: c.target_for(h.tenant).shed_order)
+        for h in victims:
+            h.retry_after = c.retry_after(dec["ratio"])
+        self.n_rejected += len(victims)
+        return len(victims)
+
     def step(self) -> int:
         """Admit queued requests into free slots, then run ONE decode step
         over the slot array. Returns the number of progress events
-        (admissions + slots that advanced); 0 = the engine is idle.
+        (admissions + slots that advanced + expired and shed requests);
+        0 = the engine is idle.
 
         Paged mode: admission packs on free pages and the FLOP budget
         together (``_page_check``); an admission that runs out of pages
         inside the batch is re-queued at the front; before the decode,
         slots crossing into a new page get one, preempting under page
-        pressure."""
+        pressure.
+
+        With an ``SLOController``: expired queue deadlines are dropped
+        before admission, admissions are capped at the degraded budget
+        (cost AND policy row), and the controller evaluates at the end of
+        the step, after the inter-token samples of its decode."""
         paged = self.kv_layout == "paged"
+        expired = self._expire()
+        cap = (self.controller.admission_cap()
+               if self.controller is not None else None)
+        dcap = self._depth_cap()
         if paged:
             admitted = []
             for slot, handle in self.scheduler.admit(
-                    page_check=self._page_check):
+                    page_check=self._page_check, cost_cap=cap,
+                    cost_scale=dcap):
                 if self._admit_one_paged(slot, handle):
                     admitted.append((slot, handle))
                 else:
@@ -650,11 +829,11 @@ class ServingEngine:
                     self.scheduler.requeue_front(handle, cost)
             self._ensure_decode_pages()       # may preempt: before `live`
         else:
-            admitted = self.scheduler.admit()
+            admitted = self.scheduler.admit(cost_cap=cap, cost_scale=dcap)
             for slot, handle in admitted:
                 self._admit_one(slot, handle)
         if not self._active.any():
-            return len(admitted)
+            return len(admitted) + expired + self._control()
         live = [(s, h) for s, h in enumerate(self.scheduler.slots)
                 if h is not None and self._active[s]]
         t0 = time.perf_counter()
@@ -671,7 +850,14 @@ class ServingEngine:
         for slot, handle in live:
             self._t[slot] += 1
             self._append(slot, handle, int(toks[slot]))
-        return len(admitted) + len(live)
+        if self.controller is not None:
+            for slot, handle in live:
+                if len(handle.t_tokens) >= 2:
+                    self.controller.record_itl(
+                        handle.tenant, self.scheduler.replica_of(slot),
+                        (handle.t_tokens[-1] - handle.t_tokens[-2]) * 1e3,
+                        t=handle.t_tokens[-1])
+        return len(admitted) + len(live) + expired + self._control()
 
     # --------------------------- compiled entry points ------------------------
 
@@ -751,6 +937,30 @@ class ServingEngine:
         lengths and sampling settings."""
         return dict(self._compiles)
 
+    def reshard(self, mesh) -> None:
+        """Drain and re-mesh, the JAX engine's live ``reshard``. On one
+        device (``mesh=None``) it is a drain that keeps every slot's cache,
+        policy row and the queue: the device finishes its work, the
+        captured graphs and their pool are dropped and ``compile_counts()``
+        restarts, as the JAX engine's fresh jit wrappers do; the next step
+        captures again and every in-flight request continues with the same
+        tokens. A mesh (more than one device) arrives with ROADMAP Queue A
+        item 11; a paged engine refuses, as the JAX engine does."""
+        if self.kv_layout == "paged":
+            raise NotImplementedError(
+                "live reshard of a paged engine is not supported: page ids "
+                "are replica-local (the pool freelists and trash pages are "
+                "derived from the data-axis size at construction)")
+        if mesh is not None:
+            raise _todo("re-meshing onto a multi-device mesh", "item 11")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # drain the in-flight step
+        self._forms = {}
+        self._compiles = {"prefill": 0, "decode": 0}
+        if self.cuda_graphs:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        self.remeshed_at = self._clock()          # stats-window boundary
+
     # ------------------------------- fork ------------------------------------
 
     def fork(self, handle: RequestHandle,
@@ -801,7 +1011,8 @@ class ServingEngine:
         creq = dataclasses.replace(req, prompt=prompt,
                                    max_new_tokens=remaining,
                                    seed=req.seed if seed is None else seed)
-        child = RequestHandle(creq, engine=self)
+        child = RequestHandle(creq, engine=self, clock=self._clock)
+        child.tenant = handle.tenant
         child.slot, child.status = cs, "running"
         child.budget_served = handle.budget_served
         self.scheduler.slots[cs] = child
@@ -814,9 +1025,13 @@ class ServingEngine:
         self._active[cs] = True
         self._ngen[cs] = 0
         self._admit_seq[cs] = next(self._admit_counter)
+        # the child's row: its request's own budget, as the JAX engine
+        # splices it, recorded as the slot's admitted and applied budget
+        b = req.budget if req.budget is not None else self.default_budget
+        self._slot_budget_key[cs] = self._slot_applied_key[cs] = b
+        self._slot_applied_depth[cs] = None
         if self._live_policy is not None:
-            self._live_policy.set_row_(cs, self._policy_for(
-                self._budget_of(req)))
+            self._live_policy.set_row_(cs, self._policy_for(b))
         return child
 
     def generate(self, requests: List[GenRequest],

@@ -1214,3 +1214,114 @@ def test_host_sync_in_the_body_makes_capture_raise(cuda, monkeypatch):
     torch.cuda.synchronize()
     eager = mk("ring", graphs=False)          # the caller's explicit choice
     assert len(eager.generate([reqs[0]])[0]) == reqs[0].max_new_tokens
+
+
+# ------------------------- the SLO controller on the card ---------------------
+#
+# The controller's in-flight and depth stages splice degraded rows into the
+# live policy leaves in place; a replayed decode graph must read them, so a
+# graphed engine equals its eager twin across a degrade and a restore.
+
+def _toy_controlled(cuda, layout, graphs):
+    """toy-lm at 2 layers in bf16 with the depth router, a controller with
+    generous targets that restores one stage per evaluation, and a step
+    loop on an injected clock that degrades every stage to the floor by
+    hand at step 3 (so rows admitted at full budget are spliced down, then
+    restored step by step). Returns (engine, tokens, compile_counts()
+    before the degrade)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticSpec
+    from repro_torch.launch.workloads import StepClock
+    from repro_torch.models import model_init, router_init
+    from repro_torch.runtime.controller import SLOController, SLOTarget
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = dataclasses.replace(get_config("toy-lm"), dtype="bfloat16",
+                              n_layers=2)
+    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                       mha_head_routed=True, lora_rank=1, depth_routed=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model_init(gen, cfg, spec, device=cuda)
+    rp = router_init(gen, cfg, spec, device=cuda)
+    ctrl = SLOController(targets={"default": SLOTarget(p95_ttft_ms=1e6)},
+                         floor=0.25, step_up=0.25, eval_interval_s=0.0,
+                         patience=1, min_samples=1)
+    clock = StepClock(0.1)
+    kw = dict(kv_layout="paged", page_size=16) if layout == "paged" else {}
+    eng = ServingEngine(params, rp, cfg, spec, mode="infer", batch_size=2,
+                        max_seq=128, device=cuda, cuda_graphs=graphs,
+                        controller=ctrl, clock=clock, **kw)
+    rng = np.random.default_rng(0)
+    hs = [eng.submit(GenRequest(rng.integers(0, cfg.vocab_size, n).astype(
+        np.int32), 12, budget=b, temperature=t, seed=s))
+        for n, b, t, s in ((9, None, 0.0, 0), (33, 0.75, 0.8, 3),
+                           (17, None, 0.0, 0), (40, 0.5, 1.0, 4))]
+    for i in range(200):
+        if i == 3:
+            before = eng.compile_counts()
+            ctrl.admission_budget = ctrl.depth_budget = \
+                ctrl.inflight_budget = 0.25
+        clock.tick()
+        eng.step()
+        if not eng.has_work:
+            break
+    return eng, [list(h.output) for h in hs], before
+
+
+def _live_tensors(eng):
+    """chip_smoke.py's ``engine_cache_tensors``: the engine's cache leaves,
+    a paged pool's without its trash page (checked to be out of every
+    table row, freelist and refcount)."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs.engine_cache_tensors(eng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_graphed_controller_engine_equals_eager(cuda, layout):
+    """Greedy and sampled requests through a degrade of every stage and
+    the controller's restores: the graphed engine and its
+    ``cuda_graphs=False`` twin give the same tokens, caches, trajectory
+    and events, and the graphs built before the degrade are the only
+    ones."""
+    graphed, got, before = _toy_controlled(cuda, layout, True)
+    eager, want, _ = _toy_controlled(cuda, layout, False)
+    assert got == want
+    for a, b in zip(_live_tensors(graphed), _live_tensors(eager)):
+        assert torch.equal(a, b)
+    gc, ec = graphed.controller, eager.controller
+    assert gc.trajectory == ec.trajectory and gc.events == ec.events
+    kinds = [k for _t, k, _v in gc.events]
+    assert kinds[:3] == ["restore_inflight"] * 3 and "restore_depth" in kinds
+    assert graphed.compile_counts() == eager.compile_counts() == before
+    assert before["prefill"] == int(layout == "paged") and before["decode"]
+
+
+@pytest.mark.cuda
+def test_reshard_captures_again_with_identical_tokens(cuda):
+    """``reshard(None)`` mid-run on a graphed ring engine drops its graphs
+    (``compile_counts()`` back to 0), the next step captures again, and
+    every request continues with the tokens of an uninterrupted run."""
+    mk, reqs = _toy_serving(cuda, "bf16")
+    want = _staggered_run(mk("ring"), reqs)
+    eng = mk("ring")
+    hs = [eng.submit(r) for r in reqs[:2]]
+    eng.step()
+    eng.step()
+    hs += [eng.submit(r) for r in reqs[2:]]
+    eng.step()
+    assert eng.compile_counts()["decode"] >= 1
+    eng.reshard(None)
+    assert eng.compile_counts() == {"prefill": 0, "decode": 0}
+    while not all(h.done for h in hs):
+        assert eng.step() > 0
+    assert [list(h.output) for h in hs] == want
+    assert eng.compile_counts()["decode"] >= 1
+    with pytest.raises(NotImplementedError, match="item 11"):
+        eng.reshard(object())
+    with pytest.raises(NotImplementedError):
+        mk("paged").reshard(None)

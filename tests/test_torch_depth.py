@@ -24,8 +24,8 @@ budget, the dense reference flat.
 
 Routing decisions are held equal by seeds whose router logits clear their
 thresholds by more than 1e-4 (asserted in the infer and engine cases).
-The controller's live depth degrade (tests/test_depth.py:199) arrives with
-the SLO controller (ROADMAP Queue A item 10).
+The controller's live depth degrade (tests/test_depth.py:199) is held to
+JAX in tests/test_torch_controller_serving.py.
 """
 import dataclasses
 import functools

@@ -163,8 +163,15 @@ def test_no_silent_cpu_fallback(setup):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(s["tparams"], s["trp"], s["tcfg"], s["tspec"])
-    with pytest.raises(NotImplementedError):       # the SLO controller
-        _port_engine(s, controller=object())
+    with pytest.raises(NotImplementedError, match="item 11"):   # SPMD
+        _port_engine(s, mesh=object())
+    # the SLO controller is ported: on the CPU a controller engine builds
+    from repro_torch.runtime.controller import SLOController
+    ctrl = SLOController()
+    eng = _port_engine(s, controller=ctrl)
+    assert eng.controller is ctrl and eng.device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="item 11"):
+        eng.reshard(object())
     # quantized serving is ported: on the CPU an int8 engine builds
     eng = _port_engine(s, kv_dtype="int8", weight_dtype="int8")
     attn = eng._caches["layers"][0]["attn"]
