@@ -131,6 +131,27 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    0, a plan step run twice gives the same bits, every loss is finite and
    every training kernel launched. Prints each step's losses, bucket,
    teacher and student times, tokens/s and peak memory.
+5a. Surfaces (``check_surfaces``), on the serving weights: (i)
+   ``launch.train.train`` at Qwen2-7B width, --train-layers deep, B=2,
+   S=512, 8 steps annealed 1.0 -> 0.5 over 4, checkpoints every 2 steps
+   into a fresh temporary directory (removed after), run clean and with a
+   failure injected at step 5: fails unless the faulty run restarted once
+   and both end in the same routers, AdamW moments and step and every
+   step's loss, bit for bit, and each directory holds steps 4, 6 and 8,
+   each restoring with every checksum verified; prints each save's
+   snapshot and background-write host times and one restore's. (ii) The
+   last checkpoint restored into port routers (== the trainer's state bit
+   for bit) and served: a ring infer engine (bf16, 4 slots, graphed), 8
+   requests of 64-512 tokens and 32 new tokens, budgets 0.5 / 0.75 / 1.0
+   round-robin, Poisson at 4 req/s (seed 0) through
+   ``launch.serve.open_loop``: fails unless every request is done, each
+   equals itself served alone on a fresh engine, the budget-1.0 ones equal
+   a mode="base" engine's and ``compile_counts()`` does not move during the
+   window; prints ``latency_stats`` and occupancy. (iii) ``python -m
+   repro_torch.launch.serve`` (``SURF_CLI``: Qwen2-7B at full width and
+   depth, paged, bf16, open loop) as a subprocess: fails unless it exits 0,
+   prints its report lines (echoed) and builds nothing (it loads the
+   parent's kernels). Its launches are not counted.
 5b. Depth serving: the slice's spec and routers plus a fresh seeded depth
    router per layer (per-token whole-layer skip), the six staggered
    requests on the ring and on the paged pool: fails unless budget-1.0
@@ -206,6 +227,11 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    --moe-layers deep, random bf16 weights, its registered elastic config)
    after the Qwen2-7B weights are freed: staggered == solo bit for bit,
    moe_gmm launched; prints the rates.
+9a. Native MoE training: the same weights through ``launch.train.train``
+   (4 steps, B=2, S=512, budget 1.0 -> 0.5 over 2, checkpoints every 2),
+   clean and with a failure at step 3: bit for bit equal as in item 5a,
+   every loss finite; moe_gmm's calls of both runs are recorded and
+   replayed against the plain version; prints ms per step and peak memory.
 9b. Native MoE int8 serving: the same model, routers and requests with
    int8 weights and K/V: staggered == solo bit for bit, moe_gmm launched;
    moe_gmm's int8 form (int8 expert stacks, (E, Fe) / (E, D) scales) is
@@ -296,6 +322,11 @@ PATH_KERNELS = {
     "controller_paged_serving": ("fused_mlp", "paged_decode_attention"),
     "controller_fault_drill": ("flash_attention", "fused_mlp",
                                "decode_attention"),
+    "resumable_training": ("flash_attention", "fused_mlp",
+                           "fused_mlp_routed"),
+    "checkpoint_serving": ("flash_attention", "fused_mlp",
+                           "decode_attention"),
+    "native_training": ("flash_attention", "moe_gmm"),
 }
 
 
@@ -2228,6 +2259,320 @@ def check_native_serving(args, dev, device_line):
     print("native MoE staggered == solo (requests 3 and 4, budgets None and "
           "0.5): ok")
     return launches, (params, rp, cfg, spec, requests)
+
+
+# ------------------------------- surfaces -------------------------------------
+#
+# The entry points users start: the trainer with checkpoints and resume
+# (launch/train.py, checkpoint/), serving from a checkpoint through the
+# serving CLI's open loop, and the CLI itself (launch/serve.py).
+
+SURF_STEPS = 8           # resumable training: steps of each run
+SURF_SAVE_EVERY = 2      # its checkpoint interval (keep=3: steps 4, 6, 8)
+SURF_FAIL_STEP = 5       # the faulty run's injected failure
+SURF_REQUESTS = 8        # served from the checkpoint, 32 new tokens each
+SURF_RATE = 4.0          # their Poisson arrivals, req/s (seed 0)
+SURF_CLI = ("--arch", "qwen2-7b", "--variant", "full", "--requests", "8",
+            "--batch", "4", "--prompt-len", "256", "--max-new", "32",
+            "--budget", "0.5,0.75,1.0", "--arrival-rate", "4",
+            "--kv-layout", "paged", "--kv-dtype", "bf16",
+            "--weight-dtype", "bf16")
+
+
+@contextlib.contextmanager
+def timed_saves():
+    """Host seconds of every ``Checkpointer`` save while active, by step:
+    the ``save`` call (the snapshot to host memory, after which training
+    goes on) and its background write (``_write``)."""
+    from repro_torch.checkpoint import Checkpointer
+    times, save, write = {}, Checkpointer.save, Checkpointer._write
+
+    def timed_save(self, step, *a, **kw):
+        t0 = time.perf_counter()
+        save(self, step, *a, **kw)
+        times.setdefault(step, {})["snapshot_s"] = time.perf_counter() - t0
+
+    def timed_write(self, step, *a, **kw):
+        t0 = time.perf_counter()
+        write(self, step, *a, **kw)
+        times.setdefault(step, {})["write_s"] = time.perf_counter() - t0
+    Checkpointer.save, Checkpointer._write = timed_save, timed_write
+    try:
+        yield times
+    finally:
+        Checkpointer.save, Checkpointer._write = save, write
+
+
+def same_tree(a, b) -> bool:
+    """Equal structure (keys, whatever their order) and equal leaves,
+    dtype and bits."""
+    from repro_torch.checkpoint import flatten
+    fa, fb = flatten(a), flatten(b)
+    return sorted(fa) == sorted(fb) and all(
+        fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k])
+        for k in fa)
+
+
+def resumable_runs(label, arch, root, fail_at, device_line, **kw):
+    """``launch.train.train`` twice into fresh checkpoint directories under
+    ``root``: once clean and once with a failure injected at ``fail_at``.
+    Fails unless the faulty run restarted once and both end in the same
+    routers and AdamW moments and the same loss at every step, bit for
+    bit. Prints each step's loss, time and peak memory, and each save's
+    host time (snapshot, background write). Returns {run: (state,
+    history, directory)}."""
+    import os
+    import torch
+    from repro_torch.launch import train as T
+    runs = {}
+    for run, inject in (("clean", ()), ("faulty", (fail_at,))):
+        d = os.path.join(root, f"{label}_{run}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with timed_saves() as saves:
+            state, hist, restarts, wd = T.train(
+                arch, ckpt_dir=d, inject_failures=inject, log_every=10 ** 6,
+                **kw)
+        wall = time.perf_counter() - t0
+        want = len(inject)
+        if restarts != want:
+            fail(f"{label} {run}: {restarts} restarts, want {want}")
+        for i, m in enumerate(hist):
+            if m is None or not all(np.isfinite(v) for k, v in m.items()
+                                    if k != "bucket"):
+                fail(f"{label} {run}: step {i} metrics {m}")
+            print(f"  {run} step {i} bucket {m['bucket']}: loss "
+                  f"{m['loss']:.6f} distill {m['distill']:.6e} sel_rate "
+                  f"{m['sel_rate']:.4f} step {m['step_s'] * 1e3:.1f} ms")
+        steps = [m["step_s"] for m in hist]
+        print(f"  {run}: {len(hist)} steps + {restarts} restart(s) in "
+              f"{wall:.1f} s; step median {np.median(steps) * 1e3:.1f} ms "
+              f"(first {steps[0] * 1e3:.1f}), peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+              f"watchdog flagged {len(wd.flagged)} [{device_line}]")
+        for s, t in sorted(saves.items()):
+            print(f"  {run} save of step {s}: save call (snapshot) "
+                  f"{t['snapshot_s'] * 1e3:.2f} ms (returns to training), "
+                  f"background write {t['write_s'] * 1e3:.2f} ms "
+                  f"[{device_line}]")
+        runs[run] = (state, hist, d)
+    (sc, hc, _), (sf, hf, _) = runs["clean"], runs["faulty"]
+    if not (same_tree(sc.router_params, sf.router_params)
+            and same_tree(sc.opt.m, sf.opt.m)
+            and same_tree(sc.opt.v, sf.opt.v)
+            and torch.equal(sc.opt.step, sf.opt.step)):
+        fail(f"{label}: the resumed run's routers or moments differ from "
+             f"the clean run's")
+    if [m["loss"] for m in hc] != [m["loss"] for m in hf]:
+        fail(f"{label}: losses differ: {[m['loss'] for m in hc]} vs "
+             f"{[m['loss'] for m in hf]}")
+    print(f"{label}: failure at step {fail_at}, one restart, resumed == "
+          f"clean: routers, both AdamW moments, the step and all "
+          f"{len(hc)} losses bit for bit: ok")
+    return runs
+
+
+def check_checkpoint_dir(label, d, state, cfg, ecfg, want_steps,
+                         device_line):
+    """The directory holds exactly ``want_steps``; each restores with every
+    checksum verified; the last restore (timed, a fresh Checkpointer)
+    converted to port routers is bit for bit ``state``. Returns that
+    restored state."""
+    from repro_torch.checkpoint import Checkpointer, flatten
+    from repro_torch.interop import train_state_from_tree, train_state_tree
+    import torch
+    ck = Checkpointer(d, keep=3)
+    if ck.all_steps() != list(want_steps):
+        fail(f"{label}: checkpoint steps {ck.all_steps()}, want "
+             f"{list(want_steps)}")
+    like = train_state_tree(state, cfg, ecfg)
+    for s in want_steps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded, extra = Checkpointer(d).restore(s, like)
+        got = train_state_from_tree(loaded, extra["opt_step"], cfg, ecfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if extra["step"] != s or extra["opt_step"] != s:
+            fail(f"{label}: step {s} manifest extra {extra}")
+    print(f"{label}: steps {ck.all_steps()} (keep=3) each restored with "
+          f"every checksum verified ({len(flatten(loaded))} arrays); a "
+          f"restore of "
+          f"step {want_steps[-1]} onto the card and into port routers "
+          f"{dt * 1e3:.1f} ms [{device_line}]")
+    if not (same_tree(got.router_params, state.router_params)
+            and same_tree(got.opt.m, state.opt.m)
+            and same_tree(got.opt.v, state.opt.v)):
+        fail(f"{label}: the restored step {want_steps[-1]} differs from the "
+             f"trainer's final state")
+    print(f"{label}: restored routers and moments == the trainer's final "
+          f"state, bit for bit: ok")
+    return got
+
+
+def check_surfaces(args, dev, device_line, params):
+    """Item 5a: the trainer with checkpoints (a failure at step
+    ``SURF_FAIL_STEP`` resumed bit for bit), serving the trained routers
+    from their checkpoint through ``launch.serve.open_loop``, and the
+    serving CLI as a subprocess. Returns the launches by path."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config, get_elastic
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.serve import latency_stats, open_loop
+    from repro_torch.training import GenRequest, ServingEngine
+    n = args.train_layers
+    cfg = dataclasses.replace(get_config("qwen2-7b", "full"), n_layers=n)
+    ecfg = get_elastic("qwen2-7b", cfg)
+    kw = dict(variant="full", total_steps=SURF_STEPS, seq_len=512,
+              global_batch=2, lr=1e-4, budget=0.5, anneal_from=1.0,
+              anneal_steps=4, save_every=SURF_SAVE_EVERY, seed=args.seed,
+              device=dev, n_layers=n, params=cut(params, n))
+    root = tempfile.mkdtemp(prefix="surfaces_")
+    paths = {}
+    try:
+        print(f"resumable training: {cfg.name} width, depth {n} layers, "
+              f"B=2 S=512, {SURF_STEPS} steps, budget 1.0 -> 0.5 over 4, "
+              f"saves every {SURF_SAVE_EVERY} (keep=3), clean and with a "
+              f"failure at step {SURF_FAIL_STEP} [{device_line}]")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        runs = resumable_runs("resumable training", "qwen2-7b", root,
+                              SURF_FAIL_STEP, device_line, **kw)
+        torch.cuda.synchronize()
+        paths["resumable_training"] = ops.launch_counts()
+        check_launches("resumable_training", paths["resumable_training"])
+        state, _, clean_dir = runs["clean"]
+        keep = tuple(range(SURF_STEPS - 2 * SURF_SAVE_EVERY, SURF_STEPS + 1,
+                           SURF_SAVE_EVERY))
+        for run in ("clean", "faulty"):
+            got = check_checkpoint_dir(f"{run} checkpoints", runs[run][2],
+                                       state, cfg, ecfg, keep, device_line)
+        routers = got.router_params
+        del runs, got
+
+        # serving the trained routers from their checkpoint
+        rng = np.random.default_rng(args.seed + 5)
+        budgets = [(0.5, 0.75, 1.0)[i % 3] for i in range(SURF_REQUESTS)]
+        reqs = [(rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513)))
+                 .astype(np.int32), 32, b) for b in budgets]
+        mk = lambda mode="infer": ServingEngine(
+            cut(params, n), routers, cfg, ecfg, mode=mode, batch_size=4,
+            max_seq=1024, device=dev)
+        engine = mk()
+        engine.generate([GenRequest(reqs[0][0], 4)])     # capture, warm
+        engine.scheduler.reset_stats()
+        counts = engine.compile_counts()
+        timing0 = dict(engine.timing)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        handles, elapsed = open_loop(
+            engine, [GenRequest(p, m, budget=b) for p, m, b in reqs],
+            SURF_RATE, seed=0)
+        torch.cuda.synchronize()
+        paths["checkpoint_serving"] = ops.launch_counts()
+        check_launches("checkpoint_serving", paths["checkpoint_serving"])
+        if engine.compile_counts() != counts:
+            fail(f"checkpoint serving: compile_counts {counts} -> "
+                 f"{engine.compile_counts()} during the open loop")
+        if not all(h.status == "done" for h in handles):
+            fail(f"checkpoint serving: not every request done: {handles}")
+        tokens = [list(h.output) for h in handles]
+        n_tok = sum(map(len, tokens))
+        st = latency_stats(handles)
+        tm = {k: engine.timing[k] - timing0[k] for k in timing0}
+        print(f"checkpoint serving: {SURF_REQUESTS} requests of "
+              f"{[len(p) for p, _, _ in reqs]} tokens, budgets {budgets}, "
+              f"open loop @ {SURF_RATE} req/s: {n_tok} tokens in "
+              f"{elapsed:.2f} s ({n_tok / elapsed:.1f} tok/s), occupancy "
+              f"{engine.occupancy:.0%} [{device_line}]")
+        print("  latency_stats (ms): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in st.items()))
+        print_timing("checkpoint serving (warm)", tm, device_line)
+        del engine
+        solo_engine = mk()
+        for i, r in enumerate(reqs):
+            solo = serve(solo_engine, [r], stagger=False)[0]
+            if solo != tokens[i]:
+                fail(f"checkpoint serving: request {i} alone {solo} != "
+                     f"open loop {tokens[i]}")
+        del solo_engine
+        full = [i for i, b in enumerate(budgets) if b == 1.0]
+        teacher = serve(mk("base"), [reqs[i] for i in full], stagger=False)
+        for i, t in zip(full, teacher):
+            if t != tokens[i]:
+                fail(f"checkpoint serving: budget-1.0 request {i} "
+                     f"{tokens[i]} != the teacher's {t}")
+        print(f"checkpoint serving: every request done; each == itself "
+              f"served alone on a fresh engine; budget 1.0 (requests {full}) == "
+              f"mode='base'; compile_counts {counts} flat over the window: "
+              f"ok")
+        del routers, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the serving CLI as users start it, in a process of its own
+    def built():
+        return {p: p.stat().st_mtime_ns for p in build.BUILD_ROOT.rglob("*")}
+    before = built()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *SURF_CLI]
+    print(f"serving CLI: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"the serving CLI exited {out.returncode}:\n{out.stdout}\n"
+             f"{out.stderr[-4000:]}")
+    lines = out.stdout.splitlines()
+    for head in ("open loop:", "latency:", "compiles:", "paged pool:"):
+        got = [ln for ln in lines if ln.startswith(head)]
+        if not got:
+            fail(f"the serving CLI printed no {head!r} line:\n{out.stdout}")
+        print(f"  | {got[0]}")
+    if built() != before:
+        fail("the serving CLI built the kernels again")
+    print(f"serving CLI: exit 0 in {wall:.1f} s of wall, kernels loaded "
+          f"from the parent's build (no file under {build.BUILD_ROOT.name}/ "
+          f"changed) [{device_line}]")
+    return paths
+
+
+def check_native_training(args, dev, device_line, native):
+    """Item 9a: Qwen1.5-MoE-A2.7B trained at full width (--moe-layers deep,
+    the native serving weights) through ``launch.train.train`` with
+    checkpoints, clean and with a failure injected at step 3 and resumed:
+    bit for bit the same. Returns the launches of both runs."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.kernels import ops
+    params, _, cfg, _, _ = native
+    kw = dict(variant="full", total_steps=4, seq_len=512, global_batch=2,
+              lr=1e-4, budget=0.5, anneal_from=1.0, anneal_steps=2,
+              save_every=2, seed=args.seed, device=dev,
+              n_layers=cfg.n_layers, params=params)
+    print(f"native MoE training: {cfg.name} width, depth {cfg.n_layers} "
+          f"layers, B=2 S=512, 4 steps, budget 1.0 -> 0.5 over 2, saves "
+          f"every 2, clean and with a failure at step 3 [{device_line}]")
+    root = tempfile.mkdtemp(prefix="native_training_")
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        resumable_runs("native MoE training", "qwen2-moe-a2.7b", root, 3,
+                       device_line, **kw)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check_launches("native_training", launches)
+    return launches
 
 
 # ----------------------------- quantized serving ------------------------------
@@ -4203,6 +4548,9 @@ def main() -> int:
                                        device_line)
     free()
     done("gradients, training")
+    paths.update(check_surfaces(args, dev, device_line, params))
+    free()
+    done("surfaces")
     depth_paths, rp_d = check_depth_serving(
         args, res, dev, device_line, spec, params, rp, requests, ring, paged)
     paths.update(depth_paths)
@@ -4259,6 +4607,17 @@ def main() -> int:
                   timed=False, tile_rows=args.gmm_tile_rows)
     free()
     done("native MoE serving")
+    with PathCalls("moe_gmm") as rec:
+        paths["native_training"] = check_native_training(
+            args, dev, device_line, native)
+    free()
+    print(f"moe_gmm at the native MoE training path's calls "
+          f"[{device_line}]:")
+    check_moe_gmm(res, dev, "native qwen1.5-moe training", rec.gmm_cases(),
+                  native_weights(dev, get_config("qwen2-moe-a2.7b")),
+                  timed=False, tile_rows=args.gmm_tile_rows)
+    free()
+    done("native MoE training")
     with PathCalls("moe_gmm") as rec:
         paths["quant_native_serving"] = check_native_int8_serving(
             dev, device_line, native)

@@ -113,15 +113,23 @@ def _flatten_into(out: dict, prefix: str, node) -> None:
         out[prefix] = _to_numpy(node)
 
 
-def layered_to_numpy(out: dict, cfg, spec, trees: dict) -> dict:
-    """Flatten ``{name: port tree with "layers"}`` into ``out`` in the JAX
-    layout (``['name']['scan'][j]...`` keys)."""
+def layered_tree(cfg, spec, trees: dict) -> dict:
+    """``{name: port tree with "layers"}`` in the JAX layout: each tree's
+    layers as ``scan`` stacks (a leading period dimension) and a ``tail``,
+    tensor leaves where the port's are."""
     period, _, _ = build_pattern(cfg, spec)
+    out = {}
     for name, tree in trees.items():
         scan, tail = stack_layers(tree["layers"], len(period))
         rest = {k: v for k, v in tree.items() if k != "layers"}
-        _flatten_into(out, f"['{name}']", {**rest, "scan": scan,
-                                           "tail": tail})
+        out[name] = {**rest, "scan": scan, "tail": tail}
+    return out
+
+
+def layered_to_numpy(out: dict, cfg, spec, trees: dict) -> dict:
+    """Flatten ``{name: port tree with "layers"}`` into ``out`` in the JAX
+    layout (``['name']['scan'][j]...`` keys)."""
+    _flatten_into(out, "", layered_tree(cfg, spec, trees))
     return out
 
 
@@ -140,27 +148,44 @@ def params_to_numpy(params: dict, routers, cfg, spec=None) -> dict:
 TRAIN_TREES = ("router", "opt_m", "opt_v")
 
 
+def train_state_tree(state, cfg, spec=None) -> dict:
+    """The tree the JAX trainer checkpoints for a port ``TrainState``:
+    ``{"router", "opt_m", "opt_v"}`` in the JAX layout, tensor leaves on
+    the state's device (the optimizer step goes beside it)."""
+    return layered_tree(cfg, spec, dict(zip(TRAIN_TREES, (
+        state.router_params, state.opt.m, state.opt.v))))
+
+
+def train_state_from_tree(tree: dict, opt_step: int, cfg, spec=None):
+    """Inverse of ``train_state_tree``: the port's ``TrainState`` on the
+    device of the tree's tensors (each layer's leaves are views into the
+    stacks), ``opt_step`` its step. Bit-exact."""
+    from repro_torch.optim import AdamWState
+    from repro_torch.optim.optimizer import tree_leaves
+    from repro_torch.training import TrainState
+    _, P, _ = build_pattern(cfg, spec)
+    rp, m, v = ({"layers": _layers_from(tree[n], P)} for n in TRAIN_TREES)
+    step = torch.tensor(int(opt_step), dtype=torch.int32,
+                        device=tree_leaves(m)[0].device)
+    return TrainState(rp, AdamWState(step, m, v), None)
+
+
 def train_state_from_numpy(flat: dict, opt_step: int, cfg, spec=None, *,
                            device=None):
     """A JAX training state as the port's ``TrainState``: ``flat`` is the
     checkpointer's ``_flatten`` of ``{"router": routers, "opt_m": m,
     "opt_v": v}`` (the AdamWState's moment trees), ``opt_step`` its step.
     Bit-exact."""
-    from repro_torch.optim import AdamWState
-    from repro_torch.training import TrainState
     device = resolve_device(device)
-    tree = _tree_from_flat(flat, device)
-    _, P, _ = build_pattern(cfg, spec)
-    rp, m, v = ({"layers": _layers_from(tree[n], P)} for n in TRAIN_TREES)
-    step = torch.tensor(int(opt_step), dtype=torch.int32, device=device)
-    return TrainState(rp, AdamWState(step, m, v), None)
+    return train_state_from_tree(_tree_from_flat(flat, device), opt_step,
+                                 cfg, spec)
 
 
 def train_state_to_numpy(state, cfg, spec=None):
     """Inverse of ``train_state_from_numpy``: (flat, opt_step)."""
-    trees = dict(zip(TRAIN_TREES, (state.router_params, state.opt.m,
-                                   state.opt.v)))
-    return layered_to_numpy({}, cfg, spec, trees), int(state.opt.step)
+    out = {}
+    _flatten_into(out, "", train_state_tree(state, cfg, spec))
+    return out, int(state.opt.step)
 
 
 def caches_from_numpy(tree: dict, cfg, *, device=None) -> dict:

@@ -27,11 +27,12 @@ This is the single-replica form of the JAX package's
 ``runtime/scheduler.py`` (the same admission order, packing, deadlines,
 shedding and repricing, the paged engine's ``page_check`` and
 ``requeue_front`` included), copied so that the port depends on nothing
-of that package. The replica helpers (``replica_of``, ``free_slots_in``)
-exist for the engine's calls; the replica axis of SPMD serving arrives
-with the mesh slice (ROADMAP Queue A item 11). The scheduler imports no
-array library; the engine calls ``admit()`` / ``free()`` / ``tick()``
-around its steps.
+of that package. The replica helpers (``n_replicas``, ``replica_of``,
+``free_slots_in``, ``replica_occupancy``) exist for the engine's and the
+serving CLI's calls, with ``n_replicas`` always 1; the replica axis of
+SPMD serving arrives with the mesh slice (ROADMAP Queue A item 11). The
+scheduler imports no array library; the engine calls ``admit()`` /
+``free()`` / ``tick()`` around its steps.
 """
 from __future__ import annotations
 
@@ -200,9 +201,9 @@ class SlotScheduler:
         self._n_pending = 0
         self._seq = itertools.count()
         self._front_seq = -1            # requeue_front goes before seq 0
+        self.n_replicas = 1             # one device (item 11)
         # occupancy accounting (slot-steps used / slot-steps available)
-        self.steps = 0
-        self.active_slot_steps = 0
+        self.reset_stats()
 
     # ---- the replica axis (one replica) ----
     @property
@@ -385,9 +386,22 @@ class SlotScheduler:
         self.steps += 1
         self.active_slot_steps += self.active
 
+    def reset_stats(self):
+        """Zero the occupancy counters (e.g. between benchmark windows)."""
+        self.steps = 0
+        self.active_slot_steps = 0
+
     @property
     def occupancy(self) -> float:
         """Mean fraction of slots active per engine step so far."""
         if self.steps == 0:
             return 0.0
         return self.active_slot_steps / (self.steps * self.n_slots)
+
+    @property
+    def replica_occupancy(self) -> List[float]:
+        """Per-replica mean active-slot fraction since the last reset —
+        the open-loop report's balance check. One replica: ``occupancy``
+        (the JAX scheduler restarts this window on a re-mesh; the port's
+        ``reshard(None)`` keeps one replica and its window)."""
+        return [self.occupancy]

@@ -499,9 +499,9 @@ def test_toy_trainer_three_steps_on_the_card(cuda):
     from repro_torch.core import routing as R
     from repro_torch.launch.train import train
     ops.reset_launch_counts()
-    state, hist = train("toy-lm", total_steps=3, seq_len=64, global_batch=2,
-                        budget=0.5, anneal_from=1.0, anneal_steps=2,
-                        device=cuda)
+    state, hist, _, _ = train("toy-lm", total_steps=3, seq_len=64,
+                              global_batch=2, budget=0.5, anneal_from=1.0,
+                              anneal_steps=2, device=cuda)
     counts = ops.launch_counts()
     assert all(counts[k] > 0 for k in ("flash_attention", "fused_mlp",
                                        "fused_mlp_routed")), counts
@@ -1325,3 +1325,72 @@ def test_reshard_captures_again_with_identical_tokens(cuda):
         eng.reshard(object())
     with pytest.raises(NotImplementedError):
         mk("paged").reshard(None)
+
+
+# ------------------------------- surfaces ------------------------------------
+
+def _same_state(a, b):
+    from repro_torch.checkpoint import flatten
+    fa = flatten([a.router_params, a.opt.m, a.opt.v, a.opt.step])
+    fb = flatten([b.router_params, b.opt.m, b.opt.v, b.opt.step])
+    return sorted(fa) == sorted(fb) and all(
+        np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+@pytest.mark.cuda
+def test_trainer_resumes_bit_for_bit_on_the_card(cuda, tmp_path):
+    """launch.train with checkpoints on the card: failures at steps 3 and 5
+    restore the latest checkpoint and replay, and the run ends in the clean
+    run's routers and AdamW moments, bit for bit, with every training
+    kernel launched."""
+    from repro_torch.launch.train import train
+    kw = dict(total_steps=6, seq_len=64, global_batch=2, budget=0.5,
+              anneal_from=1.0, anneal_steps=3, save_every=2, device=cuda)
+    ops.reset_launch_counts()
+    clean, hc, r0, _ = train("toy-lm", ckpt_dir=str(tmp_path / "clean"),
+                             **kw)
+    assert all(ops.launch_counts()[k] > 0 for k in (
+        "flash_attention", "fused_mlp", "fused_mlp_routed"))
+    faulty, hf, r1, _ = train("toy-lm", ckpt_dir=str(tmp_path / "faulty"),
+                              inject_failures=(3, 5), **kw)
+    assert (r0, r1) == (0, 2)
+    assert _same_state(clean, faulty)
+    assert [h["loss"] for h in hc] == [h["loss"] for h in hf]
+
+
+@pytest.mark.cuda
+def test_trainer_cli_resumes_from_its_checkpoint_on_the_card(cuda, tmp_path,
+                                                             capsys):
+    """``python -m repro_torch.launch.train --ckpt DIR`` on the card (no
+    --device): a second run to step 6 resumes the first's step 3."""
+    from repro_torch.launch import train as T
+    argv = ["--arch", "toy-lm", "--seq-len", "32", "--batch", "2",
+            "--budget", "0.5", "--anneal-from", "1.0", "--save-every", "3",
+            "--ckpt", str(tmp_path)]
+    T.main(argv + ["--steps", "3"])
+    T.main(argv + ["--steps", "6"])
+    out = capsys.readouterr().out.splitlines()
+    finals = [ln for ln in out if ln.startswith("final:")]
+    assert len(finals) == 2 and all("restarts: 0" in f for f in finals)
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_0000000003", "step_0000000006"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ring", "paged"])
+def test_serving_cli_on_the_card(cuda, capsys, layout):
+    """``python -m repro_torch.launch.serve`` on the card (no --device),
+    open loop with the controller, and closed loop: the report lines."""
+    from repro_torch.launch.serve import main
+    base = ["--arch", "toy-lm", "--requests", "6", "--batch", "3",
+            "--prompt-len", "12", "--max-new", "6", "--budget",
+            "0.25,0.5,1.0", "--kv-layout", layout]
+    main(base + ["--arrival-rate", "50", "--controller"])
+    main(base)
+    out = capsys.readouterr().out.splitlines()
+    heads = ("open loop:", "latency:", "controller:", "served ", "compiles:")
+    for head in heads + (("paged pool:",) if layout == "paged" else ()):
+        assert any(ln.startswith(head) for ln in out), (head, out)
+    compiles = [ln for ln in out if ln.startswith("compiles:")]
+    want = "{'prefill': 1," if layout == "paged" else "{'prefill': 0,"
+    assert all(want in ln for ln in compiles), compiles

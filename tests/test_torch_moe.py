@@ -518,9 +518,9 @@ def test_loss_and_router_grads_match_jax(arch, budget):
 def test_native_trainer_cli_path_on_the_cpu():
     """``launch.train --arch qwen2-moe-a2.7b`` takes the arch's registered
     elastic config (expert routers included)."""
-    state, hist = train("qwen2-moe-a2.7b", total_steps=2, seq_len=S,
-                        global_batch=2, budget=0.5, anneal_from=1.0,
-                        anneal_steps=1, device="cpu")
+    state, hist, _, _ = train("qwen2-moe-a2.7b", total_steps=2, seq_len=S,
+                              global_batch=2, budget=0.5, anneal_from=1.0,
+                              anneal_steps=1, device="cpu")
     assert "expert" in state.router_params["layers"][0]
     assert hist[0]["bucket"] == R.IDENTITY_BUCKET
     assert 0 < hist[1]["bucket"] < S

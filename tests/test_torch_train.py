@@ -313,9 +313,9 @@ def test_trainer_cli_path_on_the_cpu():
     """``launch.train`` on toy-lm: the full-budget first step takes the
     identity path (distill exactly 0), the annealed ones a ragged bucket;
     without ``device`` it asks for the CUDA card."""
-    state, hist = train("toy-lm", total_steps=3, seq_len=S, global_batch=2,
-                        budget=0.5, anneal_from=1.0, anneal_steps=2,
-                        device="cpu")
+    state, hist, _, _ = train("toy-lm", total_steps=3, seq_len=S,
+                              global_batch=2, budget=0.5, anneal_from=1.0,
+                              anneal_steps=2, device="cpu")
     assert hist[0]["bucket"] == R.IDENTITY_BUCKET
     assert all(0 < h["bucket"] < S for h in hist[1:])
     assert hist[0]["distill"] == 0.0
