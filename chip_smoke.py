@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (built for H100).
 
     python3 chip_smoke.py [--layers N] [--train-layers N] [--moe-layers N]
-                          [--pages N] [--seed S] [--gmm-tile-rows]
+                          [--vlm-layers N] [--pages N] [--seed S]
+                          [--gmm-tile-rows]
     python3 chip_smoke.py --ab PARENT_CHECKOUT [--layers N]
 
 ``--ab`` runs only the kernel checks of item 2 (all six kernels;
@@ -237,6 +238,52 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    moe_gmm's int8 form (int8 expert stacks, (E, Fe) / (E, D) scales) is
    replayed at that path's calls against the plain version and timed
    beside the kernel on bf16 stacks.
+9c. (a) VLM serving, after the earlier models' weights are freed:
+   Llama-3.2-Vision-11B at full width (``--vlm-layers`` deep, default 20
+   = 16 attn + 4 xattn; random bf16 weights and routers from --seed), its
+   registered elastic spec (MLPs moefied into 16 experts, token and head
+   routing, LoRA, the image-token router at 0.6), six requests on the
+   ring in infer mode, each with its own ``procedural_images`` image
+   (1601 x 1280) as ``extra_inputs``, budgets 1.0 / 0.75 / 0.5: fails
+   unless staggered == solo, the registered spec with dense MLPs at
+   budget 1.0 equals a mode="base" engine (the moefied spec's agreement
+   is reported: a full expert budget sums 16 partial products), one
+   prompt with two images gives different tokens and with the same image
+   the same tokens, the graphed engine equals its ``cuda_graphs=False``
+   twin at 5 layers (the first xattn layer is the 5th; tokens and every
+   cache leaf, the context caches too), ``compile_counts()`` stays flat
+   and the path's kernels launched. Prints the rates, peak memory and one
+   warm request's admission ms and decode ms/step. The kernel calls of
+   the eager twin are held to the plain versions in bf16 and f32: the
+   heaviest causal and non-causal flash call, decode call (H 32, K 8,
+   Dh 128) and moe_gmm call of each shape (16 experts x 896 x 4096);
+   the heaviest non-causal flash call (the cross-attention of a prompt
+   over the image tokens with the router's holes) is timed graphed and
+   eager beside SDPA (enable_gqa) and its bound (the result line's
+   flash_attention ``context`` key, row 1b).
+9d. (b) VLM distillation: 3 steps of ``make_train_step`` at the same
+   width and depth, B=1, S=256, one image, budget 1.0 -> 0.8 -> 0.6, with
+   the image-token capacity static (the gathered 961 rows) and tensor
+   (the 1601 rows and a validity mask): fails unless every loss is
+   finite, the vlm router's gradient at the last step is non-zero, the
+   last step twice from the same state gives the same bits, and the
+   kernels launched. Each form's kernel calls are held to the plain
+   versions as in (a): flash causal and non-causal, the teacher's dense
+   swiglu MLP (4096 x 14336) and moe_gmm.
+9e. (c) ViT distillation: toy-vit in bf16 and f32, 4 steps of the cosine
+   distance on ``procedural_images`` (B=8), budget 1.0 -> 0.5 with its
+   ragged bucket: the same gates, the token routers' gradient non-zero.
+9f. (d) Encoder-decoder serving: Whisper-medium at full width (24 encoder
+   layers over 1500 frames from --seed, 24 decoder layers), its
+   registered spec without the moefied experts, four requests with their
+   frames as ``extra_inputs``: fails unless staggered == solo and budget
+   1.0 == a mode="base" engine bit for bit, the twins at 4 decoder layers
+   are equal, and the path's kernels launched. The eager twin's kernel
+   calls are held to the plain versions as in (a) (flash causal and
+   non-causal, decode at H 16, K 16, Dh 64, the dense MLP); the
+   encoder's heaviest flash call (non-causal, 1500 x 1500, Dh 64; row 1c)
+   and the heaviest dense MLP call (ungated GELU, 1500 x 1024 x 4096; row
+   2f, fused_mlp's ``context`` key) are timed.
 10. Prints one JSON line of per-kernel results (launches by path), the card
    line again, and as the last line {"ok": true, "device": {...}}.
 
@@ -327,6 +374,12 @@ PATH_KERNELS = {
     "checkpoint_serving": ("flash_attention", "fused_mlp",
                            "decode_attention"),
     "native_training": ("flash_attention", "moe_gmm"),
+    # the context families (the MLPs of the VLM's registered spec are
+    # moefied; its teacher and the encoder-decoder's run dense)
+    "vlm_serving": ("flash_attention", "moe_gmm", "decode_attention"),
+    "vlm_training": ("flash_attention", "fused_mlp", "moe_gmm"),
+    "vit_training": ("flash_attention", "fused_mlp", "fused_mlp_routed"),
+    "encdec_serving": ("flash_attention", "fused_mlp", "decode_attention"),
 }
 
 
@@ -488,15 +541,19 @@ def sdpa_ms(name, qt, ks, vs, mask, iters):
 
 # ----------------------------- kernel checks ---------------------------------
 
-def _attention_mask(B, S, valid, causal, count):
-    """(B, S, S) attendable (query, key) pairs, by array index."""
+def _attention_mask(B, S, valid, causal, count, Sq=None):
+    """(B, Sq, S) attendable (query, key) pairs of S keys and Sq (default
+    S) queries, by array index: the flash kernel's causal and count rules
+    (a count bounds the query rows and the keys alike)."""
     import torch
+    Sq = S if Sq is None else Sq
     i = torch.arange(S, device=valid.device)
-    m = (i[None, :] <= i[:, None]) if causal else torch.ones(
-        S, S, dtype=torch.bool, device=valid.device)
+    qi = torch.arange(Sq, device=valid.device)
+    m = (i[None, :] <= qi[:, None]) if causal else torch.ones(
+        Sq, S, dtype=torch.bool, device=valid.device)
     m = m[None] & valid[:, None, :]
     return m & (i[None, None, :] < count[:, None, None]) & (
-        i[None, :, None] < count[:, None, None])
+        qi[None, :, None] < count[:, None, None])
 
 
 def check_flash(res: Results, rng, dev, H, K, Dh):
@@ -941,7 +998,9 @@ class PathCalls:
 
             def record(*a, _name=name, _orig=orig, _sig=sig,
                        _data=self.DATA[name], **kw):
-                args = _sig.bind(*a, **kw).arguments
+                bound = _sig.bind(*a, **kw)
+                bound.apply_defaults()      # e.g. flash's ``causal`` flag
+                args = bound.arguments
                 rec = {}
                 for k, v in args.items():
                     if not isinstance(v, torch.Tensor):
@@ -965,16 +1024,7 @@ class PathCalls:
         the attention kernels, rows for the MLP."""
         import torch
         if name == "flash_attention":
-            B, S = c["q"][1][:2]
-            valid = c.get("kv_valid")
-            dev = valid.device if valid is not None else None
-            valid = torch.ones(B, S, dtype=torch.bool, device=dev) \
-                if valid is None else valid.expand(B, S)
-            cnt = c.get("kv_count")
-            cnt = torch.full((B,), S, device=dev) if cnt is None else \
-                torch.as_tensor(cnt, device=dev).expand(B)
-            return int(_attention_mask(B, S, valid, c.get("causal", True),
-                                       cnt).sum())
+            return int(PathCalls.flash_mask(c).sum())
         if name == "decode_attention":
             pos, t = c["kv_pos"], c["t"].reshape(-1, 1)
             att = (pos >= 0) & (pos <= t)
@@ -988,11 +1038,34 @@ class PathCalls:
                 torch.as_tensor(cnt).clamp(0, Kb).expand(B).sum())
         return int(np.prod(c["x"][1][:-1]))
 
+    @staticmethod
+    def flash_mask(c):
+        """A recorded flash call's (B, Sq, Sk) attendable pairs."""
+        import torch
+        B, Sq = c["q"][1][:2]
+        Sk = c["k"][1][1]
+        valid = c.get("kv_valid")
+        dev = valid.device if valid is not None else None
+        valid = torch.ones(B, Sk, dtype=torch.bool, device=dev) \
+            if valid is None else valid.expand(B, Sk)
+        cnt = c.get("kv_count")
+        cnt = torch.full((B,), max(Sq, Sk), device=dev) if cnt is None \
+            else torch.as_tensor(cnt, device=dev).expand(B)
+        return _attention_mask(B, Sk, valid, c.get("causal", True), cnt, Sq)
+
     def heaviest(self):
-        """The call of each of ``REPLAYED`` with the most work on its
-        data."""
-        return {name: max(cs, key=lambda c: self._work(name, c))
-                for name, cs in self.calls.items() if name in self.REPLAYED}
+        """The call of each of ``REPLAYED`` with the most work on its data,
+        flash's non-causal calls (encoder self-attention, cross-attention)
+        apart from its causal ones, under "flash_attention non-causal"."""
+        groups = {}
+        for name, cs in self.calls.items():
+            if name not in self.REPLAYED:
+                continue
+            for c in cs:
+                key = name if c.get("causal", True) else f"{name} non-causal"
+                groups.setdefault(key, (name, []))[1].append(c)
+        return {key: max(cs, key=lambda c: self._work(name, c))
+                for key, (name, cs) in groups.items()}
 
     def paged_cases(self, chunk=256):
         """The heaviest ``paged_decode_attention`` call (most attendable
@@ -1243,14 +1316,18 @@ def native_weights(dev, cfg):
 
 def serve(engine, requests, stagger: bool, after_step=None):
     """Submit two requests, step twice, submit the rest, run to the end.
-    A request is (prompt, max_new_tokens, budget[, GenRequest kwargs]);
+    A request is (prompt, max_new_tokens, budget[, GenRequest kwargs[,
+    extra_inputs]]) (extra inputs: a VLM's image row, an
+    encoder-decoder's frames);
     ``after_step(handles)`` runs after every step. A graphed engine's
     ``compile_counts()`` is gated after the run (``check_counts``)."""
     from repro_torch.training import GenRequest
     first = 2 if stagger else len(requests)
     make = lambda r: GenRequest(r[0], r[1], budget=r[2],
                                 **(r[3] if len(r) > 3 else {}))
-    handles = [engine.submit(make(r)) for r in requests[:first]]
+    sub = lambda r: engine.submit(make(r), **(
+        {"extra_inputs": r[4]} if len(r) > 4 else {}))
+    handles = [sub(r) for r in requests[:first]]
 
     def step():
         progressed = engine.step()
@@ -1260,7 +1337,7 @@ def serve(engine, requests, stagger: bool, after_step=None):
     if stagger:
         for _ in range(2):
             step()
-        handles += [engine.submit(make(r)) for r in requests[first:]]
+        handles += [sub(r) for r in requests[first:]]
     while not all(h.done for h in handles):
         if step() == 0:
             fail("serving engine stalled")
@@ -3356,6 +3433,520 @@ def check_native_int8_serving(dev, device_line, state):
     return launches
 
 
+# ----------------------------- context families -------------------------------
+#
+# The VLM (Llama-3.2-Vision-11B: image embeddings projected by in_proj, top-k
+# selected by the vlm router, cross-attended by every 5th layer), its router
+# distillation, the ViT encoder's (toy-vit, cosine loss), and the
+# encoder-decoder (Whisper-medium: a 24-layer encoder run non-causally over
+# 1500 frames, cross-attended by every decoder layer).
+
+VLM_LENS = (64, 300, 128, 200, 96, 256)   # the six requests' prompt lengths
+VLM_BUDGETS = (1.0, 0.75, 0.5, 1.0, 0.5, 0.75)
+VLM_TWIN_LAYERS = 5     # the twins' depth: the first xattn layer is the 5th
+CTX_NEW = 16            # new tokens per request
+
+
+def context_spec(name, experts=True):
+    """``name``'s registered elastic spec; ``experts=False`` drops its
+    moefied experts (then budget 1.0 is the dense teacher bit for bit:
+    with them a full expert budget sums E partial products)."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_elastic
+    from repro_torch.core.policy import spec_from_config
+    spec = spec_from_config(get_elastic(name, get_config(name)))
+    if not experts:
+        spec = dataclasses.replace(spec, mlp_n_experts=None,
+                                   expert_routed=False)
+    return spec
+
+
+def peak_gib():
+    import torch
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def admission_and_decode(engine, req, device_line):
+    """``req`` served twice on ``engine``; the second run's admission
+    (prefill) ms and decode ms/step from ``engine.timing`` (host wall: each
+    ends in a copy to the host, which waits for the device; the first run
+    captured the decode graph)."""
+    import torch
+    serve(engine, [req], stagger=False)
+    for k in engine.timing:
+        engine.timing[k] = 0 if isinstance(engine.timing[k], int) else 0.0
+    torch.cuda.synchronize()
+    serve(engine, [req], stagger=False)
+    tm = engine.timing
+    print(f"  warm: admission {tm['prefill_s'] * 1e3:.1f} ms "
+          f"({tm['prefill_tokens']} prompt tokens), decode "
+          f"{tm['decode_s'] * 1e3 / max(tm['decode_steps'], 1):.2f} ms/step "
+          f"over {tm['decode_steps']} steps [{device_line}]")
+    return tm
+
+
+def xattn_decode_share(label, engine, dev, device_line):
+    """The device time of a captured decode step (its graph replayed)
+    beside that of the plain decode-time cross-attention of every xattn
+    layer (``attention.cross_attn_decode`` on the engine's context
+    caches, one token per slot, captured and replayed too): the
+    cross-attention's device share of a step."""
+    import torch
+    from repro_torch.models.attention import cross_attn_decode
+    from repro_torch.models.layers import dtype_of
+    cfg = engine.cfg
+    graph, _ = engine._forms[("decode", "greedy")]
+    step = cuda_ms(graph.replay, 10)
+    layers = [(p, c) for p, c in zip(engine.params["layers"],
+                                     engine._caches["layers"])
+              if "xattn" in c]
+    x = torch.randn((engine.B, 1, cfg.d_model), device=dev).to(dtype_of(cfg))
+    xa = cuda_ms(lambda: [cross_attn_decode(p["xattn"], x, c["xattn"],
+                                            cfg=cfg) for p, c in layers], 10,
+                 graph=True)
+    med = lambda ts: ts[len(ts) // 2]
+    print(f"  {label}: a graphed decode step {med(step):.3f} ms on the device"
+          f" [{step[0]:.3f}-{step[-1]:.3f}]; the plain cross-attention of "
+          f"its {len(layers)} xattn layers ({engine.B} slots over "
+          f"{layers[0][1]['xattn']['k'].shape[1]} context rows) "
+          f"{med(xa):.3f} ms graphed [{xa[0]:.3f}-{xa[-1]:.3f}], "
+          f"{100 * med(xa) / med(step):.1f} % of the step [{device_line}]")
+
+
+def context_timing(res, dev, label, name, c, row):
+    """Times a context path's recorded non-causal ``flash_attention`` or
+    dense ``fused_mlp`` call (``check_path_calls`` holds it to the plain
+    version) on random bf16 operands of its shapes with its masks: the
+    kernel graphed and eager beside the plain version, one library call
+    (SDPA, enable_gqa, the same mask) or a cuBLAS composite (printed, not
+    library_ms), and its bound; a repeat must give the same bits. Kept in
+    the result line under the kernel's ``context`` key as ``row``."""
+    import torch
+    from repro_torch.kernels import ops
+    med = lambda ts: ts[len(ts) // 2]
+    rand = lambda key, scale=1.0: (torch.randn(c[key][1], device=dev)
+                                   * scale).to(torch.bfloat16)
+    if name == "flash_attention":
+        q, k, v = rand("q"), rand("k"), rand("v")
+        mask = PathCalls.flash_mask(c)
+        pairs = int(mask.sum())
+        B, Sq, H, Dh = q.shape
+        Sk, K = k.shape[1:3]
+        kw = dict(kv_valid=c.get("kv_valid"), kv_count=c.get("kv_count"),
+                  causal=False)
+        run = lambda backend=None: ops.flash_attention(q, k, v,
+                                                       backend=backend, **kw)
+        live_k = int(mask.any(1).sum())          # keys some query attends
+        flops = 4 * Dh * pairs * H
+        nbytes = (2 * B * Sq * H * Dh + 2 * live_k * K * Dh) * 2 + B * Sk
+        lib = sdpa_ms(name, q.transpose(1, 2), [k], [v], mask[:, None], 20)
+        what = f"q {(B, Sq, H, Dh)} over {Sk} keys (K {K}, {pairs} pairs)"
+        out = dict(shape=[B, Sq, Sk, H, K, Dh], pairs=pairs,
+                   graphed_library_ms=med(lib[0]), library_ms=med(lib[1]))
+        lib_s = f"SDPA {med(lib[0]):.4f} / {med(lib[1]):.4f}"
+    else:
+        D, Fd = c["wi"][1]
+        gated = isinstance(c.get("wg"), tuple)
+        x, wi, wo = rand("x"), rand("wi", D ** -0.5), rand("wo", Fd ** -0.5)
+        wg = rand("wg", D ** -0.5) if gated else None
+        act = c["act"]
+        run = lambda backend=None: ops.fused_mlp(x, wi, wo, wg, act=act,
+                                                 backend=backend)
+        rows = x.numel() // D
+        n_w = 3 if gated else 2
+        flops, nbytes = 2 * rows * D * Fd * n_w, (2 * rows * D
+                                                  + n_w * D * Fd) * 2
+        plan = ops.mlp_plan(x.dtype, 1, rows, D, Fd)
+        comp = composite_ms(x.reshape(-1, D), wi, wo, wg, None, act)
+        what = (f"{rows} rows x {D} x {Fd} {act} "
+                f"({'gated' if gated else 'ungated'}, {plan.body} body, "
+                f"{plan.rows} rows/tile, split {plan.split})")
+        out = dict(shape=list(x.shape) + [Fd], act=act, body=plan.body,
+                   library_ms=None)
+        lib_s = f"cuBLAS composite {med(comp):.4f} (printed, not library_ms)"
+    if not torch.equal(run(), run()):
+        fail(f"{name} {label}: a repeat gives other bits")
+    kern = device_and_eager_ms(run, 20)
+    plain = device_and_eager_ms(lambda: run("ref"), 5)
+    b, by = bound_ms(flops, nbytes, "bf16")
+    out.update(graphed_ms=med(kern[0]), ms=med(kern[1]),
+               graphed_plain_ms=med(plain[0]), plain_ms=med(plain[1]),
+               bound_ms=b, bound_by=by)
+    print(f"  {name:17s} {label} bf16 {what}: kernel {med(kern[0]):.4f} ms "
+          f"graphed [{kern[0][0]:.4f}-{kern[0][-1]:.4f}], {med(kern[1]):.4f}"
+          f" eager; plain {med(plain[0]):.4f} / {med(plain[1]):.4f}; {lib_s};"
+          f" bound {b:.4f} ms ({by})")
+    res.rows[name].setdefault("context", {})[row] = out
+
+
+def check_vlm_serving(args, res, dev, device_line):
+    """(a) Llama-3.2-Vision-11B at full width, --vlm-layers deep, random
+    bf16 weights and routers from --seed, its registered elastic spec
+    (the MLPs moefied into 16 experts, token and head routing, LoRA, the
+    image-token router at 0.6). Six requests on the ring in infer mode,
+    each with its own ``procedural_images`` image (1601 x 1280), budgets
+    1.0 / 0.75 / 0.5. Returns the paths' launches and (params, rp, cfg,
+    spec, requests) for the distillation phase."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_elastic
+    from repro_torch.data import procedural_images
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import ServingEngine
+    arch = "llama-3.2-vision-11b"
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=args.vlm_layers)
+    spec = context_spec(arch)
+    print(f"VLM serving: {cfg.name} d={cfg.d_model} H={cfg.n_heads} "
+          f"K={cfg.n_kv_heads} Dh={cfg.d_head} F={cfg.d_ff} "
+          f"V={cfg.vocab_size} {cfg.dtype}, image {cfg.n_image_tokens} x "
+          f"{cfg.d_frontend}, depth {cfg.n_layers} of {full.n_layers} "
+          f"({cfg.layer_kinds.count('xattn')} xattn), MLPs moefied into "
+          f"{spec.mlp_n_experts} experts, image tokens at "
+          f"{get_elastic(arch, full).vlm_token_capacity} "
+          f"[{device_line}]")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model_init(gen, cfg, spec, device=dev)
+    rp = router_init(gen, cfg, spec, device=dev)
+    torch.cuda.synchronize()
+    print(f"init: {cfg.n_params() / 1e9:.3f} B params in "
+          f"{time.perf_counter() - t0:.1f} s, {peak_gib():.2f} GiB")
+    t0 = time.perf_counter()
+    images, _ = procedural_images(len(VLM_LENS) + 1, cfg.n_image_tokens,
+                                  cfg.d_frontend, args.seed)
+    print(f"procedural_images: {images.shape} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(args.seed + 3)
+    requests = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                 CTX_NEW, b, {}, {"image_embeds": images[i:i + 1]})
+                for i, (n, b) in enumerate(zip(VLM_LENS, VLM_BUDGETS))]
+    mk = lambda n=cfg.n_layers, g=True, mode="infer", sp=spec: \
+        ServingEngine(cut(params, n), rp, dataclasses.replace(
+            cfg, n_layers=n), sp, mode=mode, batch_size=4, max_seq=512,
+            device=dev, cuda_graphs=g)
+    engine = mk()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tokens = serve(engine, requests, stagger=True)    # the main path
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("vlm_serving", launches)
+    print(f"VLM serving peak memory {peak_gib():.2f} GiB [{device_line}]")
+    print_timing("VLM serving (first run)", engine.timing, device_line)
+    for toks in tokens:
+        if len(toks) != CTX_NEW or not all(0 <= x < cfg.vocab_size
+                                           for x in toks):
+            fail(f"VLM: bad generated tokens {toks}")
+    nt = min(VLM_TWIN_LAYERS, cfg.n_layers)
+    rec = PathCalls()
+    twins(f"VLM ring infer, {nt} layers (an xattn layer among them)",
+          lambda g: mk(nt, g), lambda e: serve(e, requests, stagger=True),
+          rec=rec)
+    solo_i = 4
+    solo = profiled(lambda: serve(mk(), [requests[solo_i]],
+                                  stagger=False))[0]
+    if solo != tokens[solo_i]:
+        fail(f"VLM: request {solo_i} alone {solo} != staggered "
+             f"{tokens[solo_i]}")
+    print(f"VLM staggered == solo (request {solo_i}, budget "
+          f"{VLM_BUDGETS[solo_i]}), bit for bit: ok")
+    # budget 1.0 against the teacher: with the moefied MLPs a full expert
+    # budget sums 16 partial products (reported); without them (the same
+    # spec, dense MLPs) bit for bit (gated)
+    base = mk(mode="base")
+    teacher = serve(base, requests, stagger=True)
+    full_ids = [i for i, b in enumerate(VLM_BUDGETS) if b == 1.0]
+    same = sum(tokens[i] == teacher[i] for i in full_ids)
+    print(f"VLM budget 1.0 (16 moefied experts) vs mode='base': {same} of "
+          f"{len(full_ids)} requests give the teacher's tokens (reported, "
+          f"not gated: E partial products in bf16)")
+    dense = serve(mk(sp=context_spec(arch, experts=False)),
+                  [requests[i] for i in full_ids], stagger=False)
+    if dense != [teacher[i] for i in full_ids]:
+        fail(f"VLM budget 1.0 (dense MLPs) {dense} != mode='base' "
+             f"{[teacher[i] for i in full_ids]}")
+    print(f"VLM budget 1.0 == mode='base' teacher, bit for bit, with the "
+          f"registered spec's dense MLPs ({len(full_ids)} requests): ok")
+    # the image decides the tokens
+    same_prompt = [(requests[1][0], CTX_NEW, 0.75, {}, requests[j][4])
+                   for j in (0, 1, 0)]
+    alt = [(requests[1][0], CTX_NEW, 0.75, {},
+            {"image_embeds": images[-1:]})]
+    out = serve(mk(), same_prompt + alt, stagger=False)
+    if out[0] != out[2] or out[0] == out[1] or out[0] == out[3]:
+        fail(f"VLM: one prompt with images 0, 1, 0, 6 gave {out}")
+    print("VLM: one prompt with two images gives different tokens, with the "
+          "same image the same tokens, bit for bit: ok")
+    warm = mk()
+    admission_and_decode(warm, requests[1], device_line)
+    xattn_decode_share("VLM", warm, dev, device_line)
+    del warm
+    context_calls(res, dev, device_line, "VLM serving", rec, cfg, spec,
+                  {"flash_attention non-causal": "1b_vlm_cross"})
+    return {"vlm_serving": launches}, (params, rp, cfg, spec, images)
+
+
+def context_calls(res, dev, device_line, label, rec, cfg, spec, rows):
+    """A context path's recorded kernel calls held to the plain versions:
+    the heaviest flash (causal and non-causal), decode and dense MLP call
+    (``check_path_calls``) and, where the spec moefies the MLPs, the
+    heaviest ``moe_gmm`` call of each shape on expert views of the
+    config's width (``check_moe_gmm``); ``rows`` maps the replayed calls
+    to time (``context_timing``) to their result rows."""
+    print(f"kernel calls of the {label} path (recorded from the eager "
+          f"twin or the steps) [{device_line}]:")
+    heaviest = check_path_calls(res, dev, label, rec)
+    if spec.mlp_n_experts:
+        check_moe_gmm(res, dev, label, rec.gmm_cases(), moefied_weights(
+            dev, cfg.d_model, cfg.d_ff, spec.mlp_n_experts), timed=False)
+    for key, row in rows.items():
+        context_timing(res, dev, label, key.split()[0], heaviest[key], row)
+
+
+def check_context_training(label, path, cfg, spec, params, rp, batches,
+                           policies, dev, device_line, remat=True):
+    """Router distillation steps of ``make_train_step`` over ``batches``
+    with ``policies`` ((policy, bucket) per step): every loss finite;
+    then the last step's loss and router gradients twice from the same
+    state: the same bits, and a non-zero gradient on every router kind
+    named by ``policies``' caller (returned). Returns the launches of the
+    steps."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.optim.optimizer import tree_leaves, tree_map
+    from repro_torch.training import (init_train_state, make_loss_fn,
+                                      make_train_step)
+    state = init_train_state(rp)
+    step_fn = make_train_step(cfg, spec, lr=1e-4, remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    states = []
+    for i, (batch, (pol, bucket)) in enumerate(zip(batches, policies)):
+        states.append(state)
+        timing = {}
+        t0 = time.perf_counter()
+        state, m = step_fn(state, params, batch, pol, bucket, timing=timing)
+        wall = time.perf_counter() - t0
+        m = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"{label} step {i}: non-finite metrics {m}")
+        print(f"  {label} step {i} bucket {bucket}: loss {m['loss']:.6f} "
+              f"distill {m['distill']:.6e} sel_rate {m['sel_rate']:.4f} "
+              f"grad_norm {m['grad_norm']:.6f} | teacher "
+              f"{timing['teacher_s'] * 1e3:.1f} ms, student "
+              f"{timing['student_s'] * 1e3:.1f} ms, step {wall * 1e3:.1f} ms,"
+              f" peak {peak_gib():.2f} GiB [{device_line}]")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches(path, launches)
+    loss_fn = make_loss_fn(cfg, spec, remat=remat)
+    pol, bucket = policies[-1]
+    runs = []
+    for _ in range(2):
+        leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                          states[-1].router_params)
+        loss, _ = loss_fn(leaves, params, batches[-1], pol, bucket)
+        grads = torch.autograd.grad(loss, tree_leaves(leaves),
+                                    allow_unused=True)
+        runs.append((loss.detach(), grads, leaves))
+    if not (torch.equal(runs[0][0], runs[1][0]) and all(
+            (a is None and b is None) or torch.equal(a, b)
+            for a, b in zip(runs[0][1], runs[1][1]))):
+        fail(f"{label}: the last step run twice differs")
+    print(f"  {label}: the last step twice from the same state, loss and "
+          f"{len(runs[0][1])} router gradients bit-identical: ok")
+    return launches, runs[0][2], runs[0][1]
+
+
+def nonzero_grad(label, leaves, grads, sub):
+    """Fails unless the router subtree ``sub`` of ``leaves`` got a non-zero
+    gradient."""
+    from repro_torch.optim.optimizer import tree_leaves
+    ids = {id(t) for t in tree_leaves(sub)}
+    g = [gr for t, gr in zip(tree_leaves(leaves), grads) if id(t) in ids]
+    if not g or not any(x is not None and bool(x.any()) for x in g):
+        fail(f"{label}: no gradient reaches the router")
+    return max(float(x.abs().max()) for x in g if x is not None)
+
+
+def check_vlm_training(args, res, dev, device_line, state):
+    """(b) 3 distillation steps at Llama-3.2-Vision full width,
+    --vlm-layers deep, B=1, S=256, one image, budget annealed 1.0 -> 0.6,
+    with the image-token capacity static (the (1, 961, D) gathered subset)
+    and tensor (the full 1601 rows and a validity mask, the ragged bucket
+    of the token routers): finite losses, the vlm router's gradient
+    non-zero at the last step, a repeated step bit for bit."""
+    import torch
+    from repro_torch.core.policy import ElasticPolicy, ragged_bucket
+    from repro_torch.data import LMDataPipeline
+    params, rp, cfg, spec, images = state
+    S = 256
+    pipe = LMDataPipeline(vocab=cfg.vocab_size, seq_len=S, global_batch=1,
+                          seed=args.seed)
+    batches = [{"tokens": torch.as_tensor(pipe.batch_at(i), device=dev),
+                "image_embeds": torch.as_tensor(images[i:i + 1],
+                                                device=dev)}
+               for i in range(3)]
+    budgets = (1.0, 0.8, 0.6)
+    kw = dict(n_heads=cfg.n_heads, n_experts=spec.mlp_n_experts)
+    out = {}
+    for form in ("static", "tensor"):
+        pols = []
+        for b in budgets:
+            if form == "static":
+                pols.append((ElasticPolicy.uniform(b, static=True, **kw),
+                             None))
+            else:
+                p = ElasticPolicy.uniform(b, **kw).to(dev)
+                pols.append((p, ragged_bucket(p, S, spec=spec)))
+        print(f"VLM distillation, image-token capacity {form}: {cfg.name} "
+              f"width, depth {cfg.n_layers}, B=1 S={S}, image "
+              f"{cfg.n_image_tokens} tokens, budget {budgets} [{device_line}]")
+        with PathCalls() as rec:
+            launches, leaves, grads = check_context_training(
+                f"VLM {form}", "vlm_training", cfg, spec, params, rp,
+                batches, pols, dev, device_line)
+        g = nonzero_grad(f"VLM {form}", leaves, grads, leaves["vlm"])
+        print(f"  VLM {form}: the vlm router's gradient max |g| {g:.4e} "
+              f"(non-zero): ok")
+        out[f"vlm_training_{form}"] = launches
+        del leaves, grads
+        context_calls(res, dev, device_line, f"VLM training {form}", rec,
+                      cfg, spec, {})
+        del rec
+    return out
+
+
+def check_vit_training(args, dev, device_line):
+    """(c) toy-vit (the bidirectional encoder over 64 patch embeddings) in
+    bf16 and f32: 4 distillation steps of the cosine distance on
+    ``procedural_images``, budget 1.0 -> 0.5 with its ragged bucket:
+    finite losses, a non-zero token-router gradient, a repeated step bit
+    for bit."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_elastic
+    from repro_torch.core.policy import (ElasticPolicy, ragged_bucket,
+                                         spec_from_config)
+    from repro_torch.data import procedural_images
+    from repro_torch.models import model_init, router_init
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config("toy-vit"), dtype=dtype)
+        spec = spec_from_config(get_elastic("toy-vit", cfg))
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = model_init(gen, cfg, spec, device=dev)
+        rp = router_init(gen, cfg, spec, device=dev)
+        batches = [{"embeds": torch.as_tensor(procedural_images(
+            8, cfg.n_image_tokens, cfg.d_frontend, args.seed + i)[0],
+            device=dev)} for i in range(4)]
+        pols = []
+        for b in (1.0, 0.8, 0.65, 0.5):
+            p = ElasticPolicy.uniform(b, n_heads=cfg.n_heads).to(dev)
+            pols.append((p, ragged_bucket(p, cfg.n_image_tokens, spec=spec)))
+        print(f"ViT distillation (cosine): {cfg.name} d={cfg.d_model} "
+              f"{cfg.n_layers} layers, {dtype}, B=8 x {cfg.n_image_tokens} "
+              f"patches [{device_line}]")
+        launches, leaves, grads = check_context_training(
+            f"ViT {dtype}", "vit_training", cfg, spec, params, rp, batches,
+            pols, dev, device_line, remat=False)
+        g = nonzero_grad(f"ViT {dtype}", leaves, grads,
+                         [layer["tok_mixer"] for layer in leaves["layers"]])
+        print(f"  ViT {dtype}: token routers' gradient max |g| {g:.4e} "
+              f"(non-zero): ok")
+        out[f"vit_training_{dtype}"] = launches
+    return out
+
+
+def check_encdec_serving(args, res, dev, device_line):
+    """(d) Whisper-medium at full width (24 encoder + 24 decoder layers,
+    d 1024, 16 heads, layernorm, gelu, qkv bias), random bf16 weights
+    from --seed, its registered spec without the moefied experts (budget
+    1.0 is then the teacher bit for bit); 1500 frames per request from
+    --seed. Four requests on the ring in infer mode: staggered == solo
+    and budget 1.0 == a mode="base" engine, bit for bit; graphed == eager
+    twins at 4 decoder layers. The path's heaviest non-causal flash call
+    (the encoder's) and dense MLP call are replayed and timed."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import ServingEngine
+    cfg = get_config("whisper-medium")
+    spec = context_spec("whisper-medium", experts=False)
+    e = cfg.encoder
+    print(f"encoder-decoder serving: {cfg.name} d={cfg.d_model} "
+          f"H={cfg.n_heads} Dh={cfg.d_head} F={cfg.d_ff} {cfg.act} "
+          f"{cfg.norm} V={cfg.vocab_size}, encoder {e.n_layers} layers over "
+          f"{e.encoder_seq} frames, decoder {cfg.n_layers} xattn layers, "
+          f"{cfg.dtype}, frame tokens at 0.6 [{device_line}]")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model_init(gen, cfg, spec, device=dev)
+    rp = router_init(gen, cfg, spec, device=dev)
+    torch.cuda.synchronize()
+    print(f"init: {cfg.n_params() / 1e9:.3f} B params in "
+          f"{time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    frames = torch.randn((4, e.encoder_seq, e.d_model), generator=g,
+                         device=dev)
+    rng = np.random.default_rng(args.seed + 4)
+    budgets = (1.0, 0.75, 0.5, 1.0)
+    requests = [(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                 CTX_NEW, b, {}, {"frames": frames[i:i + 1]})
+                for i, (n, b) in enumerate(zip((8, 24, 4, 16), budgets))]
+    mk = lambda n=cfg.n_layers, g=True, mode="infer": ServingEngine(
+        cut(params, n), rp, dataclasses.replace(cfg, n_layers=n), spec,
+        mode=mode, batch_size=4, max_seq=64, device=dev, cuda_graphs=g)
+    engine = mk()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tokens = serve(engine, requests, stagger=True)    # the main path
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches("encdec_serving", launches)
+    print(f"encoder-decoder serving peak memory {peak_gib():.2f} GiB "
+          f"[{device_line}]")
+    print_timing("encoder-decoder serving (first run)", engine.timing,
+                 device_line)
+    for toks in tokens:
+        if len(toks) != CTX_NEW or not all(0 <= x < cfg.vocab_size
+                                           for x in toks):
+            fail(f"encoder-decoder: bad generated tokens {toks}")
+    rec = PathCalls()
+    twins(f"encoder-decoder ring infer, {twin_depth(cfg)} decoder layers",
+          lambda g: mk(twin_depth(cfg), g),
+          lambda e: serve(e, requests, stagger=True), rec=rec)
+    solo = profiled(lambda: serve(mk(), [requests[2]], stagger=False))[0]
+    if solo != tokens[2]:
+        fail(f"encoder-decoder: request 2 alone {solo} != staggered "
+             f"{tokens[2]}")
+    print("encoder-decoder staggered == solo (request 2, budget 0.5), bit "
+          "for bit: ok")
+    teacher = serve(mk(mode="base"), requests, stagger=True)
+    for i, b in enumerate(budgets):
+        if b == 1.0 and tokens[i] != teacher[i]:
+            fail(f"encoder-decoder budget-1.0 request {i} {tokens[i]} != "
+                 f"mode='base' {teacher[i]}")
+    print("encoder-decoder budget 1.0 == mode='base' teacher, bit for bit: "
+          "ok")
+    warm = mk()
+    admission_and_decode(warm, requests[1], device_line)
+    xattn_decode_share("encoder-decoder", warm, dev, device_line)
+    del warm
+    context_calls(res, dev, device_line, "encoder-decoder serving", rec, cfg,
+                  spec, {"flash_attention non-causal": "1c_whisper_encoder",
+                         "fused_mlp": "2f_whisper_gelu"})
+    return {"encdec_serving": launches}
+
+
 # -------------------------- depth routing, sampling ---------------------------
 
 def depth_spec(spec):
@@ -3374,14 +3965,17 @@ def with_depth_routers(rp, dev, d_model, seed):
 
 
 def check_path_calls(res: Results, dev, label, rec: PathCalls):
-    """Replays the heaviest ``flash_attention``, ``decode_attention`` and
-    ``fused_mlp`` call a path made with its recorded masks, positions and
-    counts and random operands of its shapes, in bf16 and f32, against the
-    plain version (within TOL); a query row or slot with no attendable key
-    must give exact zeros."""
+    """Replays the heaviest ``flash_attention`` (causal and non-causal
+    apart), ``decode_attention`` and ``fused_mlp`` call a path made with
+    its recorded masks, positions and counts and random operands of its
+    shapes, in bf16 and f32, against the plain version (within TOL); a
+    query row or slot with no attendable key must give exact zeros.
+    Returns the replayed calls (``PathCalls.heaviest``)."""
     import torch
     from repro_torch.kernels import ops
-    for name, c in sorted(rec.heaviest().items()):
+    heaviest = rec.heaviest()
+    for key, c in sorted(heaviest.items()):
+        name, what = key.split()[0], key[len(key.split()[0]):]
         work = PathCalls._work(name, c)
         for kind in ("bf16", "f32"):
             dt = torch.bfloat16 if kind == "bf16" else torch.float32
@@ -3397,18 +3991,13 @@ def check_path_calls(res: Results, dev, label, rec: PathCalls):
             got = getattr(ops, name)(**args)
             want = getattr(ops, name)(**args, backend="ref")
             shape = tuple(c["q" if "q" in c else "x"][1])
-            res.compare(name, f"{kind} {label} path {shape} ({work} "
+            res.compare(name, f"{kind} {label} path{what} {shape} ({work} "
                         f"{'rows' if name == 'fused_mlp' else 'pairs'})",
                         got, want, kind)
             if name == "fused_mlp":
                 continue
             if name == "flash_attention":
-                B, S = shape[:2]
-                valid = c.get("kv_valid")
-                valid = torch.ones(B, S, dtype=torch.bool, device=dev) \
-                    if valid is None else valid.expand(B, S)
-                cnt = torch.full((B,), S, device=dev)
-                dead = ~_attention_mask(B, S, valid, True, cnt).any(-1)
+                dead = ~PathCalls.flash_mask(c).any(-1)
             else:
                 pos, t = c["kv_pos"], c["t"].reshape(-1, 1)
                 dead = ~((pos >= 0) & (pos <= t) & c["kv_valid"]).any(-1)
@@ -3416,8 +4005,9 @@ def check_path_calls(res: Results, dev, label, rec: PathCalls):
                 fail(f"{name}, the {label} path's heaviest call: a row with "
                      f"no attendable key is not zero")
             if kind == "bf16":
-                print(f"  {name:17s} {label} path: {int(dead.sum())} "
+                print(f"  {name:17s} {label} path{what}: {int(dead.sum())} "
                       f"query row(s) with no attendable key, exact zeros")
+    return heaviest
 
 
 def serve_holes(engine, requests):
@@ -4446,6 +5036,11 @@ def main() -> int:
     ap.add_argument("--moe-layers", type=int, default=12,
                     help="depth of the served Qwen1.5-MoE-A2.7B (width "
                          "stays full; 24 is the model's)")
+    ap.add_argument("--vlm-layers", type=int, default=20,
+                    help="depth of the served and trained "
+                         "Llama-3.2-Vision-11B (width stays full; 40 is the "
+                         "model's; a multiple of 5 keeps whole "
+                         "4 attn + 1 xattn periods)")
     ap.add_argument("--pages", type=int, default=None,
                     help="pages in the paged serving pool (default the "
                          "ring-equivalent 4 * 64 + 1)")
@@ -4521,8 +5116,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    spec = slice_spec()
     paths = {}
+    spec = slice_spec()
     paths["serving"], params, rp, requests, teacher, ring = check_serving(
         args, dev, device_line, spec)
     ring["teacher"] = teacher
@@ -4628,6 +5223,21 @@ def main() -> int:
     check_int8_gmm(res, dev, "native int8", rec.gmm_cases(),
                    get_config("qwen2-moe-a2.7b"))
     done("native MoE int8 serving")
+    free()                       # the context families: (a)-(d)
+    vlm_paths, vlm = check_vlm_serving(args, res, dev, device_line)
+    paths.update(vlm_paths)
+    free()
+    done("(a) VLM serving")
+    paths.update(check_vlm_training(args, res, dev, device_line, vlm))
+    del vlm
+    free()
+    done("(b) VLM distillation")
+    paths.update(check_vit_training(args, dev, device_line))
+    free()
+    done("(c) ViT distillation")
+    paths.update(check_encdec_serving(args, res, dev, device_line))
+    free()
+    done("(d) encoder-decoder serving")
     kernels = [dict(name=n, route="cuda", source=SOURCES[n][0],
                     replaces=SOURCES[n][1],
                     launches=sum(p[n] for p in paths.values()),

@@ -31,10 +31,16 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Backbone architecture description (decoder-only attention slice).
+    """Backbone architecture description.
 
-    ``mixer_pattern`` is the repeating period of temporal-mixer kinds and
+    ``mixer_pattern`` is the repeating period of temporal-mixer kinds
+    (``attn``: self-attention; ``xattn``: self-attention plus
+    cross-attention to the image or encoder context) and
     ``window_pattern`` the per-position attention window (0 = global).
+    ``family``: dense | moe | encoder (a bidirectional stack over frontend
+    embeddings, no vocabulary) | vlm (a decoder cross-attending to
+    projected image embeddings) | encdec (a decoder cross-attending to a
+    nested ``encoder`` stack over ``encoder_seq`` frames).
     """
     name: str
     family: str
@@ -55,6 +61,12 @@ class ModelConfig:
     window_pattern: Tuple[int, ...] = (0,)
     mixer_pattern: Tuple[str, ...] = ("attn",)
     moe: Optional[MoEConfig] = None
+    # encoder-decoder: the nested encoder stack and its frame count
+    encoder: Optional["ModelConfig"] = None
+    encoder_seq: int = 0
+    # vlm / encoder: patch tokens and their (stubbed) frontend width
+    n_image_tokens: int = 0
+    d_frontend: int = 0
     dtype: str = "bfloat16"
     head_pad: int = 1
 
@@ -78,7 +90,9 @@ class ModelConfig:
         return tuple(w[i % len(w)] for i in range(self.n_layers))
 
     def n_params(self) -> int:
-        """Approximate parameter count (embedding + attention blocks + head)."""
+        """Approximate parameter count: embedding, blocks (an ``xattn``
+        block counts its cross-attention), head, the frontend projection
+        ``in_proj`` and a nested encoder's blocks."""
         D, F, V = self.d_model, self.d_ff, self.padded_vocab
         n = V * D
         if not self.tie_embeddings:
@@ -92,8 +106,12 @@ class ModelConfig:
                 n_mlp += 3 * D * m.d_shared
         else:
             n_mlp = (3 if self.act in ("swiglu", "geglu") else 2) * D * F
-        for _ in self.layer_kinds:
-            n += qo + kv + n_mlp + 2 * D
+        for kind in self.layer_kinds:
+            n += (2 if kind == "xattn" else 1) * (qo + kv) + n_mlp + 2 * D
+        if self.family in ("encoder", "vlm") or self.d_frontend:
+            n += (self.d_frontend or D) * D
+        if self.encoder is not None:     # its blocks and its in_proj
+            n += self.encoder.n_params()
         return n
 
 
@@ -142,15 +160,21 @@ def get_config(name: str, variant: str = "full",
     cfg = REGISTRY[name][variant]()
     if head_pad != cfg.head_pad:
         cfg = dataclasses.replace(cfg, head_pad=head_pad)
+        if cfg.encoder is not None:
+            cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+                cfg.encoder, head_pad=head_pad))
     return cfg
 
 
 def get_elastic(name: str, cfg: Optional[ModelConfig] = None) -> ElasticConfig:
     """The arch's registered elastic config. An arch that registered none
     gets the port's default: token routing around attention and the MLP,
-    head top-k, LoRA rank 1 (no experts, no depth routing)."""
+    head top-k, LoRA rank 1 and, for a VLM or encoder-decoder, the
+    context-token selection at 0.6 (no experts, no depth routing)."""
     cfg = cfg or get_config(name)
     if REGISTRY[name]["elastic"] is not None:
         return REGISTRY[name]["elastic"](cfg)
     return ElasticConfig(mlp_token_capacity=0.8, mha_token_capacity=0.8,
-                         mha_head_topk=max(1, cfg.n_heads // 2), lora_rank=1)
+                         mha_head_topk=max(1, cfg.n_heads // 2), lora_rank=1,
+                         vlm_token_capacity=(0.6 if cfg.family in (
+                             "vlm", "encdec") else None))

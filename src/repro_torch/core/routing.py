@@ -77,6 +77,13 @@ def token_logits(rp, x):
     return x.float() @ rp["w"] + rp["b"]
 
 
+def topk_indices(scores, k: int):
+    """Top-k indices along the last axis, ascending (causal order). Ties
+    go to the lower index, as ``jax.lax.top_k`` breaks them."""
+    idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    return torch.sort(idx[..., :k], dim=-1).values
+
+
 def topk_mask(scores, k: int):
     """Membership mask of the top-k entries along the last axis (static k:
     every entry >= the k-th largest, ties all kept)."""

@@ -1,4 +1,5 @@
 """Deterministic synthetic data of the port."""
-from repro_torch.data.pipeline import LMDataPipeline, ZipfMarkov
+from repro_torch.data.pipeline import (LMDataPipeline, ZipfMarkov,
+                                       procedural_images)
 
-__all__ = ["LMDataPipeline", "ZipfMarkov"]
+__all__ = ["LMDataPipeline", "ZipfMarkov", "procedural_images"]

@@ -86,3 +86,24 @@ class LMDataPipeline:
         assert state["seed"] == self.seed and state["shard"] == self.shard, \
             "pipeline identity mismatch on restore"
         self.step = int(state["step"])
+
+
+def procedural_images(n: int, n_patches: int, dim: int, seed: int,
+                      n_classes: int = 10, class_id: int | None = None):
+    """Procedural patch embeddings (n, n_patches, dim) f32 and their class
+    labels (n,), the JAX package's generator bit for bit. Each class has a
+    fixed low-rank structure plus noise, standing in for the image subsets
+    of paper §5.2; a class-independent per-patch informativeness profile
+    scales the signal (natural-image categories share saliency statistics,
+    the premise of the paper's cross-class router agreement)."""
+    g = _rng(seed, 0x1A4E)
+    gp = _rng(0xBEEF)  # fixed across seeds and classes
+    basis = gp.normal(size=(n_classes, 4, n_patches, dim)).astype(np.float32)
+    profile = (0.15 + 1.85 * gp.random(n_patches)).astype(np.float32)
+    labels = (np.full(n, class_id, np.int32) if class_id is not None
+              else g.integers(0, n_classes, n, dtype=np.int32))
+    coef = g.normal(size=(n, 4, 1, 1)).astype(np.float32)
+    emb = (basis[labels] * coef).sum(1) / 2.0
+    emb *= profile[None, :, None]
+    emb += 0.35 * g.normal(size=emb.shape).astype(np.float32)
+    return emb, labels

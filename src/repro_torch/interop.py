@@ -14,6 +14,11 @@ dense MLP). Engine-quantized trees come over the same way: int8 weights
 keep their codes and their f32 ``{name}_scale`` siblings, leaf for leaf.
 Serving state comes over too: a JAX ring cache or paged KV pool tree, with
 an int8 cache's ``kscale``/``vscale`` leaves (``caches_from_numpy``).
+The context families add leaves beside the layer stack (``in_proj``, the
+``vlm`` router) and inside it (an ``xattn`` layer's ``xnorm``/``xattn``
+params and its context cache), which come over like any other, and an
+encoder-decoder nests its encoder's tree (params or routers, with its own
+scan/tail split by the encoder's pattern) under ``encoder``.
 """
 from __future__ import annotations
 
@@ -66,6 +71,18 @@ def _layers_from(tree: dict, P: int) -> list:
     return unstack_layers(tree.get("scan", []), tree.get("tail", []), P)
 
 
+def _from_layered(tree: dict, cfg, spec) -> dict:
+    """A JAX layered tree (``scan``/``tail``) as the port's (``layers``);
+    a nested ``encoder`` tree by the encoder's own pattern."""
+    _, P, _ = build_pattern(cfg, spec)
+    out = {k: v for k, v in tree.items()
+           if k not in ("scan", "tail", "encoder")}
+    out["layers"] = _layers_from(tree, P)
+    if "encoder" in tree:
+        out["encoder"] = _from_layered(tree["encoder"], cfg.encoder, spec)
+    return out
+
+
 def _tree_from_flat(flat: dict, device):
     root = {}
     for key, arr in flat.items():
@@ -88,11 +105,8 @@ def params_from_numpy(flat: dict, cfg, spec=None, *, device=None):
         ptree, rtree = tree["params"], tree.get("routers")
     else:
         ptree, rtree = tree, None
-    _, P, _ = build_pattern(cfg, spec)
-    params = {k: v for k, v in ptree.items() if k not in ("scan", "tail")}
-    params["layers"] = _layers_from(ptree, P)
-    routers = None if rtree is None else {"layers": _layers_from(rtree, P)}
-    return params, routers
+    routers = None if rtree is None else _from_layered(rtree, cfg, spec)
+    return _from_layered(ptree, cfg, spec), routers
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -121,8 +135,12 @@ def layered_tree(cfg, spec, trees: dict) -> dict:
     out = {}
     for name, tree in trees.items():
         scan, tail = stack_layers(tree["layers"], len(period))
-        rest = {k: v for k, v in tree.items() if k != "layers"}
+        rest = {k: v for k, v in tree.items() if k not in ("layers",
+                                                            "encoder")}
         out[name] = {**rest, "scan": scan, "tail": tail}
+        if "encoder" in tree:
+            out[name]["encoder"] = layered_tree(
+                cfg.encoder, spec, {"encoder": tree["encoder"]})["encoder"]
     return out
 
 
@@ -163,8 +181,7 @@ def train_state_from_tree(tree: dict, opt_step: int, cfg, spec=None):
     from repro_torch.optim import AdamWState
     from repro_torch.optim.optimizer import tree_leaves
     from repro_torch.training import TrainState
-    _, P, _ = build_pattern(cfg, spec)
-    rp, m, v = ({"layers": _layers_from(tree[n], P)} for n in TRAIN_TREES)
+    rp, m, v = (_from_layered(tree[n], cfg, spec) for n in TRAIN_TREES)
     step = torch.tensor(int(opt_step), dtype=torch.int32,
                         device=tree_leaves(m)[0].device)
     return TrainState(rp, AdamWState(step, m, v), None)

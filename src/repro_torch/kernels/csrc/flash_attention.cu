@@ -11,9 +11,14 @@
 // A query row with NO attendable key is written as exact zeros (the Pallas
 // kernel leaves it undefined); the port's plain version does the same.
 //
-// Bound on the H100: at the paths' shapes (Sq = Sk <= 1024, Dh = 128) the
-// work is ~4*Dh*Sq*Sk/2 FLOPs against ~4*S*H*Dh bytes, so the tensor-core
-// rate bounds it. Two bodies, chosen by type and head width:
+// Bound on the H100 at the paths' shapes: the causal prefills and training
+// steps (Sq = Sk <= 1024, Dh = 128; ~4*Dh*Sq*Sk/2 FLOPs against ~4*S*H*Dh
+// bytes), the non-causal encoder self-attention (Whisper: Sq = Sk = 1500,
+// Dh = 64, ~4*Dh*S^2 FLOPs) and the cross-attention of a prompt against
+// the image tokens (Sq = 17 .. 512 against Sk = 1601 or 961, Dh = 128) are
+// bound by the tensor-core rate; a decode-length query (Sq = 1 .. 16)
+// against 1601 keys reads ~4*Sk*K*Dh bytes for ~4*Dh*Sk*H FLOPs and is
+// bound by the bytes. Two bodies, chosen by type and head width:
 //
 // * bf16, Dh 64 / 128 (every path of the port): tensor cores. One block per
 //   (64-row q-tile, q-head, batch row): one consumer warpgroup (128 threads)
@@ -33,7 +38,9 @@
 //   votes each tile's count-and-valid key mask into one word beside it;
 //   rows intersect it with their causal/window span as bit sets); tiles
 //   dead by causality, window or count are never loaded. The grid runs the
-//   q-tiles with the most causal key tiles first. No atomics and no split
+//   q-tiles with the most causal key tiles first (non-causal, every q-tile
+//   loads every key tile; a q-tile past Sq is TMA's zero fill, its rows
+//   never stored). No atomics and no split
 //   of the key loop, and the arithmetic is the same whether kv_valid is
 //   null or all true, so outputs are reproducible bit for bit. An int8 K/V
 //   operand would be dequantized between the TMA load and the wgmma.

@@ -686,7 +686,8 @@ __global__ void __launch_bounds__(WGS * 128 + producer_warps<WGS>() * 32,
       wgmma_n128(acc, da, desc(sm.b[s][0][0] + kk * 16 * 64, BOX * 2, 1024));
       // ungated: wi's product again into the unread gate accumulator, so no
       // branch sits between the wgmmas of a group (a branch there makes
-      // ptxas serialise them); only toy widths are ungated
+      // ptxas serialise them); an ungated MLP (Whisper's, a ViT's) so does
+      // a third more MMA work than it needs (PERF.md, row 2f)
       if constexpr (UP)
         wgmma_n128(acg, da, desc(sm.b[s][two ? 1 : 0][0] + kk * 16 * 64,
                                  BOX * 2, 1024));

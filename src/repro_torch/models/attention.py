@@ -75,7 +75,7 @@ def _proj(p, name, x):
                                  Q.widened(p, name, x.dtype)), p, name)
 
 
-def _project_q(p, x, positions, cfg, lora):
+def _project_q(p, x, positions, cfg, lora, use_rope: bool = True):
     q = _proj(p, "wq", x)
     if lora is not None and "q" in lora:
         dq = lora_apply(lora["q"], x).reshape(
@@ -86,10 +86,10 @@ def _project_q(p, x, positions, cfg, lora):
         q = q + dq
     if "bq" in p:
         q = q + p["bq"]
-    return rope_apply(q, *_rope(positions, cfg))
+    return rope_apply(q, *_rope(positions, cfg)) if use_rope else q
 
 
-def _project_kv(p, x, positions, cfg, lora):
+def _project_kv(p, x, positions, cfg, lora, use_rope: bool = True):
     k = _proj(p, "wk", x)
     v = _proj(p, "wv", x)
     if lora is not None and "v" in lora:
@@ -101,6 +101,8 @@ def _project_kv(p, x, positions, cfg, lora):
         v = v + dv
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
+    if not use_rope:
+        return k, v
     return rope_apply(k, *_rope(positions, cfg)), v
 
 
@@ -113,29 +115,60 @@ def _out_proj(p, ctx, head_weights):
 
 def attn_apply(p, x, *, cfg, positions, causal: bool = True, window: int = 0,
                kv_valid=None, kv_count=None, head_weights=None, lora=None,
-               backend=None, gathered: bool = False):
-    """Full-sequence self-attention (training, prefill) through the
+               backend=None, gathered: bool = False, kv_x=None):
+    """Full-sequence attention (training, prefill) through the
     flash-attention op, which masks by array index: ``positions`` ((S,), or
     (B, S) per row for RoPE) must ascend along the rows. ``gathered``
     declares a RoutingPlan buffer (a position-ascending subset, ragged
     ``kv_count``): index-causal is position-causal there, but a sliding
     window measures position distance, so windowed gathered attention
     raises. head_weights: (B,Sq,H) f32 head-routing weights applied to each
-    head's context before the output projection. Returns (out (B,Sq,D),
+    head's context before the output projection.
+
+    ``kv_x`` (B, Sk, D): cross-attention, keys and values projected from
+    the context (image or encoder output), queries and keys without RoPE,
+    never causal (the JAX package's ``kv_x`` with ``use_rope=False``);
+    ``kv_valid`` (B, Sk) marks its selected rows. Returns (out (B,Sq,D),
     k, v) — k/v for the cache."""
     if gathered and window and window > 0:
         raise NotImplementedError(
             "windowed attention over a gathered RoutingPlan buffer: the "
             "kernel masks the window by index; it arrives with ROADMAP "
             "Queue A item 12 (windowed configs)")
-    q = _project_q(p, x, positions, cfg, lora)
-    k, v = _project_kv(p, x, positions, cfg, lora)
+    cross = kv_x is not None
+    q = _project_q(p, x, positions, cfg, lora, use_rope=not cross)
+    if cross:
+        k, v = _project_kv(p, kv_x, None, cfg, lora, use_rope=False)
+    else:
+        k, v = _project_kv(p, x, positions, cfg, lora)
     if kv_valid is not None and kv_valid.dim() == 1:
         kv_valid = kv_valid.expand(k.shape[:2])
     ctx = OPS.flash_attention(q, k, v, kv_valid=kv_valid, kv_count=kv_count,
-                              causal=causal, window=window or 0,
-                              backend=backend)
+                              causal=causal and not cross,
+                              window=window or 0, backend=backend)
     return _out_proj(p, ctx, head_weights), k, v
+
+
+def cross_attn_decode(p, x, cache, *, cfg):
+    """Decode-time cross-attention of one token per row over a slot's
+    context cache {'k','v': (B,T,K,Dh), 'valid': (B,T) bool}, written at
+    admission. Plain PyTorch, as the JAX package computes it (its jnp
+    ``sdpa``, outside any Pallas kernel): f32 softmax over the valid rows;
+    a row with no valid context row (an empty slot) gives exact zeros.
+    Returns out (B,1,D)."""
+    B = x.shape[0]
+    H, Dh = cfg.n_heads, cfg.d_head
+    k, v, valid = cache["k"], cache["v"], cache["valid"]
+    K = k.shape[2]
+    q = _project_q(p, x, None, cfg, None, use_rope=False)      # (B,1,H,Dh)
+    qg = q.reshape(B, K, H // K, Dh).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * Dh ** -0.5
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    live = valid.any(-1)[:, None, None, None]
+    pr = torch.softmax(torch.where(live, s, torch.zeros_like(s)), dim=-1)
+    pr = torch.where(live, pr, torch.zeros_like(pr))
+    ctx = torch.einsum("bkgt,btkd->bkgd", pr, v.float())
+    return _out_proj(p, ctx.reshape(B, 1, H, Dh).to(x.dtype), None)
 
 
 def attn_decode(p, x, cache, t, *, cfg, window: int = 0, head_weights=None,

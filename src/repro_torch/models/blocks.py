@@ -1,7 +1,14 @@
 """Transformer blocks with ElastiFormer routing woven in.
 
-Block kind ``attn``: [token-route] GQA self-attention [head-route] [LoRA]
-+ [token-route] MLP or MoE [expert-route], pre-norm residual.
+Block kinds:
+  attn  : [token-route] GQA self-attention [head-route] [LoRA]
+          + [token-route] MLP or MoE [expert-route], pre-norm residual;
+  xattn : the same, with a cross-attention sub-block between the two that
+          attends to the image or encoder context (``enc_kv``, its
+          selected rows ``enc_valid``): the VLM's image layers and every
+          decoder layer of an encoder-decoder. The context K/V are
+          projected once per request and kept in the cache's ``xattn``
+          leaf for decode.
 
 Modes:
   base  : the frozen pretrained model (the distillation teacher): routers off.
@@ -41,32 +48,37 @@ from repro_torch.core.moefy import moefy_mlp
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import attention as A
 from repro_torch.models import quant as Q
-from repro_torch.models.layers import mlp_apply, mlp_init, norm_apply, norm_init
+from repro_torch.models.layers import (dtype_of, mlp_apply, mlp_init,
+                                      norm_apply, norm_init)
 from repro_torch.models.moe import moe_apply, moe_decode, moe_init
 
 
-def _only_attn(kind: str) -> None:
-    if kind != "attn":
+def _check_kind(kind: str) -> None:
+    if kind not in ("attn", "xattn"):
         raise NotImplementedError(
-            f"layer kind {kind!r}: the port serves 'attn' blocks; other "
-            f"families arrive with ROADMAP Queue A item 12")
+            f"layer kind {kind!r}: the recurrent mixers (ssm, rglru) arrive "
+            f"with ROADMAP Queue A item 12")
 
 
 # ------------------------------ init ---------------------------------------
 
 def block_init(gen, kind: str, cfg, device=None) -> dict:
-    _only_attn(kind)
-    return {"norm1": norm_init(cfg.d_model, cfg.norm, device=device),
-            "attn": A.attn_init(gen, cfg, device=device),
-            "norm2": norm_init(cfg.d_model, cfg.norm, device=device),
-            "mlp": (moe_init(gen, cfg, device=device) if cfg.moe is not None
-                    else mlp_init(gen, cfg, device=device))}
+    _check_kind(kind)
+    p = {"norm1": norm_init(cfg.d_model, cfg.norm, device=device),
+         "attn": A.attn_init(gen, cfg, device=device)}
+    if kind == "xattn":
+        p["xnorm"] = norm_init(cfg.d_model, cfg.norm, device=device)
+        p["xattn"] = A.attn_init(gen, cfg, device=device)
+    p["norm2"] = norm_init(cfg.d_model, cfg.norm, device=device)
+    p["mlp"] = (moe_init(gen, cfg, device=device) if cfg.moe is not None
+                else mlp_init(gen, cfg, device=device))
+    return p
 
 
 def block_router_init(gen, kind: str, cfg, spec, device=None) -> dict:
     """Trainable ElastiFormer params for one layer; ``spec`` alone decides
-    which routers exist."""
-    _only_attn(kind)
+    which routers exist (an ``xattn`` block has the ``attn`` block's)."""
+    _check_kind(kind)
     D = cfg.d_model
     rp = {}
     if spec.mha_token_routed:
@@ -231,7 +243,8 @@ def _mul_caps(cap_a, cap_b):
 def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
                 elastic_on: bool, window: int = 0, positions=None,
                 causal: bool = True, collect_cache: bool = False,
-                max_cache_len: int = 0, bucket=None):
+                max_cache_len: int = 0, bucket=None, enc_kv=None,
+                enc_valid=None):
     """x: (B,S,D) -> (x', aux[, cache]). Pre-norm residual block.
 
     Train mode plans the block's token routing ONCE: a ``RoutingPlan``
@@ -245,8 +258,11 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
     same token set). Infer mode gates each router with its threshold:
     dropped tokens are invalid keys of the attention and their outputs are
     weighted by 0; the MLP runs densely and its output is gate-weighted
-    (and depth-weighted)."""
-    _only_attn(kind)
+    (and depth-weighted). ``causal=False``: the bidirectional stack of an
+    encoder. An ``xattn`` block cross-attends to ``enc_kv`` (B, T, D) with
+    ``enc_valid`` (B, T) bool or None (every row) after its attention
+    residual; the cache keeps the context's K/V and ``valid``."""
+    _check_kind(kind)
     B, S, _ = x.shape
     auxes = [R.RouteAux.zero(x.device)]
     if positions is None:
@@ -403,6 +419,19 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
             k, v, keep, max_cache_len or S, window,
             kv_dtype=spec.kv_dtype if spec is not None else "fp32")
     x = x + delta
+
+    # ---- cross-attention ----
+    if kind == "xattn":
+        hx = norm_apply(p["xnorm"], x, cfg.norm)
+        y, xk, xv = A.attn_apply(p["xattn"], hx, cfg=cfg, positions=positions,
+                                 kv_x=enc_kv, kv_valid=enc_valid,
+                                 backend=backend)
+        x = x + y
+        if collect_cache:
+            ev = (torch.ones(enc_kv.shape[:2], dtype=torch.bool,
+                             device=x.device) if enc_valid is None
+                  else enc_valid.expand(enc_kv.shape[:2]))
+            cache["xattn"] = {"k": xk, "v": xv, "valid": ev}
 
     # ---- MLP ----
     h = norm_apply(p["norm2"], x, cfg.norm)
@@ -575,8 +604,9 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
     depth gate is per (slot, layer): a skipped token writes no K/V at this
     layer (the ring's ``valid`` / the pool's ``pvalid`` records the hole)
     and its attention and MLP deltas are weighted by 0. Returns (x',
-    cache)."""
-    _only_attn(kind)
+    cache). An ``xattn`` block then cross-attends to its slot's context
+    cache (``attention.cross_attn_decode``)."""
+    _check_kind(kind)
     routed = elastic_on and mode != "base" and rp is not None
     backend = spec.kernel_backend if spec is not None else None
 
@@ -612,6 +642,10 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
     if keep is not None:
         y = y * w1[:, None, None].to(y.dtype)
     x = x + y
+    if kind == "xattn":
+        x = x + A.cross_attn_decode(
+            p["xattn"], norm_apply(p["xnorm"], x, cfg.norm), cache["xattn"],
+            cfg=cfg)
 
     h = norm_apply(p["norm2"], x, cfg.norm)
     keep2, w2 = None, None
@@ -655,7 +689,7 @@ def block_chunk(kind: str, p, rp, x, cache, write_page, table_row, pos0,
     only (the engine validates it). Returns (x', cache)."""
     if mode not in ("infer", "base"):
         raise ValueError(f"block_chunk serves infer/base modes, got {mode!r}")
-    _only_attn(kind)
+    _paged_kind(kind)
     routed = elastic_on and mode != "base" and rp is not None
     backend = spec.kernel_backend if spec is not None else None
     positions = pos0 + torch.arange(x.shape[1], dtype=torch.int32,
@@ -713,7 +747,7 @@ def block_paged_cache_init(kind: str, cfg, n_pages: int, page_size: int,
                            device=None, kv_dtype: str = "fp32") -> dict:
     """Paged twin of ``block_cache_init``: one layer's slice of the global
     page pool."""
-    _only_attn(kind)
+    _paged_kind(kind)
     return {"attn": A.attn_paged_cache_init(cfg, n_pages, page_size,
                                             device=device,
                                             kv_dtype=kv_dtype)}
@@ -730,9 +764,28 @@ def cache_row_insert(full: dict, row: dict, slot: int) -> None:
             leaf[slot] = row[name][0].to(leaf.dtype)
 
 
+def _paged_kind(kind: str) -> None:
+    """The paged layout serves self-attention blocks only, as in the JAX
+    package (a cross-attention context has no page form)."""
+    if kind != "attn":
+        raise ValueError(f"paged KV cache requires self-attention blocks, "
+                         f"got {kind!r}")
+
+
 def block_cache_init(kind: str, cfg, batch: int, max_seq: int,
-                     window: int = 0, device=None,
+                     enc_len: int = 0, window: int = 0, device=None,
                      kv_dtype: str = "fp32") -> dict:
-    _only_attn(kind)
-    return {"attn": A.attn_cache_init(cfg, batch, max_seq, window,
-                                      device=device, kv_dtype=kv_dtype)}
+    """One layer's ring cache; an ``xattn`` layer adds its context cache
+    {'k','v': (batch, enc_len, K, Dh) in the config dtype, 'valid'}, which
+    each admission overwrites with its request's context."""
+    _check_kind(kind)
+    c = {"attn": A.attn_cache_init(cfg, batch, max_seq, window,
+                                   device=device, kv_dtype=kv_dtype)}
+    if kind == "xattn":
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.d_head)
+        c["xattn"] = {
+            "k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+            "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+            "valid": torch.zeros((batch, enc_len), dtype=torch.bool,
+                                 device=device)}
+    return c

@@ -1,6 +1,11 @@
 """Model assembly: embedding, the layer stack, LM head; prefill and ring
 decode, paged decode and chunked paged prefill; ElastiFormer router
-attachment.
+attachment; the context families: the bidirectional encoder
+(``family="encoder"``, a ViT over patch embeddings), the VLM (image
+embeddings projected by ``in_proj``, top-k selected by the ``vlm`` router
+and cross-attended by the ``xattn`` layers) and the encoder-decoder (a
+nested encoder stack over frames, run non-causally, whose output is
+selected and cross-attended the same way).
 
 Params are plain dicts of tensors with the JAX package's leaf names and
 layouts; the layers are a Python list (``params["layers"][i]``) that a loop
@@ -19,8 +24,10 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.core import routing as R
 from repro_torch.core.policy import as_spec_policy
 from repro_torch.device import resolve_device
 from repro_torch.core.routing import RouteAux
@@ -90,25 +97,53 @@ def unstack_layers(scan: list, tail: list, P: int) -> list:
 
 def model_init(gen: torch.Generator, cfg, elastic=None, device=None) -> dict:
     """Base params with the JAX package's shapes and init scales, drawn from
-    ``gen`` (which must live on ``device``; None = the CUDA card)."""
+    ``gen`` (which must live on ``device``; None = the CUDA card). An
+    encoder (no vocabulary) has no embedding or head; a VLM or encoder
+    has the frontend projection ``in_proj`` (d_frontend, D); an
+    encoder-decoder nests its encoder's params under ``encoder``."""
     device = resolve_device(device)
     dt = dtype_of(cfg)
     D, V = cfg.d_model, cfg.padded_vocab
-    params = {"final_norm": norm_init(D, cfg.norm, device=device),
-              "embed": dense_init(gen, V, D, dt, scale=0.02, device=device)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, D, V, dt, device=device)
+    params = {"final_norm": norm_init(D, cfg.norm, device=device)}
+    if V:
+        params["embed"] = dense_init(gen, V, D, dt, scale=0.02, device=device)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, D, V, dt, device=device)
     params["layers"] = [block_init(gen, kind, cfg, device=device)
                         for kind in cfg.layer_kinds]
+    if cfg.family in ("encoder", "vlm") or cfg.d_frontend:
+        params["in_proj"] = dense_init(gen, cfg.d_frontend or D, D, dt,
+                                       device=device)
+    if cfg.encoder is not None:
+        params["encoder"] = model_init(gen, cfg.encoder, elastic, device)
     return params
 
 
 def router_init(gen: torch.Generator, cfg, elastic, device=None) -> dict:
-    """Trainable ElastiFormer parameters, one dict per layer."""
+    """Trainable ElastiFormer parameters, one dict per layer; with the
+    spec's ``vlm_routed``, the context-token router ``vlm`` (linear, or
+    the MLP of ``spec.vlm_router == "mlp"``) of a VLM or encoder-decoder;
+    an encoder-decoder's encoder routers under ``encoder``."""
     device = resolve_device(device)
     spec, _ = as_spec_policy(elastic)
-    return {"layers": [block_router_init(gen, kind, cfg, spec, device=device)
-                       for kind in cfg.layer_kinds]}
+    rp = {"layers": [block_router_init(gen, kind, cfg, spec, device=device)
+                     for kind in cfg.layer_kinds]}
+    if spec.vlm_routed and (cfg.family in ("vlm", "encdec")
+                            or cfg.n_image_tokens):
+        D = cfg.d_model
+        if spec.vlm_router == "mlp":
+            h = spec.vlm_router_hidden or D
+            f32 = torch.float32
+            rp["vlm"] = {
+                "w1": dense_init(gen, D, h, f32, device=device),
+                "b1": torch.zeros((h,), dtype=f32, device=device),
+                "w2": dense_init(gen, h, 1, f32, device=device),
+                "b2": torch.zeros((), dtype=f32, device=device)}
+        else:
+            rp["vlm"] = R.token_router_init(gen, D, device=device)
+    if cfg.encoder is not None:
+        rp["encoder"] = router_init(gen, cfg.encoder, spec, device=device)
+    return rp
 
 
 def router_param_count(rp) -> int:
@@ -146,12 +181,50 @@ def _layer_policies(pol, n_layers: int) -> list:
     return [pol] * n_layers
 
 
+def _vlm_logits(rp, emb):
+    if "w1" in rp:                  # the MLP router (paper §5.3)
+        h = F.gelu(emb.float() @ rp["w1"] + rp["b1"], approximate="tanh")
+        return (h @ rp["w2"])[..., 0] + rp["b2"]
+    return emb.float() @ rp["w"] + rp["b"]
+
+
+def select_context_tokens(rp, emb, spec, pol, mode: str):
+    """Paper §5.3: top-k selection of the image (or encoder-output) tokens
+    before the decoder, weighted by the ``vlm`` router's sigmoid. The
+    context is not causal, so top-k applies at inference too. A static
+    capacity gathers the (B, k, D) subset, position-ascending (smaller
+    cross-attention); a tensor one keeps the full (B, T, D) shape and
+    returns the (B, T) validity mask with it, so the same code serves
+    every context budget. Full budget (or ``mode="base"``, or no router)
+    returns ``emb`` unweighted. Returns (context, valid or None)."""
+    if mode == "base" or rp is None or "vlm" not in rp \
+            or spec is None or not spec.vlm_routed:
+        return emb, None
+    B, T, _ = emb.shape
+    cap = pol.vlm_token_capacity if pol is not None else 1.0
+    cap = R.gate_capacity(cap, pol.student if pol is not None else None)
+    scores = torch.sigmoid(_vlm_logits(rp["vlm"], emb))
+    if R.is_static(cap):
+        if cap >= 1.0:
+            return emb, None
+        idx = R.topk_indices(scores, max(1, int(math.ceil(cap * T))))
+        w = R.gather_tokens(scores, idx)
+        return R.gather_tokens(emb, idx) * w[..., None].to(emb.dtype), None
+    keep = R.topk_mask_dyn(scores, R.capacity_k(cap, T))
+    full = R.bcast_to(R.is_full(cap), keep.dim())
+    keep = keep | full
+    w = torch.where(full, torch.ones_like(scores), keep * scores)
+    return emb * w[..., None].to(emb.dtype), keep
+
+
 def _run(params, rparams, x, *, cfg, spec, pol, mode, collect_cache=False,
-         max_cache_len=0, bucket=None, remat=False):
+         max_cache_len=0, bucket=None, remat=False, causal=True, enc_kv=None,
+         enc_valid=None):
     """The layer loop (the JAX pattern scan). ``remat``: each layer under
     ``torch.utils.checkpoint`` (its activations recomputed in the backward
     pass; the recomputed RoutingPlan is the same plan, the sort being
-    stable and the kernels deterministic)."""
+    stable and the kernels deterministic). ``causal=False``: an encoder;
+    ``enc_kv``/``enc_valid``: the context the ``xattn`` layers attend to."""
     has_rp = rparams is not None and mode != "base"
     aux = RouteAux.zero(x.device)
     caches = []
@@ -162,8 +235,9 @@ def _run(params, rparams, x, *, cfg, spec, pol, mode, collect_cache=False,
                 ent.kind, params["layers"][i],
                 rparams["layers"][i] if has_rp else None, x, cfg=cfg,
                 spec=spec, pol=pols[i], mode=mode, elastic_on=ent.elastic,
-                window=ent.window, causal=True, collect_cache=collect_cache,
-                max_cache_len=max_cache_len, bucket=bucket)
+                window=ent.window, causal=causal,
+                collect_cache=collect_cache, max_cache_len=max_cache_len,
+                bucket=bucket, enc_kv=enc_kv, enc_valid=enc_valid)
         if remat:
             out = torch.utils.checkpoint.checkpoint(layer, x,
                                                     use_reentrant=False)
@@ -176,17 +250,58 @@ def _run(params, rparams, x, *, cfg, spec, pol, mode, collect_cache=False,
     return x, aux, caches
 
 
+def _context(params, rparams, batch, cfg, spec, pol, mode, remat=False):
+    """The ``xattn`` layers' context -> (enc_kv, enc_valid, the encoder's
+    routing aux or None). A VLM's
+    ``image_embeds`` (B, T, d_frontend), cast to the model dtype and
+    projected by ``in_proj``; an encoder-decoder's ``frames`` through
+    ``in_proj`` and the encoder stack (non-causal, its routers under
+    ``rparams["encoder"]`` fed by the same policy, no ``bucket``: the
+    caller's bucket is solved for the decoder's length, so tensor
+    capacities take the dense path there). Both then go through
+    ``select_context_tokens``."""
+    if cfg.family == "vlm":
+        emb = batch["image_embeds"].to(dtype_of(cfg)) @ params["in_proj"]
+        emb, valid = select_context_tokens(rparams, emb, spec, pol, mode)
+        return emb, valid, None
+    if cfg.encoder is not None:
+        enc_p = params["encoder"]
+        enc_rp = rparams.get("encoder") if (rparams and mode != "base") \
+            else None
+        x = batch["frames"].to(dtype_of(cfg)) @ enc_p["in_proj"]
+        x, aux, _ = _run(enc_p, enc_rp, x, cfg=cfg.encoder, spec=spec,
+                         pol=pol, mode=mode, remat=remat, causal=False)
+        x = norm_apply(enc_p["final_norm"], x, cfg.encoder.norm)
+        x, valid = select_context_tokens(rparams, x, spec, pol, mode)
+        return x, valid, aux
+    return None, None, None
+
+
 def forward(params, rparams, batch, cfg, ecfg=None, mode: str = "base",
             return_hidden: bool = False, remat: bool = False, policy=None,
             bucket=None):
-    """Full-sequence forward. Returns (logits | hidden, aux).
+    """Full-sequence forward. Returns (logits | hidden | embeddings, aux).
     ``bucket``: the static ragged bucket hint for a tensor policy in train
     mode (``policy.ragged_bucket``; ``routing.IDENTITY_BUCKET`` for an
-    all-full policy); ``remat``: recompute each layer in the backward."""
+    all-full policy); ``remat``: recompute each layer in the backward.
+    An encoder (``family="encoder"``) takes ``batch["embeds"]`` and returns
+    its final-normed output embeddings; a VLM adds ``image_embeds``, an
+    encoder-decoder ``frames`` to ``tokens``."""
     spec, pol = as_spec_policy(ecfg, policy)
+    if cfg.family == "encoder":
+        x = batch["embeds"].to(dtype_of(cfg)) @ params["in_proj"]
+        x, aux, _ = _run(params, rparams, x, cfg=cfg, spec=spec, pol=pol,
+                         mode=mode, bucket=bucket, remat=remat,
+                         causal=False)
+        return norm_apply(params["final_norm"], x, cfg.norm), aux
+    enc_kv, enc_valid, aux0 = _context(params, rparams, batch, cfg, spec,
+                                       pol, mode, remat)
     x = _embed(params, batch["tokens"])
     x, aux, _ = _run(params, rparams, x, cfg=cfg, spec=spec, pol=pol,
-                     mode=mode, bucket=bucket, remat=remat)
+                     mode=mode, bucket=bucket, remat=remat, enc_kv=enc_kv,
+                     enc_valid=enc_valid)
+    if aux0 is not None:
+        aux = aux + aux0
     x = norm_apply(params["final_norm"], x, cfg.norm)
     if return_hidden:
         return x, aux
@@ -198,9 +313,12 @@ def forward(params, rparams, batch, cfg, ecfg=None, mode: str = "base",
 def cache_init(cfg, batch: int, max_seq: int, device=None,
                kv_dtype: str = "fp32") -> dict:
     """Every layer's ring cache; ``kv_dtype`` fp32 | bf16 | int8 (int8 adds
-    the ``kscale``/``vscale`` leaves)."""
+    the ``kscale``/``vscale`` leaves). An ``xattn`` layer adds its context
+    cache of ``n_image_tokens`` (VLM) or ``encoder_seq`` (encoder-decoder)
+    rows."""
     device = resolve_device(device)
-    return {"layers": [block_cache_init(k, cfg, batch, max_seq,
+    enc_len = cfg.n_image_tokens or cfg.encoder_seq
+    return {"layers": [block_cache_init(k, cfg, batch, max_seq, enc_len,
                                         window=cfg.layer_windows[i],
                                         device=device, kv_dtype=kv_dtype)
                        for i, k in enumerate(cfg.layer_kinds)]}
@@ -211,13 +329,18 @@ def prefill(params, rparams, batch, cfg, ecfg=None, mode: str = "infer",
     """Forward + cache collection. Returns (last-token logits (B,V), caches
     laid out as ring caches of length ``max_cache_len`` (default S)).
     ``bucket``: the static ragged bucket hint of a train-mode (top-k)
-    prefill under a tensor policy (``policy.ragged_bucket``)."""
+    prefill under a tensor policy (``policy.ragged_bucket``). A VLM's or
+    encoder-decoder's batch carries its context (``image_embeds`` /
+    ``frames``); each ``xattn`` layer's cache then holds the context's
+    K/V and selected rows."""
     spec, pol = as_spec_policy(ecfg, policy)
+    enc_kv, enc_valid, _ = _context(params, rparams, batch, cfg, spec, pol,
+                                    mode)
     x = _embed(params, batch["tokens"])
     x, _, caches = _run(params, rparams, x, cfg=cfg, spec=spec, pol=pol,
                         mode=mode, collect_cache=True,
                         max_cache_len=max_cache_len or x.shape[1],
-                        bucket=bucket)
+                        bucket=bucket, enc_kv=enc_kv, enc_valid=enc_valid)
     x = norm_apply(params["final_norm"], x[:, -1], cfg.norm)
     return _logits(params, cfg, x), {"layers": caches}
 

@@ -54,6 +54,15 @@ into a new tree (the caller's stays as it is), and builds its caches in
 ``kv_dtype``; int8 K/V are quantized once at each cache write and the
 kernels read the stored codes with their scales.
 
+The context families (a VLM, an encoder-decoder; ring layout only, as in
+the JAX engine) take each request's context as ``extra_inputs`` (one
+``image_embeds`` or ``frames`` row with a leading dim of 1): the admission
+prefill projects (and, encoder-decoder, encodes) it, selects its tokens
+with the request's policy row and writes each ``xattn`` layer's context
+K/V into the slot's row of the ring cache, in place, so a replayed decode
+graph reads the new request's context. A request's extras are dropped
+when it is admitted, finishes, is cancelled, expires or is shed.
+
 ``mode`` is ``"infer"`` (the threshold routing of §B.1 at admission and
 decode), ``"base"`` (the frozen teacher) or, on the ring layout,
 ``"train"``: each admission prefills with the top-k (train-mode) routing,
@@ -329,6 +338,7 @@ class ServingEngine:
         self._slot_applied_depth: list = [None] * B
         self.n_rejected = 0                       # shed under overload
         self.n_expired = 0                        # queue deadline passed
+        self._extras: dict = {}                   # handle.id -> extra inputs
         # the compiled entry points: (entry, form) -> None (eager) or
         # (captured graph, kernel launches per replay)
         self._forms: dict = {}
@@ -348,13 +358,19 @@ class ServingEngine:
         """The paged layout serves global self-attention layers (the port's
         only kind) with dense MLPs: windows would need page eviction, and
         expert dispatch sizes its capacity buffers by the prefill chunking
-        (chunked and one-shot prefills could drop different tokens)."""
+        (chunked and one-shot prefills could drop different tokens). The
+        context families (encoder, VLM, encoder-decoder) are refused, as
+        the JAX engine refuses them: a cross-attention context has no page
+        form."""
         if mode not in ("infer", "base"):
             raise ValueError(f"kv_layout='paged' serves infer/base modes, "
                              f"got mode={mode!r}")
         if any(w and w > 0 for w in self.cfg.layer_windows):
             raise ValueError("kv_layout='paged' does not support sliding-"
                              "window layers")
+        if self.cfg.encoder is not None or self.cfg.family in ("vlm",
+                                                               "encoder"):
+            raise ValueError("kv_layout='paged' serves decoder-only LMs")
         if self.cfg.moe is not None or (self.spec is not None
                                         and self.spec.mlp_n_experts):
             raise ValueError("kv_layout='paged' requires a dense MLP (no "
@@ -444,8 +460,12 @@ class ServingEngine:
 
     # ------------------------- request lifecycle -----------------------------
 
-    def submit(self, request: GenRequest) -> RequestHandle:
-        """Queue a request; returns its lifecycle handle."""
+    def submit(self, request: GenRequest,
+               extra_inputs: Optional[dict] = None) -> RequestHandle:
+        """Queue a request; returns its lifecycle handle. ``extra_inputs``:
+        per-request model inputs with a leading dim of 1 (a VLM's one
+        ``image_embeds`` row, an encoder-decoder's ``frames``), moved to
+        the engine's device here."""
         prompt = np.asarray(request.prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -470,9 +490,39 @@ class ServingEngine:
             dl_ms = self.controller.target_for(handle.tenant).deadline_ms
         if dl_ms is not None:
             handle.deadline = handle.t_submit + float(dl_ms) / 1e3
+        extras = self._context_inputs(extra_inputs)
+        if extras:
+            self._extras[handle.id] = extras
         cost = b if b is not None else (self.default_budget or 1.0)
         self.scheduler.enqueue(handle, cost=min(1.0, float(cost)))
         return handle
+
+    def _context_inputs(self, extra_inputs: Optional[dict]) -> dict:
+        """``extra_inputs`` checked against the model's family and moved to
+        the engine's device: a VLM takes exactly one ``image_embeds`` row
+        (1, n_image_tokens, d_frontend), an encoder-decoder one ``frames``
+        row (1, encoder_seq, the encoder's input width), any other model
+        none. Raises ValueError otherwise, before the request is queued."""
+        cfg, extra_inputs = self.cfg, extra_inputs or {}
+        if cfg.family == "vlm":
+            key = "image_embeds"
+            shape = (1, cfg.n_image_tokens, cfg.d_frontend or cfg.d_model)
+        elif cfg.encoder is not None:
+            key, e = "frames", cfg.encoder
+            shape = (1, cfg.encoder_seq, e.d_frontend or e.d_model)
+        elif extra_inputs:
+            raise ValueError(f"{cfg.name} takes no extra_inputs, got "
+                             f"{sorted(extra_inputs)}")
+        else:
+            return {}
+        if set(extra_inputs) != {key}:
+            raise ValueError(f"{cfg.name} needs extra_inputs with exactly "
+                             f"{key!r}, got {sorted(extra_inputs)}")
+        v = torch.as_tensor(extra_inputs[key], device=self.device)
+        if tuple(v.shape) != shape:
+            raise ValueError(f"{cfg.name}: {key} must have shape {shape}, "
+                             f"got {tuple(v.shape)}")
+        return {key: v}
 
     def cancel(self, handle: RequestHandle) -> bool:
         """Cancel a queued or running request; frees its slot immediately.
@@ -486,6 +536,7 @@ class ServingEngine:
             self._active[handle.slot] = False
         else:
             self.scheduler.drop_queued(handle)
+        self._extras.pop(handle.id, None)
         handle.finish("cancelled")
         return True
 
@@ -514,9 +565,11 @@ class ServingEngine:
                 and self.spec.routing_impl == "ragged"):
             bucket = ragged_bucket(pol_row, prompt.size, spec=self.spec)
         # eager (one form per prompt length would need its own graph); the
-        # cache row and the policy row are spliced in place
+        # cache row (the context caches too) and the policy row are spliced
+        # in place
+        batch = {"tokens": tokens, **self._extras.pop(handle.id, {})}
         logits, _, _ = prefill_into_slot(
-            self.params, self.rp, {"tokens": tokens}, self._caches, slot,
+            self.params, self.rp, batch, self._caches, slot,
             self.cfg, self.spec, mode=self.mode, max_cache_len=self.max_seq,
             policy=pol_row, live_policy=self._live_policy, bucket=bucket)
         tok0 = self._first_token(logits, slot, req, prompt.size)
@@ -726,6 +779,7 @@ class ServingEngine:
             self._finish(slot, handle, "eos")
 
     def _finish(self, slot: int, handle: RequestHandle, reason: str) -> None:
+        self._extras.pop(handle.id, None)
         handle.finish(reason)
         if self.kv_layout == "paged":
             self._free_slot_pages(slot)
@@ -736,6 +790,8 @@ class ServingEngine:
         """Drops queued requests whose deadline has passed, BEFORE they
         burn a prefill (reason ``deadline_exceeded``)."""
         expired = self.scheduler.expire_deadlines(self._clock())
+        for h in expired:
+            self._extras.pop(h.id, None)
         self.n_expired += len(expired)
         return len(expired)
 
@@ -792,6 +848,7 @@ class ServingEngine:
             priority=lambda h: c.target_for(h.tenant).shed_order)
         for h in victims:
             h.retry_after = c.retry_after(dec["ratio"])
+            self._extras.pop(h.id, None)
         self.n_rejected += len(victims)
         return len(victims)
 
@@ -1035,14 +1092,19 @@ class ServingEngine:
         return child
 
     def generate(self, requests: List[GenRequest],
+                 extra_inputs: Optional[dict] = None,
                  budget: Optional[float] = None) -> List[np.ndarray]:
         """Synchronous batch API: submit everything, step until done.
-        ``budget`` overrides every request's budget for this call."""
+        ``budget`` overrides every request's budget for this call;
+        ``extra_inputs`` leaves carry a leading dim indexed per request."""
         handles = []
-        for r in requests:
+        for i, r in enumerate(requests):
             if budget is not None:
                 r = dataclasses.replace(r, budget=budget)
-            handles.append(self.submit(r))
+            extra = None
+            if extra_inputs:
+                extra = {k: v[i:i + 1] for k, v in extra_inputs.items()}
+            handles.append(self.submit(r, extra_inputs=extra))
         while not all(h.done for h in handles):
             if self.step() == 0 and not all(h.done for h in handles):
                 raise RuntimeError("serving engine stalled")

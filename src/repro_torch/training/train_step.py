@@ -10,7 +10,12 @@ never require a gradient, so the optimizer state is tiny.
 
 The top-K KL is computed from the final hidden states chunk by chunk over
 the sequence (``chunked_topk_kl``), so the full (B, S, V) logits never
-exist; each chunk is recomputed in the backward pass. The multi-GPU branch
+exist; each chunk is recomputed in the backward pass. A VLM's or
+encoder-decoder's batch carries its context (``image_embeds`` /
+``frames``) beside ``tokens`` and takes the same path (its ``vlm`` and
+encoder routers train through it); an encoder (``family="encoder"``, a
+ViT over ``embeds``) distils its output embeddings by the cosine
+distance, the paper's objective for image encoders. The multi-GPU branch
 (vocab-sharded top-K candidates) and error-feedback gradient compression
 wait for the multi-GPU slice.
 """
@@ -22,7 +27,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.core.distill import distill_loss, topk_kl_from_gathered
+from repro_torch.core.distill import (cosine_distance, distill_loss,
+                                     topk_kl_from_gathered)
 from repro_torch.core.policy import as_spec_policy
 from repro_torch.models import forward
 from repro_torch.optim.optimizer import (AdamWState, adamw_init, adamw_update,
@@ -116,10 +122,8 @@ def make_loss_fn(cfg, ecfg, *, mesh=None, remat: bool = False,
     the caller has it; otherwise it is computed here."""
     if mesh is not None:
         raise NotImplementedError(f"training on a mesh {MULTI_GPU_TODO}")
-    if cfg.family == "encoder":
-        raise NotImplementedError(
-            "encoder distillation arrives with ROADMAP Queue A item 12")
-    use_hidden = chunked and cfg.vocab_size > 0
+    encoder = cfg.family == "encoder"
+    use_hidden = chunked and not encoder and cfg.vocab_size > 0
     spec, default_pol = as_spec_policy(ecfg)
 
     @torch.no_grad()
@@ -135,7 +139,9 @@ def make_loss_fn(cfg, ecfg, *, mesh=None, remat: bool = False,
         s_out, aux = forward(params, router_params, batch, cfg, spec,
                              mode="train", return_hidden=use_hidden,
                              remat=remat, policy=pol, bucket=bucket)
-        if use_hidden:
+        if encoder:
+            dist = cosine_distance(s_out, t_out)
+        elif use_hidden:
             direction = "rev" if "rev" in spec.distill_loss else "fwd"
             dist = chunked_topk_kl(
                 s_out, t_out, _head_matrix(params, cfg), k=spec.distill_topk,
@@ -153,8 +159,10 @@ def make_loss_fn(cfg, ecfg, *, mesh=None, remat: bool = False,
     return loss_fn
 
 
-def _sync(t: torch.Tensor) -> float:
-    """Host clock after the card has finished the work queued so far."""
+def _sync(batch: dict) -> float:
+    """Host clock after the card has finished the work queued so far (on
+    the device of the batch's tensors)."""
+    t = next(iter(batch.values()))
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     return time.perf_counter()
@@ -180,10 +188,10 @@ def make_train_step(cfg, ecfg, *, lr, weight_decay: float = 0.0,
 
     def value_and_grad(rp, params, batch, policy, bucket, timing):
         if timing is not None:
-            t0 = _sync(batch["tokens"])
+            t0 = _sync(batch)
         t_out = loss_fn.teacher(params, batch)
         if timing is not None:
-            timing["teacher_s"] += _sync(batch["tokens"]) - t0
+            timing["teacher_s"] += _sync(batch) - t0
         leaves = tree_map(lambda t: t.detach().requires_grad_(True), rp)
         loss, metrics = loss_fn(leaves, params, batch, policy, bucket,
                                 teacher_out=t_out)
@@ -211,7 +219,7 @@ def make_train_step(cfg, ecfg, *, lr, weight_decay: float = 0.0,
                    bucket=None, timing: Optional[dict] = None):
         if timing is not None:
             timing["teacher_s"] = 0.0
-            t0 = _sync(batch["tokens"])
+            t0 = _sync(batch)
         grads, metrics = grads_of(state.router_params, params, batch, policy,
                                   bucket, timing)
         new_rp, opt, om = adamw_update(
@@ -219,7 +227,7 @@ def make_train_step(cfg, ecfg, *, lr, weight_decay: float = 0.0,
             weight_decay=weight_decay, max_grad_norm=max_grad_norm)
         metrics.update(om)
         if timing is not None:
-            timing["student_s"] = (_sync(batch["tokens"]) - t0
+            timing["student_s"] = (_sync(batch) - t0
                                    - timing["teacher_s"])
         return TrainState(new_rp, opt, None), metrics
 

@@ -1394,3 +1394,112 @@ def test_serving_cli_on_the_card(cuda, capsys, layout):
     compiles = [ln for ln in out if ln.startswith("compiles:")]
     want = "{'prefill': 1," if layout == "paged" else "{'prefill': 0,"
     assert all(want in ln for ln in compiles), compiles
+
+
+# the context families' attention: non-causal, Sq != Sk, keys past a 64-key
+# tile edge (Sk = 1601, 1500), image-token holes
+CONTEXT_FLASH_CASES = [
+    # Llama-3.2-Vision cross-attention (H 32 / K 8, Dh 128) against the
+    # 1601 image tokens, ~40 % of them deselected: a decode-length query,
+    # 17 rows and a 512-token prompt
+    (1, 1, 1601, 32, 8, 128, False, 0, 0.6, None),
+    (2, 17, 1601, 32, 8, 128, False, 0, 0.6, None),
+    (1, 512, 1601, 32, 8, 128, False, 0, 0.6, None),
+    # the statically gathered 961 image tokens, every one valid
+    (1, 300, 961, 32, 8, 128, False, 0, 1.0, None),
+    # Whisper-medium's encoder self-attention (H 16, Dh 64) over 1500
+    # frames, all of them and with the encoder's token-router holes
+    (1, 1500, 1500, 16, 16, 64, False, 0, 1.0, None),
+    (1, 1500, 1500, 16, 16, 64, False, 0, 0.8, None),
+    # Whisper's decoder cross-attention over the 1500 frames
+    (2, 20, 1500, 16, 16, 64, False, 0, 0.6, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CONTEXT_FLASH_CASES)
+def test_flash_kernel_at_context_shapes(cuda, case, dtype):
+    """The non-causal key loop at the context families' shapes; a key row
+    past Sk comes in as TMA's zero fill and is masked; the same inputs
+    give the same bits."""
+    B, Sq, Sk, H, K, Dh, causal, window, p_valid, count = case
+    q, k, v, valid = attn_inputs(6, B, Sq, Sk, H, K, Dh, p_valid)
+    args = [as_t(a, device=cuda, dtype=dtype) for a in (q, k, v)]
+    kw = dict(kv_valid=as_t(valid, device=cuda), causal=causal)
+    got = ops.flash_attention(*args, **kw)
+    want = ops.flash_attention(*args, backend="ref", **kw)
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    assert torch.equal(got, ops.flash_attention(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ungated_gelu_mlp_at_whisper_width(cuda, dtype):
+    """Whisper-medium's MLP (1500 frames x 1024 x 4096, ungated tanh-GELU):
+    bf16 takes the tensor-core body, f32 the CUDA-core one; weights at a
+    1/sqrt(fan-in) scale."""
+    rng = np.random.default_rng(9)
+    t = lambda a: as_t(a.astype(np.float32), device=cuda, dtype=dtype)
+    x = t(rng.standard_normal((1500, 1024)))
+    wi = t(rng.standard_normal((1024, 4096)) * 1024 ** -0.5)
+    wo = t(rng.standard_normal((4096, 1024)) * 4096 ** -0.5)
+    assert mlp_body(x, wi) == ("wgmma" if dtype == torch.bfloat16
+                               else "cuda_core")
+    got = ops.fused_mlp(x, wi, wo, None, act="gelu")
+    want = ops.fused_mlp(x, wi, wo, None, act="gelu", backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    assert torch.equal(got, ops.fused_mlp(x, wi, wo, None, act="gelu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["toy-vlm", "whisper-medium"])
+def test_context_engine_on_the_card(cuda, arch):
+    """A VLM (toy-vlm) and an encoder-decoder (Whisper-smoke) served on the
+    card with one context row per request: the graphed engine equals its
+    eager twin in tokens and every cache leaf (the context caches too),
+    the context decides the tokens, a request alone equals its staggered
+    run, and budget 1.0 equals the teacher, bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticSpec
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = get_config(arch, "smoke")
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    if cfg.encoder is not None:     # Dh 32: the decode kernel takes no 16
+        cfg = dataclasses.replace(
+            cfg, n_heads=2, n_kv_heads=2, d_head=32,
+            encoder=dataclasses.replace(cfg.encoder, n_heads=2,
+                                        n_kv_heads=2, d_head=32,
+                                        dtype="bfloat16"))
+    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True,
+                       mha_head_routed=True, lora_rank=1, vlm_routed=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model_init(gen, cfg, spec, device=cuda)
+    rp = router_init(gen, cfg, spec, device=cuda)
+    rng = np.random.default_rng(0)
+    if cfg.family == "vlm":
+        key, shape = "image_embeds", (cfg.n_image_tokens, cfg.d_frontend)
+    else:
+        key, shape = "frames", (cfg.encoder_seq, cfg.encoder.d_model)
+    ctx = rng.standard_normal((4,) + shape).astype(np.float32)
+    ctx[3] = ctx[0]
+    prompt = rng.integers(0, cfg.vocab_size, 9).astype(np.int32)
+    reqs = [GenRequest(prompt, 6, budget=b) for b in (1.0, 0.5, 0.75, 0.5)]
+    mk = lambda mode="infer", g=None: ServingEngine(
+        params, rp, cfg, spec, mode=mode, batch_size=2, max_seq=64,
+        device=cuda, cuda_graphs=g)
+    graphed, eager = mk(), mk(g=False)
+    out = graphed.generate(reqs, extra_inputs={key: ctx})
+    assert [list(o) for o in out] == [
+        list(o) for o in eager.generate(reqs, extra_inputs={key: ctx})]
+    for a, b in zip(graphed._caches["layers"], eager._caches["layers"]):
+        for name in a:
+            for leaf in a[name]:
+                assert torch.equal(a[name][leaf], b[name][leaf]), (name, leaf)
+    assert graphed.compile_counts() == {"prefill": 0, "decode": 1}
+    assert list(out[1]) != list(out[3]) or list(out[0]) != list(out[2])
+    solo = mk().generate([reqs[3]], extra_inputs={key: ctx[3:]})
+    assert list(solo[0]) == list(out[3])
+    base = mk("base").generate(reqs[:1], extra_inputs={key: ctx[:1]})
+    assert list(base[0]) == list(out[0])
