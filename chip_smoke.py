@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (built for H100).
 
     python3 chip_smoke.py [--layers N] [--train-layers N] [--moe-layers N]
-                          [--vlm-layers N] [--pages N] [--seed S]
-                          [--gmm-tile-rows]
+                          [--vlm-layers N] [--gemma-layers N] [--pages N]
+                          [--seed S] [--gmm-tile-rows]
     python3 chip_smoke.py --ab PARENT_CHECKOUT [--layers N]
 
 ``--ab`` runs only the kernel checks of item 2 (all six kernels;
@@ -284,6 +284,45 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    encoder's heaviest flash call (non-causal, 1500 x 1500, Dh 64; row 1c)
    and the heaviest dense MLP call (ungated GELU, 1500 x 1024 x 4096; row
    2f, fused_mlp's ``context`` key) are timed.
+9g. (e) RecurrentGemma-2B at full width and depth (26 layers: 18 RG-LRU
+   and 8 local-attention layers, 10 q-heads on 1 kv-head at Dh 256,
+   window 2048), its registered spec (16 moefied experts), the six
+   requests on the ring (4 slots, max_seq 1024): staggered == solo,
+   budget 1.0 == a mode="base" engine with the spec's dense MLPs (the
+   moefied agreement reported), twins at one (rglru, rglru, attn)
+   period (every cache leaf, ``state``/``conv`` included),
+   ``compile_counts()`` flat; then 3 distillation steps (B=1, S=512, 1.0
+   -> 0.5): finite losses, a non-zero gradient on the RG-LRU layers'
+   token routers, the last step twice the same bits. The path's flash
+   and decode calls at Dh 256 (rows 1d, 5c) and its ``moe_gmm`` calls are
+   held to the plain versions and timed.
+9h. (f) Gemma-3-27B at full width, ``--gemma-layers`` deep (default 12,
+   two 5 local : 1 global periods, window 1024), the port's default spec:
+   four requests of 1500, 700, 1100 and 300 tokens and 64 new ones on
+   the ring (max_seq 2048: the local rings wrap in prefill and decode),
+   the gates of (e) (twins at one 6-layer period); in f32 at 6 layers the
+   1500-token prompt's base-mode decode logits against a full-sequence
+   forward (atol 2e-3, rtol 1e-3); 3 distillation steps (B=1, S=1536,
+   1.0 -> 0.6), whose local layers run the plain windowed gathered
+   attention: its calls of a step are replayed forward and backward
+   against the step's device time. Rows 1e (flash, window 1024 over
+   1500 keys) and 5d (decode over a wrapped window ring).
+9i. (g) Mamba2-780M at full width and depth (48 SSD layers), its
+   registered spec (the mixer's token router): the six requests with
+   the gates of (e), budget 1.0 == the teacher bit for bit; 3
+   distillation steps (B=2, S=512). Plain PyTorch end to end, as in the
+   JAX package: it fails if any kernel launches.
+9j. (h) Granite-34B (8 of 88 layers: 48:1 MQA, ungated GELU, layernorm,
+   qkv bias), Phi-3-medium-14B (8 of 40) and Grok-1-314B (2 of 64, ~23
+   GB: 8 experts of 32768, geglu, its registered expert routing) at full
+   width, four requests each: staggered == solo, budget 1.0 == the
+   teacher (Granite, Phi-3; Grok-1's agreement reported). Rows 1f and 5e
+   (flash and decode at 48:1), 2g (Granite's MLP, 300 x 6144 x 24576)
+   and 4g (``moe_gmm`` at Grok-1's 8 x 32768, geglu).
+   The new modes' calls are replayed in bf16 and f32 against the plain
+   versions (``check_path_calls``; a windowed call apart from the global
+   ones) and timed graphed and eager beside SDPA (enable_gqa) or a
+   cuBLAS composite and their bounds (the result line's ``modes`` keys).
 10. Prints one JSON line of per-kernel results (launches by path), the card
    line again, and as the last line {"ok": true, "device": {...}}.
 
@@ -380,6 +419,20 @@ PATH_KERNELS = {
     "vlm_training": ("flash_attention", "fused_mlp", "moe_gmm"),
     "vit_training": ("flash_attention", "fused_mlp", "fused_mlp_routed"),
     "encdec_serving": ("flash_attention", "fused_mlp", "decode_attention"),
+    # the recurrent, windowed and attention-only families (RecurrentGemma's
+    # registered spec moefies its MLPs; Gemma-3's student runs the routed
+    # MLP; Mamba2 runs no kernel: its SSD mixer is plain PyTorch in both
+    # packages, and it has no attention or MLP)
+    "hybrid_serving": ("flash_attention", "moe_gmm", "decode_attention"),
+    "hybrid_training": ("flash_attention", "fused_mlp", "moe_gmm"),
+    "windowed_serving": ("flash_attention", "fused_mlp", "decode_attention"),
+    "windowed_training": ("flash_attention", "fused_mlp",
+                          "fused_mlp_routed"),
+    "ssm_serving": (),
+    "ssm_training": (),
+    "granite_serving": ("flash_attention", "fused_mlp", "decode_attention"),
+    "phi3_serving": ("flash_attention", "fused_mlp", "decode_attention"),
+    "grok_serving": ("flash_attention", "moe_gmm", "decode_attention"),
 }
 
 
@@ -541,16 +594,18 @@ def sdpa_ms(name, qt, ks, vs, mask, iters):
 
 # ----------------------------- kernel checks ---------------------------------
 
-def _attention_mask(B, S, valid, causal, count, Sq=None):
+def _attention_mask(B, S, valid, causal, count, Sq=None, window=0):
     """(B, Sq, S) attendable (query, key) pairs of S keys and Sq (default
-    S) queries, by array index: the flash kernel's causal and count rules
-    (a count bounds the query rows and the keys alike)."""
+    S) queries, by array index: the flash kernel's causal, window and count
+    rules (a count bounds the query rows and the keys alike)."""
     import torch
     Sq = S if Sq is None else Sq
     i = torch.arange(S, device=valid.device)
     qi = torch.arange(Sq, device=valid.device)
     m = (i[None, :] <= qi[:, None]) if causal else torch.ones(
         Sq, S, dtype=torch.bool, device=valid.device)
+    if window and window > 0:
+        m = m & ((qi[:, None] - i[None, :]) < window)
     m = m[None] & valid[:, None, :]
     return m & (i[None, None, :] < count[:, None, None]) & (
         qi[None, :, None] < count[:, None, None])
@@ -1026,11 +1081,7 @@ class PathCalls:
         if name == "flash_attention":
             return int(PathCalls.flash_mask(c).sum())
         if name == "decode_attention":
-            pos, t = c["kv_pos"], c["t"].reshape(-1, 1)
-            att = (pos >= 0) & (pos <= t)
-            if c.get("kv_valid") is not None:
-                att &= c["kv_valid"]
-            return int(att.sum())
+            return int(PathCalls.decode_mask(c).sum())
         if name == "fused_mlp_routed":      # the selected rows
             B, Kb = c["idx"].shape
             cnt = c.get("valid_count")
@@ -1051,18 +1102,35 @@ class PathCalls:
         cnt = c.get("kv_count")
         cnt = torch.full((B,), max(Sq, Sk), device=dev) if cnt is None \
             else torch.as_tensor(cnt, device=dev).expand(B)
-        return _attention_mask(B, Sk, valid, c.get("causal", True), cnt, Sq)
+        return _attention_mask(B, Sk, valid, c.get("causal", True), cnt, Sq,
+                               c.get("window", 0))
+
+    @staticmethod
+    def decode_mask(c):
+        """A recorded ring decode call's (B, L) attendable keys: written,
+        at or before t, inside the window, valid."""
+        pos, t = c["kv_pos"], c["t"].reshape(-1, 1)
+        att = (pos >= 0) & (pos <= t)
+        if c.get("window"):
+            att &= (t - pos) < c["window"]
+        if c.get("kv_valid") is not None:
+            att &= c["kv_valid"]
+        return att
 
     def heaviest(self):
         """The call of each of ``REPLAYED`` with the most work on its data,
         flash's non-causal calls (encoder self-attention, cross-attention)
-        apart from its causal ones, under "flash_attention non-causal"."""
+        apart from its causal ones, under "flash_attention non-causal",
+        and the attention calls with a sliding window apart from the
+        global ones, under "... window"."""
         groups = {}
         for name, cs in self.calls.items():
             if name not in self.REPLAYED:
                 continue
             for c in cs:
                 key = name if c.get("causal", True) else f"{name} non-causal"
+                if c.get("window"):
+                    key += " window"
                 groups.setdefault(key, (name, []))[1].append(c)
         return {key: max(cs, key=lambda c: self._work(name, c))
                 for key, (name, cs) in groups.items()}
@@ -1184,7 +1252,7 @@ def gmm_tile_rows_ms(main):
 
 
 def check_moe_gmm(res, dev, label, cases, weights_of, timed,
-                  tile_rows=False):
+                  tile_rows=False, act="swiglu"):
     """Replays a path's own ``moe_gmm`` calls on the card: each recorded
     (shape, counts) with random x and routing weights and the layout's
     expert weights ``weights_of(dtype) -> (wi, wg, wo)`` (strided moefied
@@ -1214,7 +1282,7 @@ def check_moe_gmm(res, dev, label, cases, weights_of, timed,
             for weighted in (False, True):
                 rw = torch.rand(B, E, C, device=dev) if weighted else None
                 run = lambda backend=None: ops.moe_gmm(
-                    x, wi, wo, wg, rw, cnt, act="swiglu", backend=backend)
+                    x, wi, wo, wg, rw, cnt, act=act, backend=backend)
                 got = run()
                 case = (f"{kind} {label} {tuple(shape)} rows "
                         f"{int(counts.sum())} w={'y' if weighted else 'n'}")
@@ -1244,11 +1312,11 @@ def check_moe_gmm(res, dev, label, cases, weights_of, timed,
             nbytes = (3 * D * Fe * live_e + rows * D + x.numel()) \
                 * x.element_size() + B * E * 4
             main = lambda backend=None: ops.moe_gmm(     # no weights
-                x, wi, wo, wg, None, cnt, act="swiglu", backend=backend)
+                x, wi, wo, wg, None, cnt, act=act, backend=backend)
             args = (device_and_eager_ms(main, 5),
                     cuda_ms(lambda: main("ref"), 3), 6 * D * Fe * rows,
                     nbytes, kind, None)
-            comp = gmm_composite_ms(x, wi, wg, wo, counts, "swiglu")
+            comp = gmm_composite_ms(x, wi, wg, wo, counts, act)
             tiles = gmm_tile_rows_ms(main) if tile_rows and \
                 plan.body == "wgmma" else {}
             med = lambda ts: ts[len(ts) // 2]
@@ -3448,9 +3516,10 @@ CTX_NEW = 16            # new tokens per request
 
 
 def context_spec(name, experts=True):
-    """``name``'s registered elastic spec; ``experts=False`` drops its
-    moefied experts (then budget 1.0 is the dense teacher bit for bit:
-    with them a full expert budget sums E partial products)."""
+    """``name``'s elastic spec (``get_elastic``: the registered one, or
+    the port's default for an arch that registers none); ``experts=False``
+    drops its moefied experts (then budget 1.0 is the dense teacher bit
+    for bit: with them a full expert budget sums E partial products)."""
     import dataclasses
     from repro_torch.configs import get_config, get_elastic
     from repro_torch.core.policy import spec_from_config
@@ -3513,7 +3582,7 @@ def xattn_decode_share(label, engine, dev, device_line):
           f"{100 * med(xa) / med(step):.1f} % of the step [{device_line}]")
 
 
-def context_timing(res, dev, label, name, c, row):
+def context_timing(res, dev, label, name, c, row, group="context"):
     """Times a context path's recorded non-causal ``flash_attention`` or
     dense ``fused_mlp`` call (``check_path_calls`` holds it to the plain
     version) on random bf16 operands of its shapes with its masks: the
@@ -3533,15 +3602,17 @@ def context_timing(res, dev, label, name, c, row):
         B, Sq, H, Dh = q.shape
         Sk, K = k.shape[1:3]
         kw = dict(kv_valid=c.get("kv_valid"), kv_count=c.get("kv_count"),
-                  causal=False)
+                  causal=c.get("causal", True), window=c.get("window", 0))
         run = lambda backend=None: ops.flash_attention(q, k, v,
                                                        backend=backend, **kw)
         live_k = int(mask.any(1).sum())          # keys some query attends
         flops = 4 * Dh * pairs * H
         nbytes = (2 * B * Sq * H * Dh + 2 * live_k * K * Dh) * 2 + B * Sk
         lib = sdpa_ms(name, q.transpose(1, 2), [k], [v], mask[:, None], 20)
-        what = f"q {(B, Sq, H, Dh)} over {Sk} keys (K {K}, {pairs} pairs)"
+        what = (f"q {(B, Sq, H, Dh)} over {Sk} keys (K {K}, causal "
+                f"{kw['causal']}, window {kw['window']}, {pairs} pairs)")
         out = dict(shape=[B, Sq, Sk, H, K, Dh], pairs=pairs,
+                   causal=kw["causal"], window=kw["window"],
                    graphed_library_ms=med(lib[0]), library_ms=med(lib[1]))
         lib_s = f"SDPA {med(lib[0]):.4f} / {med(lib[1]):.4f}"
     else:
@@ -3576,7 +3647,7 @@ def context_timing(res, dev, label, name, c, row):
           f"graphed [{kern[0][0]:.4f}-{kern[0][-1]:.4f}], {med(kern[1]):.4f}"
           f" eager; plain {med(plain[0]):.4f} / {med(plain[1]):.4f}; {lib_s};"
           f" bound {b:.4f} ms ({by})")
-    res.rows[name].setdefault("context", {})[row] = out
+    res.rows[name].setdefault(group, {})[row] = out
 
 
 def check_vlm_serving(args, res, dev, device_line):
@@ -3947,6 +4018,485 @@ def check_encdec_serving(args, res, dev, device_line):
     return {"encdec_serving": launches}
 
 
+# ------------------ the recurrent, windowed and attention-only ----------------
+# families: (e) RecurrentGemma-2B, (f) Gemma-3-27B, (g) Mamba2-780M, (h)
+# Granite-34B, Phi-3-medium-14B and Grok-1-314B
+
+FAM_NEW = 16            # new tokens per request of (e), (g), (h)
+GEMMA_LENS = (1500, 700, 1100, 300)     # past the local window of 1024
+GEMMA_BUDGETS = (1.0, 0.75, 0.5, 1.0)
+GEMMA_NEW = 64
+HYBRID_TWIN_LAYERS = 3  # one (rglru, rglru, attn) period of RecurrentGemma
+GEMMA_TWIN_LAYERS = 6   # one 5 local : 1 global period of Gemma-3
+
+
+def family_requests(cfg, lens, budgets, new, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, cfg.vocab_size, n).astype(np.int32), new, b)
+            for n, b in zip(lens, budgets)]
+
+
+def family_serving(args, dev, device_line, label, path, cfg, spec, requests,
+                   max_seq, twin_layers, dense_spec=None):
+    """One family's ring serving at ``cfg`` (full width; random bf16
+    weights and routers from --seed): the staggered requests on a graphed
+    infer engine (the path; its launches counted and gated by
+    ``PATH_KERNELS[path]``), the graphed engine at ``twin_layers`` held
+    to its ``cuda_graphs=False`` twin (tokens and every cache leaf, the
+    recurrent ``state``/``conv`` ones too; the twin's kernel calls
+    recorded), request 2 alone == staggered, and budget 1.0
+    against a mode="base" engine: gated bit for bit with ``spec`` when it
+    moefies nothing, else with ``dense_spec`` (the same spec's dense
+    MLPs), the spec's own agreement reported. Prints peak memory, the
+    rates and one warm request's admission ms and decode ms/step.
+    Returns (launches, params, rp, recorded calls, tokens)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import ServingEngine
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model_init(gen, cfg, spec, device=dev)
+    rp = router_init(gen, cfg, spec, device=dev)
+    torch.cuda.synchronize()
+    print(f"init: {cfg.n_params() / 1e9:.3f} B params in "
+          f"{time.perf_counter() - t0:.1f} s, {peak_gib():.2f} GiB")
+    mk = lambda n=cfg.n_layers, g=True, mode="infer", sp=spec: \
+        ServingEngine(cut(params, n), rp, dataclasses.replace(
+            cfg, n_layers=n), sp, mode=mode, batch_size=4, max_seq=max_seq,
+            device=dev, cuda_graphs=g)
+    engine = mk()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tokens = serve(engine, requests, stagger=True)    # the main path
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check_launches(path, launches)
+    print(f"{label} serving peak memory {peak_gib():.2f} GiB [{device_line}]")
+    print_timing(f"{label} serving (first run)", engine.timing, device_line)
+    del engine
+    for (_, new, _), toks in zip(requests, tokens):
+        if len(toks) != new or not all(0 <= x < cfg.vocab_size
+                                       for x in toks):
+            fail(f"{label}: bad generated tokens {toks}")
+    nt = min(twin_layers, cfg.n_layers)
+    rec = PathCalls()
+    twins(f"{label} ring infer, {nt} layers", lambda g: mk(nt, g),
+          lambda e: serve(e, requests, stagger=True), rec=rec)
+    solo = serve(mk(), [requests[2]], stagger=False)[0]
+    if solo != tokens[2]:
+        fail(f"{label}: request 2 alone {solo} != staggered {tokens[2]}")
+    print(f"{label} staggered == solo (request 2, budget {requests[2][2]}), "
+          f"bit for bit: ok")
+    full_ids = [i for i, r in enumerate(requests) if r[2] == 1.0]
+    teacher = serve(mk(mode="base"), [requests[i] for i in full_ids],
+                    stagger=False)
+    if spec.mlp_n_experts or (cfg.moe is not None and spec.expert_routed):
+        same = sum(tokens[i] == t for i, t in zip(full_ids, teacher))
+        print(f"{label} budget 1.0 (expert routing) vs mode='base': {same} "
+              f"of {len(full_ids)} requests give the teacher's tokens "
+              f"(reported, not gated: a full expert budget sums E partial "
+              f"products in bf16)")
+    if cfg.moe is None:
+        sp = dense_spec if spec.mlp_n_experts else spec
+        got = [tokens[i] for i in full_ids] if sp is spec else serve(
+            mk(sp=sp), [requests[i] for i in full_ids], stagger=False)
+        if got != teacher:
+            fail(f"{label} budget 1.0 {got} != mode='base' {teacher}")
+        print(f"{label} budget 1.0 == mode='base' teacher, bit for bit"
+              f"{' (the spec with dense MLPs)' if sp is not spec else ''} "
+              f"({len(full_ids)} requests): ok")
+    torch.cuda.reset_peak_memory_stats()
+    warm = mk()
+    admission_and_decode(warm, requests[1], device_line)
+    print(f"{label} warm serving peak memory {peak_gib():.2f} GiB "
+          f"[{device_line}]")
+    del warm
+    return launches, params, rp, rec, tokens
+
+
+def family_training(args, dev, device_line, label, path, cfg, spec, params,
+                    rp, B, S, budgets, grad_kinds):
+    """Distillation steps of ``make_train_step`` at ``cfg``, B x S tokens
+    of ``LMDataPipeline`` (--seed), the budget annealed over ``budgets``
+    (tensor policies with their ragged buckets): every loss finite, the
+    last step twice the same bits (``check_context_training``), and a
+    non-zero gradient on the ``tok_mixer`` router of every layer whose
+    kind is in ``grad_kinds``. Returns (launches, recorded calls)."""
+    import torch
+    from repro_torch.core.policy import ElasticPolicy, ragged_bucket
+    from repro_torch.data import LMDataPipeline
+    pipe = LMDataPipeline(vocab=cfg.vocab_size, seq_len=S, global_batch=B,
+                          seed=args.seed)
+    batches = [{"tokens": torch.as_tensor(pipe.batch_at(i), device=dev)}
+               for i in range(len(budgets))]
+    kw = dict(n_heads=cfg.n_heads or None, n_experts=spec.mlp_n_experts)
+    pols = []
+    for b in budgets:
+        # the bucket solved without the spec: with it a spec that routes
+        # one token knob (Mamba2's) counts the other as full and gets the
+        # identity bucket at any budget, in both packages (ROADMAP Queue
+        # C); for uniform policies the spec-free bucket is the plan's
+        p = ElasticPolicy.uniform(b, **kw).to(dev)
+        pols.append((p, ragged_bucket(p, S)))
+    print(f"{label} distillation: {cfg.name} width, depth {cfg.n_layers}, "
+          f"B={B} S={S}, budget {budgets} [{device_line}]")
+    with PathCalls() as rec:
+        launches, leaves, grads = check_context_training(
+            label, path, cfg, spec, params, rp, batches, pols, dev,
+            device_line)
+    layers = [i for i, k in enumerate(cfg.layer_kinds) if k in grad_kinds]
+    g = nonzero_grad(label, leaves, grads,
+                     [leaves["layers"][i]["tok_mixer"] for i in layers])
+    print(f"  {label}: the tok_mixer routers of its {len(layers)} "
+          f"{'/'.join(grad_kinds)} layers, gradient max |g| {g:.4e} "
+          f"(non-zero): ok")
+    return launches, rec, (leaves, grads, batches[-1], pols[-1])
+
+
+def decode_timing(res, dev, label, c, row):
+    """Times a path's recorded ring ``decode_attention`` call (its
+    positions, t, validity and window) on random bf16 K/V of its shapes,
+    L2-cold (rotating over K/V sets twice the L2 cache, as each layer's
+    own ring is on the path), graphed and eager, beside the plain version,
+    SDPA (enable_gqa, the same attendable keys) and its bound (the
+    attended K/V rows). Kept under the kernel's ``modes`` key as
+    ``row``."""
+    import torch
+    from repro_torch.kernels import ops
+    med = lambda ts: ts[len(ts) // 2]
+    B, _, H, Dh = c["q"][1]
+    L, K = c["k"][1][1:3]
+    q = torch.randn(c["q"][1], device=dev).to(torch.bfloat16)
+    att = PathCalls.decode_mask(c)
+    pos, tv, valid = c["kv_pos"], c["t"], c.get("kv_valid")
+    window = c.get("window", 0)
+    esz = q.element_size()
+    n_sets = 1 + 2 * L2_BYTES // (B * L * K * Dh * esz * 2)
+    ks = [torch.randn(c["k"][1], device=dev).to(torch.bfloat16)
+          for _ in range(n_sets)]
+    vs = [torch.randn(c["v"][1], device=dev).to(torch.bfloat16)
+          for _ in range(n_sets)]
+    dec = lambda backend: cycling(lambda i: ops.decode_attention(
+        q, ks[i], vs[i], pos, tv, valid, window=window, backend=backend),
+        n_sets)
+    if not torch.equal(dec(None)(), dec(None)()) and n_sets == 1:
+        fail(f"decode_attention {label}: a repeat gives other bits")
+    n_att = int(att.sum())
+    nbytes = (2 * q.numel() + 2 * n_att * K * Dh) * esz + pos.numel() * 4 \
+        + (valid.numel() if valid is not None else 0) + B * 4
+    kern = device_and_eager_ms(dec(None), 50)
+    plain = device_and_eager_ms(dec("ref"), 10)
+    lib = sdpa_ms("decode_attention", q.transpose(1, 2), ks, vs,
+                  att[:, None, None, :], 50)
+    b, by = bound_ms(4 * Dh * H * n_att, nbytes, "bf16")
+    res.rows["decode_attention"].setdefault("modes", {})[row] = dict(
+        shape=[B, L, H, K, Dh], window=window, attended=n_att,
+        graphed_ms=med(kern[0]), ms=med(kern[1]),
+        graphed_plain_ms=med(plain[0]), plain_ms=med(plain[1]),
+        graphed_library_ms=med(lib[0]), library_ms=med(lib[1]),
+        bound_ms=b, bound_by=by)
+    print(f"  decode_attention  {label} bf16 {B} slots x L {L}, H {H} K {K} "
+          f"Dh {Dh} window {window} ({n_att} attended keys; L2-cold over "
+          f"{n_sets} K/V sets): kernel {med(kern[0]):.4f} ms graphed "
+          f"[{kern[0][0]:.4f}-{kern[0][-1]:.4f}], {med(kern[1]):.4f} eager; "
+          f"plain {med(plain[0]):.4f} / {med(plain[1]):.4f}; SDPA "
+          f"{med(lib[0]):.4f} / {med(lib[1]):.4f}; bound {b:.4f} ms ({by})")
+    del ks, vs
+
+
+def mode_calls(res, dev, device_line, label, rec, rows):
+    """A new family's recorded kernel calls held to the plain versions in
+    bf16 and f32 (``check_path_calls``: the heaviest flash, decode and
+    dense MLP call of each mode; a window's calls apart) and the new-mode
+    calls ``rows`` names timed: flash and the dense MLP by
+    ``context_timing``, decode by ``decode_timing``, under each kernel's
+    ``modes`` key."""
+    print(f"kernel calls of the {label} path (recorded from the eager twin "
+          f"or the steps) [{device_line}]:")
+    heaviest = check_path_calls(res, dev, label, rec)
+    for key, row in rows.items():
+        if key not in heaviest:
+            fail(f"{label}: no {key} call was recorded")
+        name = key.split()[0]
+        if name == "decode_attention":
+            decode_timing(res, dev, label, heaviest[key], row)
+        else:
+            context_timing(res, dev, label, name, heaviest[key], row,
+                           group="modes")
+
+
+def check_hybrid(args, res, dev, device_line):
+    """(e) RecurrentGemma-2B at full width and depth (26 layers: 18 RG-LRU
+    + 8 local-attention MQA layers, 10 q-heads on 1 kv-head at Dh 256,
+    window 2048, geglu 7680, V 256000 tied), its registered spec (16
+    moefied experts), the six requests on the ring (4 slots, max_seq
+    1024), then 3 distillation steps (B=1, S=512, 1.0 -> 0.5)."""
+    from repro_torch.configs import get_config
+    arch = "recurrentgemma-2b"
+    cfg = get_config(arch)
+    spec = context_spec(arch)
+    kinds = cfg.layer_kinds
+    print(f"hybrid serving: {cfg.name} d={cfg.d_model} {kinds.count('rglru')} "
+          f"rglru (lru {cfg.lru_width}) + {kinds.count('attn')} "
+          f"attn (H={cfg.n_heads} K={cfg.n_kv_heads} Dh={cfg.d_head}, window "
+          f"{max(cfg.window_pattern)}), F={cfg.d_ff} {cfg.act}, "
+          f"V={cfg.vocab_size}, {cfg.dtype}, MLPs moefied into "
+          f"{spec.mlp_n_experts} experts [{device_line}]")
+    requests = family_requests(cfg, VLM_LENS, VLM_BUDGETS, FAM_NEW,
+                               args.seed + 5)
+    launches, params, rp, rec, _ = family_serving(
+        args, dev, device_line, "hybrid", "hybrid_serving", cfg, spec,
+        requests, 1024, HYBRID_TWIN_LAYERS,
+        dense_spec=context_spec(arch, experts=False))
+    mode_calls(res, dev, device_line, "hybrid serving", rec,
+               {"flash_attention window": "1d_dh256",
+                "decode_attention window": "5c_dh256"})
+    check_moe_gmm(res, dev, "hybrid serving", rec.gmm_cases(),
+                  moefied_weights(dev, cfg.d_model, cfg.d_ff,
+                                  spec.mlp_n_experts), timed=False,
+                  act=cfg.act)
+    del rec
+    tl, trec, _ = family_training(args, dev, device_line, "hybrid",
+                                  "hybrid_training", cfg, spec, params, rp,
+                                  1, 512, (1.0, 0.75, 0.5), ("rglru",))
+    mode_calls(res, dev, device_line, "hybrid training", trec, {})
+    return {"hybrid_serving": launches, "hybrid_training": tl}
+
+
+def windowed_share(label, dev, device_line, calls, cfg, spec, params,
+                   leaves, batch, pol):
+    """The plain windowed gathered attention's share of a training step's
+    device time: the step (loss and router gradients, CUDA events around
+    it) beside the step's recorded ``windowed_gathered_attention`` calls
+    replayed forward and backward on random operands of their shapes
+    (each layer's forward runs twice under remat)."""
+    import torch
+    from repro_torch.models.attention import windowed_gathered_attention
+    from repro_torch.optim.optimizer import tree_leaves
+    from repro_torch.training import make_loss_fn
+    loss_fn = make_loss_fn(cfg, spec, remat=True)
+    p, bucket = pol
+
+    def step():
+        loss, _ = loss_fn(leaves, params, batch, p, bucket)
+        torch.autograd.grad(loss, tree_leaves(leaves), allow_unused=True)
+    step_ms = cuda_ms(step, 1, reps=3, warmup=1)
+    fwd, bwd = 0.0, 0.0
+    for q_s, k_s, pos, window, valid in calls:
+        q = torch.randn(q_s, device=dev, dtype=torch.bfloat16,
+                        requires_grad=True)
+        k = torch.randn(k_s, device=dev, dtype=torch.bfloat16,
+                        requires_grad=True)
+        v = torch.randn(k_s, device=dev, dtype=torch.bfloat16,
+                        requires_grad=True)
+        run = lambda: windowed_gathered_attention(q, k, v, pos, window, True,
+                                                  valid)
+        f_ms = cuda_ms(run, 1, reps=3, warmup=1)
+        out = run()
+        g = torch.randn_like(out)
+        fb_ms = cuda_ms(lambda: torch.autograd.grad(run(), (q, k, v), g), 1,
+                        reps=3, warmup=1)
+        fwd += f_ms[1]
+        bwd += fb_ms[1] - f_ms[1]
+    med = lambda ts: ts[len(ts) // 2]
+    share = (2 * fwd + bwd) / med(step_ms)
+    print(f"  {label}: a step {med(step_ms):.1f} ms on the device "
+          f"[{step_ms[0]:.1f}-{step_ms[-1]:.1f}]; its {len(calls)} windowed "
+          f"gathered attention calls (plain PyTorch) replayed: forward "
+          f"{fwd:.1f} ms, backward {bwd:.1f} ms; under remat 2 x forward + "
+          f"backward = {2 * fwd + bwd:.1f} ms, {100 * share:.1f} % of the "
+          f"step [{device_line}]")
+    return share
+
+
+def gemma_f32_decode(params, cfg, dev, prompt, new_tokens, n_layers=6):
+    """Gemma-3 in f32 at ``n_layers`` (a 5:1 period): the base-mode
+    prefill of ``prompt`` then decode steps over ``new_tokens`` against a
+    full-sequence forward(mode="base") at the same positions, within
+    tests/test_models_smoke.py:84's atol 2e-3, rtol 1e-3 (the local rings
+    of 1024 wrap: the prompt is longer)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.optim.optimizer import tree_map
+    c32 = dataclasses.replace(cfg, n_layers=n_layers, dtype="float32")
+    p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                   cut(params, n_layers))
+    toks = torch.as_tensor(np.concatenate([prompt, new_tokens]),
+                           device=dev)[None].long()
+    S, P = toks.shape[1], len(prompt)
+    with torch.no_grad():
+        full, _ = forward(p32, None, {"tokens": toks}, c32, None, mode="base")
+        lg, caches = prefill(p32, None, {"tokens": toks[:, :P]}, c32, None,
+                             mode="base", max_cache_len=2048)
+        errs = [float((lg - full[:, P - 1]).abs().max())]
+        ok = bool(torch.allclose(lg, full[:, P - 1], atol=2e-3, rtol=1e-3))
+        for t in range(P, S - 1):
+            lg, caches = decode_step(p32, None, toks[:, t:t + 1], caches,
+                                     torch.tensor([t], dtype=torch.int32,
+                                                  device=dev), c32, None,
+                                     mode="base")
+            errs.append(float((lg - full[:, t]).abs().max()))
+            ok &= bool(torch.allclose(lg, full[:, t], atol=2e-3, rtol=1e-3))
+    ring = caches["layers"][0]["attn"]["pos"]
+    print(f"  Gemma-3 f32, {n_layers} layers: base-mode prefill of {P} tokens "
+          f"and {S - 1 - P} decode steps (local rings of {ring.shape[1]}, "
+          f"positions {int(ring.min())}..{int(ring.max())}: wrapped) against "
+          f"forward(mode='base'): max |diff| {max(errs):.3e} "
+          f"(atol 2e-3 + rtol 1e-3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("Gemma-3 f32: decode logits differ from the full forward")
+    del p32, full, caches
+
+
+def check_gemma(args, res, dev, device_line):
+    """(f) Gemma-3-27B at full width, --gemma-layers deep (default 12: two
+    5 local : 1 global periods; window 1024), the port's default spec,
+    four requests of (1500, 700, 1100, 300) tokens and 64 new ones on the
+    ring (max_seq 2048: the local rings of 1024 wrap in prefill and
+    decode); f32 decode == forward at 6 layers; then 3 distillation steps
+    (B=1, S=1536, 1.0 -> 0.6) whose local layers run the plain windowed
+    gathered attention, its share of a step measured."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    arch = "gemma3-27b"
+    full = get_config(arch)
+    if args.gemma_layers % 6:
+        fail("--gemma-layers must be a multiple of 6 (whole 5:1 periods)")
+    cfg = dataclasses.replace(full, n_layers=args.gemma_layers)
+    spec = context_spec(arch)
+    print(f"windowed serving: {cfg.name} d={cfg.d_model} H={cfg.n_heads} "
+          f"K={cfg.n_kv_heads} Dh={cfg.d_head} F={cfg.d_ff} {cfg.act} "
+          f"V={cfg.vocab_size} {cfg.dtype}, depth {cfg.n_layers} of "
+          f"{full.n_layers}, windows {cfg.layer_windows[:6]} "
+          f"[{device_line}]")
+    requests = family_requests(cfg, GEMMA_LENS, GEMMA_BUDGETS, GEMMA_NEW,
+                               args.seed + 6)
+    launches, params, rp, rec, tokens = family_serving(
+        args, dev, device_line, "Gemma-3", "windowed_serving", cfg, spec,
+        requests, 2048, GEMMA_TWIN_LAYERS)
+    mode_calls(res, dev, device_line, "Gemma-3 serving", rec,
+               {"flash_attention window": "1e_window1024",
+                "decode_attention window": "5d_window_ring"})
+    del rec
+    gemma_f32_decode(params, cfg, dev, requests[0][0],
+                     np.asarray(tokens[0][:8], np.int32))
+    torch.cuda.empty_cache()
+    calls = []
+    real = A.windowed_gathered_attention
+
+    def rec_wga(q, k, v, positions, window, causal=True, kv_valid=None):
+        calls.append((tuple(q.shape), tuple(k.shape), positions.detach(),
+                      window, None if kv_valid is None
+                      else kv_valid.detach()))
+        return real(q, k, v, positions, window, causal, kv_valid)
+    A.windowed_gathered_attention = rec_wga
+    try:
+        tl, trec, last = family_training(
+            args, dev, device_line, "Gemma-3", "windowed_training", cfg,
+            spec, params, rp, 1, 1536, (1.0, 0.8, 0.6), ("attn",))
+    finally:
+        A.windowed_gathered_attention = real
+    n_local = sum(1 for w in cfg.layer_windows if w)
+    per_step = [c for c in calls][-2 * n_local:]   # the last step's forward
+    if not per_step:
+        fail("Gemma-3 training: the windowed gathered attention never ran")
+    leaves, _, batch, pol = last
+    share = windowed_share("Gemma-3 training", dev, device_line,
+                           per_step[:n_local], cfg, spec, params,
+                           leaves, batch, pol)
+    res.rows["flash_attention"].setdefault("modes", {})[
+        "windowed_gathered_share"] = share
+    mode_calls(res, dev, device_line, "Gemma-3 training", trec, {})
+    return {"windowed_serving": launches, "windowed_training": tl}
+
+
+def check_mamba(args, res, dev, device_line):
+    """(g) Mamba2-780M at full width and depth (48 SSD layers, d 1536, 48
+    heads of 64, state 128, chunk 256, V 50280 tied), its registered spec
+    (the mixer's token router), the six requests on the ring, then 3
+    distillation steps (B=2, S=512). Plain PyTorch end to end, as in the
+    JAX package: the path launches no kernel."""
+    from repro_torch.configs import get_config
+    arch = "mamba2-780m"
+    cfg = get_config(arch)
+    spec = context_spec(arch)
+    print(f"SSM serving: {cfg.name} d={cfg.d_model} {cfg.n_layers} SSD "
+          f"layers ({cfg.n_ssm_heads} heads x {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}), V={cfg.vocab_size} "
+          f"{cfg.dtype} [{device_line}]")
+    requests = family_requests(cfg, VLM_LENS, VLM_BUDGETS, FAM_NEW,
+                               args.seed + 7)
+    launches, params, rp, rec, _ = family_serving(
+        args, dev, device_line, "Mamba2", "ssm_serving", cfg, spec,
+        requests, 512, TWIN_LAYERS)
+    if any(rec.calls.values()) or any(launches.values()):
+        fail("Mamba2: a kernel launched on a path that has none")
+    print("Mamba2: no kernel launched (plain SSD mixer, plain decode "
+          "step): ok")
+    tl, _, _ = family_training(args, dev, device_line, "Mamba2",
+                               "ssm_training", cfg, spec, params, rp, 2, 512,
+                               (1.0, 0.75, 0.5), ("ssm",))
+    if any(tl.values()):
+        fail("Mamba2 training: a kernel launched on a path that has none")
+    return {"ssm_serving": launches, "ssm_training": tl}
+
+
+def check_attention_only(args, res, dev, device_line):
+    """(h) Granite-34B at 8 of 88 layers (48:1 MQA, ungated GELU,
+    layernorm, qkv bias), Phi-3-medium-14B at 8 of 40 and Grok-1-314B at 2
+    of 64 (8 experts of 32768, geglu, its registered expert routing), at
+    full width: four requests each on the ring, staggered == solo;
+    budget 1.0 == the teacher for Granite and Phi-3, reported for Grok.
+    Granite's 48:1 flash and decode calls and its dense MLP, and Grok's
+    expert calls, are replayed and timed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, depth, path in (("granite-34b", 8, "granite_serving"),
+                              ("phi3-medium-14b", 8, "phi3_serving"),
+                              ("grok-1-314b", 2, "grok_serving")):
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=depth)
+        spec = context_spec(arch)
+        moe = (f", {cfg.moe.n_experts} experts x {cfg.moe.d_expert} top-"
+               f"{cfg.moe.top_k}" if cfg.moe else "")
+        print(f"attention-only serving: {cfg.name} d={cfg.d_model} "
+              f"H={cfg.n_heads} K={cfg.n_kv_heads} Dh={cfg.d_head} "
+              f"F={cfg.d_ff} {cfg.act} {cfg.norm} qkv_bias={cfg.qkv_bias} "
+              f"V={cfg.vocab_size}{moe}, depth {depth} of {full.n_layers} "
+              f"[{device_line}]")
+        requests = family_requests(cfg, VLM_LENS[:4], VLM_BUDGETS[:4],
+                                   FAM_NEW, args.seed + 8)
+        out[path], params, rp, rec, _ = family_serving(
+            args, dev, device_line, cfg.name, path, cfg, spec, requests, 512,
+            TWIN_LAYERS)
+        del params, rp
+        gc.collect()
+        if arch == "granite-34b":
+            mode_calls(res, dev, device_line, "Granite serving", rec,
+                       {"flash_attention": "1f_mqa48",
+                        "decode_attention": "5e_mqa48",
+                        "fused_mlp": "2g_granite_gelu"})
+        elif arch == "grok-1-314b":
+            mode_calls(res, dev, device_line, "Grok-1 serving", rec, {})
+            print(f"moe_gmm at the Grok-1 serving path's calls "
+                  f"[{device_line}]:")
+            check_moe_gmm(res, dev, "grok-1 serving (4g)", rec.gmm_cases(),
+                          native_weights(dev, cfg), timed=False,
+                          act=cfg.act)
+        else:
+            mode_calls(res, dev, device_line, "Phi-3 serving", rec, {})
+        del rec
+        gc.collect()
+    return out
+
 # -------------------------- depth routing, sampling ---------------------------
 
 def depth_spec(spec):
@@ -3991,16 +4541,17 @@ def check_path_calls(res: Results, dev, label, rec: PathCalls):
             got = getattr(ops, name)(**args)
             want = getattr(ops, name)(**args, backend="ref")
             shape = tuple(c["q" if "q" in c else "x"][1])
-            res.compare(name, f"{kind} {label} path{what} {shape} ({work} "
-                        f"{'rows' if name == 'fused_mlp' else 'pairs'})",
-                        got, want, kind)
+            mode = "" if name == "fused_mlp" else (
+                f" K {c['k'][1][2]} window {c.get('window', 0)}")
+            unit = "rows" if name == "fused_mlp" else "pairs"
+            res.compare(name, f"{kind} {label} path{what} {shape}{mode} "
+                        f"({work} {unit})", got, want, kind)
             if name == "fused_mlp":
                 continue
             if name == "flash_attention":
                 dead = ~PathCalls.flash_mask(c).any(-1)
             else:
-                pos, t = c["kv_pos"], c["t"].reshape(-1, 1)
-                dead = ~((pos >= 0) & (pos <= t) & c["kv_valid"]).any(-1)
+                dead = ~PathCalls.decode_mask(c).any(-1)
             if got[dead].count_nonzero() != 0:
                 fail(f"{name}, the {label} path's heaviest call: a row with "
                      f"no attendable key is not zero")
@@ -5041,6 +5592,10 @@ def main() -> int:
                          "Llama-3.2-Vision-11B (width stays full; 40 is the "
                          "model's; a multiple of 5 keeps whole "
                          "4 attn + 1 xattn periods)")
+    ap.add_argument("--gemma-layers", type=int, default=12,
+                    help="depth of the served and trained Gemma-3-27B "
+                         "(width stays full; 62 is the model's; a multiple "
+                         "of 6 keeps whole 5 local : 1 global periods)")
     ap.add_argument("--pages", type=int, default=None,
                     help="pages in the paged serving pool (default the "
                          "ring-equivalent 4 * 64 + 1)")
@@ -5238,6 +5793,18 @@ def main() -> int:
     paths.update(check_encdec_serving(args, res, dev, device_line))
     free()
     done("(d) encoder-decoder serving")
+    paths.update(check_hybrid(args, res, dev, device_line))
+    free()
+    done("(e) RecurrentGemma")
+    paths.update(check_gemma(args, res, dev, device_line))
+    free()
+    done("(f) Gemma-3")
+    paths.update(check_mamba(args, res, dev, device_line))
+    free()
+    done("(g) Mamba2")
+    paths.update(check_attention_only(args, res, dev, device_line))
+    free()
+    done("(h) Granite, Phi-3, Grok-1")
     kernels = [dict(name=n, route="cuda", source=SOURCES[n][0],
                     replaces=SOURCES[n][1],
                     launches=sum(p[n] for p in paths.values()),

@@ -19,7 +19,7 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Native mixture-of-experts MLP config (qwen2-moe)."""
+    """Native mixture-of-experts MLP config (qwen2-moe, grok-1)."""
     n_experts: int
     top_k: int
     d_expert: int                  # ffn dim per expert
@@ -35,10 +35,11 @@ class ModelConfig:
 
     ``mixer_pattern`` is the repeating period of temporal-mixer kinds
     (``attn``: self-attention; ``xattn``: self-attention plus
-    cross-attention to the image or encoder context) and
+    cross-attention to the image or encoder context; ``ssm``: the Mamba2
+    SSD mixer, no MLP; ``rglru``: RecurrentGemma's RG-LRU mixer) and
     ``window_pattern`` the per-position attention window (0 = global).
-    ``family``: dense | moe | encoder (a bidirectional stack over frontend
-    embeddings, no vocabulary) | vlm (a decoder cross-attending to
+    ``family``: dense | moe | ssm | hybrid | encoder (a bidirectional
+    stack over frontend embeddings, no vocabulary) | vlm (a decoder cross-attending to
     projected image embeddings) | encdec (a decoder cross-attending to a
     nested ``encoder`` stack over ``encoder_seq`` frames).
     """
@@ -61,6 +62,14 @@ class ModelConfig:
     window_pattern: Tuple[int, ...] = (0,)
     mixer_pattern: Tuple[str, ...] = ("attn",)
     moe: Optional[MoEConfig] = None
+    # SSM (mamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    conv_kernel: int = 4
+    # RG-LRU (recurrentgemma)
+    lru_width: int = 0
     # encoder-decoder: the nested encoder stack and its frame count
     encoder: Optional["ModelConfig"] = None
     encoder_seq: int = 0
@@ -89,16 +98,35 @@ class ModelConfig:
         w = self.window_pattern
         return tuple(w[i % len(w)] for i in range(self.n_layers))
 
+    @property
+    def d_inner(self) -> int:
+        """The Mamba2 mixer's inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim if self.ssm_state else 0
+
     def n_params(self) -> int:
         """Approximate parameter count: embedding, blocks (an ``xattn``
-        block counts its cross-attention), head, the frontend projection
-        ``in_proj`` and a nested encoder's blocks."""
+        block counts its cross-attention, an ``ssm`` block has no MLP),
+        head, the frontend projection ``in_proj`` and a nested encoder's
+        blocks."""
         D, F, V = self.d_model, self.d_ff, self.padded_vocab
         n = V * D
         if not self.tie_embeddings:
             n += D * V
         qo = D * self.n_heads * self.d_head + self.n_heads * self.d_head * D
         kv = 2 * D * self.n_kv_heads * self.d_head
+        mixer = {"attn": qo + kv, "xattn": 2 * (qo + kv)}
+        if self.ssm_state:
+            di, N = self.d_inner, self.ssm_state
+            mixer["ssm"] = (D * (2 * di + 2 * N + self.n_ssm_heads) + di * D
+                            + self.conv_kernel * (di + 2 * N))
+        if self.lru_width:
+            w = self.lru_width
+            mixer["rglru"] = D * 2 * w + w * D + 2 * w * w \
+                + self.conv_kernel * w
         if self.moe is not None:
             m = self.moe
             n_mlp = m.n_experts * 3 * D * m.d_expert + D * m.n_experts
@@ -107,7 +135,8 @@ class ModelConfig:
         else:
             n_mlp = (3 if self.act in ("swiglu", "geglu") else 2) * D * F
         for kind in self.layer_kinds:
-            n += (2 if kind == "xattn" else 1) * (qo + kv) + n_mlp + 2 * D
+            n += mixer.get(kind, mixer["attn"]) \
+                + (n_mlp if kind != "ssm" else 0) + 2 * D
         if self.family in ("encoder", "vlm") or self.d_frontend:
             n += (self.d_frontend or D) * D
         if self.encoder is not None:     # its blocks and its in_proj

@@ -333,6 +333,18 @@ def stack_flops_per_token(cfg, spec: ElasticSpec, *, ctx: int = 1024):
                 attn_kv += kv
             else:
                 fixed += qo + kv + quad
+        else:               # a recurrent mixer, scaled by its token router
+            c_mix = 0
+            if kind == "ssm" and cfg.ssm_state:
+                di = cfg.d_inner
+                c_mix = 2 * D * (2 * di + 2 * cfg.ssm_state) + 2 * di * D
+            elif kind == "rglru" and cfg.lru_width:
+                w = cfg.lru_width
+                c_mix = 2 * D * 2 * w + 2 * w * D + 2 * 2 * w * w
+            if elastic_l:
+                mixer += c_mix
+            else:
+                fixed += c_mix
         if kind != "ssm":
             if cfg.moe is not None:
                 m = cfg.moe

@@ -21,6 +21,11 @@
 // reads. The TPU kernel ran a (B, H, P) grid with the table in scalar
 // prefetch and the softmax state carried across the page axis.
 //
+// Head dims 32, 64, 128 and 256 (RecurrentGemma: one kv-head for 10
+// q-heads, two groups of 8 and 2). At Dh 256 a bf16 split block stages
+// 2 x 128 rows of 528 bytes (~135 KB), and the f32 body stages K and V in
+// turn through one buffer (Smem::ONE_BUF).
+//
 // In both modes a slot with no attendable key gets exact zeros, and a
 // masked key's K/V row is never read (also the 0 * NaN guard of the Pallas
 // kernels).
@@ -144,14 +149,19 @@ struct PagedKeys {
 // Shared memory of a split block, K and V in their storage type T. K and V
 // rows are padded by 16 bytes, so one thread per row reading 16-byte chunks
 // hits distinct banks. The final reduction ([NT / (DH/2)][GMAX][DH] f32)
-// reuses k, v and pad.
+// reuses k, v and pad. ONE_BUF (f32 rows at Dh 256, where two 128-row
+// buffers would pass the 227 KB a block may have): V lands in k once the
+// scores have read K, and v is a stub.
 template <typename T, int DH>
 struct Smem {
   static constexpr int E = 16 / (int)sizeof(T);  // elements per 16 bytes
-  static constexpr int KV = 2 * NK * (DH + E) * (int)sizeof(T);
+  static constexpr bool ONE_BUF = 2 * NK * (DH + E) * (int)sizeof(T) >
+                                  160 * 1024;
+  static constexpr int KV =
+      (ONE_BUF ? NK + 1 : 2 * NK) * (DH + E) * (int)sizeof(T);
   static constexpr int RED = NT / (DH / 2) * GMAX * DH * 4;
   T k[NK][DH + E];
-  T v[NK][DH + E];
+  T v[ONE_BUF ? 1 : NK][DH + E];
   float pad[KV >= RED ? 4 : (RED - KV) / 4];
   alignas(16) float q[GMAX][DH];  // the group's query rows, times sm_scale
   alignas(16) float p[NK][GMAX];  // each key's probabilities, the group's rows
@@ -254,22 +264,23 @@ __global__ void __launch_bounds__(NT) decode_split(
     if (!__syncthreads_or(r >= 0)) continue;  // nothing to read here
     r = sm.row[key];
 
-    // stage the attended K rows, then the V rows
-    for (int i = tid; i < NK * CH; i += NT) {
-      const long rr = sm.row[i / CH];
-      if (rr >= 0)
-        cp_async16(&sm.k[i / CH][(i % CH) * E],
-                   k + (rr * K + kh) * DH + (i % CH) * E);
+    // stage the attended K rows, then the V rows (ONE_BUF: V later)
+    auto stage = [&](T (*dst)[DH + E], const T* src) {
+      for (int i = tid; i < NK * CH; i += NT) {
+        const long rr = sm.row[i / CH];
+        if (rr >= 0)
+          cp_async16(&dst[i / CH][(i % CH) * E],
+                     src + (rr * K + kh) * DH + (i % CH) * E);
+      }
+      cp_commit();
+    };
+    stage(sm.k, k);
+    if constexpr (S::ONE_BUF) {
+      cp_wait<0>();  // this thread's K copies
+    } else {
+      stage(sm.v, v);
+      cp_wait<1>();  // this thread's K copies
     }
-    cp_commit();
-    for (int i = tid; i < NK * CH; i += NT) {
-      const long rr = sm.row[i / CH];
-      if (rr >= 0)
-        cp_async16(&sm.v[i / CH][(i % CH) * E],
-                   v + (rr * K + kh) * DH + (i % CH) * E);
-    }
-    cp_commit();
-    cp_wait<1>();  // this thread's K copies
     __syncthreads();
 
     // this thread's key against its half of the group's rows
@@ -307,6 +318,7 @@ __global__ void __launch_bounds__(NT) decode_split(
 #pragma unroll
       for (int g = 0; g < GH; ++g) sm.red[w][g] = x[g];
     __syncthreads();
+    if constexpr (S::ONE_BUF) stage(sm.k, v);  // every K read is done
     // rows 0 .. GH-1 are reduced by warps 0-3, rows GH .. by warps 4-7
     float alpha[GMAX];
 #pragma unroll
@@ -353,9 +365,10 @@ __global__ void __launch_bounds__(NT) decode_split(
 
     // P V over the chunk: keys ks, ks + NKS, ...; masked keys were never
     // loaded and are skipped
+    const T(*vrows)[DH + E] = S::ONE_BUF ? sm.k : sm.v;
     for (int kk = ks; kk < NK; kk += NKS) {
       if (sm.row[kk] < 0) continue;
-      const float2 vv = pair_f(&sm.v[kk][2 * dp]);  // int8 / bf16 V: widened
+      const float2 vv = pair_f(&vrows[kk][2 * dp]);  // int8 / bf16 V: widened
       const float4 pa = *reinterpret_cast<const float4*>(&sm.p[kk][0]);
       const float4 pb = *reinterpret_cast<const float4*>(&sm.p[kk][4]);
       const float pk[GMAX] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
@@ -651,22 +664,29 @@ __global__ void __launch_bounds__(NT) decode_split_mma(
       pa0 = pack2(x[0][0], x[0][1]);
       pa2 = pack2(x[1][0], x[1][1]);
     }
-    float o[DH / 8][4];
+    // NB 8-column tiles at a time, stored when done: all of Dh up to 128;
+    // at Dh 256 two (Dh / 2 = 128 accumulators a thread would not fit
+    // beside the query fragments)
+    constexpr int NB = DH > 128 ? 2 : DH / 8;
 #pragma unroll
-    for (int dt = 0; dt < DH / 8; dt += 2) {
-      uint32_t bv[4];
-      ldsm_x4_trans(bv, &sm.v[16 * w + ((lane >> 3) & 1) * 8 + (lane & 7)]
-                             [8 * (dt + (lane >> 4))]);
-      o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-      o[dt + 1][0] = o[dt + 1][1] = o[dt + 1][2] = o[dt + 1][3] = 0.f;
-      mma16816(o[dt], pa0, pa2, bv[0], bv[1]);
-      mma16816(o[dt + 1], pa0, pa2, bv[2], bv[3]);
+    for (int d0 = 0; d0 < DH / 8; d0 += NB) {
+      float o[NB][4];
+#pragma unroll
+      for (int dt = 0; dt < NB; dt += 2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, &sm.v[16 * w + ((lane >> 3) & 1) * 8 + (lane & 7)]
+                               [8 * (d0 + dt + (lane >> 4))]);
+        o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+        o[dt + 1][0] = o[dt + 1][1] = o[dt + 1][2] = o[dt + 1][3] = 0.f;
+        mma16816(o[dt], pa0, pa2, bv[0], bv[1]);
+        mma16816(o[dt + 1], pa0, pa2, bv[2], bv[3]);
+      }
+#pragma unroll
+      for (int dt = 0; dt < NB; ++dt)
+        *reinterpret_cast<float2*>(
+            &part[(w * GMAX + gq) * DH + 8 * (d0 + dt) + 2 * tq]) =
+            make_float2(o[dt][0], o[dt][1]);
     }
-#pragma unroll
-    for (int dt = 0; dt < DH / 8; ++dt)
-      *reinterpret_cast<float2*>(
-          &part[(w * GMAX + gq) * DH + 8 * dt + 2 * tq]) =
-          make_float2(o[dt][0], o[dt][1]);
     __syncthreads();
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
@@ -783,6 +803,9 @@ int dispatch(int dtype, int kv_dtype, int dh, const void* q, const void* k,
                                        keys, B, H, K, split_keys, n_split,    \
                                        sm_scale, s);                          \
     case 128: return launch<T, TKV, 128>(q, k, v, ks, vs, out, pa, pm, tt,    \
+                                         keys, B, H, K, split_keys, n_split,  \
+                                         sm_scale, s);                        \
+    case 256: return launch<T, TKV, 256>(q, k, v, ks, vs, out, pa, pm, tt,    \
                                          keys, B, H, K, split_keys, n_split,  \
                                          sm_scale, s);                        \
     default: return (int)cudaErrorInvalidValue;                               \

@@ -20,8 +20,8 @@
 // against 1601 keys reads ~4*Sk*K*Dh bytes for ~4*Dh*Sk*H FLOPs and is
 // bound by the bytes. Two bodies, chosen by type and head width:
 //
-// * bf16, Dh 64 / 128 (every path of the port): tensor cores. One block per
-//   (64-row q-tile, q-head, batch row): one consumer warpgroup (128 threads)
+// * bf16, Dh 64 / 128 / 256 (every path of the port): tensor cores. One
+//   block per (64-row q-tile, q-head, batch row): one consumer warpgroup (128 threads)
 //   plus one producer warp (two warpgroups on a 128-row tile measured
 //   slower at the paths' shapes; see PERF.md). The producer's single
 //   thread issues TMA loads (128-byte swizzle, 4-D tensor
@@ -33,7 +33,10 @@
 //   the f32 accumulator fragments in registers, round P to bf16 in
 //   registers as the A operand of O += P V (V's tile is [keys x Dh], Dh
 //   contiguous: the transposed, MN-major B operand), and write O / l
-//   straight from the fragments. Keys past Sk come in as TMA's zero fill
+//   straight from the fragments. At Dh 256 (RecurrentGemma) the O
+//   accumulator is 128 f32 registers a thread, filled by two m64n128 wgmmas
+//   over V's column halves, and the 2-stage ring takes ~160 KB of shared
+//   memory. Keys past Sk come in as TMA's zero fill
 //   and are masked to -inf with every other dead key (the producer warp
 //   votes each tile's count-and-valid key mask into one word beside it;
 //   rows intersect it with their causal/window span as bit sets); tiles
@@ -44,8 +47,9 @@
 //   of the key loop, and the arithmetic is the same whether kv_valid is
 //   null or all true, so outputs are reproducible bit for bit. An int8 K/V
 //   operand would be dequantized between the TMA load and the wgmma.
-// * f32 at any Dh, bf16 at Dh 16 / 32: the first, CUDA-core body (Q, K^T,
-//   V tiles converted to f32 in shared memory, f32 FMAs). f32 stays off the
+// * f32 at any Dh (Dh 256: ~215 KB of shared memory), bf16 at Dh 16 / 32:
+//   the first, CUDA-core body (Q, K^T, V tiles converted to f32 in shared
+//   memory, f32 FMAs). f32 stays off the
 //   tensor cores on purpose: TF32 would break the 1e-4 tolerance that the
 //   f32 gradient check and the f32 card cases hold; 16 and 32 are the toy
 //   widths, below one 64-column swizzle atom.
@@ -325,7 +329,10 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+// d[OFF .. OFF + 63]: one 128-column half of a Dh 256 accumulator, or all
+// of a Dh 128 one.
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
   asm volatile(
@@ -337,19 +344,22 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+        "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
+        "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
+        "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]),
+        "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
+        "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]),
+        "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]),
+        "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
+        "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]),
+        "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -541,8 +551,15 @@ __global__ void __launch_bounds__(NT) flash_fwd_wgmma(
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t dv = desc(sm.v[s][0] + kk * 16 * 64, BK * 128, 1024);
-      if constexpr (DH == 128) wgmma_rs_n128(o, pa[kk], dv);
-      else wgmma_rs_n64(o, pa[kk], dv);
+      if constexpr (DH == 256) {  // two 128-column halves, boxes 0-1 and 2-3
+        wgmma_rs_n128<0>(o, pa[kk], dv);
+        wgmma_rs_n128<64>(
+            o, pa[kk], desc(sm.v[s][2] + kk * 16 * 64, BK * 128, 1024));
+      } else if constexpr (DH == 128) {
+        wgmma_rs_n128<0>(o, pa[kk], dv);
+      } else {
+        wgmma_rs_n64(o, pa[kk], dv);
+      }
     }
     wg_commit();
     wg_wait<0>();
@@ -628,6 +645,7 @@ extern "C" int flash_attention_launch(int dtype, int dh, const void* q,
       case 32: return launch_simt<float, 32>(FLASH_ARGS);
       case 64: return launch_simt<float, 64>(FLASH_ARGS);
       case 128: return launch_simt<float, 128>(FLASH_ARGS);
+      case 256: return launch_simt<float, 256>(FLASH_ARGS);
     }
   } else if (dtype == rt::DT_BF16) {
     switch (dh) {
@@ -635,6 +653,7 @@ extern "C" int flash_attention_launch(int dtype, int dh, const void* q,
       case 32: return launch_simt<__nv_bfloat16, 32>(FLASH_ARGS);
       case 64: return tc::launch<64>(FLASH_ARGS);
       case 128: return tc::launch<128>(FLASH_ARGS);
+      case 256: return tc::launch<256>(FLASH_ARGS);
     }
   }
 #undef FLASH_ARGS

@@ -238,8 +238,8 @@ def check_attention_shapes(name, q, k, v, head_dims) -> None:
 #
 # Replaces kernels/flash_attention.py::flash_attention (TPU). Bound on the
 # H100 at the serving shapes: FLOPs (tensor-core rate). bf16 at Dh 64 / 128
-# runs on the tensor cores (wgmma, K/V tiles through a TMA ring); f32, and
-# the toy widths 16 / 32, on the CUDA cores (csrc/flash_attention.cu).
+# / 256 runs on the tensor cores (wgmma, K/V tiles through a TMA ring); f32,
+# and the toy widths 16 / 32, on the CUDA cores (csrc/flash_attention.cu).
 
 def flash_attention(q, k, v, kv_valid=None, kv_count=None, *, causal=True,
                     window=0, backend=None):
@@ -254,7 +254,8 @@ def flash_attention(q, k, v, kv_valid=None, kv_count=None, *, causal=True,
         return plain(q, k, v, kv_valid, kv_count)
     B, Sq, H, Dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    check_attention_shapes("flash_attention", q, k, v, (16, 32, 64, 128))
+    check_attention_shapes("flash_attention", q, k, v,
+                           (16, 32, 64, 128, 256))
     dt = _dtype_code(q, k, v)
 
     def kernel(q, k, v, kv_valid, kv_count):
@@ -687,7 +688,8 @@ def decode_attention(q, k, v, kv_pos, t, kv_valid=None, kscale=None,
                                     vscale=vscale)
     B, Sq, H, Dh = q.shape
     L, K = k.shape[1], k.shape[2]
-    check_attention_shapes("decode_attention", q, k, v, (32, 64, 128))
+    check_attention_shapes("decode_attention", q, k, v,
+                           (32, 64, 128, 256))
     if Sq != 1 or k.shape[0] != B:
         raise ValueError(f"decode_attention kernel: q {tuple(q.shape)} is "
                          f"not one query row per slot of k {tuple(k.shape)}")

@@ -1,5 +1,5 @@
-"""Grouped-query self-attention with RoPE, ring and paged KV caches, and
-the ElastiFormer hooks (head-routing weights, LoRA on q/v).
+"""Grouped-query self-attention with RoPE, sliding windows, ring and paged
+KV caches, and the ElastiFormer hooks (head-routing weights, LoRA on q/v).
 
 Prefill runs the flash-attention kernel, ring decode the ring-cache decode
 kernel, and paged decode and paged prefill chunks the paged decode kernel
@@ -7,6 +7,13 @@ kernel, and paged decode and paged prefill chunks the paged decode kernel
 the CPU). Both keep f32 probabilities where the JAX package's
 ``sdpa`` twin casts them to v's dtype; the port follows the kernels. Head
 padding (``cfg.n_heads_p != cfg.n_heads``) waits for the multi-GPU slice.
+
+One call the kernels do not take, in either package: a sliding window over
+a gathered RoutingPlan buffer. The kernels mask the window by array index,
+which equals the position distance only on position-contiguous rows, so
+the JAX package computes that case outside its kernels (``_mask`` +
+``sdpa``, by position); the port does the same in
+``windowed_gathered_attention``.
 
 Quantized serving (``kv_dtype``, ``weight_dtype``; ``models/quant.py``):
 the projections read engine-quantized weights through ``quant.widened`` /
@@ -26,6 +33,8 @@ from repro_torch.core.lora import lora_apply
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import quant as Q
 from repro_torch.models.layers import dense_init, dtype_of, rope_apply, rope_tables
+
+NEG_INF = -1e30     # the masked score of windowed_gathered_attention
 
 
 def check_kernel_ok(cfg) -> None:
@@ -122,19 +131,15 @@ def attn_apply(p, x, *, cfg, positions, causal: bool = True, window: int = 0,
     declares a RoutingPlan buffer (a position-ascending subset, ragged
     ``kv_count``): index-causal is position-causal there, but a sliding
     window measures position distance, so windowed gathered attention
-    raises. head_weights: (B,Sq,H) f32 head-routing weights applied to each
-    head's context before the output projection.
+    takes ``windowed_gathered_attention`` (masked by position), as the JAX
+    package takes its jnp path. head_weights: (B,Sq,H) f32 head-routing
+    weights applied to each head's context before the output projection.
 
     ``kv_x`` (B, Sk, D): cross-attention, keys and values projected from
     the context (image or encoder output), queries and keys without RoPE,
     never causal (the JAX package's ``kv_x`` with ``use_rope=False``);
     ``kv_valid`` (B, Sk) marks its selected rows. Returns (out (B,Sq,D),
     k, v) — k/v for the cache."""
-    if gathered and window and window > 0:
-        raise NotImplementedError(
-            "windowed attention over a gathered RoutingPlan buffer: the "
-            "kernel masks the window by index; it arrives with ROADMAP "
-            "Queue A item 12 (windowed configs)")
     cross = kv_x is not None
     q = _project_q(p, x, positions, cfg, lora, use_rope=not cross)
     if cross:
@@ -143,10 +148,45 @@ def attn_apply(p, x, *, cfg, positions, causal: bool = True, window: int = 0,
         k, v = _project_kv(p, x, positions, cfg, lora)
     if kv_valid is not None and kv_valid.dim() == 1:
         kv_valid = kv_valid.expand(k.shape[:2])
-    ctx = OPS.flash_attention(q, k, v, kv_valid=kv_valid, kv_count=kv_count,
-                              causal=causal and not cross,
-                              window=window or 0, backend=backend)
+    if gathered and window and window > 0 and not cross:
+        pos = positions if positions.dim() == 2 else \
+            positions.expand(x.shape[:2])
+        ctx = windowed_gathered_attention(q, k, v, pos, window, causal,
+                                          kv_valid)
+    else:
+        ctx = OPS.flash_attention(q, k, v, kv_valid=kv_valid,
+                                  kv_count=kv_count,
+                                  causal=causal and not cross,
+                                  window=window or 0, backend=backend)
     return _out_proj(p, ctx, head_weights), k, v
+
+
+def windowed_gathered_attention(q, k, v, positions, window: int,
+                                causal: bool = True, kv_valid=None):
+    """Sliding-window self-attention over a gathered RoutingPlan buffer,
+    masked by POSITION: q (B,S,H,Dh), k, v (B,S,K,Dh), ``positions`` (B,S)
+    the rows' absolute positions. Key j is attendable from query i iff
+    (causal) pos_j <= pos_i, pos_i - pos_j < window and kv_valid[j]. The
+    JAX package's ``_mask`` + ``sdpa`` (its non-kernel path for this case):
+    scores in the operands' dtype, scaled and masked (-1e30) in f32, f32
+    softmax cast to v's dtype for P V. One masked SDPA stands in for the
+    JAX package's ``blocked_sdpa`` beyond 2048 keys (the same math in one
+    block); a row with no attendable key (a masked plan row, weighted 0
+    by its caller) averages every value, as there. Plain PyTorch: no
+    kernel serves this mask. Returns (B,S,H,Dh)."""
+    B, S, H, Dh = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, S, K, H // K, Dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * Dh ** -0.5
+    qp, kp = positions[:, :, None], positions[:, None, :]
+    allow = (qp - kp) < window
+    if causal:
+        allow = allow & (kp <= qp)
+    if kv_valid is not None:
+        allow = allow & kv_valid[:, None, :]
+    s = s.masked_fill(~allow[:, None, None], NEG_INF)
+    a = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", a, v).reshape(B, S, H, Dh)
 
 
 def cross_attn_decode(p, x, cache, *, cfg):

@@ -8,7 +8,16 @@ Block kinds:
           selected rows ``enc_valid``): the VLM's image layers and every
           decoder layer of an encoder-decoder. The context K/V are
           projected once per request and kept in the cache's ``xattn``
-          leaf for decode.
+          leaf for decode;
+  ssm   : [token-route] the Mamba2 SSD mixer (``models/ssm.py``), no MLP;
+  rglru : [token-route] the RG-LRU recurrent mixer (``models/rglru.py``)
+          + MLP.
+
+Token routing of a recurrent mixer is a dense mask (a skipped token leaves
+the state untouched: dt = 0 / a = 1, an exact pass-through), taken from the
+block plan's MEMBERSHIP in training (a recurrence cannot run on a gathered
+subset) and from the threshold gate at inference, so the two modes mean the
+same thing. Its cache is {'state', 'conv'}, written in place at decode.
 
 Modes:
   base  : the frozen pretrained model (the distillation teacher): routers off.
@@ -48,54 +57,72 @@ from repro_torch.core.moefy import moefy_mlp
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import attention as A
 from repro_torch.models import quant as Q
+from repro_torch.models import rglru as G
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (dtype_of, mlp_apply, mlp_init,
                                       norm_apply, norm_init)
 from repro_torch.models.moe import moe_apply, moe_decode, moe_init
 
+KINDS = ("attn", "xattn", "ssm", "rglru")
+
+
+def has_mlp(kind: str) -> bool:
+    return kind != "ssm"
+
+
+def is_attn(kind: str) -> bool:
+    return kind in ("attn", "xattn")
+
 
 def _check_kind(kind: str) -> None:
-    if kind not in ("attn", "xattn"):
-        raise NotImplementedError(
-            f"layer kind {kind!r}: the recurrent mixers (ssm, rglru) arrive "
-            f"with ROADMAP Queue A item 12")
+    if kind not in KINDS:
+        raise ValueError(f"layer kind {kind!r} is not one of {KINDS}")
 
 
 # ------------------------------ init ---------------------------------------
 
 def block_init(gen, kind: str, cfg, device=None) -> dict:
     _check_kind(kind)
-    p = {"norm1": norm_init(cfg.d_model, cfg.norm, device=device),
-         "attn": A.attn_init(gen, cfg, device=device)}
+    p = {"norm1": norm_init(cfg.d_model, cfg.norm, device=device)}
+    if is_attn(kind):
+        p["attn"] = A.attn_init(gen, cfg, device=device)
+    elif kind == "ssm":
+        p["mixer"] = SSM.ssm_init(gen, cfg, device=device)
+    else:
+        p["mixer"] = G.rglru_init(gen, cfg, device=device)
     if kind == "xattn":
         p["xnorm"] = norm_init(cfg.d_model, cfg.norm, device=device)
         p["xattn"] = A.attn_init(gen, cfg, device=device)
-    p["norm2"] = norm_init(cfg.d_model, cfg.norm, device=device)
-    p["mlp"] = (moe_init(gen, cfg, device=device) if cfg.moe is not None
-                else mlp_init(gen, cfg, device=device))
+    if has_mlp(kind):
+        p["norm2"] = norm_init(cfg.d_model, cfg.norm, device=device)
+        p["mlp"] = (moe_init(gen, cfg, device=device) if cfg.moe is not None
+                    else mlp_init(gen, cfg, device=device))
     return p
 
 
 def block_router_init(gen, kind: str, cfg, spec, device=None) -> dict:
     """Trainable ElastiFormer params for one layer; ``spec`` alone decides
-    which routers exist (an ``xattn`` block has the ``attn`` block's)."""
+    which routers exist (an ``xattn`` block has the ``attn`` block's). A
+    recurrent block has the token routers only: ``tok_mixer`` around its
+    mixer, and ``tok_mlp``/``expert`` where it has an MLP."""
     _check_kind(kind)
     D = cfg.d_model
     rp = {}
     if spec.mha_token_routed:
         rp["tok_mixer"] = R.token_router_init(gen, D, device=device)
-    if spec.mha_head_routed:
+    if is_attn(kind) and spec.mha_head_routed:
         rp["head"] = R.param_router_init(gen, D, cfg.n_heads, device=device)
-    if spec.lora_rank:
+    if is_attn(kind) and spec.lora_rank:
         rp["lora"] = {
             "q": lora_init(gen, D, cfg.n_heads * cfg.d_head, spec.lora_rank,
                            device=device),
             "v": lora_init(gen, D, cfg.n_kv_heads * cfg.d_head,
                            spec.lora_rank, device=device),
         }
-    if spec.mlp_token_routed:
+    if has_mlp(kind) and spec.mlp_token_routed:
         rp["tok_mlp"] = R.token_router_init(gen, D, device=device)
     n_exp = cfg.moe.n_experts if cfg.moe is not None else spec.mlp_n_experts
-    if n_exp and spec.expert_routed:
+    if has_mlp(kind) and n_exp and spec.expert_routed:
         rp["expert"] = R.param_router_init(gen, D, n_exp, device=device)
     if spec.depth_routed:
         # drawn last, so a spec without depth draws what it drew before
@@ -261,7 +288,10 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
     (and depth-weighted). ``causal=False``: the bidirectional stack of an
     encoder. An ``xattn`` block cross-attends to ``enc_kv`` (B, T, D) with
     ``enc_valid`` (B, T) bool or None (every row) after its attention
-    residual; the cache keeps the context's K/V and ``valid``."""
+    residual; the cache keeps the context's K/V and ``valid``. An ``ssm`` /
+    ``rglru`` block runs its mixer over the whole sequence under the
+    routing's dense keep mask (the plan's membership in training) and
+    weights its delta; its cache is the mixer's final {'state', 'conv'}."""
     _check_kind(kind)
     B, S, _ = x.shape
     auxes = [R.RouteAux.zero(x.device)]
@@ -278,7 +308,7 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
             cap_depth = R.gate_capacity(pol.depth_capacity, pol.student)
         if spec.mha_token_routed and "tok_mixer" in rp:
             cap_mha = R.gate_capacity(pol.mha_token_capacity, pol.student)
-        if spec.mlp_token_routed and "tok_mlp" in rp:
+        if has_mlp(kind) and spec.mlp_token_routed and "tok_mlp" in rp:
             cap_mlp = R.gate_capacity(pol.mlp_token_capacity, pol.student)
     # depth skips the whole layer: the plan covers depth x the token caps
     cap_plan = _mul_caps(_combine_caps(cap_mha, cap_mlp), cap_depth)
@@ -363,61 +393,95 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
             wtok = w if wtok is None else wtok * w
         return keep, wtok
 
-    # ---- attention ----
+    # ---- the temporal mixer: attention or a recurrence ----
     h = norm_apply(p["norm1"], x, cfg.norm)
-    lora = rp.get("lora") if (routed and rp) else None
-    lora = _lora_gate(lora, _mul_caps(cap_mha, cap_depth),
-                      pol.student if (routed and pol is not None) else None)
+    if is_attn(kind):
+        lora = rp.get("lora") if (routed and rp) else None
+        lora = _lora_gate(lora, _mul_caps(cap_mha, cap_depth),
+                          pol.student if (routed and pol is not None)
+                          else None)
 
-    def attn(hh, pos, **kw):
-        return A.attn_apply(p["attn"], hh, cfg=cfg, positions=pos,
-                            causal=causal, window=window, lora=lora,
-                            backend=backend, **kw)
+        def attn(hh, pos, **kw):
+            return A.attn_apply(p["attn"], hh, cfg=cfg, positions=pos,
+                                causal=causal, window=window, lora=lora,
+                                backend=backend, **kw)
 
-    if not mixer_routers:
-        hw = _head_weights(rp, h, spec, pol, cfg, auxes) if routed else None
-        y, k, v = attn(h, positions, head_weights=hw)
-        delta = y
-        keep = torch.ones((B, S), dtype=torch.bool, device=x.device)
-    elif identity:
-        keep = torch.ones((B, S), dtype=torch.bool, device=x.device)
-        for name, _c in mixer_routers:
-            bce_aux(gate(name, h)[0], keep)
-        hw = _head_weights(rp, h, spec, pol, cfg, auxes)
-        y, k, v = attn(h, positions, head_weights=hw)
-        delta = y
-    elif kb is not None:
-        # the shared plan: selected tokens gathered valid-first (a
-        # position-ascending prefix of the bucket), the tail masked; with
-        # depth routed it is the depth router's selection
-        plan, logits, scores = build_plan(h)
-        h_sel = R.plan_gather(h, plan)
-        pos_sel = R.gather_tokens(positions.expand(B, S), plan.idx)
-        hw = _head_weights(rp, h_sel, spec, pol, cfg, auxes,
-                           valid=plan.valid)
-        y_sel, k, v = attn(h_sel, pos_sel, kv_valid=plan.valid,
-                           kv_count=plan.count, head_weights=hw,
-                           gathered=True)
-        w_sel = plan_weights(plan, logits, scores, h)
-        delta = R.plan_scatter(
-            plan, x, y_sel * w_sel[..., None].to(y_sel.dtype))
-        keep = plan.keep
-        if collect_cache:           # the plan's k/v back at full positions
-            k, v = _scatter_kv(k, plan.idx, S), _scatter_kv(v, plan.idx, S)
-    else:                           # threshold (infer) or dense train path
-        keep, wtok = mixer_gate(h)
-        if train:
-            dense_keep = keep
-        # head-router statistics over the selected tokens in training, as
-        # on the plan path (whose buffer holds exactly the selected set)
-        hw = _head_weights(rp, h, spec, pol, cfg, auxes,
-                           valid=keep if train else None)
-        y, k, v = attn(h, positions, kv_valid=keep, head_weights=hw)
-        delta = y * wtok[..., None].to(y.dtype)
-    if collect_cache:
-        cache["attn"] = _pad_cache(
-            k, v, keep, max_cache_len or S, window,
-            kv_dtype=spec.kv_dtype if spec is not None else "fp32")
+        if not mixer_routers:
+            hw = _head_weights(rp, h, spec, pol, cfg, auxes) if routed \
+                else None
+            y, k, v = attn(h, positions, head_weights=hw)
+            delta = y
+            keep = torch.ones((B, S), dtype=torch.bool, device=x.device)
+        elif identity:
+            keep = torch.ones((B, S), dtype=torch.bool, device=x.device)
+            for name, _c in mixer_routers:
+                bce_aux(gate(name, h)[0], keep)
+            hw = _head_weights(rp, h, spec, pol, cfg, auxes)
+            y, k, v = attn(h, positions, head_weights=hw)
+            delta = y
+        elif kb is not None:
+            # the shared plan: selected tokens gathered valid-first (a
+            # position-ascending prefix of the bucket), the tail masked;
+            # with depth routed it is the depth router's selection
+            plan, logits, scores = build_plan(h)
+            h_sel = R.plan_gather(h, plan)
+            pos_sel = R.gather_tokens(positions.expand(B, S), plan.idx)
+            hw = _head_weights(rp, h_sel, spec, pol, cfg, auxes,
+                               valid=plan.valid)
+            y_sel, k, v = attn(h_sel, pos_sel, kv_valid=plan.valid,
+                               kv_count=plan.count, head_weights=hw,
+                               gathered=True)
+            w_sel = plan_weights(plan, logits, scores, h)
+            delta = R.plan_scatter(
+                plan, x, y_sel * w_sel[..., None].to(y_sel.dtype))
+            keep = plan.keep
+            if collect_cache:       # the plan's k/v back at full positions
+                k = _scatter_kv(k, plan.idx, S)
+                v = _scatter_kv(v, plan.idx, S)
+        else:                       # threshold (infer) or dense train path
+            keep, wtok = mixer_gate(h)
+            if train:
+                dense_keep = keep
+            # head-router statistics over the selected tokens in training,
+            # as on the plan path (whose buffer holds exactly the selected
+            # set)
+            hw = _head_weights(rp, h, spec, pol, cfg, auxes,
+                               valid=keep if train else None)
+            y, k, v = attn(h, positions, kv_valid=keep, head_weights=hw)
+            delta = y * wtok[..., None].to(y.dtype)
+        if collect_cache:
+            cache["attn"] = _pad_cache(
+                k, v, keep, max_cache_len or S, window,
+                kv_dtype=spec.kv_dtype if spec is not None else "fp32")
+    else:                           # ssm / rglru: a dense keep mask
+        keep = wtok = None
+        if mixer_routers and identity:
+            ones = torch.ones((B, S), dtype=torch.bool, device=x.device)
+            for name, _c in mixer_routers:
+                bce_aux(gate(name, h)[0], ones)
+        elif mixer_routers and kb is not None:
+            # a recurrence cannot run on a gathered subset: the mixer takes
+            # the shared plan's MEMBERSHIP as its mask
+            plan, logits, scores = build_plan(h)
+            keep = plan.keep
+            if mixer_routers[0][0] == "depth":
+                depth["w_sel"] = R.gather_tokens(scores, plan.idx) * \
+                    plan.valid
+            wtok = keep * scores
+            bce_aux(logits, keep)
+            for name, _c in mixer_routers[1:]:
+                lg, sc = gate(name, h)
+                wtok = wtok * sc
+                bce_aux(lg, keep)
+        elif mixer_routers:         # threshold (infer) or dense train path
+            keep, wtok = mixer_gate(h)
+            if train:
+                dense_keep = keep
+        mixer = SSM.ssm_apply if kind == "ssm" else G.rglru_apply
+        y, (st, cv) = mixer(p["mixer"], h, cfg, keep_mask=keep)
+        if collect_cache:
+            cache[kind] = {"state": st, "conv": cv}
+        delta = y if keep is None else y * wtok[..., None].to(y.dtype)
     x = x + delta
 
     # ---- cross-attention ----
@@ -433,84 +497,86 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
                   else enc_valid.expand(enc_kv.shape[:2]))
             cache["xattn"] = {"k": xk, "v": xv, "valid": ev}
 
-    # ---- MLP ----
-    h = norm_apply(p["norm2"], x, cfg.norm)
-    f = _mlp_fn(p, rp, cfg, spec, pol, elastic_on, mode, auxes, backend)
-    if cap_mlp is None and cap_depth is None:
-        delta = f(h, positions)
-    elif identity:
-        if cap_mlp is not None:
-            bce_aux(gate("tok_mlp", h)[0],
-                    torch.ones((B, S), dtype=torch.bool, device=x.device))
-        delta = f(h, positions)
-    elif kb is not None:
-        if plan is None:            # the block's one sort, on this router
-            plan, logits, scores = build_plan(h)
-            w_sel = R.gather_tokens(scores, plan.idx) * plan.valid
-            bce_aux(logits, plan.keep)
-        else:
+    # ---- MLP (none in an ssm block) ----
+    if has_mlp(kind):
+        h = norm_apply(p["norm2"], x, cfg.norm)
+        f = _mlp_fn(p, rp, cfg, spec, pol, elastic_on, mode, auxes, backend)
+        if cap_mlp is None and cap_depth is None:
+            delta = f(h, positions)
+        elif identity:
             if cap_mlp is not None:
-                logits, scores = gate("tok_mlp", h)
+                bce_aux(gate("tok_mlp", h)[0],
+                        torch.ones((B, S), dtype=torch.bool, device=x.device))
+            delta = f(h, positions)
+        elif kb is not None:
+            if plan is None:            # the block's one sort, on this router
+                plan, logits, scores = build_plan(h)
                 w_sel = R.gather_tokens(scores, plan.idx) * plan.valid
                 bce_aux(logits, plan.keep)
             else:
-                w_sel = plan.valid.float()
-            if "w_sel" in depth:    # the whole block's delta is depth-gated
-                w_sel = w_sel * depth["w_sel"]
-        if _is_dense_mlp(rp, cfg, spec, elastic_on, mode):
-            # The routed kernel gathers the plan's rows from h and scatters
-            # the weighted outputs back. The JAX package gates its TPU
-            # kernel on a resident (S, D) VMEM slab (ROUTED_MLP_SLAB_BYTES);
-            # the Hopper kernel keeps no such slab, so every dense-MLP plan
-            # takes it on the card (the plain version on the CPU: the same
-            # math as the gather + fused_mlp branch there).
-            mp = p["mlp"]
-            delta = OPS.fused_mlp_routed(h, plan.idx, mp["wi"], mp["wo"],
-                                         mp.get("wg"), w_sel,
-                                         valid_count=plan.count,
-                                         wi_scale=mp.get("wi_scale"),
-                                         wo_scale=mp.get("wo_scale"),
-                                         wg_scale=mp.get("wg_scale"),
-                                         act=cfg.act, backend=backend)
-        else:                       # expert layers: the bucket buffer
-            y_sel = f(R.plan_gather(h, plan), None, token_valid=plan.valid,
-                      token_count=plan.count)
-            delta = R.plan_scatter(
-                plan, x, y_sel * w_sel[..., None].to(y_sel.dtype))
-    elif train:                     # dense train path
-        logits = scores = None
-        if cap_mlp is not None:
-            logits, scores = gate("tok_mlp", h)
-        if dense_keep is not None:  # the mixer's selection is the block's
-            keep = dense_keep
-            w = keep.float()
-            if scores is not None:
-                w = w * scores
-            if "scores" in depth:
-                w = w * depth["scores"]
-            full = R.is_full(cap_plan)
-            if R.is_static(full):
-                wtok = torch.ones_like(w) if full else w
+                if cap_mlp is not None:
+                    logits, scores = gate("tok_mlp", h)
+                    w_sel = R.gather_tokens(scores, plan.idx) * plan.valid
+                    bce_aux(logits, plan.keep)
+                else:
+                    w_sel = plan.valid.float()
+                if "w_sel" in depth:    # the whole delta is depth-gated
+                    w_sel = w_sel * depth["w_sel"]
+            if _is_dense_mlp(rp, cfg, spec, elastic_on, mode):
+                # The routed kernel gathers the plan's rows from h and
+                # scatters the weighted outputs back. The JAX package gates
+                # its TPU kernel on a resident (S, D) VMEM slab
+                # (ROUTED_MLP_SLAB_BYTES); the Hopper kernel keeps no such
+                # slab, so every dense-MLP plan takes it on the card (the
+                # plain version on the CPU: the same math as the gather +
+                # fused_mlp branch there).
+                mp = p["mlp"]
+                delta = OPS.fused_mlp_routed(h, plan.idx, mp["wi"], mp["wo"],
+                                             mp.get("wg"), w_sel,
+                                             valid_count=plan.count,
+                                             wi_scale=mp.get("wi_scale"),
+                                             wo_scale=mp.get("wo_scale"),
+                                             wg_scale=mp.get("wg_scale"),
+                                             act=cfg.act, backend=backend)
+            else:                       # expert layers: the bucket buffer
+                y_sel = f(R.plan_gather(h, plan), None, token_valid=plan.valid,
+                          token_count=plan.count)
+                delta = R.plan_scatter(
+                    plan, x, y_sel * w_sel[..., None].to(y_sel.dtype))
+        elif train:                     # dense train path
+            logits = scores = None
+            if cap_mlp is not None:
+                logits, scores = gate("tok_mlp", h)
+            if dense_keep is not None:  # the mixer's selection is the block's
+                keep = dense_keep
+                w = keep.float()
+                if scores is not None:
+                    w = w * scores
+                if "scores" in depth:
+                    w = w * depth["scores"]
+                full = R.is_full(cap_plan)
+                if R.is_static(full):
+                    wtok = torch.ones_like(w) if full else w
+                else:
+                    wtok = torch.where(R.bcast_to(full, keep.dim()),
+                                       torch.ones_like(w), w)
             else:
-                wtok = torch.where(R.bcast_to(full, keep.dim()),
-                                   torch.ones_like(w), w)
-        else:
-            keep, wtok = R.token_gate(logits, scores, cap_plan, mode,
-                                      theta=pol.theta, mxu=True)
-        y = f(h, positions, token_valid=keep, dispatch_frac=cap_plan)
-        delta = y * wtok[..., None].to(y.dtype)
-        if logits is not None:
-            bce_aux(logits, keep)
-    else:                           # inference threshold (§B.1)
-        if cap_mlp is None:
-            delta = f(h, positions)
-        else:
-            delta, a = R.route_tokens(rp["tok_mlp"], h, f, cap_mlp, mode,
-                                      positions=positions, theta=pol.theta)
-            auxes.append(a)
-        if "w" in depth:            # the depth gate covers the MLP too
-            delta = delta * depth["w"][..., None].to(delta.dtype)
-    x = x + delta
+                keep, wtok = R.token_gate(logits, scores, cap_plan, mode,
+                                          theta=pol.theta, mxu=True)
+            y = f(h, positions, token_valid=keep, dispatch_frac=cap_plan)
+            delta = y * wtok[..., None].to(y.dtype)
+            if logits is not None:
+                bce_aux(logits, keep)
+        else:                           # inference threshold (§B.1)
+            if cap_mlp is None:
+                delta = f(h, positions)
+            else:
+                delta, a = R.route_tokens(rp["tok_mlp"], h, f, cap_mlp, mode,
+                                          positions=positions, theta=pol.theta)
+                auxes.append(a)
+            if "w" in depth:            # the depth gate covers the MLP too
+                delta = delta * depth["w"][..., None].to(delta.dtype)
+        x = x + delta
 
     aux = auxes[0]
     for a in auxes[1:]:
@@ -605,7 +671,11 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
     layer (the ring's ``valid`` / the pool's ``pvalid`` records the hole)
     and its attention and MLP deltas are weighted by 0. Returns (x',
     cache). An ``xattn`` block then cross-attends to its slot's context
-    cache (``attention.cross_attn_decode``)."""
+    cache (``attention.cross_attn_decode``). An ``ssm`` / ``rglru`` block
+    steps its recurrence with the gate as ``write`` (a skipped token leaves
+    the state and conv rows as they were) and copies the new state and
+    conv rows into its cache's tensors in place, which a captured decode
+    graph reads."""
     _check_kind(kind)
     routed = elastic_on and mode != "base" and rp is not None
     backend = spec.kernel_backend if spec is not None else None
@@ -622,23 +692,29 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
     if keepd is not None:
         keep = keepd if keep is None else keep & keepd
         w1 = wd if w1 is None else w1 * wd
-    lora = rp.get("lora") if routed else None
-    if lora is not None:
-        dcap = R.gate_capacity(pol.mha_token_capacity, pol.student) \
-            if spec.mha_token_routed else None
-        dcap = _mul_caps(dcap, R.gate_capacity(pol.depth_capacity,
-                                               pol.student)
-                         if spec.depth_routed else None)
-        lora = _lora_gate(lora, dcap, pol.student)
-    hw = _head_weights(rp, h, spec, pol, cfg, []) if routed else None
-    if table is not None:
-        y, cache["attn"] = A.attn_decode_paged(
-            p["attn"], h, cache["attn"], t, table, trash, cfg=cfg,
-            head_weights=hw, lora=lora, write=keep, backend=backend)
+    if is_attn(kind):
+        lora = rp.get("lora") if routed else None
+        if lora is not None:
+            dcap = R.gate_capacity(pol.mha_token_capacity, pol.student) \
+                if spec.mha_token_routed else None
+            dcap = _mul_caps(dcap, R.gate_capacity(pol.depth_capacity,
+                                                   pol.student)
+                             if spec.depth_routed else None)
+            lora = _lora_gate(lora, dcap, pol.student)
+        hw = _head_weights(rp, h, spec, pol, cfg, []) if routed else None
+        if table is not None:
+            y, cache["attn"] = A.attn_decode_paged(
+                p["attn"], h, cache["attn"], t, table, trash, cfg=cfg,
+                head_weights=hw, lora=lora, write=keep, backend=backend)
+        else:
+            y, cache["attn"] = A.attn_decode(
+                p["attn"], h, cache["attn"], t, cfg=cfg, window=window,
+                head_weights=hw, lora=lora, write=keep, backend=backend)
     else:
-        y, cache["attn"] = A.attn_decode(
-            p["attn"], h, cache["attn"], t, cfg=cfg, window=window,
-            head_weights=hw, lora=lora, write=keep, backend=backend)
+        step = SSM.ssm_decode if kind == "ssm" else G.rglru_decode
+        y, new = step(p["mixer"], h, cache[kind], cfg, write=keep)
+        for name, leaf in cache[kind].items():
+            leaf.copy_(new[name])
     if keep is not None:
         y = y * w1[:, None, None].to(y.dtype)
     x = x + y
@@ -646,6 +722,8 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
         x = x + A.cross_attn_decode(
             p["xattn"], norm_apply(p["xnorm"], x, cfg.norm), cache["xattn"],
             cfg=cfg)
+    if not has_mlp(kind):
+        return x, cache
 
     h = norm_apply(p["norm2"], x, cfg.norm)
     keep2, w2 = None, None
@@ -766,7 +844,8 @@ def cache_row_insert(full: dict, row: dict, slot: int) -> None:
 
 def _paged_kind(kind: str) -> None:
     """The paged layout serves self-attention blocks only, as in the JAX
-    package (a cross-attention context has no page form)."""
+    package (a cross-attention context and a recurrent state have no page
+    form)."""
     if kind != "attn":
         raise ValueError(f"paged KV cache requires self-attention blocks, "
                          f"got {kind!r}")
@@ -775,10 +854,16 @@ def _paged_kind(kind: str) -> None:
 def block_cache_init(kind: str, cfg, batch: int, max_seq: int,
                      enc_len: int = 0, window: int = 0, device=None,
                      kv_dtype: str = "fp32") -> dict:
-    """One layer's ring cache; an ``xattn`` layer adds its context cache
-    {'k','v': (batch, enc_len, K, Dh) in the config dtype, 'valid'}, which
-    each admission overwrites with its request's context."""
+    """One layer's ring cache (a windowed layer's ring holds min(max_seq,
+    window) slots); an ``xattn`` layer adds its context cache {'k','v':
+    (batch, enc_len, K, Dh) in the config dtype, 'valid'}, which each
+    admission overwrites with its request's context; an ``ssm`` /
+    ``rglru`` layer has its recurrent cache {'state', 'conv'} instead."""
     _check_kind(kind)
+    if kind == "ssm":
+        return {"ssm": SSM.ssm_cache_init(cfg, batch, device=device)}
+    if kind == "rglru":
+        return {"rglru": G.rglru_cache_init(cfg, batch, device=device)}
     c = {"attn": A.attn_cache_init(cfg, batch, max_seq, window,
                                    device=device, kv_dtype=kv_dtype)}
     if kind == "xattn":

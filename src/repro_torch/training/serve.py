@@ -355,22 +355,26 @@ class ServingEngine:
     # ---------------------------- paged KV mode ------------------------------
 
     def _validate_paged(self, mode: str) -> None:
-        """The paged layout serves global self-attention layers (the port's
-        only kind) with dense MLPs: windows would need page eviction, and
-        expert dispatch sizes its capacity buffers by the prefill chunking
-        (chunked and one-shot prefills could drop different tokens). The
-        context families (encoder, VLM, encoder-decoder) are refused, as
-        the JAX engine refuses them: a cross-attention context has no page
-        form."""
+        """The paged layout serves global self-attention layers with dense
+        MLPs, as the JAX engine does: recurrent mixers have no paged
+        state, windows would need page eviction, and expert dispatch sizes
+        its capacity buffers by the prefill chunking (chunked and one-shot
+        prefills could drop different tokens). The context families
+        (encoder, VLM, encoder-decoder) are refused too: a cross-attention
+        context has no page form."""
         if mode not in ("infer", "base"):
             raise ValueError(f"kv_layout='paged' serves infer/base modes, "
                              f"got mode={mode!r}")
-        if any(w and w > 0 for w in self.cfg.layer_windows):
-            raise ValueError("kv_layout='paged' does not support sliding-"
-                             "window layers")
         if self.cfg.encoder is not None or self.cfg.family in ("vlm",
                                                                "encoder"):
             raise ValueError("kv_layout='paged' serves decoder-only LMs")
+        bad = [k for k in self.cfg.layer_kinds if k != "attn"]
+        if bad:
+            raise ValueError(f"kv_layout='paged' requires all-'attn' layer "
+                             f"kinds, got {sorted(set(bad))}")
+        if any(w and w > 0 for w in self.cfg.layer_windows):
+            raise ValueError("kv_layout='paged' does not support sliding-"
+                             "window layers")
         if self.cfg.moe is not None or (self.spec is not None
                                         and self.spec.mlp_n_experts):
             raise ValueError("kv_layout='paged' requires a dense MLP (no "

@@ -1503,3 +1503,110 @@ def test_context_engine_on_the_card(cuda, arch):
     assert list(solo[0]) == list(out[3])
     base = mk("base").generate(reqs[:1], extra_inputs={key: ctx[:1]})
     assert list(base[0]) == list(out[0])
+
+
+# ------------- the recurrent and windowed families' kernel modes -------------
+#
+# RecurrentGemma's attention (10 q-heads on 1 kv-head at Dh 256, a window),
+# Gemma-3's sliding windows (shorter than the query rows; a ring that
+# wraps), Granite's 48:1 MQA and Grok-1's geglu experts.
+
+FAMILY_FLASH_CASES = [
+    # B, Sq, Sk, H, K, Dh, causal, window, p_valid, count
+    (1, 300, 300, 10, 1, 256, True, 2048, 0.9, None),   # Dh 256, 10:1
+    (2, 200, 200, 10, 1, 256, True, 64, 0.8, [200, 137]),  # + a window
+    (2, 320, 320, 8, 4, 128, True, 100, 0.9, None),     # window < Sq
+    (1, 256, 256, 48, 1, 128, True, 0, 0.9, None),      # 48:1 MQA
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FAMILY_FLASH_CASES)
+def test_flash_kernel_family_modes_match_plain(cuda, case, dtype):
+    test_flash_kernel_matches_plain(cuda, case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,K,Dh,L,window,t", [
+    (10, 1, 256, 256, 0, [0, 100, 255, 300]),      # Dh 256: groups of 8, 2
+    (10, 1, 256, 128, 128, [40, 127, 500, 129]),   # Dh 256 wrapped window
+    (8, 4, 128, 64, 64, [70, 63, 1000, 5]),        # a window ring that wraps
+    (48, 1, 128, 256, 0, [0, 77, 255, 400]),       # 48:1 MQA
+], ids=["dh256", "dh256-window", "window-ring", "mqa48"])
+def test_decode_kernel_family_modes_match_plain(cuda, dtype, H, K, Dh, L,
+                                                window, t):
+    """Ring decode at the families' shapes: a slot whose keys are all
+    masked gives exact zeros."""
+    k, v, pos, valid = ring(12, len(t), L, K, Dh, t)
+    valid[3] = False
+    q = np.random.default_rng(13).standard_normal((len(t), 1, H, Dh),
+                                                  dtype=np.float32)
+    args = on_card((q, k, v, pos, np.asarray(t, np.int32), valid), cuda,
+                   dtype)
+    n0 = ops.launch_counts()["decode_attention"]
+    got = ops.decode_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == n0 + 1
+    want = ops.decode_attention(*args, window=window, backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    assert not got[3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["native", "moefied"])
+def test_moe_gmm_geglu_matches_plain(cuda, dtype, layout):
+    """Grok-1's and RecurrentGemma's expert activation (tanh-GELU gate)."""
+    case = (layout, 1, 8, 130, 128, 192, "geglu", True, True,
+            [[130, 0, 64, 1, 129, 128, 17, 65]])
+    x, wi, wo, wg, w, cnt, act = gmm_inputs(case, 15, cuda, dtype)
+    got = ops.moe_gmm(x, wi, wo, wg, w, cnt, act=act)
+    want = ops.moe_gmm(x, wi, wo, wg, w, cnt, act=act, backend="ref")
+    torch.testing.assert_close(got.float(), want.float(), **CUDA_TOL[dtype])
+    live = torch.arange(x.shape[2], device=cuda) < cnt[..., None]
+    assert got[~live].count_nonzero() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-780m"])
+def test_graphed_recurrent_engine_equals_eager_bit_for_bit(cuda, arch):
+    """A smoke RecurrentGemma (Dh 32: the decode kernel takes no 16) and
+    Mamba2 engine in bf16: the graphed engine equals its cuda_graphs=False
+    twin (tokens, every cache leaf, ``state``/``conv`` included), and the
+    recurrent leaves keep their storage across the replays (the captured
+    decode step writes them in place)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticSpec
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="bfloat16")
+    if cfg.n_heads:
+        cfg = dataclasses.replace(cfg, d_head=32)
+    spec = ElasticSpec(mlp_token_routed=True, mha_token_routed=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model_init(gen, cfg, spec, device=cuda)
+    rp = router_init(gen, cfg, spec, device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [GenRequest(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                       new, budget=b)
+            for n, new, b in ((9, 8, 1.0), (33, 20, 0.5), (17, 6, 0.75),
+                              (40, 12, None))]
+    mk = lambda graphs: ServingEngine(params, rp, cfg, spec, mode="infer",
+                                      batch_size=2, max_seq=64, device=cuda,
+                                      cuda_graphs=graphs)
+    graphed = mk(True)
+    kind = cfg.mixer_pattern[0]
+    rec = [c[kind] for c in graphed._caches["layers"] if kind in c]
+    ptrs = [(c["state"].data_ptr(), c["conv"].data_ptr()) for c in rec]
+    got = _staggered_run(graphed, reqs)
+    eager = mk(False)
+    want = _staggered_run(eager, reqs)
+    assert got == want
+    for a, b in zip(_tensors(graphed._caches), _tensors(eager._caches)):
+        assert torch.equal(a, b)
+    assert [(c["state"].data_ptr(), c["conv"].data_ptr())
+            for c in rec] == ptrs
+    assert any(bool(c["state"].any()) for c in rec)
+    assert graphed.compile_counts() == {"prefill": 0, "decode": 1}

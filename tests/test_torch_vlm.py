@@ -87,14 +87,16 @@ def specs(arch, which):
                                 kernel_backend="ref"), t)
 
 
-def context_pair(arch, which="slice", seed=0, lora_b=0.05, vlm_router=None):
+def context_pair(arch, which="slice", seed=0, lora_b=0.05, vlm_router=None,
+                 spec_pair=None):
     """``arch``'s smoke variant built by the JAX package (f32) and the same
     weights and routers loaded into the port. LoRA B gets N(0, lora_b)
     noise so the adapter path does work; ``vlm_router="mlp"`` swaps in the
-    MLP image-token router."""
+    MLP image-token router; ``spec_pair``: (JAX spec, port spec) in place
+    of ``specs(arch, which)``."""
     jcfg = f32(jax_get_config(arch, "smoke"))
     tcfg = f32(get_config(arch, "smoke"))
-    jspec, tspec = specs(arch, which)
+    jspec, tspec = spec_pair or specs(arch, which)
     if vlm_router:
         jspec = dataclasses.replace(jspec, vlm_router=vlm_router)
         tspec = dataclasses.replace(tspec, vlm_router=vlm_router)
@@ -517,9 +519,10 @@ def test_params_routers_and_train_state_round_trip(arch, tmp_path):
 
 def test_refusals_name_their_roadmap_item():
     from repro_torch.models import blocks
-    with pytest.raises(NotImplementedError, match="item 12"):
-        blocks.block_init(torch.Generator(), "ssm",
-                          get_config("toy-vlm", "smoke"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        blocks.block_init(torch.Generator(), "xattn",
+                          get_config("toy-vlm", "smoke", head_pad=16),
+                          device="cpu")
     with pytest.raises(ValueError, match="self-attention"):
         blocks.block_paged_cache_init("xattn", get_config("toy-vlm", "smoke"),
                                       4, 8, device="cpu")
