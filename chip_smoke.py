@@ -323,8 +323,25 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    versions (``check_path_calls``; a windowed call apart from the global
    ones) and timed graphed and eager beside SDPA (enable_gqa) or a
    cuBLAS composite and their bounds (the result line's ``modes`` keys).
-10. Prints one JSON line of per-kernel results (launches by path), the card
-   line again, and as the last line {"ok": true, "device": {...}}.
+9k. (i) Analysis and accounting: ``repro_torch.analysis.run_all`` on the
+   toy bundle and on Qwen2-7B's ring and paged entry points (admission,
+   chunk, decode, the training step) at ``TWIN_LAYERS`` in bf16 and with
+   int8 weights and K/V, on the card: every finding and every waived one
+   printed, an unwaived error fails. Every kernel call the paths recorded
+   (``PathCalls.signatures``) and the bundles' entry points made: its
+   Python launch statement (``ops.launch_geometry``) must equal what its C
+   launcher reports through its ``*_geometry`` entry (``ops.c_geometry``).
+   Qwen2-7B at 28 layers: a 4-slot decode step counted on its eager twin
+   and timed graphed (device ms a step), and a 2 x 512 training step at
+   budget 0.5 counted and timed (device ms), as FLOPs, bytes
+   (``hloprof.count_step``) and shares of the card's peaks
+   (``step_shares``): a share above 1.0 fails. Every bound of the timed
+   kernel cases comes from ``ops.kernel_cost``, and each of PERF.md §6's
+   rows must come out as printed there (``PERF_BOUNDS``).
+10. Prints one JSON line of per-kernel results (launches by path), one of
+   the accounting (``{"accounting": {"decode_mfu", "decode_hbm_share",
+   "train_mfu", "train_hbm_share", ...}}``), the card line again, and as
+   the last line {"ok": true, "device": {...}}.
 
 Every serving phase holds its graphed engines to ``cuda_graphs=False``
 twins on the same weights and requests, bit for bit (tokens, every cache
@@ -352,6 +369,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -363,8 +381,6 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}   # H100 SXM dense; f32 off tensor cores
-PEAK_BYTES = 3.35e12                          # H100 SXM HBM3
 TOL = {"bf16": (1e-2, 1e-2), "f32": (1e-4, 1e-4)}   # (atol, rtol), per element
 L2_BYTES = 50 * 2 ** 20                       # H100 SXM L2
 SOURCES = {
@@ -503,9 +519,16 @@ def cycling(fn, n: int):
 
 
 def bound_ms(flops: float, nbytes: float, kind: str):
-    t_ops, t_bytes = flops / PEAK_FLOPS[kind], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """``launch/hloprof.bound_ms``: the card's peak rates live there."""
+    from repro_torch.launch.hloprof import bound_ms as bound
+    return bound(flops, nbytes, kind)
+
+
+def cost(name, *args, **kw):
+    """``ops.kernel_cost``: (flops, bytes, kind) of one call of the kernel
+    wrapper ``name``, the one source of every bound below."""
+    from repro_torch.kernels import ops
+    return ops.kernel_cost(name, *args, **kw)
 
 
 class Results:
@@ -542,7 +565,8 @@ class Results:
         back-to-back) pair of them from ``device_and_eager_ms``; the
         back-to-back median goes into the result line under its key (one
         clock for every row), the graphed one of a pair beside it as
-        graphed_*; the spread is printed."""
+        graphed_*; the spread is printed. (flops, nbytes, kind): the call's
+        ``cost``."""
         b, by = bound_ms(flops, nbytes, kind)
         med = lambda ts: None if ts is None else ts[len(ts) // 2]
         fmt = lambda ts: ("n/a" if ts is None else f"{med(ts):.4f} ms "
@@ -594,23 +618,6 @@ def sdpa_ms(name, qt, ks, vs, mask, iters):
 
 # ----------------------------- kernel checks ---------------------------------
 
-def _attention_mask(B, S, valid, causal, count, Sq=None, window=0):
-    """(B, Sq, S) attendable (query, key) pairs of S keys and Sq (default
-    S) queries, by array index: the flash kernel's causal, window and count
-    rules (a count bounds the query rows and the keys alike)."""
-    import torch
-    Sq = S if Sq is None else Sq
-    i = torch.arange(S, device=valid.device)
-    qi = torch.arange(Sq, device=valid.device)
-    m = (i[None, :] <= qi[:, None]) if causal else torch.ones(
-        Sq, S, dtype=torch.bool, device=valid.device)
-    if window and window > 0:
-        m = m & ((qi[:, None] - i[None, :]) < window)
-    m = m[None] & valid[:, None, :]
-    return m & (i[None, None, :] < count[:, None, None]) & (
-        qi[None, :, None] < count[:, None, None])
-
-
 def check_flash(res: Results, rng, dev, H, K, Dh):
     """flash_attention against its plain version: the serving prefill's
     512-token prompt (timed), the training shape (B=2, S=512, a per-row
@@ -642,24 +649,14 @@ def check_flash(res: Results, rng, dev, H, K, Dh):
         outs[case] = got
         if not timed:
             continue
-        cvec = torch.full((B,), S, device=dev) if cnt is None else cnt
-        mask = _attention_mask(B, S, valid, True, cvec)
-        pairs = float(mask.sum()) * H
-        # bytes the function needs: q rows inside the count, the K/V rows of
-        # keys that are valid and inside the count, every output row, and
-        # the validity mask
-        live = torch.arange(S, device=dev)[None, :] < cvec[:, None]
-        q_rows, kv_rows = int(live.sum()), int((valid & live).sum())
-        esz = q.element_size()
-        nbytes = ((q_rows + B * S) * H * Dh + 2 * kv_rows * K * Dh) * esz \
-            + valid.numel()
+        mask = ops.attention_pairs(B, S, S, valid, cnt, True, 0, dev)
         res.timing(
             "flash_attention",
             device_and_eager_ms(lambda: ops.flash_attention(q, k, v, **kw),
                                 20),
             device_and_eager_ms(lambda: ops.flash_attention(
                 q, k, v, backend="ref", **kw), 5),
-            4 * Dh * pairs, nbytes, kind,
+            *cost("flash_attention", q, k, v, **kw),
             sdpa_ms("flash_attention", q.transpose(1, 2), [k], [v],
                     mask[:, None], 20))
     return outs
@@ -682,22 +679,21 @@ def composite_ms(x, wi, wo, wg, tw, act):
     return cuda_ms(run, 5)
 
 
-def mlp_timing(res: Results, name, label, run, composite, rows, d, f,
-               n_mats, nbytes, kind):
+def mlp_timing(res: Results, name, label, run, composite, work):
     """Times one MLP case (kernel, plain version) and prints the cuBLAS
     composite beside it. label "main": the row's timing; any other label:
-    kept in the row under cases[label] (ms, plain_ms, bound_ms, bound_by)."""
+    kept in the row under cases[label] (ms, plain_ms, bound_ms, bound_by).
+    ``work``: the call's ``cost``."""
     ms, plain = cuda_ms(run, 5), cuda_ms(lambda: run("ref"), 3)
-    flops = 2 * rows * d * f * n_mats
     comp = composite()
     med = lambda ts: ts[len(ts) // 2]
     print(f"  {name:17s} {label}: cuBLAS bf16 composite (x@wi, x@wg, "
           f"act*mul, h@wo, *tw; a yardstick, several calls) {med(comp):.4f} "
           f"ms [{comp[0]:.4f}-{comp[-1]:.4f}]")
     if label == "main":
-        res.timing(name, ms, plain, flops, nbytes, kind, None)
+        res.timing(name, ms, plain, *work, None)
         return
-    b, by = bound_ms(flops, nbytes, kind)
+    b, by = bound_ms(*work)
     res.rows[name].setdefault("cases", {})[label] = dict(
         ms=med(ms), plain_ms=med(plain), composite_ms=med(comp), bound_ms=b,
         bound_by=by)
@@ -740,12 +736,9 @@ def check_fused_mlp(res: Results, dev, D, Fd):
         res.compare("fused_mlp", case, outs[case], run("ref"), kind)
         if not timed:
             continue
-        rows = xs[0] * xs[1]
-        n_mats = 3 if gated else 2
-        nbytes = (n_mats * d * f + 2 * x.numel()) * x.element_size()
         mlp_timing(res, "fused_mlp", timed, run,
-                   lambda: composite_ms(x, wi, wo, wg, tw, act), rows, d, f,
-                   n_mats, nbytes, kind)
+                   lambda: composite_ms(x, wi, wo, wg, tw, act),
+                   cost("fused_mlp", x, wi, wo, wg, tw, cnt))
     return outs
 
 
@@ -793,17 +786,10 @@ def check_fused_mlp_routed(res: Results, rng, dev, D, Fd):
               f"exactly zero")
         if not timed:
             continue
-        rows = sum(counts)
-        n_mats = 3 if gated else 2
-        esz = x.element_size()
-        # each weight once, the selected x rows, the whole (B, S, D) delta,
-        # idx and token weights (4 bytes each) and the counts
-        nbytes = (n_mats * d * f + rows * d + B * S * d) * esz \
-            + B * Kb * 8 + B * 4
         xg = torch.gather(x, 1, idx[..., None].expand(B, Kb, d))
         mlp_timing(res, "fused_mlp_routed", "main", run,
-                   lambda: composite_ms(xg, wi, wo, wg, tw, act), rows, d, f,
-                   n_mats, nbytes, kind)
+                   lambda: composite_ms(xg, wi, wo, wg, tw, act),
+                   cost("fused_mlp_routed", x, idx, wi, wo, wg, tw, cnt))
     return outs
 
 
@@ -877,8 +863,6 @@ def check_decode(res: Results, rng, dev, H, K, Dh, L, edges=True):
         if window:
             att &= (t[:, None] - pos_np) < window
         esz = q.element_size()
-        nbytes = (2 * q.numel() + 2 * int(att.sum()) * K * Dh) * esz \
-            + pos.numel() * 4 + valid.numel() + B * 4
         # On the serving path every layer has its own ring cache, so decode
         # finds K/V cold in HBM. Time it that way: rotate over enough K/V
         # sets (same masks) that their total is twice the L2 cache.
@@ -893,7 +877,8 @@ def check_decode(res: Results, rng, dev, H, K, Dh, L, edges=True):
               f"K/V sets ({mib(ks + vs):.0f} MiB)")
         res.timing("decode_attention", device_and_eager_ms(dec(None), 50),
                    device_and_eager_ms(dec("ref"), 10),
-                   4 * Dh * H * float(att.sum()), nbytes, kind,
+                   *cost("decode_attention", q, k, v, pos, tv, valid,
+                         window=window),
                    sdpa_ms("decode_attention", q.transpose(1, 2), ks, vs,
                            mask, 50))
         del ks, vs
@@ -918,35 +903,24 @@ def _paged_case(rng, B, N, ps, P):
     return table, t
 
 
-def paged_attendable(table, t, pvalid, lanes=False):
-    """(R, P * ps) bool masks of one ``paged_decode_attention`` call's keys:
-    attendable (entry >= 0, j <= t, pvalid of its page lane) and visited
-    (entry >= 0, j <= t: the kernel reads their pvalid lanes), and with
-    ``lanes`` each key's pool lane (page * ps + lane). Leading batch
-    dimensions of table (R, P), t (R,) and pvalid (N, ps) carry over."""
-    import torch
-    ps, P = pvalid.shape[-1], table.shape[-1]
-    j = torch.arange(P * ps, device=table.device)
-    ent = table[..., j // ps].long()
-    visited = (ent >= 0) & (j <= t[..., None])
-    lane = ent.clamp(min=0) * ps + j % ps
-    pv = pvalid.flatten(-2).gather(-1, lane.flatten(-2)).reshape(ent.shape)
-    return (visited & pv, visited) + ((lane,) if lanes else ())
+def paged_attendable(table, t, pvalid):
+    """``ops.paged_keys``: (R, P * ps) bool masks of one (or, leading
+    dimensions, several stacked) ``paged_decode_attention`` call's keys,
+    attended and visited."""
+    from repro_torch.kernels import ops
+    return ops.paged_keys(table, t, pvalid)[:2]
 
 
-def paged_work(q, kp, table, t, pvalid):
-    """(flops, bytes, attendable keys) of one ``paged_decode_attention`` call
-    on this data: q and out, the attended K/V rows and the pvalid lanes of
-    the visited keys, each once however many q rows share its page (the
-    rows of a prefill chunk share all of theirs), the table and t.
-    ``flops`` counts every (q row, attendable key) pair."""
-    K, Dh = kp.shape[2], kp.shape[3]
-    att, visited, lane = paged_attendable(table, t, pvalid, lanes=True)
-    keys = int(att.sum())
-    rows = lambda m: int(lane[m].unique().numel())
-    nbytes = (2 * q.numel() + 2 * rows(att) * K * Dh) * q.element_size() \
-        + table.numel() * 4 + t.numel() * 4 + rows(visited)
-    return 4 * Dh * q.shape[2] * keys, nbytes, keys
+def paged_work(q, kp, vp, table, t, pvalid, kscale=None, vscale=None):
+    """(``cost`` of one ``paged_decode_attention`` call on this data,
+    attendable keys): q and out, the attended K/V rows (int8: 1 byte an
+    element plus the f32 scale) and the pvalid lanes of the visited keys,
+    each once however many q rows share its page (the rows of a prefill
+    chunk share all of theirs), the table and t; FLOPs count every (q row,
+    attendable key) pair."""
+    return (cost("paged_decode_attention", q, kp, vp, table, t, pvalid,
+                 kscale, vscale),
+            int(paged_attendable(table, t, pvalid)[0].sum()))
 
 
 def paged_cold(q, kp, vp, table, t, pvalid):
@@ -998,7 +972,7 @@ def check_paged_decode(res: Results, rng, dev, H, K, Dh, max_seq):
             fail("paged_decode_attention: the all -1 row is not zero")
         if kind != "bf16":
             continue
-        flops, nbytes, keys = paged_work(q, kp, table, tv, pvalid)
+        work, keys = paged_work(q, kp, vp, table, tv, pvalid)
         print(f"  paged_decode_attention {keys} attendable keys of "
               f"{B * P * ps}")
         ms, plain, kps, vps = paged_cold(q, kp, vp, table, tv, pvalid)
@@ -1007,7 +981,7 @@ def check_paged_decode(res: Results, rng, dev, H, K, Dh, max_seq):
                             vps[i][pid].reshape(B, P * ps, K, Dh))
         kvs = [gather(i) for i in range(len(kps))]
         mask = paged_attendable(table, tv, pvalid)[0][:, None, None, :]
-        res.timing("paged_decode_attention", ms, plain, flops, nbytes, kind,
+        res.timing("paged_decode_attention", ms, plain, *work,
                    sdpa_ms("paged_decode_attention", q.transpose(1, 2),
                            [k for k, _ in kvs], [v for _, v in kvs], mask,
                            50))
@@ -1038,6 +1012,10 @@ class PathCalls:
             "moe_gmm": ("group_counts",)}
     # the kernels check_path_calls replays (the others have their own)
     REPLAYED = ("flash_attention", "decode_attention", "fused_mlp")
+    # one recorded call of each launch signature (kernel, the tensors'
+    # shapes and dtypes, the other arguments) of every path recorded so
+    # far: phase (i) holds each one's launch statement to its launcher
+    signatures: dict = {}
 
     def __init__(self, *names):
         self.names = names or tuple(self.DATA)
@@ -1072,6 +1050,13 @@ class PathCalls:
     def __exit__(self, *exc):
         for name, orig in self._orig.items():
             setattr(self._ops, name, orig)
+        for name, cs in self.calls.items():
+            for c in cs:
+                key = (name,) + tuple(
+                    (k, v[1:] if isinstance(v, tuple) and v[:1] == ("shape",)
+                     else (tuple(v.shape), v.dtype) if hasattr(v, "shape")
+                     else repr(v)) for k, v in c.items())
+                PathCalls.signatures.setdefault(key, (name, c))
 
     @staticmethod
     def _work(name, c):
@@ -1091,31 +1076,24 @@ class PathCalls:
 
     @staticmethod
     def flash_mask(c):
-        """A recorded flash call's (B, Sq, Sk) attendable pairs."""
-        import torch
+        """A recorded flash call's (B, Sq, Sk) attendable pairs
+        (``ops.attention_pairs``)."""
+        from repro_torch.kernels import ops
         B, Sq = c["q"][1][:2]
-        Sk = c["k"][1][1]
-        valid = c.get("kv_valid")
-        dev = valid.device if valid is not None else None
-        valid = torch.ones(B, Sk, dtype=torch.bool, device=dev) \
-            if valid is None else valid.expand(B, Sk)
-        cnt = c.get("kv_count")
-        cnt = torch.full((B,), max(Sq, Sk), device=dev) if cnt is None \
-            else torch.as_tensor(cnt, device=dev).expand(B)
-        return _attention_mask(B, Sk, valid, c.get("causal", True), cnt, Sq,
-                               c.get("window", 0))
+        valid, cnt = c.get("kv_valid"), c.get("kv_count")
+        dev = next((v.device for v in (valid, cnt) if hasattr(v, "device")),
+                   None)
+        return ops.attention_pairs(B, Sq, c["k"][1][1], valid, cnt,
+                                   c.get("causal", True), c.get("window", 0),
+                                   dev)
 
     @staticmethod
     def decode_mask(c):
         """A recorded ring decode call's (B, L) attendable keys: written,
-        at or before t, inside the window, valid."""
-        pos, t = c["kv_pos"], c["t"].reshape(-1, 1)
-        att = (pos >= 0) & (pos <= t)
-        if c.get("window"):
-            att &= (t - pos) < c["window"]
-        if c.get("kv_valid") is not None:
-            att &= c["kv_valid"]
-        return att
+        at or before t, inside the window, valid (``ops.ring_attended``)."""
+        from repro_torch.kernels import ops
+        return ops.ring_attended(c["kv_pos"], c["t"], c.get("kv_valid"),
+                                 c.get("window", 0))
 
     def heaviest(self):
         """The call of each of ``REPLAYED`` with the most work on its data,
@@ -1196,9 +1174,9 @@ def check_paged_calls(res: Results, dev, cases, labels):
                      f"row with no attendable key is not zero")
             if kind != "bf16":
                 continue
-            flops, nbytes, keys = paged_work(q, kp, table, t, pvalid)
+            work, keys = paged_work(q, kp, vp, table, t, pvalid)
             ms, plain, _, _ = paged_cold(q, kp, vp, table, t, pvalid)
-            b, by = bound_ms(flops, nbytes, kind)
+            b, by = bound_ms(*work)
             med = lambda tt: " / ".join(
                 f"{ts[len(ts) // 2]:.4f} ms [{ts[0]:.4f}-{ts[-1]:.4f}]"
                 for ts in tt) + " (graphed / eager)"
@@ -1306,16 +1284,11 @@ def check_moe_gmm(res, dev, label, cases, weights_of, timed,
             if kind != "bf16" or ci != 0:
                 continue
             rows = int(counts.sum())
-            live_e = int((counts.sum(0) > 0).sum())
-            # the live experts' weights once, the dispatched rows of x, the
-            # whole (B, E, C, D) output and the counts
-            nbytes = (3 * D * Fe * live_e + rows * D + x.numel()) \
-                * x.element_size() + B * E * 4
             main = lambda backend=None: ops.moe_gmm(     # no weights
                 x, wi, wo, wg, None, cnt, act=act, backend=backend)
             args = (device_and_eager_ms(main, 5),
-                    cuda_ms(lambda: main("ref"), 3), 6 * D * Fe * rows,
-                    nbytes, kind, None)
+                    cuda_ms(lambda: main("ref"), 3),
+                    *cost("moe_gmm", x, wi, wo, wg, None, cnt), None)
             comp = gmm_composite_ms(x, wi, wg, wo, counts, act)
             tiles = gmm_tile_rows_ms(main) if tile_rows and \
                 plan.body == "wgmma" else {}
@@ -2741,13 +2714,14 @@ def int8_weight(w):
     return quantize_weight(w.float(), (-2,))
 
 
-def int8_timing(res, name, label, ms, plain, bf16_ms, flops, nbytes, kind):
+def int8_timing(res, name, label, ms, plain, bf16_ms, work):
     """Keeps an int8 case's times in the kernel's row under int8[label]:
     the kernel, its plain version and the same kernel on bf16 operands at
     the same shape (each a ``cuda_ms`` list, or a (graphed, back-to-back)
     pair), beside the bound; there is no single PyTorch call for an
-    int8-operand function (library: none)."""
-    b, by = bound_ms(flops, nbytes, kind)
+    int8-operand function (library: none). ``work``: the call's
+    ``cost``."""
+    b, by = bound_ms(*work)
     med = lambda ts: ts[len(ts) // 2]
     row = dict(bound_ms=b, bound_by=by, library_ms=None)
     text = []
@@ -2806,8 +2780,6 @@ def check_int8_decode(res, rng, dev, H, K, Dh, L):
             continue
         att = (pos_np >= 0) & (pos_np <= t[:, None]) & valid_np
         rows = int(att.sum())
-        nbytes = 2 * q.numel() * 2 + 2 * rows * K * (Dh + 4) \
-            + pos.numel() * 4 + valid.numel() + B * 4
         n8 = cold_sets(2 * (kq.numel() + ks.numel() * 4))
         sets8 = [int8_kv(torch.randn_like(k), torch.randn_like(v))
                  for _ in range(n8 - 1)] + [(kq, vq, ks, vs)]
@@ -2826,22 +2798,11 @@ def check_int8_decode(res, rng, dev, H, K, Dh, L):
         int8_timing(res, "decode_attention", f"ring ({B}, {L})",
                     device_and_eager_ms(call8(None), 50),
                     device_and_eager_ms(call8("ref"), 10),
-                    device_and_eager_ms(call16, 50), 4 * Dh * H * rows,
-                    nbytes, kind)
+                    device_and_eager_ms(call16, 50),
+                    cost("decode_attention", q, kq, vq, pos, tv, valid, ks,
+                         vs))
         del sets8, sets16
     return outs
-
-
-def paged_int8_work(q, kp, table, t, pvalid):
-    """``paged_work`` with int8 pools: each attended K/V row at 1 byte an
-    element plus its f32 scale."""
-    K, Dh = kp.shape[2], kp.shape[3]
-    att, visited, lane = paged_attendable(table, t, pvalid, lanes=True)
-    keys = int(att.sum())
-    rows = lambda m: int(lane[m].unique().numel())
-    nbytes = 2 * q.numel() * q.element_size() + 2 * rows(att) * K * (Dh + 4) \
-        + table.numel() * 4 + t.numel() * 4 + rows(visited)
-    return 4 * Dh * q.shape[2] * keys, nbytes, keys
 
 
 def paged_int8_case(res, dev, label, qs, N, ps, K, Dh, table, t, pvalid,
@@ -2870,7 +2831,7 @@ def paged_int8_case(res, dev, label, qs, N, ps, K, Dh, table, t, pvalid,
                  f"attendable key is not zero")
         if kind != "bf16" or not timed:
             continue
-        flops, nbytes, keys = paged_int8_work(q, kq, table, t, pvalid)
+        work, keys = paged_work(q, kq, vq, table, t, pvalid, ks, vs)
         n8 = cold_sets(2 * (kq.numel() + ks.numel() * 4))
         sets8 = [int8_kv(torch.randn_like(kp), torch.randn_like(vp))
                  for _ in range(n8 - 1)] + [(kq, vq, ks, vs)]
@@ -2888,7 +2849,7 @@ def paged_int8_case(res, dev, label, qs, N, ps, K, Dh, table, t, pvalid,
         int8_timing(res, "paged_decode_attention", label,
                     device_and_eager_ms(call8(None), 50),
                     device_and_eager_ms(call8("ref"), 10),
-                    device_and_eager_ms(call16, 50), flops, nbytes, kind)
+                    device_and_eager_ms(call16, 50), work)
         del sets8, sets16
     return outs
 
@@ -2947,12 +2908,9 @@ def check_int8_mlp(res, dev, D, Fd):
         wb = [a.to(dt) for a in ws] + ([None] if not gated else [])
         bf16 = lambda: ops.fused_mlp(x, wb[0], wb[1], wb[2], tw, cnt,
                                      act=act)
-        rows, n_mats = xs[0] * xs[1], len(ws)
-        nbytes = n_mats * d * f + (2 * f + d) * 4 \
-            + 2 * x.numel() * x.element_size()
         int8_timing(res, "fused_mlp", f"{timed} {tuple(xs)}", cuda_ms(run, 5),
                     cuda_ms(lambda: run("ref"), 3), cuda_ms(bf16, 5),
-                    2 * rows * d * f * n_mats, nbytes, kind)
+                    cost("fused_mlp", x, wi, wo, wg, tw, cnt, wis, wos, wgs))
     return outs
 
 
@@ -2993,10 +2951,6 @@ def check_int8_gmm(res, dev, label, cases, cfg):
                     fail(f"int8 moe_gmm {label}: a repeat gives other bits")
             if kind != "bf16" or ci != 0:
                 continue
-            rows = int(counts.sum())
-            live_e = int((counts.sum(0) > 0).sum())
-            nbytes = 3 * D * Fe * live_e + live_e * (2 * Fe + D) * 4 \
-                + (rows * D + x.numel()) * x.element_size() + B * E * 4
             wb = [a.to(dt) for a in wf]
             int8_timing(res, "moe_gmm", f"{label} {tuple(shape)}",
                         device_and_eager_ms(lambda: ops.moe_gmm(
@@ -3006,7 +2960,8 @@ def check_int8_gmm(res, dev, label, cases, cfg):
                             backend="ref"), 3),
                         device_and_eager_ms(lambda: ops.moe_gmm(
                             x, wb[0], wb[2], wb[1], None, cnt), 5),
-                        6 * D * Fe * rows, nbytes, kind)
+                        cost("moe_gmm", x, wi, wo, wg, None, cnt, wis, wos,
+                             wgs))
             del wb
 
 
@@ -3349,13 +3304,12 @@ def check_int8_routed_calls(res, dev, label, calls):
     Kb, n = c["idx"].shape[1], PathCalls._work("fused_mlp_routed", c)
     run = runner(c, x, (wi, wo, wg), (wis, wos, wgs))
     bf16 = runner(c, x, [a.to(torch.bfloat16) for a in wf], (None,) * 3)
-    # each int8 weight once with its scales, the selected x rows, the whole
-    # (B, S, D) delta, idx and token weights (4 bytes each) and the counts
-    nbytes = 3 * D * Fd + (2 * Fd + D) * 4 + (n * D + B * S * D) * 2 \
-        + B * Kb * 8 + B * 4
     int8_timing(res, "fused_mlp_routed", f"{label} ({B}, {S}) Kb={Kb}",
                 cuda_ms(run, 5), cuda_ms(lambda: run("ref"), 3),
-                cuda_ms(bf16, 5), 2 * n * D * Fd * 3, nbytes, "bf16")
+                cuda_ms(bf16, 5),
+                cost("fused_mlp_routed", x, c["idx"], wi, wo, wg,
+                     c.get("token_weights"), c.get("valid_count"), wis, wos,
+                     wgs))
 
 
 def check_train_serving(args, res, dev, device_line, spec, params, rp,
@@ -3605,9 +3559,7 @@ def context_timing(res, dev, label, name, c, row, group="context"):
                   causal=c.get("causal", True), window=c.get("window", 0))
         run = lambda backend=None: ops.flash_attention(q, k, v,
                                                        backend=backend, **kw)
-        live_k = int(mask.any(1).sum())          # keys some query attends
-        flops = 4 * Dh * pairs * H
-        nbytes = (2 * B * Sq * H * Dh + 2 * live_k * K * Dh) * 2 + B * Sk
+        work = cost("flash_attention", q, k, v, **kw)
         lib = sdpa_ms(name, q.transpose(1, 2), [k], [v], mask[:, None], 20)
         what = (f"q {(B, Sq, H, Dh)} over {Sk} keys (K {K}, causal "
                 f"{kw['causal']}, window {kw['window']}, {pairs} pairs)")
@@ -3624,9 +3576,7 @@ def context_timing(res, dev, label, name, c, row, group="context"):
         run = lambda backend=None: ops.fused_mlp(x, wi, wo, wg, act=act,
                                                  backend=backend)
         rows = x.numel() // D
-        n_w = 3 if gated else 2
-        flops, nbytes = 2 * rows * D * Fd * n_w, (2 * rows * D
-                                                  + n_w * D * Fd) * 2
+        work = cost("fused_mlp", x, wi, wo, wg, act=act)
         plan = ops.mlp_plan(x.dtype, 1, rows, D, Fd)
         comp = composite_ms(x.reshape(-1, D), wi, wo, wg, None, act)
         what = (f"{rows} rows x {D} x {Fd} {act} "
@@ -3639,7 +3589,7 @@ def context_timing(res, dev, label, name, c, row, group="context"):
         fail(f"{name} {label}: a repeat gives other bits")
     kern = device_and_eager_ms(run, 20)
     plain = device_and_eager_ms(lambda: run("ref"), 5)
-    b, by = bound_ms(flops, nbytes, "bf16")
+    b, by = bound_ms(*work)
     out.update(graphed_ms=med(kern[0]), ms=med(kern[1]),
                graphed_plain_ms=med(plain[0]), plain_ms=med(plain[1]),
                bound_ms=b, bound_by=by)
@@ -4186,13 +4136,12 @@ def decode_timing(res, dev, label, c, row):
     if not torch.equal(dec(None)(), dec(None)()) and n_sets == 1:
         fail(f"decode_attention {label}: a repeat gives other bits")
     n_att = int(att.sum())
-    nbytes = (2 * q.numel() + 2 * n_att * K * Dh) * esz + pos.numel() * 4 \
-        + (valid.numel() if valid is not None else 0) + B * 4
     kern = device_and_eager_ms(dec(None), 50)
     plain = device_and_eager_ms(dec("ref"), 10)
     lib = sdpa_ms("decode_attention", q.transpose(1, 2), ks, vs,
                   att[:, None, None, :], 50)
-    b, by = bound_ms(4 * Dh * H * n_att, nbytes, "bf16")
+    b, by = bound_ms(*cost("decode_attention", q, ks[0], vs[0], pos, tv,
+                           valid, window=window))
     res.rows["decode_attention"].setdefault("modes", {})[row] = dict(
         shape=[B, L, H, K, Dh], window=window, attended=n_att,
         graphed_ms=med(kern[0]), ms=med(kern[1]),
@@ -5578,6 +5527,266 @@ def kernel_ab(parent: Path, layers: int) -> int:
     return 0 if ok else 1
 
 
+# ----------------------- (i) analysis and accounting -------------------------
+
+# PERF.md §6's kernel bounds (ms, as printed there) by their row and
+# their place in the result line's rows (an fnmatch pattern over the key
+# path joined by " / "): every one must come out of ``ops.kernel_cost``
+# again, to the four decimals printed
+PERF_BOUNDS = {
+    "1": ("flash_attention", 0.0024),
+    "1b": ("flash_attention / context / 1b_vlm_cross", 0.0056),
+    "1c": ("flash_attention / context / 1c_whisper_encoder", 0.0093),
+    "1d": ("flash_attention / modes / 1d_dh256", 0.0010),
+    "1e": ("flash_attention / modes / 1e_window1024", 0.0168),
+    "1f": ("flash_attention / modes / 1f_mqa48", 0.0022),
+    "2": ("fused_mlp", 0.2109),
+    "2b": ("fused_mlp / cases / chunk", 0.1217),
+    "2c": ("fused_mlp / cases / train", 0.4218),
+    "2d": ("fused_mlp / int8 / prefill (1, 512)", 0.2109),
+    "2e": ("fused_mlp / int8 / chunk (1, 16)", 0.0609),
+    "2f": ("fused_mlp / context / 2f_whisper_gelu", 0.0254),
+    "2g": ("fused_mlp / modes / 2g_granite_gelu", 0.1832),
+    "3": ("fused_mlp_routed", 0.1878),
+    "3b": ("fused_mlp_routed / int8 / train admission (1, 512) Kb=384",
+           0.1553),
+    "4": ("moe_gmm", 0.1845),
+    "4b": ("moe_gmm / cases / moefied qwen2-7b training", 0.4218),
+    "4c": ("moe_gmm / cases / native qwen1.5-moe serving", 0.3687),
+    "4d": ("moe_gmm / int8 / native int8 (1, 60, 512, 2048)", 0.3045),
+    "4e": ("moe_gmm / cases / native qwen1.5-moe training", 1.0748),
+    "4f": ("moe_gmm / cases / VLM serving", 0.1257),
+    "4g": ("moe_gmm / cases / grok-1 serving (4g)", 2.9001),
+    "4h": ("moe_gmm / cases / hybrid serving", 0.0448),
+    "5": ("decode_attention", 0.0012),
+    "5b": ("decode_attention / int8 / ring (5, 1024)", 0.0004),
+    "5c": ("decode_attention / modes / 5c_dh256", 0.0002),
+    "5d": ("decode_attention / modes / 5d_window_ring", 0.0058),
+    "5e": ("decode_attention / modes / 5e_mqa48", 0.0001),
+    "6": ("paged_decode_attention", 0.0007),
+    "6b": ("paged_decode_attention / int8 / decode (4, 64x16)", 0.0004),
+    "6c": ("paged_decode_attention / int8 / path prefill chunk (heaviest "
+           "of *)", 0.0002),
+}
+
+
+def run_passes(label, bundle, device_line) -> list:
+    """``repro_torch.analysis.run_all`` over ``bundle``'s entry points and
+    kernels on the card: prints every finding and every waived one with
+    its reason, fails on an unwaived error. Returns the kernel calls the
+    entry points recorded."""
+    from repro_torch.analysis import run_all
+    from repro_torch.kernels.ops import KernelCall
+    t0 = time.perf_counter()
+    report = run_all(bundle)
+    eng = bundle.engine
+    print(f"analysis, {label}: {bundle.cfg.name}, {bundle.cfg.n_layers} "
+          f"layers, {bundle.cfg.dtype}, KV {eng.kv_dtype}, weights "
+          f"{eng.weight_dtype}, entries {sorted(bundle.entries())}: "
+          f"{time.perf_counter() - t0:.1f} s [{device_line}]")
+    for name in sorted(bundle.entries()):
+        recs = bundle.trace(name).records
+        n_k = sum(isinstance(r, KernelCall) for r in recs)
+        print(f"  {name}: {len(recs) - n_k} aten operations, {n_k} kernel "
+              f"calls per call")
+    print("  " + report.table().replace("\n", "\n  "))
+    if not report.ok:
+        fail(f"analysis, {label}: {len(report.errors)} unwaived error(s)")
+    return [r for name in bundle.entries()
+            for r in bundle.trace(name).records if isinstance(r, KernelCall)]
+
+
+def recorded_args(c, dev) -> dict:
+    """A ``PathCalls`` record's arguments, each recorded shape an empty
+    tensor of its dtype on the card (a launch's geometry reads shapes,
+    dtypes and the recorded masks and counts, never the operands)."""
+    import torch
+    return {k: (torch.empty(v[1], dtype=v[2], device=dev)
+                if isinstance(v, tuple) and v[:1] == ("shape",) else v)
+            for k, v in c.items()}
+
+
+def check_geometry(calls, device_line):
+    """Every (kernel name, arguments) of ``calls`` (an iterable, consumed
+    one call at a time): the Python statement of its launches
+    (``ops.launch_geometry``) must equal what its C launcher reports
+    (``ops.c_geometry``: the launcher's host code, stopped before the
+    launch). Fails on the first difference."""
+    from repro_torch.kernels import ops
+    by, seen = {}, set()
+    for name, a in calls:
+        sig = (name,) + tuple((k, (tuple(v.shape), v.dtype, v.stride()))
+                              if hasattr(v, "stride") else (k, repr(v))
+                              for k, v in a.items())
+        if sig in seen:
+            continue
+        seen.add(sig)
+        py = [(l["grid"], l["block"], l["smem"])
+              for l in ops.launch_geometry(name, **a)["launches"]]
+        c = ops.c_geometry(name, **a)
+        if py != c:
+            fail(f"{name} launch geometry: Python {py} != launcher {c} "
+                 f"(arguments {[(k, tuple(v.shape) if hasattr(v, 'shape') else v) for k, v in a.items()]})")
+        by[name] = by.get(name, 0) + 1
+    print(f"launch geometry, Python statement == C launcher for every "
+          f"recorded call signature: {by} [{device_line}]")
+
+
+def check_accounting(args, dev, device_line) -> dict:
+    """Qwen2-7B at all 28 layers (random weights from --seed): the decode
+    step of four slots (counted on its eager twin: a graph replay calls no
+    wrapper and no aten operation; timed graphed, device ms a step under
+    the profiler) and one training step of 2 x 512 tokens at budget 0.5
+    (counted and timed, device ms), each as FLOPs and bytes
+    (``hloprof.count_step``) and as shares of the card's peaks
+    (``step_shares``). Fails if a share passes 1.0 (a count is wrong)."""
+    import torch
+    from repro_torch.analysis.framework import clone_tensors
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.launch.hloprof import count_step, step_shares
+    from repro_torch.models import model_init, router_init
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg, spec = get_config("qwen2-7b"), slice_spec()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model_init(gen, cfg, spec, device=dev)
+    rp = router_init(gen, cfg, spec, device=dev)
+    eng = ServingEngine(params, rp, cfg, spec, mode="infer", batch_size=4,
+                        max_seq=1024, device=dev)
+    rng = np.random.default_rng(args.seed)
+    for n, b in zip((64, 512, 200, 333), (1.0, 0.75, 0.5, 1.0)):
+        eng.submit(GenRequest(rng.integers(0, cfg.vocab_size, n).astype(
+            np.int32), 64, budget=b))
+    eng.step()                       # admissions; the greedy form captured
+    eng.step()
+    a = list(eng._decode_args(False))
+    a[2], a[3] = a[2].clone(), clone_tensors(a[3])
+    with torch.no_grad():
+        dec = count_step(eng._decode_fn, *a)
+    del a
+    n_steps = 10
+    _, dms = device_ms(lambda: [eng.step() for _ in range(n_steps)])
+    dec_ms = dms / n_steps
+    out = {}
+    sh = step_shares(dec["flops_by"], dec["bytes"], dec_ms)
+    out.update(decode_mfu=sh["mfu"], decode_hbm_share=sh["hbm_share"],
+               decode_flops=dec["flops"], decode_bytes=dec["bytes"],
+               decode_device_ms=dec_ms, decode_ops=dec["ops"],
+               decode_kernel_calls=dec["kernel_calls"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    S, B = 512, 2
+    cfg_t, ecfg, params, state, step_fn, pipe = T.build_trainer(
+        "qwen2-7b", lr=1e-4, total_steps=4, seq_len=S, global_batch=B,
+        seed=args.seed, ecfg=spec, device=dev, n_layers=cfg.n_layers,
+        params=params, routers=rp)
+    pol, bucket = T.policy_schedule(cfg_t, ecfg, seq_len=S, total_steps=4,
+                                    device=dev, budget=0.5, anneal_from=1.0,
+                                    anneal_steps=3)(3)
+    batch = {"tokens": torch.as_tensor(pipe.batch_at(0), device=dev)}
+    run = lambda: step_fn(state, params, batch, pol, bucket)
+    run()                            # warm-up
+    tr = count_step(run)
+    _, tr_ms = device_ms(run)
+    sh = step_shares(tr["flops_by"], tr["bytes"], tr_ms)
+    out.update(train_mfu=sh["mfu"], train_hbm_share=sh["hbm_share"],
+               train_flops=tr["flops"], train_bytes=tr["bytes"],
+               train_device_ms=tr_ms, train_ops=tr["ops"],
+               train_kernel_calls=tr["kernel_calls"], train_bucket=bucket)
+    print(f"accounting, {cfg.name} at {cfg.n_layers} layers [{device_line}]:"
+          f" decode (4 slots) {dec['flops'] / 1e9:.2f} GFLOP "
+          f"{dict((k, round(v / 1e9, 3)) for k, v in dec['flops_by'].items())}"
+          f", {dec['bytes'] / 1e9:.3f} GB moved, {dec['ops']} aten ops + "
+          f"{dec['kernel_calls']} kernel calls, graphed {dec_ms:.3f} device "
+          f"ms/step: MFU {out['decode_mfu']:.4f}, HBM share "
+          f"{out['decode_hbm_share']:.4f}; training step (2 x 512, bucket "
+          f"{bucket}) {tr['flops'] / 1e12:.3f} TFLOP "
+          f"{dict((k, round(v / 1e12, 3)) for k, v in tr['flops_by'].items())}"
+          f", {tr['bytes'] / 1e9:.2f} GB moved, {tr['ops']} aten ops + "
+          f"{tr['kernel_calls']} kernel calls, {tr_ms:.1f} device ms: MFU "
+          f"{out['train_mfu']:.4f}, HBM share {out['train_hbm_share']:.4f}")
+    for k in ("decode_mfu", "decode_hbm_share", "train_mfu",
+              "train_hbm_share"):
+        if not 0.0 < out[k] <= 1.0:
+            fail(f"accounting: {k} {out[k]:.4f} is outside (0, 1]: a count "
+                 f"is wrong")
+    return out
+
+
+def flat_bounds(rows, prefix=()) -> dict:
+    """Every ``bound_ms`` of the result line's rows by its key path."""
+    out = {}
+    for k, v in rows.items():
+        if isinstance(v, dict):
+            if "bound_ms" in v:
+                out[prefix + (k,)] = v["bound_ms"]
+            out.update(flat_bounds(v, prefix + (k,)))
+    return out
+
+
+def check_bounds(res, device_line):
+    """Prints every kernel case's bound (from ``ops.kernel_cost``) and
+    fails unless each of PERF.md §6's rows (``PERF_BOUNDS``) matches one
+    case whose bound is as printed there, to four decimals."""
+    import fnmatch
+    got = {" / ".join(p): b for p, b in flat_bounds(res.rows).items()}
+    rows = {key: row for row, (pat, _) in PERF_BOUNDS.items()
+            for key in got if fnmatch.fnmatchcase(key, pat)}
+    bad = []
+    for key, b in sorted(got.items()):
+        row = rows.get(key)
+        want = None if row is None else PERF_BOUNDS[row][1]
+        same = want is None or f"{b:.4f}" == f"{want:.4f}"
+        bad += [] if same else [f"row {row}: {b:.4f} != {want:.4f}"]
+        print(f"  bound {key}: {b:.6f} ms" + (
+            "" if row is None else f" (PERF.md row {row} {want:.4f}: "
+            f"{'same' if same else 'DIFFERS'})"))
+    missing = sorted(set(PERF_BOUNDS) - set(rows.values()))
+    if bad or missing:
+        fail(f"kernel bounds: {bad} differ from PERF.md; rows {missing} "
+             f"not computed")
+    print(f"kernel bounds from ops.kernel_cost: {len(got)} cases, every "
+          f"one of PERF.md §6's {len(PERF_BOUNDS)} rows as printed there "
+          f"[{device_line}]")
+
+
+def check_analysis(args, res, dev, device_line) -> dict:
+    """(i) The analysis passes on the card (the toy bundle, then Qwen2-7B's
+    ring and paged entry points at ``TWIN_LAYERS`` in bf16 and with int8
+    weights and K/V), every recorded kernel call's launch geometry against
+    its launcher, the whole-step accounting at 28 layers, and the kernel
+    bounds against PERF.md. Returns the accounting line's numbers."""
+    import torch
+    from repro_torch.analysis import build_bundle
+    calls = []
+    toy = build_bundle(device=dev, seed=args.seed)
+    calls += run_passes("toy bundle", toy, device_line)
+    del toy
+    spec = depth_spec(slice_spec())
+    for kv, w in (("fp32", "fp32"), ("int8", "int8")):
+        b = build_bundle(device=dev, arch="qwen2-7b", variant="full",
+                         n_layers=TWIN_LAYERS, dtype=None, spec=spec,
+                         kv_dtype=kv, weight_dtype=w, seed=args.seed)
+        calls += run_passes(f"qwen2-7b, KV {kv}, weights {w}", b,
+                            device_line)
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+    # one recorded path call's arguments at a time: together they would
+    # not fit on the card
+    check_geometry(itertools.chain(
+        ((c.name, c.args) for c in calls),
+        ((name, recorded_args(c, dev))
+         for name, c in PathCalls.signatures.values())), device_line)
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    acc = check_accounting(args, dev, device_line)
+    check_bounds(res, device_line)
+    return acc
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -5805,6 +6014,9 @@ def main() -> int:
     paths.update(check_attention_only(args, res, dev, device_line))
     free()
     done("(h) Granite, Phi-3, Grok-1")
+    accounting = check_analysis(args, res, dev, device_line)
+    free()
+    done("(i) analysis and accounting")
     kernels = [dict(name=n, route="cuda", source=SOURCES[n][0],
                     replaces=SOURCES[n][1],
                     launches=sum(p[n] for p in paths.values()),
@@ -5813,6 +6025,7 @@ def main() -> int:
     print(f"phase wall times (s): {phase_s}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"accounting": accounting}))
     print(device_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

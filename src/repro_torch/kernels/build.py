@@ -55,6 +55,12 @@ ENTRIES = {
         _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
+# each launcher's geometry query: its arguments but the stream, then an int
+# array for the record (csrc/common.cuh rt::geometry_out)
+ENTRIES.update({
+    name.replace("_launch", "_geometry"): (src, sig[:-1] + [
+        ctypes.POINTER(ctypes.c_int)])
+    for name, (src, sig) in list(ENTRIES.items())})
 
 _lock = threading.Lock()
 _libs: dict = {}

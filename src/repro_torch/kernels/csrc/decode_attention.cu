@@ -758,18 +758,24 @@ template <typename T, typename TKV, int DH, typename Keys>
 int launch(const void* q, const void* k, const void* v, const float* ks,
            const float* vs, void* out, float* part_acc, float* part_ml,
            const int* t, const Keys& keys, int B, int H, int K,
-           int split_keys, int n_split, float sm_scale, cudaStream_t stream) {
+           int split_keys, int n_split, float sm_scale, cudaStream_t stream,
+           rt::Geom* geo) {
   const dim3 grid(K, B, n_split * ((H / K + GMAX - 1) / GMAX));
   constexpr bool Q8 = std::is_same<TKV, int8_t>::value;
+  constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;
+  const int smem = MMA ? (int)sizeof(SmemMma<DH, Q8>)
+                       : (int)sizeof(Smem<TKV, DH>);
+  if (geo != nullptr)
+    return rt::record(geo, {{grid, NT, smem}, {dim3(H, B), DH, 0}});
   cudaError_t e;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    e = start(decode_split_mma<DH, Keys, Q8>, (int)sizeof(SmemMma<DH, Q8>),
-              grid, stream, (const T*)q, (const TKV*)k, (const TKV*)v, ks,
+  if constexpr (MMA)
+    e = start(decode_split_mma<DH, Keys, Q8>, smem, grid, stream,
+              (const T*)q, (const TKV*)k, (const TKV*)v, ks,
               vs, part_acc, (float2*)part_ml, t, keys, H, K, split_keys,
               n_split, sm_scale);
   else
-    e = start(decode_split<T, TKV, DH, Keys>, (int)sizeof(Smem<TKV, DH>),
-              grid, stream, (const T*)q, (const TKV*)k, (const TKV*)v, ks,
+    e = start(decode_split<T, TKV, DH, Keys>, smem, grid, stream,
+              (const T*)q, (const TKV*)k, (const TKV*)v, ks,
               vs, part_acc, (float2*)part_ml, t, keys, H, K, split_keys,
               n_split, sm_scale);
   if (e != cudaSuccess) return (int)e;
@@ -785,7 +791,7 @@ int dispatch(int dtype, int kv_dtype, int dh, const void* q, const void* k,
              const void* v, const void* kscale, const void* vscale,
              void* out, void* scratch, const void* t, const Keys& keys,
              int B, int H, int K, int split_keys, int n_split, float sm_scale,
-             void* stream) {
+             void* stream, rt::Geom* geo) {
   const int* tt = (const int*)t;
   const float* ks = (const float*)kscale;
   const float* vs = (const float*)vscale;
@@ -798,16 +804,16 @@ int dispatch(int dtype, int kv_dtype, int dh, const void* q, const void* k,
   switch (dh) {                                                               \
     case 32: return launch<T, TKV, 32>(q, k, v, ks, vs, out, pa, pm, tt,      \
                                        keys, B, H, K, split_keys, n_split,    \
-                                       sm_scale, s);                          \
+                                       sm_scale, s, geo);                     \
     case 64: return launch<T, TKV, 64>(q, k, v, ks, vs, out, pa, pm, tt,      \
                                        keys, B, H, K, split_keys, n_split,    \
-                                       sm_scale, s);                          \
+                                       sm_scale, s, geo);                     \
     case 128: return launch<T, TKV, 128>(q, k, v, ks, vs, out, pa, pm, tt,    \
                                          keys, B, H, K, split_keys, n_split,  \
-                                         sm_scale, s);                        \
+                                         sm_scale, s, geo);                   \
     case 256: return launch<T, TKV, 256>(q, k, v, ks, vs, out, pa, pm, tt,    \
                                          keys, B, H, K, split_keys, n_split,  \
-                                         sm_scale, s);                        \
+                                         sm_scale, s, geo);                   \
     default: return (int)cudaErrorInvalidValue;                               \
   }
   if (dtype == rt::DT_F32 && kv_dtype == rt::DT_F32) DECODE_DH(float, float)
@@ -830,26 +836,108 @@ int dispatch(int dtype, int kv_dtype, int dh, const void* q, const void* k,
 // paged (N,ps,K)), else NULL. scratch: B*H*n_split*(Dh + 2) f32, the
 // splits' partial outputs (B,H,n_split,Dh) then their (max, sum)
 // (B,H,n_split,2).
-extern "C" int decode_attention_launch(
-    int dtype, int kv_dtype, int dh, const void* q, const void* k,
-    const void* v, const void* kscale, const void* vscale, void* out,
-    void* scratch, const void* kv_pos, const void* t, const void* kv_valid,
-    int B, int L, int H, int K, int window, int split_keys, int n_split,
-    float sm_scale, void* stream) {
+static int decode_attention_run(int dtype, int kv_dtype, int dh, const void* q,
+                                const void* k, const void* v,
+                                const void* kscale, const void* vscale,
+                                void* out, void* scratch, const void* kv_pos,
+                                const void* t, const void* kv_valid, int B,
+                                int L, int H, int K, int window,
+                                int split_keys, int n_split, float sm_scale,
+                                void* stream, rt::Geom* geo) {
   const RingKeys keys{(const int*)kv_pos, (const uint8_t*)kv_valid, L,
                       window};
   return dispatch(dtype, kv_dtype, dh, q, k, v, kscale, vscale, out, scratch,
-                  t, keys, B, H, K, split_keys, n_split, sm_scale, stream);
+                  t, keys, B, H, K, split_keys, n_split, sm_scale, stream,
+                  geo);
 }
 
-extern "C" int paged_decode_attention_launch(
-    int dtype, int kv_dtype, int dh, const void* q, const void* kp,
-    const void* vp, const void* kscale, const void* vscale, void* out,
-    void* scratch, const void* table, const void* t, const void* pvalid,
-    int B, int P, int ps, int H, int K, int split_keys, int n_split,
-    float sm_scale, void* stream) {
+extern "C" int decode_attention_launch(int dtype, int kv_dtype, int dh,
+                                       const void* q, const void* k,
+                                       const void* v, const void* kscale,
+                                       const void* vscale, void* out,
+                                       void* scratch, const void* kv_pos,
+                                       const void* t, const void* kv_valid,
+                                       int B, int L, int H, int K, int window,
+                                       int split_keys, int n_split,
+                                       float sm_scale, void* stream) {
+  return decode_attention_run(dtype, kv_dtype, dh, q, k, v, kscale, vscale,
+                              out, scratch, kv_pos, t, kv_valid, B, L, H, K,
+                              window, split_keys, n_split, sm_scale, stream,
+                              nullptr);
+}
+
+// decode_attention_launch's arguments but the stream: the launcher's host code
+// up to its launches; `geom` gets rt::geometry_out's record.
+extern "C" int decode_attention_geometry(int dtype, int kv_dtype, int dh,
+                                         const void* q, const void* k,
+                                         const void* v, const void* kscale,
+                                         const void* vscale, void* out,
+                                         void* scratch, const void* kv_pos,
+                                         const void* t, const void* kv_valid,
+                                         int B, int L, int H, int K,
+                                         int window, int split_keys,
+                                         int n_split, float sm_scale,
+                                         int* geom) {
+  rt::Geom g;
+  const int rc = decode_attention_run(dtype, kv_dtype, dh, q, k, v, kscale,
+                                      vscale, out, scratch, kv_pos, t, kv_valid,
+                                      B, L, H, K, window, split_keys, n_split,
+                                      sm_scale, nullptr, &g);
+  return rt::geometry_out(g, geom, rc);
+}
+
+static int paged_decode_attention_run(int dtype, int kv_dtype, int dh,
+                                      const void* q, const void* kp,
+                                      const void* vp, const void* kscale,
+                                      const void* vscale, void* out,
+                                      void* scratch, const void* table,
+                                      const void* t, const void* pvalid, int B,
+                                      int P, int ps, int H, int K,
+                                      int split_keys, int n_split,
+                                      float sm_scale, void* stream,
+                                      rt::Geom* geo) {
   const PagedKeys keys{(const int*)table, (const uint8_t*)pvalid, P, ps};
   return dispatch(dtype, kv_dtype, dh, q, kp, vp, kscale, vscale, out,
                   scratch, t, keys, B, H, K, split_keys, n_split, sm_scale,
-                  stream);
+                  stream, geo);
+}
+
+extern "C" int paged_decode_attention_launch(int dtype, int kv_dtype, int dh,
+                                             const void* q, const void* kp,
+                                             const void* vp,
+                                             const void* kscale,
+                                             const void* vscale, void* out,
+                                             void* scratch, const void* table,
+                                             const void* t, const void* pvalid,
+                                             int B, int P, int ps, int H,
+                                             int K, int split_keys,
+                                             int n_split, float sm_scale,
+                                             void* stream) {
+  return paged_decode_attention_run(dtype, kv_dtype, dh, q, kp, vp, kscale,
+                                    vscale, out, scratch, table, t, pvalid, B,
+                                    P, ps, H, K, split_keys, n_split, sm_scale,
+                                    stream, nullptr);
+}
+
+// paged_decode_attention_launch's arguments but the stream: the launcher's host
+// code up to its launches; `geom` gets rt::geometry_out's record.
+extern "C" int paged_decode_attention_geometry(int dtype, int kv_dtype, int dh,
+                                               const void* q, const void* kp,
+                                               const void* vp,
+                                               const void* kscale,
+                                               const void* vscale, void* out,
+                                               void* scratch,
+                                               const void* table,
+                                               const void* t,
+                                               const void* pvalid, int B,
+                                               int P, int ps, int H, int K,
+                                               int split_keys, int n_split,
+                                               float sm_scale, int* geom) {
+  rt::Geom g;
+  const int rc = paged_decode_attention_run(dtype, kv_dtype, dh, q, kp, vp,
+                                            kscale, vscale, out, scratch, table,
+                                            t, pvalid, B, P, ps, H, K,
+                                            split_keys, n_split, sm_scale,
+                                            nullptr, &g);
+  return rt::geometry_out(g, geom, rc);
 }

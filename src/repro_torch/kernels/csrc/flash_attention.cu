@@ -245,12 +245,13 @@ template <typename T, int DH>
 int launch_simt(const void* q, const void* k, const void* v, void* out,
                 const uint8_t* kv_valid, const int* kv_count, int B, int Sq,
                 int Sk, int H, int K, int causal, int window, float sm_scale,
-                cudaStream_t stream) {
+                cudaStream_t stream, rt::Geom* geo) {
   const int smem = smem_floats<DH>() * (int)sizeof(float);
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  if (geo != nullptr) return rt::record(geo, {{grid, NT, smem}});
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_simt<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_simt<T, DH><<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, kv_valid, kv_count, Sq,
       Sk, H, K, causal, window, sm_scale);
@@ -602,7 +603,10 @@ template <int DH>
 int launch(const void* q, const void* k, const void* v, void* out,
            const uint8_t* kv_valid, const int* kv_count, int B, int Sq,
            int Sk, int H, int K, int causal, int window, float sm_scale,
-           cudaStream_t stream) {
+           cudaStream_t stream, rt::Geom* geo) {
+  const int smem = (int)sizeof(Smem<DH>) + 1024;  // + alignment slack
+  const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
+  if (geo != nullptr) return rt::record(geo, {{grid, NT, smem}});
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
   CUtensorMap mq, mk, mv;
@@ -610,11 +614,9 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (r == CUDA_SUCCESS) r = make_map(enc, &mk, k, DH, K, Sk, B);
   if (r == CUDA_SUCCESS) r = make_map(enc, &mv, v, DH, K, Sk, B);
   if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
-  const int smem = (int)sizeof(Smem<DH>) + 1024;  // + alignment slack
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_wgmma<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(H, B, (Sq + BQ - 1) / BQ);
   flash_fwd_wgmma<DH><<<grid, NT, smem, stream>>>(
       mq, mk, mv, (bf16*)out, kv_valid, kv_count, Sq, Sk, H, K, causal,
       window, sm_scale * 1.4426950408889634f);
@@ -623,22 +625,16 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace tc
 
-}  // namespace
-
-// C entry point bound with ctypes. Returns the launch's cudaError_t (or a
-// hp::ERR_* code, csrc/hopper.cuh).
-extern "C" int flash_attention_launch(int dtype, int dh, const void* q,
-                                      const void* k, const void* v, void* out,
-                                      const void* kv_valid,
-                                      const void* kv_count, int B, int Sq,
-                                      int Sk, int H, int K, int causal,
-                                      int window, float sm_scale,
-                                      void* stream) {
+// The body for (dtype, dh), launched (geo NULL) or asked for its geometry.
+int run(int dtype, int dh, const void* q, const void* k, const void* v,
+        void* out, const void* kv_valid, const void* kv_count, int B, int Sq,
+        int Sk, int H, int K, int causal, int window, float sm_scale,
+        void* stream, rt::Geom* geo) {
   const uint8_t* valid = (const uint8_t*)kv_valid;
   const int* cnt = (const int*)kv_count;
   cudaStream_t s = (cudaStream_t)stream;
 #define FLASH_ARGS q, k, v, out, valid, cnt, B, Sq, Sk, H, K, causal, window, \
-                   sm_scale, s
+                   sm_scale, s, geo
   if (dtype == rt::DT_F32) {
     switch (dh) {
       case 16: return launch_simt<float, 16>(FLASH_ARGS);
@@ -658,4 +654,34 @@ extern "C" int flash_attention_launch(int dtype, int dh, const void* q,
   }
 #undef FLASH_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// C entry point bound with ctypes. Returns the launch's cudaError_t (or a
+// hp::ERR_* code, csrc/hopper.cuh).
+extern "C" int flash_attention_launch(int dtype, int dh, const void* q,
+                                      const void* k, const void* v, void* out,
+                                      const void* kv_valid,
+                                      const void* kv_count, int B, int Sq,
+                                      int Sk, int H, int K, int causal,
+                                      int window, float sm_scale,
+                                      void* stream) {
+  return run(dtype, dh, q, k, v, out, kv_valid, kv_count, B, Sq, Sk, H, K,
+             causal, window, sm_scale, stream, nullptr);
+}
+
+// flash_attention_launch's arguments but the stream: the launcher's host
+// code up to its launch; `geom` gets rt::geometry_out's record.
+extern "C" int flash_attention_geometry(int dtype, int dh, const void* q,
+                                        const void* k, const void* v,
+                                        void* out, const void* kv_valid,
+                                        const void* kv_count, int B, int Sq,
+                                        int Sk, int H, int K, int causal,
+                                        int window, float sm_scale,
+                                        int* geom) {
+  rt::Geom g;
+  const int rc = run(dtype, dh, q, k, v, out, kv_valid, kv_count, B, Sq, Sk,
+                     H, K, causal, window, sm_scale, nullptr, &g);
+  return rt::geometry_out(g, geom, rc);
 }

@@ -311,17 +311,19 @@ template <typename T, typename TW, bool GROUPED>
 int launch(const void* x, const int* gidx, const void* wi, const void* wg,
            const void* wo, const Experts& ex, const Scales& sc,
            const float* tw, const int* cnt, float* hbuf, void* out, int G,
-           int T_, int S, int D, int F, int act, cudaStream_t stream) {
+           int T_, int S, int D, int F, int act, cudaStream_t stream,
+           rt::Geom* geo) {
   const int mt = (T_ + BM - 1) / BM;
   if (G > 65535 || mt > 65535) return (int)cudaErrorInvalidConfiguration;
-  mlp_up<T, TW, GROUPED><<<dim3((F + BN - 1) / BN, mt, G), NT, 0, stream>>>(
+  const dim3 gu((F + BN - 1) / BN, mt, G), gd((D + BN - 1) / BN, mt, G);
+  if (geo != nullptr) return rt::record(geo, {{gu, NT, 0}, {gd, NT, 0}});
+  mlp_up<T, TW, GROUPED><<<gu, NT, 0, stream>>>(
       (const T*)x, gidx, (const TW*)wi, (const TW*)wg, ex, sc, hbuf, cnt, T_,
       S, D, F, act);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  mlp_down<T, TW, GROUPED><<<dim3((D + BN - 1) / BN, mt, G), NT, 0,
-                              stream>>>(hbuf, gidx, (const TW*)wo, ex, sc, tw,
-                                        cnt, (T*)out, T_, S, D, F);
+  mlp_down<T, TW, GROUPED><<<gd, NT, 0, stream>>>(
+      hbuf, gidx, (const TW*)wo, ex, sc, tw, cnt, (T*)out, T_, S, D, F);
   return (int)cudaGetLastError();
 }
 
@@ -332,7 +334,7 @@ int dispatch(int dtype, int w_dtype, const void* x, const int* gidx,
              const void* wi, const void* wg, const void* wo,
              const Experts& ex, const Scales& sc, const void* tw,
              const void* cnt, void* hbuf, void* out, int G, int T_, int S,
-             int D, int F, int act, cudaStream_t s) {
+             int D, int F, int act, cudaStream_t s, rt::Geom* geo) {
   const float* w = (const float*)tw;
   const int* c = (const int*)cnt;
   float* h = (float*)hbuf;
@@ -342,7 +344,7 @@ int dispatch(int dtype, int w_dtype, const void* x, const int* gidx,
     return (int)cudaErrorInvalidValue;
 #define MLP_LAUNCH(T, TW)                                                     \
   return launch<T, TW, GROUPED>(x, gidx, wi, wg, wo, ex, sc, w, c, h, out, G, \
-                                T_, S, D, F, act, s)
+                                T_, S, D, F, act, s, geo)
   if (dtype == rt::DT_F32 && w_dtype == rt::DT_F32) MLP_LAUNCH(float, float);
   if (dtype == rt::DT_F32 && w_dtype == rt::DT_BF16)
     MLP_LAUNCH(float, __nv_bfloat16);
@@ -823,14 +825,15 @@ __global__ void __launch_bounds__(256) mlp_finalize(
 template <bool UP, int WGS, bool Q8>
 int launch_phase(const CUtensorMap& ta, const CUtensorMap& tb0,
                  const CUtensorMap& tb1, const Params& p, dim3 grid,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, rt::Geom* geo) {
   const int smem = (int)sizeof(Smem<UP, WGS>) + 1024;  // + alignment slack
+  const int threads = WGS * 128 + producer_warps<WGS>() * 32;
+  if (geo != nullptr) return rt::record(geo, {{grid, threads, smem}});
   cudaError_t e = cudaFuncSetAttribute(
       mlp_tc<UP, WGS, Q8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
-  mlp_tc<UP, WGS, Q8><<<grid, WGS * 128 + producer_warps<WGS>() * 32, smem,
-                        stream>>>(ta, tb0, tb1, p);
+  mlp_tc<UP, WGS, Q8><<<grid, threads, smem, stream>>>(ta, tb0, tb1, p);
   return (int)cudaGetLastError();
 }
 
@@ -872,28 +875,30 @@ int launch(const bf16* x, const int* gidx, const void* wi, const void* wg,
            const void* wo, const float* const* sc, const float* tw,
            const int* cnt, bf16* h, float* part, bf16* out, int G, int T_,
            int S_, int D, int F, int act, int split, int E, const WMap& wim,
-           const WMap& wom, cudaStream_t stream) {
+           const WMap& wom, cudaStream_t stream, rt::Geom* geo) {
   constexpr int BM = 64 * WGS;
-  const EncodeTiled enc = encoder();
-  if (enc == nullptr) return ERR_NO_ENCODER;
   CUtensorMap mx, mwi, mwg, mh, mwo;
-  CUresult r = map2(enc, &mwi, wi, wim.cols, wim.rows, Q8);
-  if (r == CUDA_SUCCESS && wg != nullptr)
-    r = map2(enc, &mwg, wg, wim.cols, wim.rows, Q8);
-  if (r == CUDA_SUCCESS && gidx == nullptr)
-    r = map3(enc, &mx, x, D, T_, G, BM);
-  if (r == CUDA_SUCCESS) r = map3(enc, &mh, h, F, T_, G, BM);
-  if (r == CUDA_SUCCESS) r = map2(enc, &mwo, wo, wom.cols, wom.rows, Q8);
-  if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
-  if (wg == nullptr) mwg = mwi;   // unread
-  if (gidx != nullptr) mx = mwi;  // unread: the producer gathers x rows
+  if (geo == nullptr) {  // a geometry query encodes no map
+    const EncodeTiled enc = encoder();
+    if (enc == nullptr) return ERR_NO_ENCODER;
+    CUresult r = map2(enc, &mwi, wi, wim.cols, wim.rows, Q8);
+    if (r == CUDA_SUCCESS && wg != nullptr)
+      r = map2(enc, &mwg, wg, wim.cols, wim.rows, Q8);
+    if (r == CUDA_SUCCESS && gidx == nullptr)
+      r = map3(enc, &mx, x, D, T_, G, BM);
+    if (r == CUDA_SUCCESS) r = map3(enc, &mh, h, F, T_, G, BM);
+    if (r == CUDA_SUCCESS) r = map2(enc, &mwo, wo, wom.cols, wom.rows, Q8);
+    if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
+    if (wg == nullptr) mwg = mwi;   // unread
+    if (gidx != nullptr) mx = mwi;  // unread: the producer gathers x rows
+  }
   const int mt = (T_ + BM - 1) / BM;
   Params p{x, gidx, cnt, h, part, G, T_, S_, D, F, mt, act,
            wg != nullptr ? 1 : 0, 1, E, wim.cs, wim.rs, (F + BN - 1) / BN,
            nullptr, nullptr, {Q8 ? sc[0] : nullptr, Q8 ? sc[1] : nullptr}};
   // one grid axis over every (expert, column tile, batch row, row tile)
   int e = launch_phase<true, WGS, Q8>(mx, mwi, mwg, p, dim3(G * mt * p.nt),
-                                      stream);
+                                      stream, geo);
   if (e != 0) return e;
   p.x = nullptr, p.gidx = nullptr, p.split = split;
   p.bcs = wom.cs, p.brs = wom.rs, p.nt = (D + BN - 1) / BN;
@@ -901,10 +906,12 @@ int launch(const bf16* x, const int* gidx, const void* wi, const void* wg,
   // one part and no scatter: the down phase stores the output itself
   if (split == 1 && gidx == nullptr) p.out = out, p.tw = tw;
   e = launch_phase<false, WGS, Q8>(mh, mwo, mwo, p,
-                                   dim3(G * mt * p.nt, 1, split), stream);
+                                   dim3(G * mt * p.nt, 1, split), stream, geo);
   if (e != 0 || p.out != nullptr) return e;
   const long n = (long)G * T_ * (D / 4);
-  mlp_finalize<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+  const dim3 gf((unsigned)((n + 255) / 256));
+  if (geo != nullptr) return rt::record(geo, {{gf, 256, 0}});
+  mlp_finalize<<<gf, 256, 0, stream>>>(
       part, gidx, tw, cnt, out, G, T_, S_, D, split);
   return (int)cudaGetLastError();
 }
@@ -919,22 +926,66 @@ int launch(const bf16* x, const int* gidx, const void* wi, const void* wg,
 // weights. dtype: x's (and out's) rt::DT_*; w_dtype: the weights' storage,
 // with wi_s / wg_s / wo_s their f32 scales when int8, else NULL. Each
 // returns the launches' cudaError_t.
-extern "C" int fused_mlp_launch(int dtype, int w_dtype, const void* x,
-                                const void* wi, const void* wg,
-                                const void* wo, const void* wi_s,
-                                const void* wg_s, const void* wo_s,
-                                const void* tw, const void* cnt, void* hbuf,
-                                void* out, int B, int T, int D, int F,
-                                int act, void* stream) {
+static int fused_mlp_run(int dtype, int w_dtype, const void* x, const void* wi,
+                         const void* wg, const void* wo, const void* wi_s,
+                         const void* wg_s, const void* wo_s, const void* tw,
+                         const void* cnt, void* hbuf, void* out, int B, int T,
+                         int D, int F, int act, void* stream, rt::Geom* geo) {
   const Scales sc{(const float*)wi_s, (const float*)wg_s, (const float*)wo_s};
   return dispatch<false>(dtype, w_dtype, x, nullptr, wi, wg, wo, Experts{},
                          sc, tw, cnt, hbuf, out, B, T, T, D, F, act,
-                         (cudaStream_t)stream);
+                         (cudaStream_t)stream, geo);
+}
+
+extern "C" int fused_mlp_launch(int dtype, int w_dtype, const void* x,
+                                const void* wi, const void* wg, const void* wo,
+                                const void* wi_s, const void* wg_s,
+                                const void* wo_s, const void* tw,
+                                const void* cnt, void* hbuf, void* out, int B,
+                                int T, int D, int F, int act, void* stream) {
+  return fused_mlp_run(dtype, w_dtype, x, wi, wg, wo, wi_s, wg_s, wo_s, tw,
+                       cnt, hbuf, out, B, T, D, F, act, stream, nullptr);
+}
+
+// fused_mlp_launch's arguments but the stream: the launcher's host code up to
+// its launches; `geom` gets rt::geometry_out's record.
+extern "C" int fused_mlp_geometry(int dtype, int w_dtype, const void* x,
+                                  const void* wi, const void* wg,
+                                  const void* wo, const void* wi_s,
+                                  const void* wg_s, const void* wo_s,
+                                  const void* tw, const void* cnt, void* hbuf,
+                                  void* out, int B, int T, int D, int F,
+                                  int act, int* geom) {
+  rt::Geom g;
+  const int rc = fused_mlp_run(dtype, w_dtype, x, wi, wg, wo, wi_s, wg_s, wo_s,
+                               tw, cnt, hbuf, out, B, T, D, F, act, nullptr,
+                               &g);
+  return rt::geometry_out(g, geom, rc);
 }
 
 // Routed mode: x and out are (B,S,D), idx (B,Kb) int32; out is zero-filled
 // on the stream first, then the selected rows are written. w_dtype and the
 // scales as in fused_mlp_launch.
+static int fused_mlp_routed_run(int dtype, int w_dtype, const void* x,
+                                const void* idx, const void* wi,
+                                const void* wg, const void* wo,
+                                const void* wi_s, const void* wg_s,
+                                const void* wo_s, const void* tw,
+                                const void* cnt, void* hbuf, void* out, int B,
+                                int S, int Kb, int D, int F, int act,
+                                void* stream, rt::Geom* geo) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t esz = dtype == rt::DT_BF16 ? 2 : 4;
+  if (geo == nullptr) {
+    cudaError_t e = cudaMemsetAsync(out, 0, (size_t)B * S * D * esz, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const Scales sc{(const float*)wi_s, (const float*)wg_s, (const float*)wo_s};
+  return dispatch<false>(dtype, w_dtype, x, (const int*)idx, wi, wg, wo,
+                         Experts{}, sc, tw, cnt, hbuf, out, B, Kb, S, D, F,
+                         act, s, geo);
+}
+
 extern "C" int fused_mlp_routed_launch(int dtype, int w_dtype, const void* x,
                                        const void* idx, const void* wi,
                                        const void* wg, const void* wo,
@@ -943,14 +994,26 @@ extern "C" int fused_mlp_routed_launch(int dtype, int w_dtype, const void* x,
                                        const void* cnt, void* hbuf, void* out,
                                        int B, int S, int Kb, int D, int F,
                                        int act, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t esz = dtype == rt::DT_BF16 ? 2 : 4;
-  cudaError_t e = cudaMemsetAsync(out, 0, (size_t)B * S * D * esz, s);
-  if (e != cudaSuccess) return (int)e;
-  const Scales sc{(const float*)wi_s, (const float*)wg_s, (const float*)wo_s};
-  return dispatch<false>(dtype, w_dtype, x, (const int*)idx, wi, wg, wo,
-                         Experts{}, sc, tw, cnt, hbuf, out, B, Kb, S, D, F,
-                         act, s);
+  return fused_mlp_routed_run(dtype, w_dtype, x, idx, wi, wg, wo, wi_s, wg_s,
+                              wo_s, tw, cnt, hbuf, out, B, S, Kb, D, F, act,
+                              stream, nullptr);
+}
+
+// fused_mlp_routed_launch's arguments but the stream: the launcher's host code
+// up to its launches; `geom` gets rt::geometry_out's record.
+extern "C" int fused_mlp_routed_geometry(int dtype, int w_dtype, const void* x,
+                                         const void* idx, const void* wi,
+                                         const void* wg, const void* wo,
+                                         const void* wi_s, const void* wg_s,
+                                         const void* wo_s, const void* tw,
+                                         const void* cnt, void* hbuf,
+                                         void* out, int B, int S, int Kb,
+                                         int D, int F, int act, int* geom) {
+  rt::Geom g;
+  const int rc = fused_mlp_routed_run(dtype, w_dtype, x, idx, wi, wg, wo, wi_s,
+                                      wg_s, wo_s, tw, cnt, hbuf, out, B, S, Kb,
+                                      D, F, act, nullptr, &g);
+  return rt::geometry_out(g, geom, rc);
 }
 
 // The tensor-core body of the dense and routed modes (bf16, D and F
@@ -963,18 +1026,16 @@ extern "C" int fused_mlp_routed_launch(int dtype, int w_dtype, const void* x,
 // w_dtype: rt::DT_BF16, or rt::DT_I8 for int8 weights (either mode) with
 // their f32 scales wi_s / wg_s (F,) and wo_s (D,). Returns the launches'
 // cudaError_t or an hp::ERR_* code.
-extern "C" int fused_mlp_tc_launch(int w_dtype, const void* x,
-                                   const void* idx, const void* wi,
-                                   const void* wg, const void* wo,
-                                   const void* wi_s, const void* wg_s,
-                                   const void* wo_s, const void* tw,
-                                   const void* cnt, void* h, void* part,
-                                   void* out, int G, int T_, int S_, int D,
-                                   int F, int act, int wgs, int split,
-                                   void* stream) {
+static int fused_mlp_tc_run(int w_dtype, const void* x, const void* idx,
+                            const void* wi, const void* wg, const void* wo,
+                            const void* wi_s, const void* wg_s,
+                            const void* wo_s, const void* tw, const void* cnt,
+                            void* h, void* part, void* out, int G, int T_,
+                            int S_, int D, int F, int act, int wgs, int split,
+                            void* stream, rt::Geom* geo) {
   using hp::bf16;
   cudaStream_t s = (cudaStream_t)stream;
-  if (idx != nullptr) {
+  if (idx != nullptr && geo == nullptr) {
     cudaError_t e = cudaMemsetAsync(out, 0, (size_t)G * S_ * D * 2, s);
     if (e != cudaSuccess) return (int)e;
   }
@@ -990,7 +1051,7 @@ extern "C" int fused_mlp_tc_launch(int w_dtype, const void* x,
                         (const float*)wo_s};
 #define TC_ARGS (const bf16*)x, (const int*)idx, wi, wg, wo, sc, \
     (const float*)tw, (const int*)cnt, (bf16*)h, (float*)part, (bf16*)out, \
-    G, T_, S_, D, F, act, split, 1, wim, wom, s
+    G, T_, S_, D, F, act, split, 1, wim, wom, s, geo
   if (wgs == 1) return q8 ? tc::launch<1, true>(TC_ARGS)
                           : tc::launch<1, false>(TC_ARGS);
   if (wgs == 2) return q8 ? tc::launch<2, true>(TC_ARGS)
@@ -999,23 +1060,84 @@ extern "C" int fused_mlp_tc_launch(int w_dtype, const void* x,
   return (int)cudaErrorInvalidValue;
 }
 
+extern "C" int fused_mlp_tc_launch(int w_dtype, const void* x, const void* idx,
+                                   const void* wi, const void* wg,
+                                   const void* wo, const void* wi_s,
+                                   const void* wg_s, const void* wo_s,
+                                   const void* tw, const void* cnt, void* h,
+                                   void* part, void* out, int G, int T_,
+                                   int S_, int D, int F, int act, int wgs,
+                                   int split, void* stream) {
+  return fused_mlp_tc_run(w_dtype, x, idx, wi, wg, wo, wi_s, wg_s, wo_s, tw,
+                          cnt, h, part, out, G, T_, S_, D, F, act, wgs, split,
+                          stream, nullptr);
+}
+
+// fused_mlp_tc_launch's arguments but the stream: the launcher's host code up
+// to its launches; `geom` gets rt::geometry_out's record.
+extern "C" int fused_mlp_tc_geometry(int w_dtype, const void* x,
+                                     const void* idx, const void* wi,
+                                     const void* wg, const void* wo,
+                                     const void* wi_s, const void* wg_s,
+                                     const void* wo_s, const void* tw,
+                                     const void* cnt, void* h, void* part,
+                                     void* out, int G, int T_, int S_, int D,
+                                     int F, int act, int wgs, int split,
+                                     int* geom) {
+  rt::Geom g;
+  const int rc = fused_mlp_tc_run(w_dtype, x, idx, wi, wg, wo, wi_s, wg_s, wo_s,
+                                  tw, cnt, h, part, out, G, T_, S_, D, F, act,
+                                  wgs, split, nullptr, &g);
+  return rt::geometry_out(g, geom, rc);
+}
+
 // Grouped-expert mode: x and out are (B,E,C,D); strides in elements (wg,
 // when given, has wi's); `cnt` (B*E) int32 counts clipped to [0, C]; w
 // (B*E*C) f32 or NULL; w_dtype and the scales as in fused_mlp_launch, the
 // scales contiguous (E,Fe) / (E,D).
-extern "C" int moe_gmm_launch(int dtype, int w_dtype, const void* x,
-                              const void* wi, const void* wg, const void* wo,
-                              const void* wi_s, const void* wg_s,
-                              const void* wo_s, long long w_es,
-                              long long w_rs, long long wo_es,
-                              long long wo_rs, const void* w, const void* cnt,
-                              void* hbuf, void* out, int B, int E, int C,
-                              int D, int Fe, int act, void* stream) {
+static int moe_gmm_run(int dtype, int w_dtype, const void* x, const void* wi,
+                       const void* wg, const void* wo, const void* wi_s,
+                       const void* wg_s, const void* wo_s, long long w_es,
+                       long long w_rs, long long wo_es, long long wo_rs,
+                       const void* w, const void* cnt, void* hbuf, void* out,
+                       int B, int E, int C, int D, int Fe, int act,
+                       void* stream, rt::Geom* geo) {
   const Experts ex{E, w_es, w_rs, wo_es, wo_rs};
   const Scales sc{(const float*)wi_s, (const float*)wg_s, (const float*)wo_s};
   return dispatch<true>(dtype, w_dtype, x, nullptr, wi, wg, wo, ex, sc, w,
                         cnt, hbuf, out, B * E, C, C, D, Fe, act,
-                        (cudaStream_t)stream);
+                        (cudaStream_t)stream, geo);
+}
+
+extern "C" int moe_gmm_launch(int dtype, int w_dtype, const void* x,
+                              const void* wi, const void* wg, const void* wo,
+                              const void* wi_s, const void* wg_s,
+                              const void* wo_s, long long w_es, long long w_rs,
+                              long long wo_es, long long wo_rs, const void* w,
+                              const void* cnt, void* hbuf, void* out, int B,
+                              int E, int C, int D, int Fe, int act,
+                              void* stream) {
+  return moe_gmm_run(dtype, w_dtype, x, wi, wg, wo, wi_s, wg_s, wo_s, w_es,
+                     w_rs, wo_es, wo_rs, w, cnt, hbuf, out, B, E, C, D, Fe,
+                     act, stream, nullptr);
+}
+
+// moe_gmm_launch's arguments but the stream: the launcher's host code up to its
+// launches; `geom` gets rt::geometry_out's record.
+extern "C" int moe_gmm_geometry(int dtype, int w_dtype, const void* x,
+                                const void* wi, const void* wg, const void* wo,
+                                const void* wi_s, const void* wg_s,
+                                const void* wo_s, long long w_es,
+                                long long w_rs, long long wo_es,
+                                long long wo_rs, const void* w,
+                                const void* cnt, void* hbuf, void* out, int B,
+                                int E, int C, int D, int Fe, int act,
+                                int* geom) {
+  rt::Geom g;
+  const int rc = moe_gmm_run(dtype, w_dtype, x, wi, wg, wo, wi_s, wg_s, wo_s,
+                             w_es, w_rs, wo_es, wo_rs, w, cnt, hbuf, out, B, E,
+                             C, D, Fe, act, nullptr, &g);
+  return rt::geometry_out(g, geom, rc);
 }
 
 // The tensor-core body of the grouped-expert mode (bf16, D and Fe multiples
@@ -1030,16 +1152,14 @@ extern "C" int moe_gmm_launch(int dtype, int w_dtype, const void* x,
 // from the strides). w_dtype and the scales as in fused_mlp_tc_launch, the
 // scales (E,Fe) / (E,D) contiguous. Returns the launches' cudaError_t or
 // an hp::ERR_* code.
-extern "C" int moe_gmm_tc_launch(int w_dtype, const void* x, const void* wi,
-                                 const void* wg, const void* wo,
-                                 const void* wi_s, const void* wg_s,
-                                 const void* wo_s, const void* w,
-                                 const void* cnt, void* h, void* part,
-                                 void* out, int B, int E, int C, int D,
-                                 int Fe, int act, int wgs, int split,
-                                 int wi_cols, int wi_rows, int wi_cs,
-                                 int wi_rs, int wo_cols, int wo_rows,
-                                 int wo_cs, int wo_rs, void* stream) {
+static int moe_gmm_tc_run(int w_dtype, const void* x, const void* wi,
+                          const void* wg, const void* wo, const void* wi_s,
+                          const void* wg_s, const void* wo_s, const void* w,
+                          const void* cnt, void* h, void* part, void* out,
+                          int B, int E, int C, int D, int Fe, int act, int wgs,
+                          int split, int wi_cols, int wi_rows, int wi_cs,
+                          int wi_rs, int wo_cols, int wo_rows, int wo_cs,
+                          int wo_rs, void* stream, rt::Geom* geo) {
   using hp::bf16;
   if (B * E == 0 || C == 0) return 0;
   const bool q8 = w_dtype == rt::DT_I8;
@@ -1054,11 +1174,47 @@ extern "C" int moe_gmm_tc_launch(int w_dtype, const void* x, const void* wi,
                         (const float*)wo_s};
 #define TC_ARGS (const bf16*)x, nullptr, wi, wg, wo, sc, (const float*)w, \
     (const int*)cnt, (bf16*)h, (float*)part, (bf16*)out, B * E, C, C, D, \
-    Fe, act, split, E, wim, wom, (cudaStream_t)stream
+    Fe, act, split, E, wim, wom, (cudaStream_t)stream, geo
   if (wgs == 1) return q8 ? tc::launch<1, true>(TC_ARGS)
                           : tc::launch<1, false>(TC_ARGS);
   if (wgs == 2) return q8 ? tc::launch<2, true>(TC_ARGS)
                           : tc::launch<2, false>(TC_ARGS);
 #undef TC_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int moe_gmm_tc_launch(int w_dtype, const void* x, const void* wi,
+                                 const void* wg, const void* wo,
+                                 const void* wi_s, const void* wg_s,
+                                 const void* wo_s, const void* w,
+                                 const void* cnt, void* h, void* part,
+                                 void* out, int B, int E, int C, int D, int Fe,
+                                 int act, int wgs, int split, int wi_cols,
+                                 int wi_rows, int wi_cs, int wi_rs,
+                                 int wo_cols, int wo_rows, int wo_cs,
+                                 int wo_rs, void* stream) {
+  return moe_gmm_tc_run(w_dtype, x, wi, wg, wo, wi_s, wg_s, wo_s, w, cnt, h,
+                        part, out, B, E, C, D, Fe, act, wgs, split, wi_cols,
+                        wi_rows, wi_cs, wi_rs, wo_cols, wo_rows, wo_cs, wo_rs,
+                        stream, nullptr);
+}
+
+// moe_gmm_tc_launch's arguments but the stream: the launcher's host code up to
+// its launches; `geom` gets rt::geometry_out's record.
+extern "C" int moe_gmm_tc_geometry(int w_dtype, const void* x, const void* wi,
+                                   const void* wg, const void* wo,
+                                   const void* wi_s, const void* wg_s,
+                                   const void* wo_s, const void* w,
+                                   const void* cnt, void* h, void* part,
+                                   void* out, int B, int E, int C, int D,
+                                   int Fe, int act, int wgs, int split,
+                                   int wi_cols, int wi_rows, int wi_cs,
+                                   int wi_rs, int wo_cols, int wo_rows,
+                                   int wo_cs, int wo_rs, int* geom) {
+  rt::Geom g;
+  const int rc = moe_gmm_tc_run(w_dtype, x, wi, wg, wo, wi_s, wg_s, wo_s, w,
+                                cnt, h, part, out, B, E, C, D, Fe, act, wgs,
+                                split, wi_cols, wi_rows, wi_cs, wi_rs, wo_cols,
+                                wo_rows, wo_cs, wo_rs, nullptr, &g);
+  return rt::geometry_out(g, geom, rc);
 }

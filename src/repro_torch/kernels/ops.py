@@ -28,9 +28,23 @@ forward is the kernel and whose backward replays the plain version: the
 counterpart of the JAX package's custom VJPs, which replay its jnp oracles
 (there are no backward kernels to port). ``decode_attention`` and
 ``paged_decode_attention`` serve only.
+
+Accounting (``launch/hloprof.py``, ``repro_torch.analysis``): every wrapper
+reports one ``KernelCall`` to each active ``recording()`` (its arguments,
+``kernel_cost`` and its operand and output bytes), whether it launches
+the kernel or runs the plain version, and suspends the recorders while it
+runs, so an op recorder never counts the plain version's operations or a
+wrapper's own bookkeeping: a CPU count and a card count of the same call
+agree. ``launch_geometry`` states in Python how each C launcher sizes its
+launches; ``c_geometry`` asks the launcher itself, through its
+``*_geometry`` C entry (the launch's own host code, stopped before the
+launch).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+import inspect
 from typing import NamedTuple
 
 import torch
@@ -208,11 +222,130 @@ def _check(rc: int, name: str) -> None:
                            f"tensor map, CUresult {rc - 100000}")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
-    _launches[name] += 1
+    if _geometry[0] is None:
+        _launches[name] += 1
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ------------------------ recorders and geometry mode -------------------------
+
+GEOM_MAX = 4                # launches one C call makes, at most
+_geometry = [None]          # a list while ``geometry_only`` is active
+_recorders: list = []       # the active ``recording`` contexts
+_suspended = [0]            # > 0 inside a reporting wrapper
+
+
+def _launch(lib, entry: str, *args) -> int:
+    """Calls the C entry ``<entry>_launch(*args)``; under ``geometry_only``
+    calls ``<entry>_geometry`` with the same arguments but the stream,
+    which runs the launcher's host code up to its launches and reports
+    their geometry instead of launching, and keeps what it reports."""
+    if _geometry[0] is None:
+        return getattr(lib, entry + "_launch")(*args)
+    out = (ctypes.c_int * (1 + 5 * GEOM_MAX))()
+    rc = getattr(lib, entry + "_geometry")(*args[:-1], out)
+    _geometry[0] += [((out[1 + 5 * i], out[2 + 5 * i], out[3 + 5 * i]),
+                      out[4 + 5 * i], out[5 + 5 * i]) for i in range(out[0])]
+    return rc
+
+
+class geometry_only:
+    """``with geometry_only() as launches:`` around CUDA wrapper calls:
+    each C launcher reports, and nothing launches; ``launches`` gets one
+    ((grid x, y, z), block threads, dynamic shared bytes) per launch the
+    calls would make, in order, and no launch count moves."""
+
+    def __enter__(self) -> list:
+        if _geometry[0] is not None:
+            raise RuntimeError("geometry_only does not nest")
+        _geometry[0] = []
+        return _geometry[0]
+
+    def __exit__(self, *exc) -> None:
+        _geometry[0] = None
+
+
+class KernelCall(NamedTuple):
+    """One wrapper call as a ``recording`` sees it: its arguments by name
+    (defaults applied), ``kernel_cost`` (None when the recording asked for
+    no cost) and the bytes of its tensor operands and of its output."""
+    name: str
+    args: dict
+    cost: object
+    in_bytes: int
+    out_bytes: int
+
+
+class recording:
+    """``with recording() as calls:``: every wrapper call made inside
+    appends its ``KernelCall`` to ``calls`` (``into``, when given)
+    (``cost=False``: without ``kernel_cost``, which reads the call's masks
+    and counts)."""
+
+    def __init__(self, cost: bool = True, into=None):
+        self.cost = cost
+        self.calls = [] if into is None else into
+
+    def __enter__(self) -> list:
+        _recorders.append(self)
+        return self.calls
+
+    def __exit__(self, *exc) -> None:
+        _recorders.remove(self)
+
+
+class _suspend:
+    def __enter__(self):
+        _suspended[0] += 1
+
+    def __exit__(self, *exc):
+        _suspended[0] -= 1
+
+
+def recording_suspended() -> bool:
+    """True inside a reporting wrapper: an op recorder (``launch/hloprof``)
+    skips what runs there (the plain version on the CPU, the wrapper's own
+    allocations and conversions on the card), which the call's
+    ``KernelCall`` stands for."""
+    return _suspended[0] > 0
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size() if torch.is_tensor(t) else 0
+
+
+def _reported(fn):
+    """Decorator of the public wrappers: with a ``recording`` active, the
+    call runs with the recorders suspended and reports one ``KernelCall``
+    (the kernel and the plain version alike)."""
+    sig = inspect.signature(fn)
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kw):
+        if not _recorders or _suspended[0]:
+            return fn(*args, **kw)
+        with _suspend():
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            a = dict(bound.arguments)
+            out = fn(*args, **kw)
+            cost = kernel_cost(fn.__name__, **a) \
+                if any(r.cost for r in _recorders) else None
+            call = KernelCall(fn.__name__, a, cost,
+                              sum(_nbytes(v) for v in a.values()),
+                              _nbytes(out))
+            for r in list(_recorders):
+                r.calls.append(call if r.cost else call._replace(cost=None))
+        return out
+
+    _WRAPPERS[fn.__name__] = wrapper
+    return wrapper
+
+
+_WRAPPERS: dict = {}        # name -> the reporting wrapper
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -241,6 +374,7 @@ def check_attention_shapes(name, q, k, v, head_dims) -> None:
 # / 256 runs on the tensor cores (wgmma, K/V tiles through a TMA ring); f32,
 # and the toy widths 16 / 32, on the CUDA cores (csrc/flash_attention.cu).
 
+@_reported
 def flash_attention(q, k, v, kv_valid=None, kv_count=None, *, causal=True,
                     window=0, backend=None):
     """q: (B,Sq,H,Dh); k, v: (B,Sk,K,Dh); kv_valid: (B,Sk) or (Sk,) bool;
@@ -266,7 +400,7 @@ def flash_attention(q, k, v, kv_valid=None, kv_count=None, *, causal=True,
             kv_count, B, max(Sq, Sk), q.device)
         lib = build.load("flash_attention")
         with torch.cuda.device(q.device):
-            rc = lib.flash_attention_launch(
+            rc = _launch(lib, "flash_attention",
                 dt, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), valid_ptr, _ptr(cnt), B, Sq, Sk, H, K,
                 int(bool(causal)), int(window or 0), float(Dh ** -0.5),
@@ -376,7 +510,7 @@ def _launch_mlp(name, x, idx, wi, wo, wg, tw, cnt, out, act, G, T_, S_,
                            device=x.device) \
             if plan.split > 1 or idx is not None else None
         with torch.cuda.device(x.device):
-            rc = lib.fused_mlp_tc_launch(
+            rc = _launch(lib, "fused_mlp_tc",
                 wdt, x.data_ptr(), _ptr(idx), wi.data_ptr(), _ptr(wg),
                 wo.data_ptr(), *(p for _, p in keep), _ptr(tw),
                 cnt.data_ptr(), hbuf.data_ptr(), _ptr(part), out.data_ptr(),
@@ -386,13 +520,13 @@ def _launch_mlp(name, x, idx, wi, wo, wg, tw, cnt, out, act, G, T_, S_,
         hbuf = torch.empty((G, T_, F), dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             if idx is None:
-                rc = lib.fused_mlp_launch(
+                rc = _launch(lib, "fused_mlp",
                     dt, wdt, x.data_ptr(), wi.data_ptr(), _ptr(wg),
                     wo.data_ptr(), *(p for _, p in keep), _ptr(tw),
                     cnt.data_ptr(), hbuf.data_ptr(), out.data_ptr(), G, T_,
                     D, F, act_code, _stream(x))
             else:
-                rc = lib.fused_mlp_routed_launch(
+                rc = _launch(lib, "fused_mlp_routed",
                     dt, wdt, x.data_ptr(), idx.data_ptr(), wi.data_ptr(),
                     _ptr(wg), wo.data_ptr(), *(p for _, p in keep),
                     _ptr(tw), cnt.data_ptr(), hbuf.data_ptr(),
@@ -400,6 +534,7 @@ def _launch_mlp(name, x, idx, wi, wo, wg, tw, cnt, out, act, G, T_, S_,
     _check(rc, name)
 
 
+@_reported
 def fused_mlp(x, wi, wo, wg=None, token_weights=None, valid_count=None,
               wi_scale=None, wo_scale=None, wg_scale=None, *, act="swiglu",
               backend=None):
@@ -450,6 +585,7 @@ def fused_mlp(x, wi, wo, wg=None, token_weights=None, valid_count=None,
 # have no counterpart here. Bound on the H100 at a training step and at a
 # 512-token admission: FLOPs (tensor-core rate), as for fused_mlp.
 
+@_reported
 def fused_mlp_routed(x, idx, wi, wo, wg=None, token_weights=None,
                      valid_count=None, wi_scale=None, wo_scale=None,
                      wg_scale=None, *, act="swiglu", backend=None):
@@ -546,6 +682,7 @@ def gmm_map(w, shape, name) -> tuple:
                      f"stacked by rows, 16-byte aligned")
 
 
+@_reported
 def moe_gmm(x, wi, wo, wg=None, weights=None, group_counts=None,
             wi_scale=None, wo_scale=None, wg_scale=None, *, act="swiglu",
             backend=None):
@@ -609,7 +746,7 @@ def moe_gmm(x, wi, wo, wg=None, weights=None, group_counts=None,
             part = torch.empty((plan.split, B, E, C, D), dtype=torch.float32,
                                device=x.device) if plan.split > 1 else None
             with torch.cuda.device(x.device):
-                rc = lib.moe_gmm_tc_launch(
+                rc = _launch(lib, "moe_gmm_tc",
                     w_code, x4.data_ptr(), wi.data_ptr(), _ptr(wg),
                     wo.data_ptr(), *(p for _, p in keep), _ptr(w),
                     cnt.data_ptr(), hbuf.data_ptr(), _ptr(part),
@@ -619,7 +756,7 @@ def moe_gmm(x, wi, wo, wg=None, weights=None, group_counts=None,
             hbuf = torch.empty((B, E, C, Fe), dtype=torch.float32,
                                device=x.device)
             with torch.cuda.device(x.device):
-                rc = lib.moe_gmm_launch(
+                rc = _launch(lib, "moe_gmm",
                     dt, w_code, x4.data_ptr(), wi.data_ptr(), _ptr(wg),
                     wo.data_ptr(), *(p for _, p in keep), *strides, _ptr(w),
                     cnt.data_ptr(), hbuf.data_ptr(), out.data_ptr(), B, E, C,
@@ -675,6 +812,7 @@ def _int32(x, shape, device):
         else x.expand(shape).contiguous()
 
 
+@_reported
 def decode_attention(q, k, v, kv_pos, t, kv_valid=None, kscale=None,
                      vscale=None, *, window=0, backend=None):
     """q: (B,1,H,Dh); k, v: (B,L,K,Dh) ring caches, stored as q, as bf16
@@ -706,7 +844,7 @@ def decode_attention(q, k, v, kv_pos, t, kv_valid=None, kscale=None,
     out = torch.empty_like(q)
     lib = build.load("decode_attention")
     with torch.cuda.device(q.device):
-        rc = lib.decode_attention_launch(
+        rc = _launch(lib, "decode_attention",
             dt, kv_dt, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(), ks_ptr,
             vs_ptr, out.data_ptr(), scratch.data_ptr(), pos.data_ptr(),
             tv.data_ptr(), valid_ptr, B, L, H, K, int(window or 0), split,
@@ -725,6 +863,7 @@ def decode_attention(q, k, v, kv_pos, t, kv_valid=None, kscale=None,
 # C queries as C rows of one table row). Bound on the H100: bytes (the
 # attended K/V rows).
 
+@_reported
 def paged_decode_attention(q, kp, vp, table, t, pvalid, kscale=None,
                            vscale=None, *, backend=None):
     """q: (B,1,H,Dh); kp, vp: (N, ps, K, Dh) page pool, stored as q, as
@@ -757,10 +896,350 @@ def paged_decode_attention(q, kp, vp, table, t, pvalid, kscale=None,
     out = torch.empty_like(q)
     lib = build.load("decode_attention")
     with torch.cuda.device(q.device):
-        rc = lib.paged_decode_attention_launch(
+        rc = _launch(lib, "paged_decode_attention",
             dt, kv_dt, Dh, q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
             ks_ptr, vs_ptr, out.data_ptr(), scratch.data_ptr(),
             tbl.data_ptr(), tv.data_ptr(), pv_ptr, B, P, ps, H, K, split,
             n_split, float(Dh ** -0.5), _stream(q))
     _check(rc, "paged_decode_attention")
     return out
+
+
+# ----------------------- cost and launch statements ---------------------------
+#
+# ``kernel_cost`` is the work a call must do on its data (the bound of every
+# timed case in chip_smoke.py and the kernels' share of
+# ``launch/hloprof.py``'s counts); ``launch_geometry`` is how the C
+# launchers size the call's launches, stated in Python from the same plans
+# the wrappers hand them (``mlp_plan``, ``decode_split_plan``, ``gmm_map``).
+
+
+def _bind(name: str, args, kw) -> dict:
+    bound = inspect.signature(_WRAPPERS[name]).bind(*args, **kw)
+    bound.apply_defaults()
+    return dict(bound.arguments)
+
+
+def _kind(t) -> str:
+    return "bf16" if t.dtype == torch.bfloat16 else "f32"
+
+
+def _live_counts(count, batch: int, limit: int, device) -> torch.Tensor:
+    """(B,) int64 count of real leading rows, clipped to [0, limit]."""
+    if count is None:
+        return torch.full((batch,), limit, dtype=torch.int64, device=device)
+    c = torch.as_tensor(count, device=device).to(torch.int64).reshape(-1)
+    return c.expand(batch).clamp(0, limit)
+
+
+def attention_pairs(B, Sq, Sk, kv_valid=None, kv_count=None, causal=True,
+                    window=0, device=None) -> torch.Tensor:
+    """(B, Sq, Sk) bool: the (query, key) pairs a ``flash_attention`` call
+    attends, by array index (causal, window, kv_valid, and kv_count bounding
+    the query rows and the keys alike), as its plain version masks them."""
+    qi = torch.arange(Sq, device=device)[:, None]
+    ki = torch.arange(Sk, device=device)[None, :]
+    m = (ki <= qi) if causal else torch.ones(Sq, Sk, dtype=torch.bool,
+                                             device=device)
+    if window and window > 0:
+        m = m & ((qi - ki) < window)
+    m = m[None].expand(B, Sq, Sk)
+    if kv_valid is not None:
+        m = m & kv_valid.to(device=device, dtype=torch.bool).expand(B, Sk)[
+            :, None, :]
+    cnt = _live_counts(kv_count, B, max(Sq, Sk), device)[:, None, None]
+    return m & (ki[None] < cnt) & (qi[None] < cnt)
+
+
+def ring_attended(kv_pos, t, kv_valid=None, window=0) -> torch.Tensor:
+    """(B, L) bool: the ring keys a ``decode_attention`` call attends:
+    written, at or before the slot's t, inside the window, valid."""
+    t = torch.as_tensor(t, device=kv_pos.device).reshape(-1, 1)
+    att = (kv_pos >= 0) & (kv_pos <= t)
+    if window:
+        att = att & ((t - kv_pos) < window)
+    if kv_valid is not None:
+        att = att & kv_valid.to(device=kv_pos.device, dtype=torch.bool)
+    return att
+
+
+def paged_keys(table, t, pvalid):
+    """(attended, visited, lane), each (R, P * ps): a ``paged_decode_attention``
+    call's keys that are attended (table entry >= 0, position <= t, pvalid
+    of its page lane) and visited (entry >= 0, position <= t: the kernel
+    reads their pvalid lanes), and each key's pool lane (page * ps + lane).
+    Leading batch dimensions of table (R, P), t (R,) and pvalid (N, ps)
+    (several calls stacked) carry over."""
+    ps, P = pvalid.shape[-1], table.shape[-1]
+    j = torch.arange(P * ps, device=table.device)
+    ent = table[..., j // ps].long()
+    visited = (ent >= 0) & (j <= t[..., None])
+    lane = ent.clamp(min=0) * ps + j % ps
+    pv = pvalid.flatten(-2).gather(-1, lane.flatten(-2)).reshape(ent.shape)
+    return visited & pv.bool(), visited, lane
+
+
+def _weight_bytes(ws, scales) -> int:
+    """Each weight once in its storage type, plus its f32 scales."""
+    return sum(_nbytes(w) for w in ws if w is not None) + sum(
+        4 * sc.numel() for sc in scales if sc is not None)
+
+
+def kernel_cost(name: str, *args, **kw) -> tuple:
+    """(flops, bytes, kind) of one call of the wrapper ``name`` on its
+    arguments: the work its data needs, not the most its shapes allow.
+    FLOPs count attended (query, key) pairs (4 * Dh each per q-head: the
+    scores and P V) and live rows of the MLP modes (2 * D * F each per
+    matrix); bytes count every input the kernel must read once and every
+    output once: q rows inside the count and the K/V rows some query
+    attends (each once for its GQA group, int8 at 1 byte plus its f32
+    scale), the weights (the live experts' in ``moe_gmm``) with their
+    scales, the live x rows, the whole output, and the masks, positions,
+    tables and counts the kernel reads. ``kind`` ("bf16" or "f32", the
+    activations' type) picks the peak rate of ``hloprof.bound_ms``."""
+    a = _bind(name, args, kw)
+    if name == "flash_attention":
+        q, k = a["q"], a["k"]
+        B, Sq, H, Dh = q.shape
+        Sk, K = k.shape[1], k.shape[2]
+        m = attention_pairs(B, Sq, Sk, a["kv_valid"], a["kv_count"],
+                            a["causal"], a["window"], q.device)
+        q_rows = int(_live_counts(a["kv_count"], B, max(Sq, Sk),
+                                  q.device).clamp(max=Sq).sum())
+        kv_rows = int(m.any(1).sum())
+        nbytes = ((q_rows + B * Sq) * H * Dh + 2 * kv_rows * K * Dh) \
+            * q.element_size() + (B * Sk if a["kv_valid"] is not None else 0) \
+            + (4 * B if a["kv_count"] is not None else 0)
+        return 4 * Dh * H * int(m.sum()), nbytes, _kind(q)
+    if name in ("fused_mlp", "fused_mlp_routed", "moe_gmm"):
+        x, wi, wo, wg = a["x"], a["wi"], a["wo"], a["wg"]
+        scales = (a["wi_scale"], a["wg_scale"], a["wo_scale"])
+        n_mats = 3 if wg is not None else 2
+        esz = x.element_size()
+        if name == "moe_gmm":
+            x4 = x if x.dim() == 4 else x[None]
+            B, E, C, D = x4.shape
+            Fe = wi.shape[-1]
+            cnt = _live_counts(a["group_counts"], B * E, C, x.device) \
+                if a["group_counts"] is None else torch.as_tensor(
+                    a["group_counts"], device=x.device).to(
+                    torch.int64).reshape(-1, E).expand(B, E).clamp(0, C)
+            cnt = cnt.reshape(B, E)
+            rows = int(cnt.sum())
+            live_e = int((cnt.sum(0) > 0).sum())
+            per_e = _weight_bytes((wi, wo, wg), scales) / E
+            nbytes = live_e * per_e + (rows * D + x4.numel()) * esz \
+                + 4 * B * E + (4 * B * E * C if a["weights"] is not None
+                               else 0)
+            return 2 * rows * D * Fe * n_mats, int(nbytes), _kind(x)
+        D, F = x.shape[-1], wi.shape[1]
+        if name == "fused_mlp":
+            x3 = x if x.dim() == 3 else x[None]
+            B, T = x3.shape[:2]
+            rows = int(_live_counts(a["valid_count"], B, T, x.device).sum())
+            nbytes = (rows + B * T) * D * esz
+        else:
+            B, S = x.shape[:2]
+            T = a["idx"].shape[-1]
+            rows = int(_live_counts(a["valid_count"], B, T, x.device).sum())
+            nbytes = (rows + B * S) * D * esz + 4 * B * T
+        nbytes += _weight_bytes((wi, wo, wg), scales) + 4 * B + (
+            4 * B * T if a["token_weights"] is not None else 0)
+        return 2 * rows * D * F * n_mats, nbytes, _kind(x)
+    q = a["q"]
+    H, Dh = q.shape[2], q.shape[3]
+    if name == "decode_attention":
+        k, pos = a["k"], a["kv_pos"]
+        B, L, K = k.shape[:3]
+        keys = int(ring_attended(pos, a["t"], a["kv_valid"],
+                                 a["window"]).sum())
+        kv_rows, extra = keys, 4 * B * L + 4 * B + (
+            B * L if a["kv_valid"] is not None else 0)
+    elif name == "paged_decode_attention":
+        k, table = a["kp"], a["table"]
+        K = k.shape[2]
+        att, visited, lane = paged_keys(table, a["t"], a["pvalid"])
+        keys = int(att.sum())
+        kv_rows = int(lane[att].unique().numel())
+        extra = 4 * table.numel() + 4 * q.shape[0] + int(
+            lane[visited].unique().numel())
+    else:
+        raise ValueError(f"kernel_cost: no kernel {name!r}")
+    row = K * (Dh * k.element_size() + (4 if a["kscale"] is not None else 0))
+    nbytes = 2 * _nbytes(q) + 2 * kv_rows * row + extra
+    return 4 * Dh * H * keys, nbytes, _kind(q)
+
+
+SMEM_LIMIT = 227 * 1024      # dynamic shared memory a block may have (H100)
+_NT = 256                    # threads of the CUDA-core MLP, flash and decode
+_GMAX, _GH = 8, 4            # decode: q-heads of a block, scored per thread
+
+
+def _struct(fields) -> int:
+    """sizeof a C struct of (bytes, alignment) members, in order."""
+    off, align = 0, 1
+    for size, al in fields:
+        off = -(-off // al) * al + size
+        align = max(align, al)
+    return -(-off // align) * align
+
+
+def _flash_smem(body: str, Dh: int) -> int:
+    if body == "wgmma":   # csrc/flash_attention.cu tc::Smem<DH> + slack
+        box = 64 * 64 * 2
+        return _struct([(Dh // 64 * box, 2), (2 * Dh // 64 * box, 2),
+                        (2 * Dh // 64 * box, 2), (16, 8), (40, 8)]) + 1024
+    return 4 * (64 * (Dh + 1) + Dh * 65 + 64 * Dh + 64 * 65 + 2 * 64)
+
+
+def _mlp_tc_smem(up: bool, wgs: int) -> int:
+    """csrc/fused_mlp.cu tc::Smem<UP, WGS> + alignment slack."""
+    S = 2 if up and wgs == 1 else 4
+    box = 64 * 64 * 2
+    return _struct([(S * wgs * box, 2), (S * (2 if up else 1) * 2 * box, 2),
+                    (4 * wgs * 64, 4), (16 * S, 8)]) + 1024
+
+
+def _decode_smem(q_dtype, kv_dtype, Dh: int) -> int:
+    """csrc/decode_attention.cu: SmemMma<DH, Q8> (bf16 q) or Smem<TKV, DH>."""
+    NK = DECODE_CHUNK
+    if q_dtype == torch.bfloat16:
+        base = _struct([(NK * (Dh + 8) * 2, 2), (NK * (Dh + 8) * 2, 2),
+                        (2 * _NT // 32 * _GMAX * 4, 4), (_GMAX * 4, 4),
+                        (NK * 8, 8)])
+        if kv_dtype != torch.int8:
+            return base
+        return _struct([(base, 8), (NK * (Dh + 16), 16), (NK * (Dh + 16), 1),
+                        (NK * 4, 4), (NK * 4, 4)])
+    sz = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[kv_dtype]
+    E = 16 // sz
+    one_buf = 2 * NK * (Dh + E) * sz > 160 * 1024
+    kv = (NK + 1 if one_buf else 2 * NK) * (Dh + E) * sz
+    red = _NT // (Dh // 2) * _GMAX * Dh * 4
+    return _struct([(NK * (Dh + E) * sz, sz),
+                    ((1 if one_buf else NK) * (Dh + E) * sz, sz),
+                    (4 * (4 if kv >= red else (red - kv) // 4), 4),
+                    (_GMAX * Dh * 4, 16), (NK * _GMAX * 4, 16),
+                    (_NT // 32 * _GH * 4, 4), (NK * 4, 4), (NK * 4, 4),
+                    (NK * 8, 8)])
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tile(operand, dims, tile, grid):
+    """A launch's tiles over one operand: (name, its (rows, cols), the tile
+    (rows, cols), tiles along (rows, cols) that the grid indexes)."""
+    return (operand, tuple(dims), tuple(tile), tuple(grid))
+
+
+def _mlp_geometry(kernel, dtype, w_dtype, G, T_, D, F, routed, E=None):
+    """Launches of one MLP-mode C call over G groups of T_ buffer rows."""
+    plan = mlp_plan(dtype, G, T_, D, F, weights=w_dtype)
+    if G == 0 or T_ == 0:
+        return plan, [], []
+    if plan.body == "wgmma":
+        R = plan.rows
+        wgs = R // 64
+        threads = wgs * 128 + (4 if wgs == 2 else 1) * 32
+        mt = _cdiv(T_, R)
+        up = dict(kernel=f"mlp_tc<up, {wgs}>", grid=(G * mt * _cdiv(F, 128),
+                                                     1, 1),
+                  block=threads, smem=_mlp_tc_smem(True, wgs))
+        down = dict(kernel=f"mlp_tc<down, {wgs}>",
+                    grid=(G * mt * _cdiv(D, 128), 1, plan.split),
+                    block=threads, smem=_mlp_tc_smem(False, wgs))
+        launches = [up, down]
+        if plan.split > 1 or routed:
+            launches.append(dict(kernel="mlp_finalize", grid=(
+                _cdiv(G * T_ * (D // 4), 256), 1, 1), block=256, smem=0))
+        tiles = [_tile("hidden", (T_, F), (R, 128), (mt, _cdiv(F, 128))),
+                 _tile("out", (T_, D), (R, 128), (mt, _cdiv(D, 128)))]
+        return plan, launches, tiles
+    mt = _cdiv(T_, 64)
+    launches = [dict(kernel="mlp_up", grid=(_cdiv(F, 64), mt, G), block=_NT,
+                     smem=0),
+                dict(kernel="mlp_down", grid=(_cdiv(D, 64), mt, G),
+                     block=_NT, smem=0)]
+    tiles = [_tile("hidden", (T_, F), (64, 64), (mt, _cdiv(F, 64))),
+             _tile("out", (T_, D), (64, 64), (mt, _cdiv(D, 64)))]
+    return plan, launches, tiles
+
+
+def launch_geometry(name: str, *args, **kw) -> dict:
+    """How the C launcher of wrapper ``name`` runs this call, stated in
+    Python from the plans the wrapper hands it: ``body`` ("wgmma",
+    "mma_sync" or "cuda_core"), ``launches`` (each kernel's grid (x, y, z),
+    block threads and dynamic shared bytes, in launch order: what its
+    ``*_geometry`` C entry reports, ``c_geometry``), ``tiles`` (per operand
+    the tile and the tiles the grid indexes, for the in-bounds check) and
+    the ``plan`` (``mlp_plan`` / ``decode_split_plan``)."""
+    a = _bind(name, args, kw)
+    if name == "flash_attention":
+        q, k = a["q"], a["k"]
+        B, Sq, H, Dh = q.shape
+        Sk = k.shape[1]
+        mt = _cdiv(Sq, 64)
+        if q.dtype == torch.bfloat16 and Dh in (64, 128, 256):
+            body, grid, block = "wgmma", (H, B, mt), 160
+        else:
+            body, grid, block = "cuda_core", (mt, H, B), _NT
+        return dict(body=body, plan=None, launches=[dict(
+            kernel=f"flash_fwd_{'wgmma' if body == 'wgmma' else 'simt'}",
+            grid=grid, block=block, smem=_flash_smem(body, Dh))],
+            tiles=[_tile("q", (Sq, Dh), (64, Dh), (mt, 1)),
+                   _tile("k", (Sk, Dh), (64, Dh), (_cdiv(Sk, 64), 1))])
+    if name in ("fused_mlp", "fused_mlp_routed"):
+        x, wi = a["x"], a["wi"]
+        D, F = x.shape[-1], wi.shape[1]
+        if name == "fused_mlp":
+            x3 = x if x.dim() == 3 else x[None]
+            G, T_ = x3.shape[:2]
+        else:
+            G, T_ = a["idx"].shape
+        plan, launches, tiles = _mlp_geometry(
+            name, x.dtype, wi.dtype, G, T_, D, F, name == "fused_mlp_routed")
+        return dict(body=plan.body, plan=plan, launches=launches, tiles=tiles)
+    if name == "moe_gmm":
+        x, wi, wo, wg = a["x"], a["wi"], a["wo"], a["wg"]
+        x4 = x if x.dim() == 4 else x[None]
+        B, E, C, D = x4.shape
+        Fe = wi.shape[-1]
+        plan, launches, tiles = _mlp_geometry(name, x.dtype, wi.dtype, B * E,
+                                              C, D, Fe, False)
+        if plan.body == "wgmma":      # the layouts the TMA maps read in place
+            gmm_map(wi, (E, D, Fe), "wi")
+            gmm_map(wo, (E, Fe, D), "wo")
+            if wg is not None:
+                gmm_map(wg, (E, D, Fe), "wg")
+        return dict(body=plan.body, plan=plan, launches=launches, tiles=tiles)
+    q = a["q"]
+    B, _, H, Dh = q.shape
+    if name == "decode_attention":
+        k = a["k"]
+        L, K = k.shape[1], k.shape[2]
+        n_keys, ps = L, 1
+    else:
+        k = a["kp"]
+        ps, K = k.shape[1], k.shape[2]
+        n_keys = a["table"].shape[-1] * ps
+    split, n_split = decode_split_plan(n_keys, ps)
+    body = "mma_sync" if q.dtype == torch.bfloat16 else "cuda_core"
+    return dict(body=body, plan=(split, n_split), launches=[
+        dict(kernel=f"decode_split{'_mma' if body == 'mma_sync' else ''}",
+             grid=(K, B, n_split * _cdiv(H // K, _GMAX)), block=_NT,
+             smem=_decode_smem(q.dtype, k.dtype, Dh)),
+        dict(kernel="decode_merge", grid=(H, B, 1), block=Dh, smem=0)],
+        tiles=[_tile("keys", (n_keys, Dh), (split, Dh), (n_split, 1))])
+
+
+def c_geometry(name: str, *args, **kw) -> list:
+    """What the C launcher of wrapper ``name`` reports for this call (CUDA
+    tensors): the wrapper runs as it does to launch, with the launcher's
+    ``*_geometry`` entry in place of ``*_launch``, so nothing launches.
+    Returns [((grid x, y, z), block threads, dynamic shared bytes), ...]."""
+    kw = {k: v for k, v in kw.items() if k != "backend"}
+    with geometry_only() as launches:
+        _WRAPPERS[name](*args, backend="cuda", **kw)
+    return list(launches)

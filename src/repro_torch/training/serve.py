@@ -101,7 +101,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -121,6 +121,23 @@ from repro_torch.models.model import (cache_init, decode_step,
 from repro_torch.runtime.pagedkv import (PagePool, copy_page_in_tree,
                                         n_pages_for, prefix_keys)
 from repro_torch.runtime.scheduler import RequestHandle, SlotScheduler
+
+
+class EntryPoint(NamedTuple):
+    """One entry point of the engine (or the trainer) with arguments shaped
+    and built exactly as a live call's: what ``repro_torch.analysis``
+    records and lints (the JAX engine's ``EntryPoint``). ``inplace``: the
+    paths of the tensors the call must write in place, each an argument
+    index (or a keyword's name) then the keys into it (the JAX engine's
+    ``donated``); ``graphed``: an entry the engine captures into a CUDA
+    graph on the card (on the CPU it runs the same body eagerly), whose
+    replay repeats the captured operations whatever the arguments'
+    values."""
+    fn: object
+    args: tuple
+    kwargs: dict
+    inplace: tuple = ()
+    graphed: bool = False
 
 
 @dataclasses.dataclass
@@ -190,6 +207,14 @@ def _staging(fields, device):
         hv[name] = arr[o:o + nb].view(dt).reshape(shape)
         dv[name] = dev[o:o + nb].view(tdt).reshape(shape)
     return host, dev, hv, dv
+
+
+def _leaf_paths(tree, prefix=()) -> list:
+    """Key paths of the tensors of a nested dict / list of tensors."""
+    if torch.is_tensor(tree):
+        return [prefix]
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    return [p for k, v in items for p in _leaf_paths(v, prefix + (k,))]
 
 
 class ServingEngine:
@@ -562,20 +587,12 @@ class ServingEngine:
         b_eff = self._effective_budget(req)
         d_eff = self._depth_cap()
         pol_row = self._policy_for(b_eff, depth=d_eff)
-        # top-k (train-mode) routing plans its blocks into the request's
-        # static capacity bucket; threshold (infer) prefill takes none
-        bucket = None
-        if (self._use_policy and self.mode == "train"
-                and self.spec.routing_impl == "ragged"):
-            bucket = ragged_bucket(pol_row, prompt.size, spec=self.spec)
         # eager (one form per prompt length would need its own graph); the
         # cache row (the context caches too) and the policy row are spliced
         # in place
         batch = {"tokens": tokens, **self._extras.pop(handle.id, {})}
-        logits, _, _ = prefill_into_slot(
-            self.params, self.rp, batch, self._caches, slot,
-            self.cfg, self.spec, mode=self.mode, max_cache_len=self.max_seq,
-            policy=pol_row, live_policy=self._live_policy, bucket=bucket)
+        args, kw = self._admit_args(batch, slot, pol_row)
+        logits, _, _ = prefill_into_slot(*args, **kw)
         tok0 = self._first_token(logits, slot, req, prompt.size)
         self._tok[slot] = tok0
         tok0 = int(tok0)                          # waits for the device
@@ -586,6 +603,21 @@ class ServingEngine:
         self._ngen[slot] = 0
         self._append(slot, handle, tok0)
         self._note_admitted(slot, handle, b_eff, d_eff)
+
+    def _admit_args(self, batch: dict, slot: int, pol_row) -> tuple:
+        """(args, kwargs) of the ring admission's ``prefill_into_slot``:
+        top-k (train-mode) routing plans its blocks into the request's
+        static capacity bucket; threshold (infer) prefill takes none."""
+        bucket = None
+        if (self._use_policy and self.mode == "train"
+                and self.spec.routing_impl == "ragged"):
+            bucket = ragged_bucket(pol_row, batch["tokens"].shape[1],
+                                   spec=self.spec)
+        return ((self.params, self.rp, batch, self._caches, slot, self.cfg,
+                 self.spec),
+                dict(mode=self.mode, max_cache_len=self.max_seq,
+                     policy=pol_row, live_policy=self._live_policy,
+                     bucket=bucket))
 
     def _note_admitted(self, slot: int, handle: RequestHandle,
                        b_eff: Optional[float],
@@ -922,39 +954,97 @@ class ServingEngine:
 
     # --------------------------- compiled entry points ------------------------
 
-    def _decode_body(self, sampling: bool) -> None:
-        """The decode entry point: one ``decode_step`` over the slot array,
-        ``sample_tokens`` (the new token sits at t + 1) and the ``active``
-        mask, reading and writing only the engine's static buffers; the new
-        tokens land in ``_tok``."""
+    def _decode_args(self, sampling: bool) -> tuple:
+        """The decode entry point's arguments: the engine's static buffers
+        (tokens, caches, positions, live policy, ``active``; sampling: the
+        temperatures, top-k and seeds; paged: the table and trash pages)."""
         dev = self._dev
-        paged_kw = {}
-        if self.kv_layout == "paged":
-            paged_kw = dict(table=dev["table"], trash=dev["trash"])
-        logits, _ = decode_step(
-            self.params, self.rp, self._tok[:, None], self._caches, dev["t"],
-            self.cfg, self.spec, mode=self.mode, policy=self._live_policy,
-            **paged_kw)
+        args = (self.params, self.rp, self._tok, self._caches, dev["t"],
+                self._live_policy, dev["active"])
         if sampling:
-            nxt = sample_tokens(logits, dev["temp"], dev["topk"],
-                                dev["seeds"], dev["t"] + 1)
+            args += (dev["temp"], dev["topk"], dev["seeds"])
+        if self.kv_layout == "paged":
+            args += (None,) * (10 - len(args)) + (dev["table"],
+                                                  dev["trash"])
+        return args
+
+    def _decode_fn(self, params, rp, tok, caches, t, policy, active,
+                   temp=None, topk=None, seeds=None, table=None,
+                   trash=None) -> None:
+        """The decode entry point: one ``decode_step`` over the slot array,
+        ``sample_tokens`` (the new token sits at t + 1; greedy-only when
+        ``temp`` is None) and the ``active`` mask; the new tokens land in
+        ``tok`` in place."""
+        paged_kw = {} if table is None else dict(table=table, trash=trash)
+        logits, _ = decode_step(
+            params, rp, tok[:, None], caches, t, self.cfg, self.spec,
+            mode=self.mode, policy=policy, **paged_kw)
+        if temp is not None:
+            nxt = sample_tokens(logits, temp, topk, seeds, t + 1)
         else:                      # every live slot greedy: no sort, no noise
             nxt = sample_tokens(logits)
-        self._tok.copy_(torch.where(dev["active"], nxt,
-                                    torch.zeros_like(nxt)))
+        tok.copy_(torch.where(active, nxt, torch.zeros_like(nxt)))
+
+    def _decode_body(self, sampling: bool) -> None:
+        """One decode step over the engine's static buffers."""
+        self._decode_fn(*self._decode_args(sampling))
+
+    def _chunk_args(self) -> tuple:
+        """The paged prefill entry point's arguments: the staged chunk row
+        ``_chunk_in``, the caches, ``_chunk_policy`` and ``_chunk_logits``."""
+        return (self.params, self.rp, self._chunk_in, self._caches,
+                self._chunk_policy, self._chunk_logits)
+
+    def _chunk_fn(self, params, rp, ci, caches, policy, logits_out) -> None:
+        """The paged prefill entry point: one ``prefill_chunk_step`` whose
+        tokens, table row, write page, pos0 and plen are views of ``ci``;
+        its logits land in ``logits_out`` in place."""
+        C, P = self.page_size, self.pages_per_slot
+        logits, _ = prefill_chunk_step(
+            params, rp, ci[None, :C], caches, ci[C + P], ci[C:C + P],
+            ci[C + P + 1], ci[C + P + 2], self.cfg, self.spec,
+            mode=self.mode, policy=policy)
+        logits_out.copy_(logits)
 
     def _chunk_body(self) -> None:
-        """The paged prefill entry point: one ``prefill_chunk_step`` whose
-        tokens, table row, write page, pos0 and plen are views of
-        ``_chunk_in`` and whose policy is ``_chunk_policy``; its logits
-        land in ``_chunk_logits``."""
-        C, P = self.page_size, self.pages_per_slot
-        ci = self._chunk_in
-        logits, _ = prefill_chunk_step(
-            self.params, self.rp, ci[None, :C], self._caches, ci[C + P],
-            ci[C:C + P], ci[C + P + 1], ci[C + P + 2], self.cfg, self.spec,
-            mode=self.mode, policy=self._chunk_policy)
-        self._chunk_logits.copy_(logits)
+        """One paged prefill chunk over the engine's static buffers."""
+        self._chunk_fn(*self._chunk_args())
+
+    def _cache_paths(self, index: int) -> tuple:
+        """Paths (``index``, "layers", i, leaf) of every cache tensor a step
+        writes in place (a context cache is written at admission only)."""
+        return tuple((index, "layers", i, *keys)
+                     for i, layer in enumerate(self._caches["layers"])
+                     for keys in _leaf_paths(layer) if keys[0] != "xattn")
+
+    def entry_points(self, plen: int = 8, budget: Optional[float] = 0.5,
+                     depth: Optional[float] = None) -> dict:
+        """The engine's entry points with arguments built by the code paths
+        a live call uses (``_admit_args``, ``_decode_args``,
+        ``_chunk_args``), as ``EntryPoint``s: what ``repro_torch.analysis``
+        lints, so a lint can never drift from the real call. A ring engine:
+        ``admit`` (the eager ``prefill_into_slot`` of a ``plen``-token
+        prompt at ``budget`` into slot 0) and ``decode`` (the greedy-only
+        form); a paged engine: ``chunk`` (one staged prefill chunk) and
+        ``decode``. Calling an entry writes the engine's buffers: the
+        analysis passes call them on copies."""
+        decode = EntryPoint(self._decode_fn, self._decode_args(False), {},
+                            inplace=((2,),) + self._cache_paths(3),
+                            graphed=True)
+        if self.kv_layout == "paged":
+            chunk = EntryPoint(self._chunk_fn, self._chunk_args(), {},
+                               inplace=self._cache_paths(3) + ((5,),),
+                               graphed=True)
+            return {"chunk": chunk, "decode": decode}
+        prompt = np.arange(1, plen + 1, dtype=np.int32) \
+            % max(2, self.cfg.vocab_size)
+        pol_row = self._policy_for(budget if self._use_policy else None,
+                                   depth=depth)
+        batch = {"tokens": torch.as_tensor(prompt[None], device=self.device)}
+        args, kw = self._admit_args(batch, 0, pol_row)
+        admit = EntryPoint(prefill_into_slot, args, kw,
+                           inplace=self._cache_paths(3))
+        return {"admit": admit, "decode": decode}
 
     def _run_form(self, entry: str, form: str, body) -> None:
         """Runs ``body``, the form ``form`` of the entry point ``entry``.

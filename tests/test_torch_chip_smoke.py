@@ -39,4 +39,5 @@ def test_result_line_keys_use_one_clock(graphed):
         else:
             assert "graphed_" + key not in row
     assert row["bound_by"] == "bytes"
-    assert row["bound_ms"] == pytest.approx(1e7 / cs.PEAK_BYTES * 1e3)
+    from repro_torch.launch.hloprof import PEAK_BYTES
+    assert row["bound_ms"] == pytest.approx(1e7 / PEAK_BYTES * 1e3)

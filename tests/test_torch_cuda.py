@@ -1610,3 +1610,45 @@ def test_graphed_recurrent_engine_equals_eager_bit_for_bit(cuda, arch):
             for c in rec] == ptrs
     assert any(bool(c["state"].any()) for c in rec)
     assert graphed.compile_counts() == {"prefill": 0, "decode": 1}
+
+
+# -------------------- accounting and launch statements -----------------------
+
+def _analyzable(device):
+    from repro_torch.kernels import analyzable_kernels
+    return {name: build(device)
+            for name, build in analyzable_kernels().items()}
+
+
+@pytest.mark.cuda
+def test_cpu_and_card_counts_of_a_call_agree(cuda):
+    """One call of each kernel form, on the CPU (the plain version) and on
+    the card (the kernel): the same one kernel call, the same
+    ``kernel_cost``, and no aten operation of the wrapper's reaches the
+    recorder on either side."""
+    from repro_torch.launch import hloprof
+    cpu, card = _analyzable("cpu"), _analyzable(cuda)
+    for name in cpu:
+        got = {}
+        for where, (fn, args, kw) in (("cpu", cpu[name]),
+                                      ("card", card[name])):
+            recs = hloprof.record_ops(fn, *args, **kw)
+            assert [type(r) for r in recs] == [ops.KernelCall], (name, where)
+            got[where] = recs[0].cost
+        assert got["cpu"] == got["card"], (name, got)
+
+
+@pytest.mark.cuda
+def test_launch_statements_equal_the_launchers(cuda):
+    """``launch_geometry`` (Python) equals what each C launcher reports
+    (``c_geometry``) for every kernel form, and asking launches nothing."""
+    for name, (fn, args, kw) in _analyzable(cuda).items():
+        with ops.recording(cost=False) as calls:
+            fn(*args, **kw)
+        c = calls[0]
+        before = ops.launch_counts()
+        got = ops.c_geometry(c.name, **c.args)
+        assert ops.launch_counts() == before, name
+        want = [(l["grid"], l["block"], l["smem"])
+                for l in ops.launch_geometry(c.name, **c.args)["launches"]]
+        assert got == want, (name, got, want)
