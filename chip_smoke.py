@@ -338,6 +338,32 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    (``step_shares``): a share above 1.0 fails. Every bound of the timed
    kernel cases comes from ``ops.kernel_cost``, and each of PERF.md §6's
    rows must come out as printed there (``PERF_BOUNDS``).
+9l. (j) Tensor-parallel serving (``check_tp_serving``): two ranks spawned
+   with ``torch.multiprocessing`` on the one card, a (data=1, model=2)
+   mesh over gloo (NCCL refuses two ranks on one device; every number of
+   the phase is labelled "2 ranks sharing one H100, gloo" and describes
+   that arrangement, not a TP deployment). Each rank draws the serving
+   weights from --seed (the same tree as item 3), keeps its shard
+   (``sharding.shard_params``: 14 of 28 q-heads on 2 of 4 kv-heads, 9,472
+   of 18,944 MLP columns, 76,032 vocabulary rows) and serves the six
+   staggered requests at budgets {1.0, 0.75, 0.5} on a ring engine with
+   ``mesh=`` (eager: gloo cannot be captured): fails unless budget 1.0 ==
+   a TP mode="base" engine and staggered == solo bit for bit, on every
+   rank the decode step's kernel calls (``ops.call_signature``: kernel,
+   operand shapes and dtypes, other arguments) are the same in the
+   staggered run as in one request served alone at each budget,
+   ``compile_counts()`` is prefill 0 / decode 1, and flash, fused_mlp
+   and decode_attention launched on each rank;
+   each rank's heaviest flash, decode and MLP call (recorded at its
+   shapes) is replayed against the plain version (``check_path_calls``),
+   and each recorded call's launch geometry held to its launcher's. At 2
+   layers in f32 (full width) the TP engine's greedy tokens must equal a
+   one-rank engine's on the same weights and its prefill and decode
+   logits be within 1e-4 of them; at 28 layers in bf16 the tokens are
+   compared with item 3's one-rank run and the first divergence printed
+   (a report: the two partial sums round in another order). Prints per
+   rank the launch counts, decode ms/step, admission ms, collectives and
+   their time per decode step, and peak device memory.
 10. Prints one JSON line of per-kernel results (launches by path), one of
    the accounting (``{"accounting": {"decode_mfu", "decode_hbm_share",
    "train_mfu", "train_hbm_share", ...}}``), the card line again, and as
@@ -449,6 +475,8 @@ PATH_KERNELS = {
     "granite_serving": ("flash_attention", "fused_mlp", "decode_attention"),
     "phi3_serving": ("flash_attention", "fused_mlp", "decode_attention"),
     "grok_serving": ("flash_attention", "moe_gmm", "decode_attention"),
+    # (j) each rank of the tensor-parallel ring engine
+    "tp_serving": ("flash_attention", "fused_mlp", "decode_attention"),
 }
 
 
@@ -5787,6 +5815,303 @@ def check_analysis(args, res, dev, device_line) -> dict:
     return acc
 
 
+# ----------------------- (j) tensor-parallel serving -------------------------
+
+TP_RANKS = 2            # the (data=1, model=2) mesh of phase (j)
+TP_LABEL = "2 ranks sharing one H100, gloo"
+TP_F32_LAYERS = 2
+TP_SIG_BUDGETS = (1.0, 0.75, 0.5)   # one request alone at each
+TP_TIMEOUT_S = 900      # a collective that a rank never joins raises
+
+
+def tp_requests(vocab, seed):
+    """Item 3's six staggered requests (the same rng draws)."""
+    rng = np.random.default_rng(seed)
+    lens = [64, 512, 200, 333, 128, 450]
+    budgets = [1.0, 0.75, 0.5, 1.0, 0.5, 0.75]
+    return [(rng.integers(0, vocab, n).astype(np.int32), 16, b)
+            for n, b in zip(lens, budgets)], budgets
+
+
+def tp_engine(params, rp, cfg, spec, dev, mesh, mode="infer"):
+    from repro_torch.training import ServingEngine
+    return ServingEngine(params, rp, cfg, spec, mode=mode, batch_size=4,
+                         max_seq=1024, device=dev, mesh=mesh)
+
+
+def tp_logits(params, rp, cfg, spec, tokens, steps, pol):
+    """A prefill of ``tokens`` (1, S) and ``steps`` greedy decode steps
+    through the model functions (f32 logits, on the host)."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    lg, caches = prefill(params, rp, {"tokens": tokens}, cfg, spec,
+                         mode="infer", max_cache_len=256, policy=pol)
+    out = [lg.float().cpu()]
+    t = torch.full((1,), tokens.shape[1], dtype=torch.int32,
+                   device=tokens.device)
+    for i in range(steps):
+        tok = torch.argmax(lg, dim=-1)[:, None]
+        lg, caches = decode_step(params, rp, tok, caches, t + i, cfg, spec,
+                                 mode="infer", policy=pol)
+        out.append(lg.float().cpu())
+    return torch.cat(out)
+
+
+def tp_f32_check(mesh, rank, dev, spec, seed, say):
+    """At 2 layers in f32, full width: the TP engine's greedy tokens equal
+    a one-rank engine's on the same weights and the TP prefill and decode
+    logits are within 1e-4 of one rank's (rank 0 runs the one-rank
+    reference on the whole tree before taking its shard)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import ElasticPolicy
+    from repro_torch.models import model_init, router_init
+    from repro_torch.runtime import sharding as SH
+    cfg = dataclasses.replace(get_config("qwen2-7b"),
+                              n_layers=TP_F32_LAYERS, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    params = model_init(gen, cfg, spec, device=dev)
+    rp = router_init(gen, cfg, spec, device=dev)
+    reqs, _ = tp_requests(cfg.vocab_size, seed + 1)
+    reqs = [(p[:128], 8, b) for p, b in [(r[0], r[2]) for r in reqs[:4]]]
+    tokens = torch.as_tensor(reqs[1][0][None], device=dev)
+    pol = ElasticPolicy.uniform(0.75, n_heads=cfg.n_heads).to(dev)
+    one = None
+    if rank == 0:
+        with torch.no_grad():
+            one_lg = tp_logits(params, rp, cfg, spec, tokens, 4, pol)
+        one = serve(tp_engine(params, rp, cfg, spec, dev, None), reqs,
+                    stagger=True)
+    shard = SH.shard_params(params, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with mesh, torch.no_grad():
+        tp_lg = tp_logits(shard, rp, cfg, spec, tokens, 4, pol)
+    got = serve(tp_engine(shard, rp, cfg, spec, dev, mesh), reqs,
+                stagger=True)
+    if rank == 0:
+        err = float((tp_lg - one_lg).abs().max())
+        say(f"f32, {TP_F32_LAYERS} layers, full width: TP logits (a "
+            f"128-token prefill and 4 decode steps) within {err:.3e} of "
+            f"one rank's (gate 1e-4); greedy tokens of {len(reqs)} "
+            f"staggered requests {'==' if got == one else '!='} one "
+            f"rank's [{TP_LABEL}]")
+        if not err <= 1e-4:
+            fail(f"TP f32 logits differ from one rank's by {err}")
+        if got != one:
+            fail(f"TP f32 greedy tokens {got} != one rank's {one}")
+    return {"f32_tokens": got}
+
+
+def tp_rank(rank, port, outdir, a):
+    """One rank of phase (j), in its own process: the f32 agreement with
+    one rank, then the bf16 serving path at --layers with every gate;
+    writes its numbers to ``outdir/rank{rank}.json``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import destroy, make_mesh
+    from repro_torch.models import model_init, router_init
+    from repro_torch.runtime import collectives as C
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.training import serve as serve_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    say = lambda msg: print(f"[rank {rank}] {msg}", flush=True)
+    mesh = make_mesh((1, TP_RANKS), ("data", "model"), backend="gloo",
+                     rank=rank, init_method=f"tcp://localhost:{port}",
+                     device=dev, timeout=TP_TIMEOUT_S)
+    out = {}
+    try:
+        spec = slice_spec()
+        out.update(tp_f32_check(mesh, rank, dev, spec, a["seed"], say))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        full = get_config("qwen2-7b")
+        cfg = dataclasses.replace(full, n_layers=a["layers"])
+        init_cfg = dataclasses.replace(
+            full, n_layers=max(a["layers"], a["train_layers"]))
+        gen = torch.Generator(device=dev).manual_seed(a["seed"])
+        params = model_init(gen, init_cfg, spec, device=dev)
+        rp = cut(router_init(gen, init_cfg, spec, device=dev), cfg.n_layers)
+        shard = SH.shard_params(cut(params, cfg.n_layers), mesh)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        requests, budgets = tp_requests(cfg.vocab_size, a["seed"])
+        wq = shard["layers"][0]["attn"]["wq"]
+        wi = shard["layers"][0]["mlp"]["wi"]
+        say(f"shard: wq {tuple(wq.shape)}, wi {tuple(wi.shape)}, embed "
+            f"{tuple(shard['embed'].shape)}, lm_head "
+            f"{tuple(shard['lm_head'].shape)} [{TP_LABEL}]")
+
+        # the decode step's kernel calls (ops.call_signature: the kernel,
+        # its operands' shapes and dtypes, its other arguments) of each
+        # run: the staggered mixed-budget one, then one request alone at
+        # each budget on the same engine
+        sigs, run = {}, ["staggered"]
+        real_step = serve_mod.decode_step
+
+        def recording_step(*sa, **kw):
+            with ops.recording(cost=False) as calls:
+                res = real_step(*sa, **kw)
+            sigs.setdefault(run[0], set()).update(
+                map(ops.call_signature, calls))
+            return res
+
+        engine = tp_engine(shard, rp, cfg, spec, dev, mesh)
+        serve_mod.decode_step = recording_step
+        try:
+            ops.reset_launch_counts()            # the main path, this rank
+            C.reset_stats()
+            with PathCalls("flash_attention", "decode_attention",
+                           "fused_mlp") as rec:
+                tokens = serve(engine, requests, stagger=True)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            tm, coll = dict(engine.timing), C.stats()
+            for b in TP_SIG_BUDGETS:
+                run[0] = b
+                serve(engine, [(requests[0][0], 4, b)], stagger=False)
+        finally:
+            serve_mod.decode_step = real_step
+        check_launches("tp_serving", launches)
+        counts = engine.compile_counts()
+        differ = [b for b in TP_SIG_BUDGETS
+                  if sigs.get(b) != sigs.get("staggered")]
+        n_sig = {k: len(v) for k, v in sigs.items()}
+        if differ or not sigs.get("staggered") or \
+                counts != {"prefill": 0, "decode": 1}:
+            fail(f"TP decode: the kernel calls' launch signatures at "
+                 f"budgets {differ} differ from the staggered run's "
+                 f"(signatures per run {n_sig}), or compile_counts {counts} "
+                 f"!= prefill 0 / decode 1")
+        for toks in tokens:
+            if len(toks) != 16 or not all(0 <= x < cfg.vocab_size
+                                          for x in toks):
+                fail(f"TP: bad generated tokens {toks}")
+        teacher = serve(tp_engine(shard, rp, cfg, spec, dev, mesh, "base"),
+                        requests, stagger=True)
+        for i, b in enumerate(budgets):
+            if b == 1.0 and tokens[i] != teacher[i]:
+                fail(f"TP budget-1.0 request {i} differs from the TP "
+                     f"teacher: {tokens[i]} vs {teacher[i]}")
+        solo = serve(tp_engine(shard, rp, cfg, spec, dev, mesh),
+                     [requests[4]], stagger=False)[0]
+        if solo != tokens[4]:
+            fail(f"TP request 4 alone {solo} != staggered {tokens[4]}")
+        say(f"budget 1.0 == the TP teacher bit for bit, staggered == solo "
+            f"(request 4), the decode step's kernel calls the same in the "
+            f"staggered run and alone at budgets {TP_SIG_BUDGETS} "
+            f"({n_sig['staggered']} signature(s)), compile_counts "
+            f"{counts}: ok [{TP_LABEL}]")
+
+        # warm: one admission, then 8 decode steps timed on the host
+        h = engine.submit(serve_mod.GenRequest(requests[1][0], 17,
+                                               budget=0.75))
+        p0 = engine.timing["prefill_s"]
+        engine.step()
+        admit_ms = (engine.timing["prefill_s"] - p0) * 1e3
+        C.reset_stats()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            engine.step()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 8
+        warm = C.stats()
+        while not h.done:
+            engine.step()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        per_step = (warm["all_reduce"] + warm["all_gather"]) / 8
+        say(f"launches {dict(launches)}; first run: {tm['decode_steps']} "
+            f"decode steps, {tm['decode_s'] * 1e3 / tm['decode_steps']:.2f} "
+            f"ms/step, {tm['prefill_tokens']} prompt tokens in "
+            f"{tm['prefill_s'] * 1e3:.1f} ms of admissions; warm: decode "
+            f"{step_ms:.2f} ms/step, a 512-token admission {admit_ms:.1f} "
+            f"ms; collectives per decode step {per_step:.1f} "
+            f"({warm['all_reduce'] / 8:.1f} all-reduce, "
+            f"{warm['all_gather'] / 8:.1f} all-gather) taking "
+            f"{warm['seconds'] * 1e3 / 8:.2f} ms; peak device memory "
+            f"{peak:.2f} GiB [{TP_LABEL}; {a['device_line']}]")
+
+        res = Results()
+        check_path_calls(res, dev, f"TP rank {rank}", rec)
+        check_geometry(((n, recorded_args(c, dev))
+                        for n, c in PathCalls.signatures.values()),
+                       f"{TP_LABEL}, rank {rank}")
+        bodies, bounds = {}, {}           # at the rank's shapes
+        for n, c in PathCalls.signatures.values():
+            ra = recorded_args(c, dev)
+            bodies.setdefault(n, set()).add(
+                ops.launch_geometry(n, **ra)["body"])
+            b = bound_ms(*ops.kernel_cost(n, **ra))[0]
+            bounds[n] = max(bounds.get(n, 0.0), b)
+        say(f"kernel bodies {({n: sorted(v) for n, v in bodies.items()})}, "
+            f"heaviest call's bound (ops.kernel_cost) "
+            f"{({n: round(v, 4) for n, v in bounds.items()})} ms "
+            f"[{TP_LABEL}]")
+        first = [next((j for j, (x, y) in enumerate(zip(t1, t2)) if x != y),
+                      None) for t1, t2 in zip(tokens, a["ring_tokens"])]
+        if rank == 0:
+            say(f"bf16, {cfg.n_layers} layers: TP tokens against item 3's "
+                f"one-rank run, first divergence per request {first} (None: "
+                f"all 16 equal; a report, not a gate: the partial sums "
+                f"round in another order) [{TP_LABEL}]")
+        out.update(
+            launches={k: int(v) for k, v in launches.items()},
+            first_divergence=first, decode_ms=step_ms, admit_ms=admit_ms,
+            first_decode_ms=tm["decode_s"] * 1e3 / tm["decode_steps"],
+            collectives_per_step=per_step,
+            collective_ms_per_step=warm["seconds"] * 1e3 / 8,
+            collectives_first_run=coll, peak_gib=peak,
+            max_abs_err={k: v["max_abs_err"] for k, v in res.rows.items()})
+    finally:
+        destroy(mesh)
+    (Path(outdir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def check_tp_serving(args, dev, device_line, ring_tokens) -> dict:
+    """(j) Runs the phase: spawns the ranks, waits for both (a failed rank
+    fails the phase) and returns each rank's launch counts as a path."""
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    outdir = tempfile.mkdtemp(prefix="tp_")
+    a = dict(seed=args.seed, layers=args.layers,
+             train_layers=args.train_layers, device_line=device_line,
+             ring_tokens=ring_tokens)
+    print(f"(j) tensor-parallel serving, Qwen2-7B at {args.layers} layers, "
+          f"TP {TP_RANKS} [{TP_LABEL}; {device_line}]:", flush=True)
+    try:
+        mp.start_processes(tp_rank, args=(port, outdir, a), nprocs=TP_RANKS,
+                           start_method="spawn")
+    except Exception as e:          # a rank raised or exited non-zero
+        fail(f"(j) tensor-parallel serving: {e}")
+    ranks = [json.loads((Path(outdir) / f"rank{r}.json").read_text())
+             for r in range(TP_RANKS)]
+    if ranks[0]["f32_tokens"] != ranks[1]["f32_tokens"]:
+        fail("(j) the ranks' f32 tokens differ")
+    for r, out in enumerate(ranks):
+        print(f"  rank {r}: decode {out['decode_ms']:.2f} ms/step warm "
+              f"({out['first_decode_ms']:.2f} first run), admission "
+              f"{out['admit_ms']:.1f} ms, {out['collectives_per_step']:.1f} "
+              f"collectives per decode step in "
+              f"{out['collective_ms_per_step']:.2f} ms, peak "
+              f"{out['peak_gib']:.2f} GiB [{TP_LABEL}; {device_line}]")
+    return {f"tp_serving_rank{r}": out["launches"]
+            for r, out in enumerate(ranks)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -6017,6 +6342,8 @@ def main() -> int:
     accounting = check_analysis(args, res, dev, device_line)
     free()
     done("(i) analysis and accounting")
+    paths.update(check_tp_serving(args, dev, device_line, ring["tokens"]))
+    done("(j) tensor-parallel serving")
     kernels = [dict(name=n, route="cuda", source=SOURCES[n][0],
                     replaces=SOURCES[n][1],
                     launches=sum(p[n] for p in paths.values()),

@@ -3,8 +3,12 @@
 An own copy of what the port needs from the JAX package's
 ``configs/base.py`` (the two packages share no code). The one deliberate
 difference is head padding: ``get_config`` keeps ``head_pad=1`` unless the
-caller asks for more, because one card has no tensor-parallel axis to pad
-for, and padded heads would turn the attention kernels off.
+caller asks for more (the JAX package pads every full config to 16, its
+TPU pod's ``model`` axis). Padded q-heads compute what the JAX package
+computes on the CPU (``models/attention.py``), but the attention kernels'
+head -> kv-group map does not fit them, so on the card they raise until
+ROADMAP Queue A item 11 brings padded heads to the kernels; the port's
+tensor parallelism shards unpadded heads that divide the ``model`` axis.
 """
 from __future__ import annotations
 

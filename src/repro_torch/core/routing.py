@@ -20,6 +20,10 @@ position-ascending prefix of a static ragged bucket (``capacity_buckets``,
 that the kernels use to skip trailing tiles. The bucket constants and the
 ``mxu`` rounding of ``capacity_k`` are the JAX package's, kept as they are
 so that both select the same tokens.
+
+Under a mesh every rank builds the same plan from the same (all-reduced)
+residual stream with replicated routers, so no collective is needed;
+``check_plan_replicated`` (on under ``Mesh(debug=True)``) verifies it.
 """
 from __future__ import annotations
 
@@ -27,6 +31,9 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.runtime import collectives as C
+from repro_torch.runtime.mesh import active_mesh
 
 
 def _z(device=None):
@@ -239,7 +246,24 @@ def make_plan(scores, k, bucket: int) -> RoutingPlan:
         valid = (ar < count).expand(idx.shape)
     else:
         valid = ar < count[..., None]
-    return RoutingPlan(idx, dest, valid, count, keep, bucket)
+    plan = RoutingPlan(idx, dest, valid, count, keep, bucket)
+    check_plan_replicated(plan)
+    return plan
+
+
+def check_plan_replicated(plan: "RoutingPlan") -> None:
+    """Under an active ``Mesh(debug=True)``: raise unless every rank of
+    the ``model`` axis built the same plan (gather indices and counts).
+    Every TP shard of a block must route the same tokens through its
+    weight shard; the counterpart of the JAX package's
+    ``constrain_plan``, which pins the plan replicated over ``model``.
+    A no-op otherwise."""
+    mesh = active_mesh()
+    if mesh is None or not mesh.debug:
+        return
+    C.assert_replicated(plan.idx, "the RoutingPlan's idx", mesh)
+    if torch.is_tensor(plan.count):
+        C.assert_replicated(plan.count, "the RoutingPlan's count", mesh)
 
 
 def _expand_idx(idx, ndim: int):

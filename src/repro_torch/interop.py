@@ -14,6 +14,10 @@ dense MLP). Engine-quantized trees come over the same way: int8 weights
 keep their codes and their f32 ``{name}_scale`` siblings, leaf for leaf.
 Serving state comes over too: a JAX ring cache or paged KV pool tree, with
 an int8 cache's ``kscale``/``vscale`` leaves (``caches_from_numpy``).
+Given a ``mesh`` (``runtime/mesh.py``), the base params and the caches
+keep the rank's slice by the tensor-parallel rules
+(``runtime/sharding.py``); routers, norms and LoRA stay whole, as the JAX
+package's default ``P()`` rule keeps them.
 The context families add leaves beside the layer stack (``in_proj``, the
 ``vlm`` router) and inside it (an ``xattn`` layer's ``xnorm``/``xattn``
 params and its context cache), which come over like any other, and an
@@ -29,6 +33,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.model import build_pattern, stack_layers, unstack_layers
+from repro_torch.runtime import sharding as SH
 
 _KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
 
@@ -94,19 +99,33 @@ def _tree_from_flat(flat: dict, device):
     return _tree_to_torch(_listify(root), device)
 
 
-def params_from_numpy(flat: dict, cfg, spec=None, *, device=None):
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def params_from_numpy(flat: dict, cfg, spec=None, *, device=None,
+                      mesh=None):
     """``flat``: the checkpointer's ``_flatten`` of ``{"params": params,
     "routers": routers}`` (or of the params tree alone). Returns the port's
     (params, routers); routers is None when ``flat`` has none. bf16 leaves
-    keep their bits."""
+    keep their bits. ``mesh``: the params keep the rank's slice (taken on
+    the host, before the copy to ``device``); the routers stay whole."""
     device = resolve_device(device)
-    tree = _tree_from_flat(flat, device)
+    tree = _tree_from_flat(flat, "cpu" if mesh is not None else device)
     if "params" in tree:
         ptree, rtree = tree["params"], tree.get("routers")
     else:
         ptree, rtree = tree, None
     routers = None if rtree is None else _from_layered(rtree, cfg, spec)
-    return _from_layered(ptree, cfg, spec), routers
+    params = _from_layered(ptree, cfg, spec)
+    if mesh is not None:
+        params = SH.shard_params(params, mesh, device=device)
+        routers = None if routers is None else _to_device(routers, device)
+    return params, routers
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -205,14 +224,16 @@ def train_state_to_numpy(state, cfg, spec=None):
     return out, int(state.opt.step)
 
 
-def caches_from_numpy(tree: dict, cfg, *, device=None) -> dict:
+def caches_from_numpy(tree: dict, cfg, *, device=None, mesh=None) -> dict:
     """A JAX KV cache tree (``repro.models.cache_init``'s ring caches or
     ``paged_cache_init``'s pools: ``{"scan": [...], "tail": [...]}``, numpy
     leaves; scan leaves carry a leading period dimension) as the port's
     ``{"layers": [{"attn": {...}}, ...]}`` (ring: ``k``, ``v``, ``valid``,
     ``pos``; paged: ``kp``, ``vp``, ``pvalid``; int8: ``kscale`` and
     ``vscale`` beside them), bit for bit. The JAX caches stack by the
-    layer pattern alone (no elastic spec)."""
+    layer pattern alone (no elastic spec). ``mesh``: the rank's slice by
+    the cache rules (its kv-heads)."""
     device = resolve_device(device)
     _, P, _ = build_pattern(cfg, None)
-    return {"layers": _layers_from(_tree_to_torch(tree, device), P)}
+    caches = {"layers": _layers_from(_tree_to_torch(tree, device), P)}
+    return caches if mesh is None else SH.shard_caches(caches, cfg, mesh)

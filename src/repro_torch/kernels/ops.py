@@ -279,6 +279,15 @@ class KernelCall(NamedTuple):
     out_bytes: int
 
 
+def call_signature(call: KernelCall) -> tuple:
+    """A recorded call's launch signature, hashable: its kernel, each
+    tensor operand's shape and dtype, and its other arguments by
+    ``repr``. Calls with one signature launch one form of the kernel."""
+    return (call.name,) + tuple(
+        (k, (tuple(v.shape), v.dtype) if torch.is_tensor(v) else repr(v))
+        for k, v in call.args.items())
+
+
 class recording:
     """``with recording() as calls:``: every wrapper call made inside
     appends its ``KernelCall`` to ``calls`` (``into``, when given)

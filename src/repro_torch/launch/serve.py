@@ -16,16 +16,28 @@ per-request latency and slot occupancy):
         --budget 0.5,0.75,1.0 --arrival-rate 4 --kv-layout paged \\
         --kv-dtype bf16 --weight-dtype bf16
 
+Tensor-parallel (a (data=1, model=M) mesh: M ranks spawned with
+``torch.multiprocessing``, each serving its shard of the same weights in
+lockstep; rank 0 prints the report):
+    python -m repro_torch.launch.serve --arch toy-lm --device cpu \
+        --mesh 1,2 --backend gloo --requests 4 --max-new 8
+
+``--backend`` names the collectives' backend: ``gloo`` (CPU ranks, or
+ranks that share one card: NCCL refuses two ranks on one device) or
+``nccl`` (one card per rank; untested). On the card every rank takes
+``cuda:(rank % cards)``.
+
 This is the JAX package's ``launch/serve.py`` with the same flags and
-report lines, and ``--device``. The port serves on one device: ``--mesh``,
-``--remesh-at`` and ``--remesh-to`` parse as there and are then refused
-until the mesh slice (ROADMAP Queue A item 11); the per-replica report
-has one replica.
+report lines, and ``--device`` and ``--backend``. A data axis above 1
+(``--mesh D,M`` with D > 1), ``--remesh-at`` and ``--remesh-to`` parse as
+there and are then refused until the second half of the mesh slice
+(ROADMAP Queue A item 11); the per-replica report has one replica.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import socket
 import time
 
 import numpy as np
@@ -33,8 +45,11 @@ import torch
 
 from repro_torch.configs import get_config, get_elastic
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import BACKENDS, destroy, make_mesh
 from repro_torch.launch.workloads import arrival_times, latency_stats, replay
 from repro_torch.models import model_init, router_init
+from repro_torch.optim.optimizer import tree_map
+from repro_torch.runtime.sharding import shard_params
 from repro_torch.training import GenRequest, ServingEngine
 
 ITEM_11 = "ROADMAP Queue A item 11"
@@ -76,7 +91,7 @@ def open_loop(engine, requests, rate: float, seed: int = 0, arrive=None,
     (queueing included). The loop is ``workloads.replay`` on the wall
     clock, so the engine must stamp its handles on the wall clock too.
     ``remesh_at`` (a live re-mesh onto ``remesh_to``) is refused until
-    the mesh slice."""
+    the second half of the mesh slice."""
     if remesh_at is not None:
         raise NotImplementedError(
             f"open_loop(remesh_at=): a live re-mesh onto a (data, model) "
@@ -182,8 +197,13 @@ def main(argv=None):
     ap.add_argument("--eos", type=int, default=None,
                     help="stop token id (default: config eos_id)")
     ap.add_argument("--mesh", type=_mesh_shape, default=None,
-                    help=f"SPMD on a 'data,model' mesh: arrives with "
-                         f"{ITEM_11}")
+                    help=f"tensor-parallel serving on a 'data,model' mesh: "
+                         f"1,M spawns M ranks; a data axis above 1 arrives "
+                         f"with {ITEM_11}")
+    ap.add_argument("--backend", choices=BACKENDS, default=None,
+                    help="the collectives' backend of --mesh (gloo: CPU "
+                         "ranks or ranks sharing one card; nccl: one card "
+                         "per rank)")
     ap.add_argument("--remesh-at", type=int, default=None,
                     help=f"live re-mesh after this many submissions: "
                          f"arrives with {ITEM_11}")
@@ -193,13 +213,56 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the CPU (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        ap.error(f"--mesh: SPMD serving on a (data, model) mesh arrives "
-                 f"with {ITEM_11}")
+    if args.mesh is not None and args.mesh[0] > 1:
+        ap.error(f"--mesh: a data axis above 1 arrives with {ITEM_11}")
     if args.remesh_at is not None or args.remesh_to is not None:
         ap.error(f"--remesh-at/--remesh-to: a live re-mesh arrives with "
                  f"{ITEM_11}")
+    if args.mesh is not None and args.mesh[1] > 1:
+        if args.backend is None:
+            ap.error("--mesh: name the collectives' backend with --backend "
+                     "(gloo or nccl)")
+        if args.arrival_rate is not None or args.controller \
+                or args.slo_p95_ms is not None:
+            # each rank would admit or degrade on its own wall clock and
+            # leave the lockstep the collectives need
+            ap.error(f"--mesh serves closed loop: an open loop or a "
+                     f"controller on a mesh arrives with {ITEM_11}")
+        resolve_device(args.device)
+        import torch.multiprocessing as mp
+        mp.spawn(_rank_main, args=(args, _free_port()),
+                 nprocs=args.mesh[1], join=True)
+        return
+    _serve(args)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, args, port: int) -> None:
+    """One rank of ``--mesh 1,M``: its mesh, then ``_serve`` on it (the
+    report printed by rank 0 only)."""
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    mesh = make_mesh(args.mesh, ("data", "model"), backend=args.backend,
+                     rank=rank, init_method=f"tcp://localhost:{port}",
+                     device=device)
+    try:
+        _serve(args, mesh)
+    finally:
+        destroy(mesh)
+
+
+def _serve(args, mesh=None) -> None:
+    """The serving run of ``main``; on a mesh every rank runs it on the
+    same requests and rank 0 prints."""
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
 
     cfg = get_config(args.arch, args.variant)
     ecfg = get_elastic(args.arch, cfg)
@@ -207,8 +270,8 @@ def main(argv=None):
             and getattr(ecfg, "mlp_n_experts", 0):
         # paged prefill is chunked; moefied expert-capacity buffers depend
         # on the chunking, so the paged engine requires a dense MLP
-        print(f"[serve] --kv-layout paged: dropping mlp_n_experts="
-              f"{ecfg.mlp_n_experts} (dense MLP required)")
+        say(f"[serve] --kv-layout paged: dropping mlp_n_experts="
+            f"{ecfg.mlp_n_experts} (dense MLP required)")
         ecfg = dataclasses.replace(ecfg, mlp_n_experts=0, mlp_expert_topk=0)
     if args.depth_routed and ecfg is not None:
         # depth_capacity=1.0 enables the router (spec.depth_routed) while the
@@ -221,9 +284,18 @@ def main(argv=None):
         controller = SLOController(
             targets={"default": SLOTarget(p95_ttft_ms=slo_ms)},
             floor=args.slo_floor)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = model_init(gen, cfg, ecfg, device=device)
-    rp = router_init(gen, cfg, ecfg, device=device)
+    if mesh is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = model_init(gen, cfg, ecfg, device=device)
+        rp = router_init(gen, cfg, ecfg, device=device)
+    else:
+        # every rank draws the same tree on the host and copies only its
+        # shard to its device (the engine on a mesh takes a shard)
+        gen = torch.Generator().manual_seed(0)
+        params = shard_params(model_init(gen, cfg, ecfg, device="cpu"),
+                              mesh, device=device)
+        rp = tree_map(lambda x: x.to(device),
+                      router_init(gen, cfg, ecfg, device="cpu"))
     engine = ServingEngine(params, rp, cfg, ecfg, mode=args.mode,
                            controller=controller,
                            batch_size=args.batch,
@@ -233,7 +305,8 @@ def main(argv=None):
                            kv_layout=args.kv_layout,
                            page_size=args.page_size, n_pages=args.n_pages,
                            kv_dtype=args.kv_dtype,
-                           weight_dtype=args.weight_dtype, device=device)
+                           weight_dtype=args.weight_dtype, device=device,
+                           mesh=mesh)
     del params                  # the engine holds its own (cast) tree
     budgets = args.budget
     rng = np.random.default_rng(0)
@@ -256,42 +329,42 @@ def main(argv=None):
                                 arrive=arrive)
         n_tok = sum(len(h.output) for h in handles)
         st = latency_stats(handles)
-        print(f"open loop: {len(reqs)} requests @ {args.arrival_rate} req/s "
-              f"({args.trace}), {n_tok} tokens in {dt:.2f}s "
-              f"({n_tok / dt:.1f} tok/s)")
-        print(f"latency: e2e mean {st['mean_ms']:.0f} / p50 "
-              f"{st['p50_ms']:.0f} / p95 {st['p95_ms']:.0f} ms; "
-              f"ttft p50 {st['ttft_p50_ms']:.0f} / p95 "
-              f"{st['ttft_p95_ms']:.0f} ms; itl mean "
-              f"{st['itl_mean_ms']:.1f} / p95 {st['itl_p95_ms']:.1f} ms; "
-              f"slot occupancy {engine.occupancy:.0%} "
-              f"(budgets={budgets or 'config-default'})")
+        say(f"open loop: {len(reqs)} requests @ {args.arrival_rate} req/s "
+            f"({args.trace}), {n_tok} tokens in {dt:.2f}s "
+            f"({n_tok / dt:.1f} tok/s)")
+        say(f"latency: e2e mean {st['mean_ms']:.0f} / p50 "
+            f"{st['p50_ms']:.0f} / p95 {st['p95_ms']:.0f} ms; "
+            f"ttft p50 {st['ttft_p50_ms']:.0f} / p95 "
+            f"{st['ttft_p95_ms']:.0f} ms; itl mean "
+            f"{st['itl_mean_ms']:.1f} / p95 {st['itl_p95_ms']:.1f} ms; "
+            f"slot occupancy {engine.occupancy:.0%} "
+            f"(budgets={budgets or 'config-default'})")
         if controller is not None:
             cs = controller.summary()
             served = sum(h.status == "done" for h in handles)
-            print(f"controller: admission {cs['admission_budget']:.2f}, "
-                  f"depth {cs['depth_budget']:.2f}, "
-                  f"inflight {cs['inflight_budget']:.2f} after "
-                  f"{cs['evals']} evals; events {cs['events'] or '{}'}; "
-                  f"served {served}, shed {engine.n_rejected}, expired "
-                  f"{engine.n_expired} (slo p95 ttft "
-                  f"{controller.target_for('default').p95_ttft_ms:.0f} ms)")
+            say(f"controller: admission {cs['admission_budget']:.2f}, "
+                f"depth {cs['depth_budget']:.2f}, "
+                f"inflight {cs['inflight_budget']:.2f} after "
+                f"{cs['evals']} evals; events {cs['events'] or '{}'}; "
+                f"served {served}, shed {engine.n_rejected}, expired "
+                f"{engine.n_expired} (slo p95 ttft "
+                f"{controller.target_for('default').p95_ttft_ms:.0f} ms)")
     else:
         t0 = time.perf_counter()
         outs = engine.generate(reqs)
         dt = time.perf_counter() - t0
         n_tok = sum(len(o) for o in outs)
-        print(f"served {len(reqs)} requests, {n_tok} tokens in {dt:.2f}s "
-              f"({n_tok / dt:.1f} tok/s, mode={args.mode}, "
-              f"budgets={budgets or 'config-default'})")
-        print("sample output:", outs[0][:16])
-    print(f"compiles: {engine.compile_counts()} (budgets, slots, and "
-          f"sampling knobs never recompile)")
+        say(f"served {len(reqs)} requests, {n_tok} tokens in {dt:.2f}s "
+            f"({n_tok / dt:.1f} tok/s, mode={args.mode}, "
+            f"budgets={budgets or 'config-default'})")
+        say("sample output:", outs[0][:16])
+    say(f"compiles: {engine.compile_counts()} (budgets, slots, and "
+        f"sampling knobs never recompile)")
     if args.kv_layout == "paged":
         st = engine.paged_stats()
-        print(f"paged pool: peak {st['peak_allocated']}/{st['usable']} pages "
-              f"(page_size={st['page_size']}, "
-              f"{st['registered_prefixes']} prefixes registered)")
+        say(f"paged pool: peak {st['peak_allocated']}/{st['usable']} pages "
+            f"(page_size={st['page_size']}, "
+            f"{st['registered_prefixes']} prefixes registered)")
 
 
 if __name__ == "__main__":

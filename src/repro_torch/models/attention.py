@@ -5,8 +5,24 @@ Prefill runs the flash-attention kernel, ring decode the ring-cache decode
 kernel, and paged decode and paged prefill chunks the paged decode kernel
 (``kernels/ops.py``: the CUDA kernels on the card, their plain versions on
 the CPU). Both keep f32 probabilities where the JAX package's
-``sdpa`` twin casts them to v's dtype; the port follows the kernels. Head
-padding (``cfg.n_heads_p != cfg.n_heads``) waits for the multi-GPU slice.
+``sdpa`` twin casts them to v's dtype; the port follows the kernels.
+
+Tensor parallelism (``with mesh:``, ``runtime/mesh.py``): each rank holds
+q-heads ``[r*Hp/M, (r+1)*Hp/M)`` and kv-heads ``[r*K/M, ...)`` of the
+projections and of its ring cache, runs the kernels on them (per-head
+work needs no collective: the counterpart of the JAX package's
+``decode_attention_sharded``), and ``all_reduce_sum`` completes the
+``wo`` projection's partial sum. The LoRA q delta and the head-routing
+weights are computed whole and sliced to the rank's heads.
+
+Padded q-heads (``cfg.n_heads_p != cfg.n_heads``, the JAX package's
+``head_pad``): ``wq``/``bq``/``wo`` carry ``Hp`` heads, the pad heads'
+weights zero, and each q-head ``h`` reads kv-head ``min(h // (H / K),
+K - 1)``, the JAX package's repeat-kv map (``_expand_kv``). That map does
+not fit the kernels' head -> kv-group map, so a padded config takes the
+kernels' plain versions on k/v expanded to the q-heads (all-gathered over
+the ``model`` axis first under a mesh), as the JAX package takes its jnp
+path (``_kernel_ok``); on a CUDA tensor it raises.
 
 One call the kernels do not take, in either package: a sliding window over
 a gathered RoutingPlan buffer. The kernels mask the window by array index,
@@ -33,32 +49,92 @@ from repro_torch.core.lora import lora_apply
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import quant as Q
 from repro_torch.models.layers import dense_init, dtype_of, rope_apply, rope_tables
+from repro_torch.runtime import collectives as C
 
 NEG_INF = -1e30     # the masked score of windowed_gathered_attention
 
 
-def check_kernel_ok(cfg) -> None:
-    """The attention kernels serve every config of this slice; padded
-    q-heads would skew their head -> kv-group mapping."""
-    if cfg.n_heads_p != cfg.n_heads:
+def padded(cfg) -> bool:
+    return cfg.n_heads_p != cfg.n_heads
+
+
+def check_kernel_ok(cfg, t: Optional[torch.Tensor] = None) -> None:
+    """Refuse what the attention kernels cannot serve: padded q-heads on a
+    CUDA tensor (their head -> kv-group map does not fit uneven padding;
+    the CPU runs the plain versions on expanded k/v), and under a mesh a
+    head count that does not divide the ``model`` axis."""
+    if padded(cfg) and t is not None and t.is_cuda:
         raise NotImplementedError(
             f"head_pad={cfg.head_pad} pads {cfg.n_heads} q-heads to "
-            f"{cfg.n_heads_p}; padded heads arrive with the multi-GPU slice "
-            f"(ROADMAP Queue A item 11)")
+            f"{cfg.n_heads_p}: padded q-heads on the attention kernels arrive "
+            f"with ROADMAP Queue A item 11 (padded heads on the kernels)")
+    _, m = C.tp_rank_size()
+    if m > 1 and (cfg.n_heads_p % m or cfg.n_kv_heads % m):
+        raise NotImplementedError(
+            f"{cfg.n_heads_p} q-heads and {cfg.n_kv_heads} kv-heads over a "
+            f"model axis of {m}: heads that do not divide it arrive with "
+            f"ROADMAP Queue A item 11 (padded heads on the kernels)")
+
+
+def _pad_heads(t, cfg, axis: int):
+    """A head-indexed tensor padded with zeros from H to Hp on ``axis``."""
+    H, Hp = cfg.n_heads, cfg.n_heads_p
+    if Hp == H:
+        return t
+    shape = list(t.shape)
+    shape[axis] = Hp - H
+    return torch.cat([t, t.new_zeros(shape)], dim=axis)
+
+
+def _rank_heads(cfg) -> tuple:
+    """(first q-head, q-heads) of this rank: all ``Hp`` off a mesh."""
+    r, m = C.tp_rank_size()
+    hl = cfg.n_heads_p // m
+    return r * hl, hl
+
+
+def _local_heads(t, cfg, axis: int):
+    """A whole (H-head) tensor padded to Hp and sliced to the rank's
+    q-heads on ``axis``."""
+    t = _pad_heads(t, cfg, axis)
+    r0, hl = _rank_heads(cfg)
+    return t if hl == t.shape[axis] else t.narrow(axis, r0, hl)
+
+
+def _expand_kv(t, cfg, axis: int = 2):
+    """Padded heads: the rank's kv-heads (``axis``) all-gathered over the
+    ``model`` axis and expanded to its q-heads by the JAX package's
+    repeat-kv map, q-head h -> kv-head min(h // (H / K), K - 1). Without
+    padding ``t`` itself (the kernels map the groups)."""
+    if not padded(cfg):
+        return t
+    check_kernel_ok(cfg, t)
+    full = C.all_gather(t, dim=axis)
+    K = full.shape[axis]
+    g = max(1, cfg.n_heads // K)
+    r0, hl = _rank_heads(cfg)
+    idx = torch.clamp(torch.arange(r0, r0 + hl, device=t.device) // g,
+                      max=K - 1)
+    return full.index_select(axis, idx)
 
 
 def attn_init(gen, cfg, device=None) -> dict:
-    check_kernel_ok(cfg)
+    """The projections; padded q-heads as the JAX package pads them:
+    ``wq``'s and ``wo``'s pad heads zero, ``bq`` (Hp, Dh)."""
     D, H, K, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     dt = dtype_of(cfg)
     p = {
-        "wq": dense_init(gen, D, H * Dh, dt, device=device).reshape(D, H, Dh),
+        "wq": _pad_heads(dense_init(gen, D, H * Dh, dt,
+                                    device=device).reshape(D, H, Dh),
+                         cfg, 1),
         "wk": dense_init(gen, D, K * Dh, dt, device=device).reshape(D, K, Dh),
         "wv": dense_init(gen, D, K * Dh, dt, device=device).reshape(D, K, Dh),
-        "wo": dense_init(gen, H * Dh, D, dt, device=device).reshape(H, Dh, D),
+        "wo": _pad_heads(dense_init(gen, H * Dh, D, dt,
+                                    device=device).reshape(H, Dh, D),
+                         cfg, 0),
     }
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((H, Dh), dtype=dt, device=device)
+        p["bq"] = torch.zeros((cfg.n_heads_p, Dh), dtype=dt, device=device)
         p["bk"] = torch.zeros((K, Dh), dtype=dt, device=device)
         p["bv"] = torch.zeros((K, Dh), dtype=dt, device=device)
     return p
@@ -85,6 +161,7 @@ def _proj(p, name, x):
 
 
 def _project_q(p, x, positions, cfg, lora, use_rope: bool = True):
+    check_kernel_ok(cfg)
     q = _proj(p, "wq", x)
     if lora is not None and "q" in lora:
         dq = lora_apply(lora["q"], x).reshape(
@@ -92,7 +169,7 @@ def _project_q(p, x, positions, cfg, lora, use_rope: bool = True):
         s = _lora_scale(lora, dq.dim())
         if s is not None:
             dq = dq * s.to(dq.dtype)
-        q = q + dq
+        q = q + _local_heads(dq, cfg, 2)
     if "bq" in p:
         q = q + p["bq"]
     return rope_apply(q, *_rope(positions, cfg)) if use_rope else q
@@ -102,12 +179,14 @@ def _project_kv(p, x, positions, cfg, lora, use_rope: bool = True):
     k = _proj(p, "wk", x)
     v = _proj(p, "wv", x)
     if lora is not None and "v" in lora:
-        K, Dh = p["wv"].shape[1], p["wv"].shape[2]
-        dv = lora_apply(lora["v"], x).reshape(x.shape[0], x.shape[1], K, Dh)
+        dv = lora_apply(lora["v"], x).reshape(
+            x.shape[0], x.shape[1], cfg.n_kv_heads, cfg.d_head)
         s = _lora_scale(lora, dv.dim())
         if s is not None:
             dv = dv * s.to(dv.dtype)
-        v = v + dv
+        r, m = C.tp_rank_size()
+        kl = cfg.n_kv_heads // m
+        v = v + (dv if m == 1 else dv.narrow(2, r * kl, kl))
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
     if not use_rope:
@@ -115,11 +194,15 @@ def _project_kv(p, x, positions, cfg, lora, use_rope: bool = True):
     return rope_apply(k, *_rope(positions, cfg)), v
 
 
-def _out_proj(p, ctx, head_weights):
+def _out_proj(p, ctx, head_weights, cfg):
+    """ctx (B,S,Hl,Dh) of the rank's heads, weighted by its slice of the
+    (B,S,H) head weights, through its rows of ``wo``; the partial sums
+    all-reduced over the ``model`` axis."""
     if head_weights is not None:
-        ctx = ctx * head_weights[..., None].to(ctx.dtype)
-    return Q.scaled(torch.einsum("bshk,hkd->bsd", ctx,
-                                 Q.widened(p, "wo", ctx.dtype)), p, "wo")
+        hw = _local_heads(head_weights, cfg, -1)
+        ctx = ctx * hw[..., None].to(ctx.dtype)
+    return C.all_reduce_sum(Q.scaled(torch.einsum(
+        "bshk,hkd->bsd", ctx, Q.widened(p, "wo", ctx.dtype)), p, "wo"))
 
 
 def attn_apply(p, x, *, cfg, positions, causal: bool = True, window: int = 0,
@@ -148,17 +231,18 @@ def attn_apply(p, x, *, cfg, positions, causal: bool = True, window: int = 0,
         k, v = _project_kv(p, x, positions, cfg, lora)
     if kv_valid is not None and kv_valid.dim() == 1:
         kv_valid = kv_valid.expand(k.shape[:2])
+    ke, ve = _expand_kv(k, cfg), _expand_kv(v, cfg)
     if gathered and window and window > 0 and not cross:
         pos = positions if positions.dim() == 2 else \
             positions.expand(x.shape[:2])
-        ctx = windowed_gathered_attention(q, k, v, pos, window, causal,
+        ctx = windowed_gathered_attention(q, ke, ve, pos, window, causal,
                                           kv_valid)
     else:
-        ctx = OPS.flash_attention(q, k, v, kv_valid=kv_valid,
+        ctx = OPS.flash_attention(q, ke, ve, kv_valid=kv_valid,
                                   kv_count=kv_count,
                                   causal=causal and not cross,
                                   window=window or 0, backend=backend)
-    return _out_proj(p, ctx, head_weights), k, v
+    return _out_proj(p, ctx, head_weights, cfg), k, v
 
 
 def windowed_gathered_attention(q, k, v, positions, window: int,
@@ -197,10 +281,12 @@ def cross_attn_decode(p, x, cache, *, cfg):
     a row with no valid context row (an empty slot) gives exact zeros.
     Returns out (B,1,D)."""
     B = x.shape[0]
-    H, Dh = cfg.n_heads, cfg.d_head
-    k, v, valid = cache["k"], cache["v"], cache["valid"]
+    Dh = cfg.d_head
+    k, v, valid = _expand_kv(cache["k"], cfg), _expand_kv(cache["v"], cfg), \
+        cache["valid"]
     K = k.shape[2]
     q = _project_q(p, x, None, cfg, None, use_rope=False)      # (B,1,H,Dh)
+    H = q.shape[2]
     qg = q.reshape(B, K, H // K, Dh).float()
     s = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * Dh ** -0.5
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
@@ -208,7 +294,7 @@ def cross_attn_decode(p, x, cache, *, cfg):
     pr = torch.softmax(torch.where(live, s, torch.zeros_like(s)), dim=-1)
     pr = torch.where(live, pr, torch.zeros_like(pr))
     ctx = torch.einsum("bkgt,btkd->bkgd", pr, v.float())
-    return _out_proj(p, ctx.reshape(B, 1, H, Dh).to(x.dtype), None)
+    return _out_proj(p, ctx.reshape(B, 1, H, Dh).to(x.dtype), None, cfg)
 
 
 def attn_decode(p, x, cache, t, *, cfg, window: int = 0, head_weights=None,
@@ -241,11 +327,25 @@ def attn_decode(p, x, cache, t, *, cfg, window: int = 0, head_weights=None,
         c[bi, slots] = torch.where(keep, new[:, 0].to(c.dtype), old)
     cache["valid"][bi, slots] = wr
     cache["pos"][bi, slots] = t
-    ctx = OPS.decode_attention(q, cache["k"], cache["v"], cache["pos"], t,
-                               cache["valid"], cache.get("kscale"),
-                               cache.get("vscale"), window=window or 0,
+    ctx = OPS.decode_attention(q, *_read_kv(cache, "k", "v", cfg),
+                               cache["pos"], t, cache["valid"],
+                               *_read_scales(cache, cfg), window=window or 0,
                                backend=backend)
-    return _out_proj(p, ctx, head_weights), cache
+    return _out_proj(p, ctx, head_weights, cfg), cache
+
+
+def _read_kv(cache, kname, vname, cfg):
+    """The cache's K and V as a decode reads them: the rank's own, or
+    (padded heads) expanded to its q-heads."""
+    return _expand_kv(cache[kname], cfg), _expand_kv(cache[vname], cfg)
+
+
+def _read_scales(cache, cfg):
+    """An int8 cache's (kscale, vscale), expanded like K and V; (None,
+    None) for a float cache."""
+    if "kscale" not in cache:
+        return None, None
+    return _expand_kv(cache["kscale"], cfg), _expand_kv(cache["vscale"], cfg)
 
 
 def _stored(cache, kname, vname, k_new, v_new):
@@ -348,10 +448,11 @@ def attn_decode_paged(p, x, cache, t, table, trash, *, cfg,
         keep = wr.reshape((B,) + (1,) * (old.dim() - 1))
         c[pages, offs] = torch.where(keep, new[:, 0].to(c.dtype), old)
     cache["pvalid"][pages, offs] = wr
-    ctx = OPS.paged_decode_attention(q, cache["kp"], cache["vp"], table, t,
-                                     cache["pvalid"], cache.get("kscale"),
-                                     cache.get("vscale"), backend=backend)
-    return _out_proj(p, ctx, head_weights), cache
+    ctx = OPS.paged_decode_attention(q, *_read_kv(cache, "kp", "vp", cfg),
+                                     table, t, cache["pvalid"],
+                                     *_read_scales(cache, cfg),
+                                     backend=backend)
+    return _out_proj(p, ctx, head_weights, cfg), cache
 
 
 def as_index(v, device) -> torch.Tensor:
@@ -377,7 +478,7 @@ def attn_chunk(p, x, cache, write_page, table_row, pos0, plen, *, cfg,
     ``write_page``, ``pos0`` and ``plen``: Python ints or 0-d int device
     tensors (no host read either way). Returns (out (1, C, D), cache)."""
     B, C, _ = x.shape
-    H, Dh = cfg.n_heads, cfg.d_head
+    Dh = cfg.d_head
     positions = pos0 + torch.arange(C, dtype=torch.int32,
                                     device=x.device)[None, :]   # (1, C)
     q = _project_q(p, x, positions, cfg, lora)
@@ -390,8 +491,9 @@ def attn_chunk(p, x, cache, write_page, table_row, pos0, plen, *, cfg,
         cache[name].index_copy_(0, wp, new.to(cache[name].dtype))
     cache["pvalid"].index_copy_(0, wp, wr)
     table = table_row.reshape(1, -1).expand(C, -1)
+    H = q.shape[2]
     ctx = OPS.paged_decode_attention(
-        q.reshape(C, 1, H, Dh), cache["kp"], cache["vp"], table,
-        positions[0], cache["pvalid"], cache.get("kscale"),
-        cache.get("vscale"), backend=backend)
-    return _out_proj(p, ctx.reshape(B, C, H, Dh), head_weights), cache
+        q.reshape(C, 1, H, Dh), *_read_kv(cache, "kp", "vp", cfg), table,
+        positions[0], cache["pvalid"], *_read_scales(cache, cfg),
+        backend=backend)
+    return _out_proj(p, ctx.reshape(B, C, H, Dh), head_weights, cfg), cache

@@ -62,6 +62,7 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (dtype_of, mlp_apply, mlp_init,
                                       norm_apply, norm_init)
 from repro_torch.models.moe import moe_apply, moe_decode, moe_init
+from repro_torch.runtime import collectives as C
 
 KINDS = ("attn", "xattn", "ssm", "rglru")
 
@@ -214,12 +215,11 @@ def _mlp_fn(p, rp, cfg, spec, pol, elastic_on, mode, auxes, backend):
             auxes.append(a)
             return y
         mp = p["mlp"]
-        return OPS.fused_mlp(h, mp["wi"], mp["wo"], mp.get("wg"),
-                             valid_count=token_count,
-                             wi_scale=mp.get("wi_scale"),
-                             wo_scale=mp.get("wo_scale"),
-                             wg_scale=mp.get("wg_scale"), act=cfg.act,
-                             backend=backend)
+        # under a mesh the rank's F/M columns: a partial sum, completed
+        return C.all_reduce_sum(OPS.fused_mlp(
+            h, mp["wi"], mp["wo"], mp.get("wg"), valid_count=token_count,
+            wi_scale=mp.get("wi_scale"), wo_scale=mp.get("wo_scale"),
+            wg_scale=mp.get("wg_scale"), act=cfg.act, backend=backend))
     return f
 
 
@@ -530,14 +530,15 @@ def block_apply(kind: str, p, rp, x, *, cfg, spec, pol=None, mode: str,
                 # slab, so every dense-MLP plan takes it on the card (the
                 # plain version on the CPU: the same math as the gather +
                 # fused_mlp branch there).
+                # Under a mesh every rank runs its F/M columns on the
+                # same plan and the partial deltas are all-reduced (the
+                # JAX package's fused_mlp_routed_sharded).
                 mp = p["mlp"]
-                delta = OPS.fused_mlp_routed(h, plan.idx, mp["wi"], mp["wo"],
-                                             mp.get("wg"), w_sel,
-                                             valid_count=plan.count,
-                                             wi_scale=mp.get("wi_scale"),
-                                             wo_scale=mp.get("wo_scale"),
-                                             wg_scale=mp.get("wg_scale"),
-                                             act=cfg.act, backend=backend)
+                delta = C.all_reduce_sum(OPS.fused_mlp_routed(
+                    h, plan.idx, mp["wi"], mp["wo"], mp.get("wg"), w_sel,
+                    valid_count=plan.count, wi_scale=mp.get("wi_scale"),
+                    wo_scale=mp.get("wo_scale"), wg_scale=mp.get("wg_scale"),
+                    act=cfg.act, backend=backend))
             else:                       # expert layers: the bucket buffer
                 y_sel = f(R.plan_gather(h, plan), None, token_valid=plan.valid,
                           token_count=plan.count)
@@ -746,7 +747,7 @@ def block_decode(kind: str, p, rp, x, cache, t, *, cfg, spec, pol=None,
                           normalize_to_m=True,
                           **_expert_args(pol, spec.mlp_n_experts))
     else:
-        y = mlp_apply(p["mlp"], h, cfg.act)
+        y = C.all_reduce_sum(mlp_apply(p["mlp"], h, cfg.act))
     if keep2 is not None:
         y = y * w2[:, None, None].to(y.dtype)
     return x + y, cache

@@ -37,6 +37,7 @@ from repro_torch.models.blocks import (block_apply, block_cache_init,
                                        block_paged_cache_init,
                                        block_router_init, cache_row_insert)
 from repro_torch.models.layers import dense_init, dtype_of, norm_apply, norm_init
+from repro_torch.runtime import collectives as C
 
 
 class PatternPos(NamedTuple):
@@ -159,18 +160,57 @@ def router_param_count(rp) -> int:
 # ------------------------------ forward --------------------------------------
 
 def _embed(params, tokens):
-    return params["embed"][tokens.long()]
+    """The embedding lookup. Under a mesh ``embed`` holds the rank's V/M
+    vocabulary rows: a masked lookup of the rows it holds (zeros for the
+    others), all-reduced."""
+    emb = params["embed"]
+    r, m = C.tp_rank_size()
+    if m == 1:
+        return emb[tokens.long()]
+    vl = emb.shape[0]
+    ids = tokens.long() - r * vl
+    mine = (ids >= 0) & (ids < vl)
+    rows = emb[ids.clamp(0, vl - 1)]
+    return C.all_reduce_sum(rows * mine[..., None].to(rows.dtype))
 
 
 def _logits(params, cfg, x):
+    """x @ the LM head. Under a mesh the head holds the rank's V/M
+    columns: the local logits are all-gathered over the vocabulary, so
+    sampling sees whole rows; the padded-vocabulary mask applies to the
+    gathered row."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = x @ head
+    if logits.shape[-1] != cfg.padded_vocab:
+        logits = C.all_gather(logits, dim=-1)
     if cfg.padded_vocab != cfg.vocab_size:
         v = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
         logits = torch.where(v, logits,
                              torch.full((), -1e30, dtype=logits.dtype,
                                         device=x.device))
     return logits
+
+
+def check_mesh(cfg, spec, paged: bool = False) -> None:
+    """What tensor-parallel serving covers under an active mesh (ROADMAP
+    Queue A item 11, first half): decoder-only self-attention stacks with
+    dense MLPs, on the ring layout. Refuses the rest, each naming the
+    part of item 11 that brings it."""
+    _, m = C.tp_rank_size()
+    if m == 1:
+        return
+    later = "arrives with ROADMAP Queue A item 11"
+    bad = sorted({k for k in cfg.layer_kinds if k != "attn"})
+    if bad or cfg.encoder is not None or cfg.family in ("vlm", "encoder"):
+        raise NotImplementedError(
+            f"tensor parallelism over {bad or cfg.family!r} layers {later} "
+            f"(the recurrent and context families on a mesh)")
+    if cfg.moe is not None or (spec is not None and spec.mlp_n_experts):
+        raise NotImplementedError(f"experts on a mesh {later} (expert "
+                                  f"parallelism)")
+    if paged:
+        raise NotImplementedError(f"the paged layout on a mesh {later} (the "
+                                  f"paged layout under a mesh)")
 
 
 def _layer_policies(pol, n_layers: int) -> list:
@@ -288,6 +328,7 @@ def forward(params, rparams, batch, cfg, ecfg=None, mode: str = "base",
     its final-normed output embeddings; a VLM adds ``image_embeds``, an
     encoder-decoder ``frames`` to ``tokens``."""
     spec, pol = as_spec_policy(ecfg, policy)
+    check_mesh(cfg, spec)
     if cfg.family == "encoder":
         x = batch["embeds"].to(dtype_of(cfg)) @ params["in_proj"]
         x, aux, _ = _run(params, rparams, x, cfg=cfg, spec=spec, pol=pol,
@@ -334,6 +375,7 @@ def prefill(params, rparams, batch, cfg, ecfg=None, mode: str = "infer",
     ``frames``); each ``xattn`` layer's cache then holds the context's
     K/V and selected rows."""
     spec, pol = as_spec_policy(ecfg, policy)
+    check_mesh(cfg, spec)
     enc_kv, enc_valid, _ = _context(params, rparams, batch, cfg, spec, pol,
                                     mode)
     x = _embed(params, batch["tokens"])
@@ -380,6 +422,7 @@ def decode_step(params, rparams, token, caches, t, cfg, ecfg=None,
     slice is indexed with the same page ids). Returns (logits (B,V),
     caches)."""
     spec, pol = as_spec_policy(ecfg, policy)
+    check_mesh(cfg, spec, paged=table is not None)
     x = _embed(params, token)
     has_rp = rparams is not None and mode != "base"
     pols = _layer_policies(pol, cfg.n_layers)
@@ -424,6 +467,7 @@ def prefill_chunk_step(params, rparams, tokens, caches, write_page,
     updated in place. Returns (logits (1, V) at the chunk's LAST REAL
     position, and the caches)."""
     spec, pol = as_spec_policy(ecfg, policy)
+    check_mesh(cfg, spec, paged=True)
     x = _embed(params, tokens)
     has_rp = rparams is not None and mode != "base"
     pols = _layer_policies(pol, cfg.n_layers)

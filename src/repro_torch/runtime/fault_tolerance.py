@@ -18,8 +18,9 @@ This is the JAX package's ``runtime/fault_tolerance.py``, copied so that
 the port depends on nothing of that package. The port serves on one
 device: a fallback shape of one device, or the exhausted list, re-meshes
 with ``engine.reshard(None)`` (drain, keep every slot, capture the entry
-points again); a larger shape is refused by the engine until the mesh
-slice (ROADMAP Queue A item 11) and skipped like any unusable shape.
+points again); a larger shape is refused by the engine until the live
+re-mesh (ROADMAP Queue A item 11's second half) and skipped like any
+unusable shape.
 """
 from __future__ import annotations
 
@@ -111,7 +112,7 @@ def remesh_fallback(engine, shapes: list):
     """Drain + re-mesh ``engine`` onto the first usable shape popped from
     ``shapes`` (mutated in place). A `(data, model)` shape of one device
     re-meshes with ``engine.reshard(None)``; a larger one raises in the
-    engine (multi-device meshes arrive with ROADMAP Queue A item 11) and,
+    engine (the live re-mesh arrives with ROADMAP Queue A item 11) and,
     like any unusable shape, is skipped rather than allowed to kill the
     server — the exhausted list still ends at the single-device fallback.
     Raises only when even the single-device fallback fails."""

@@ -29,8 +29,10 @@ shedding and repricing, the paged engine's ``page_check`` and
 ``requeue_front`` included), copied so that the port depends on nothing
 of that package. The replica helpers (``n_replicas``, ``replica_of``,
 ``free_slots_in``, ``replica_occupancy``) exist for the engine's and the
-serving CLI's calls, with ``n_replicas`` always 1; the replica axis of
-SPMD serving arrives with the mesh slice (ROADMAP Queue A item 11). The
+serving CLI's calls, with ``n_replicas`` always 1: a tensor-parallel
+engine on a (data=1, model=M) mesh is one replica, and the data axis
+arrives with the second half of the mesh slice (ROADMAP Queue A item
+11). The
 scheduler imports no array library; the engine calls ``admit()`` /
 ``free()`` / ``tick()`` around its steps.
 """
@@ -201,7 +203,7 @@ class SlotScheduler:
         self._n_pending = 0
         self._seq = itertools.count()
         self._front_seq = -1            # requeue_front goes before seq 0
-        self.n_replicas = 1             # one device (item 11)
+        self.n_replicas = 1             # no data axis (item 11)
         # occupancy accounting (slot-steps used / slot-steps available)
         self.reset_stats()
 

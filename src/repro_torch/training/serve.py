@@ -89,6 +89,26 @@ a deterministic budget trajectory; ``timing`` stays on the wall clock.
 engine's re-mesh onto one device); ``runtime/fault_tolerance`` drives it
 on a failure or an escalation.
 
+``mesh`` (a ``runtime.mesh.Mesh`` of shape (data=1, model=M)): tensor-
+parallel serving on the ring layout in ``infer`` / ``base`` mode. Every
+rank builds its own engine over its shard of the weights, taken on the
+host before the engine is built (``runtime/sharding.shard_params``,
+``interop.params_from_numpy(mesh=)``; a whole tree raises), and over
+its slice of the ring cache (its kv-heads), submits the same requests
+at the same steps and steps in lockstep: the scheduler's decisions are
+the host's and deterministic, and the sampled tokens agree because the
+logits are all-gathered over the vocabulary. (Admissions or degradations driven by each rank's own
+wall clock would break the lockstep: give a controller on a mesh one
+injected clock.)
+Every model call runs under ``with mesh:`` (the collectives,
+``runtime/collectives.py``). Collectives cannot be captured in a CUDA
+graph, so a mesh engine runs eagerly (``cuda_graphs=True`` raises);
+``compile_counts()`` still counts the decode step's forms, whose launch
+signatures do not change across budgets, slots or sampling settings.
+The paged layout, ``mode="train"``, int8 weights, a data axis above 1 and
+``reshard`` on a mesh raise, each naming the part of ROADMAP Queue A item
+11 that brings it.
+
 Decode runs the ElastiFormer threshold path (§B.1). Each slot samples with
 its request's temperature, top-k and seed (``sample_tokens``): the noise
 of a token is keyed on (seed, its position) only, so a request's stream is
@@ -98,6 +118,7 @@ step takes the argmax alone.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import time
@@ -112,12 +133,15 @@ from repro_torch.core.policy import (ElasticPolicy, ElasticSpec,
                                      solve_budget)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as OPS
+from repro_torch.runtime.mesh import Mesh
+from repro_torch.models.attention import check_kernel_ok
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.quant import (check_kv_dtype, check_weight_dtype,
                                       quantize_params_tree)
-from repro_torch.models.model import (cache_init, decode_step,
+from repro_torch.models.model import (cache_init, check_mesh, decode_step,
                                      paged_cache_init, prefill_chunk_step,
                                      prefill_into_slot)
+from repro_torch.runtime import sharding as SH
 from repro_torch.runtime.pagedkv import (PagePool, copy_page_in_tree,
                                         n_pages_for, prefix_keys)
 from repro_torch.runtime.scheduler import RequestHandle, SlotScheduler
@@ -249,7 +273,9 @@ class ServingEngine:
                  weight_dtype: str = "fp32", controller=None, clock=None,
                  device=None, cuda_graphs: Optional[bool] = None):
         if mesh is not None:
-            raise _todo("SPMD serving (mesh=)", "item 11")
+            self._check_mesh(mesh, cfg, elastic, kv_layout, mode,
+                             weight_dtype, cuda_graphs)
+            cuda_graphs = False
         if kv_layout not in ("ring", "paged"):
             raise ValueError(f"kv_layout must be 'ring' or 'paged', "
                              f"got {kv_layout!r}")
@@ -260,7 +286,7 @@ class ServingEngine:
         # deterministic time; ``timing`` stays on the host's wall clock
         self.controller = controller
         self._clock = clock if clock is not None else time.perf_counter
-        self.mesh = None                          # one device (item 11)
+        self.mesh = mesh                          # None: one device
         self.remeshed_at: Optional[float] = None  # last reshard(), clock time
         self.spec, self._base_policy = as_spec_policy(elastic)
         self.kv_layout, self.page_size = kv_layout, int(page_size)
@@ -280,6 +306,8 @@ class ServingEngine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine on {self.device}")
+        if mesh is not None:
+            self._check_shard(params, cfg, mesh)
         # the base weights quantized (or cast) once, into a new tree
         self.params = quantize_params_tree(params, self.weight_dtype)
         self.rp = router_params
@@ -326,6 +354,8 @@ class ServingEngine:
         else:
             self._caches = cache_init(cfg, B, max_seq, device=self.device,
                                       kv_dtype=self.kv_dtype)
+            if mesh is not None:                  # the rank's kv-heads
+                self._caches = SH.shard_caches(self._caches, cfg, mesh)
         self._stage_host, self._stage_dev, host, self._dev = _staging(
             fields, self.device)
         self._seeds, self._temp, self._topk = (host["seeds"], host["temp"],
@@ -376,6 +406,54 @@ class ServingEngine:
         self.timing = {"prefill_s": 0.0, "prefill_tokens": 0,
                        "decode_s": 0.0, "decode_steps": 0,
                        "decode_tokens": 0}
+
+    @staticmethod
+    def _check_mesh(mesh, cfg, elastic, kv_layout, mode, weight_dtype,
+                    cuda_graphs) -> None:
+        """What a mesh engine serves (module docstring); the rest raises,
+        naming the part of ROADMAP Queue A item 11 that brings it."""
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a runtime.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if SH.data_axis_size(mesh) > 1:
+            raise _todo("serving on a data axis above 1 (replicas)",
+                        "item 11 (the data axis and the scheduler's "
+                        "replicas)")
+        if kv_layout == "paged":
+            raise _todo("the paged layout on a mesh",
+                        "item 11 (the paged layout under a mesh)")
+        if mode == "train":
+            raise _todo("train-mode serving on a mesh",
+                        "item 11 (training on a mesh)")
+        if weight_dtype == "int8":
+            raise _todo("int8 weights on a mesh", "item 11 (training on a "
+                        "mesh, with gradient compression and int8 shards)")
+        if cuda_graphs:
+            raise _todo("graphed decode on a mesh (gloo collectives cannot "
+                        "be captured)", "item 11 (graphed decode under TP)")
+        with mesh:
+            check_mesh(cfg, as_spec_policy(elastic)[0])
+            check_kernel_ok(cfg)
+
+    @staticmethod
+    def _check_shard(params, cfg, mesh) -> None:
+        """A mesh engine serves the rank's shard of the weights, never a
+        whole tree: shard on the host before building it
+        (``runtime/sharding.shard_params(..., device=)`` or
+        ``interop.params_from_numpy(mesh=)``)."""
+        want = cfg.n_heads_p // mesh.model_size
+        got = params["layers"][0]["attn"]["wq"].shape[1]
+        if got != want:
+            raise ValueError(
+                f"a mesh engine takes rank {mesh.model_rank}'s shard of the "
+                f"weights ({want} q-heads in wq), got {got}: shard the tree "
+                f"with runtime.sharding.shard_params before building the "
+                f"engine")
+
+    def _on_mesh(self):
+        """``with self._on_mesh():`` runs a model call on the engine's mesh
+        (nothing off a mesh)."""
+        return self.mesh if self.mesh is not None else contextlib.nullcontext()
 
     # ---------------------------- paged KV mode ------------------------------
 
@@ -592,7 +670,8 @@ class ServingEngine:
         # in place
         batch = {"tokens": tokens, **self._extras.pop(handle.id, {})}
         args, kw = self._admit_args(batch, slot, pol_row)
-        logits, _, _ = prefill_into_slot(*args, **kw)
+        with self._on_mesh():
+            logits, _, _ = prefill_into_slot(*args, **kw)
         tok0 = self._first_token(logits, slot, req, prompt.size)
         self._tok[slot] = tok0
         tok0 = int(tok0)                          # waits for the device
@@ -1055,7 +1134,7 @@ class ServingEngine:
         graph, which counts the kernel launches it makes, or runs the body
         eagerly (``cuda_graphs=False``, the CPU)."""
         key = (entry, form)
-        with torch.no_grad():
+        with torch.no_grad(), self._on_mesh():
             if key in self._forms:
                 built = self._forms[key]
                 if built is None:
@@ -1095,15 +1174,17 @@ class ServingEngine:
         captured graphs and their pool are dropped and ``compile_counts()``
         restarts, as the JAX engine's fresh jit wrappers do; the next step
         captures again and every in-flight request continues with the same
-        tokens. A mesh (more than one device) arrives with ROADMAP Queue A
-        item 11; a paged engine refuses, as the JAX engine does."""
+        tokens. A live re-mesh onto a mesh, or off one, arrives with
+        ROADMAP Queue A item 11 (the live re-mesh); a paged engine refuses,
+        as the JAX engine does."""
+        if mesh is not None or self.mesh is not None:
+            raise _todo("a live re-mesh (reshard onto or off a mesh)",
+                        "item 11 (the live re-mesh)")
         if self.kv_layout == "paged":
             raise NotImplementedError(
                 "live reshard of a paged engine is not supported: page ids "
                 "are replica-local (the pool freelists and trash pages are "
                 "derived from the data-axis size at construction)")
-        if mesh is not None:
-            raise _todo("re-meshing onto a multi-device mesh", "item 11")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # drain the in-flight step
         self._forms = {}

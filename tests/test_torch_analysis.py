@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite runs one process per core
 
 from repro_torch import analysis  # noqa: E402
 from repro_torch.analysis import (Finding, Report, Waiver,  # noqa: E402

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite runs one process per core
 
 from repro.runtime import controller as JC  # noqa: E402
 from repro.runtime import fault_tolerance as JF  # noqa: E402

@@ -1652,3 +1652,30 @@ def test_launch_statements_equal_the_launchers(cuda):
         want = [(l["grid"], l["block"], l["smem"])
                 for l in ops.launch_geometry(c.name, **c.args)["launches"]]
         assert got == want, (name, got, want)
+
+
+@pytest.mark.cuda
+def test_padded_heads_raise_on_the_card(cuda):
+    """Padded q-heads run the kernels' plain versions on the CPU; on a
+    CUDA tensor their head -> kv-group map does not fit the kernels, so a
+    forward and an engine raise, naming the item that brings them, and
+    nothing runs plain."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, model_init
+    from repro_torch.training import GenRequest, ServingEngine
+    cfg = dataclasses.replace(get_config("qwen2-7b", "smoke"),
+                              dtype="float32", n_heads=6, head_pad=4,
+                              d_head=32)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model_init(gen, cfg, None, device=cuda)
+    rp = None
+    assert params["layers"][0]["attn"]["wq"].shape[1] == 8
+    before = ops.launch_counts()
+    tokens = torch.zeros((1, 8), dtype=torch.int64, device=cuda)
+    with pytest.raises(NotImplementedError, match="item 11.*padded heads"):
+        forward(params, rp, {"tokens": tokens}, cfg)
+    eng = ServingEngine(params, rp, cfg, None, batch_size=2, max_seq=32,
+                        device=cuda, cuda_graphs=False)
+    with pytest.raises(NotImplementedError, match="item 11.*padded heads"):
+        eng.generate([GenRequest(np.arange(1, 9, dtype=np.int32), 4)])
+    assert ops.launch_counts() == before

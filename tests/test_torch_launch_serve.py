@@ -3,7 +3,9 @@ package's ``repro.launch.serve`` on the CPU: the argument parsers, the
 latency and per-replica reports on the same handle timestamps, the
 scheduler's occupancy window on the same trace, ``open_loop``'s greedy
 tokens on toy-lm (f32, JAX on its jnp oracles), ``main``'s report lines,
-and the refusals of what waits for the mesh slice.
+``--mesh 1,2`` (two gloo ranks on the CPU, spawned by ``main``) serving
+the one-device run's tokens, and the refusals of what waits for the
+second half of the mesh slice (a data axis above 1, the live re-mesh).
 
 ``main``'s lines are compared by their heads (``open loop:``,
 ``latency:``, ...). JAX's toy-lm default elastic config moefies the MLP
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite runs one process per core
 
 from repro.launch import serve as jserve  # noqa: E402
 from repro.runtime import scheduler as jsched  # noqa: E402
@@ -257,3 +260,27 @@ def test_main_prints_jaxs_report_lines(monkeypatch, capsys, extra):
     assert "compiles" in heads
     assert ("paged" in heads) == ("paged" in extra)
     assert ("open loop" in heads) == ("--arrival-rate" in extra)
+
+
+def test_mesh_1_2_serves_the_one_device_tokens(capfd, monkeypatch):
+    """``--mesh 1,2 --backend gloo`` spawns two CPU ranks, each serving its
+    shard; rank 0 alone prints, the one-device run's sample tokens and
+    compile counts. Without ``--backend`` the mesh is refused."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")     # the spawned ranks'
+    argv = MAIN + ["--device", "cpu", "--max-new", "6"]
+    tserve.main(argv)
+    one = capfd.readouterr().out
+    tserve.main(argv + ["--mesh", "1,2", "--backend", "gloo"])
+    two = capfd.readouterr().out
+    pick = lambda text, head: [ln for ln in text.splitlines()
+                               if ln.startswith(head)]
+    assert len(pick(two, "served")) == 1
+    for head in ("sample output", "compiles"):
+        assert pick(two, head) == pick(one, head) != []
+    with pytest.raises(SystemExit):
+        tserve.main(argv + ["--mesh", "1,2"])
+    assert "--backend" in capfd.readouterr().err
+    with pytest.raises(SystemExit):        # ranks on their own clocks
+        tserve.main(argv + ["--mesh", "1,2", "--backend", "gloo",
+                            "--arrival-rate", "8"])
+    assert ITEM_11 in capfd.readouterr().err

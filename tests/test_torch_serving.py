@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite runs one process per core
 
 from repro.training import GenRequest as JaxRequest  # noqa: E402
 from repro.training import ServingEngine as JaxEngine  # noqa: E402
+from repro_torch.runtime.mesh import abstract_mesh  # noqa: E402
 from repro_torch.training import GenRequest, ServingEngine  # noqa: E402
 from repro_torch.training import serve as serve_mod  # noqa: E402
 from tests.test_torch_interop import RouterMargins, toy_pair  # noqa: E402
@@ -163,7 +165,10 @@ def test_no_silent_cpu_fallback(setup):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(s["tparams"], s["trp"], s["tcfg"], s["tspec"])
-    with pytest.raises(NotImplementedError, match="item 11"):   # SPMD
+    # tensor-parallel serving is ported; a data axis still waits
+    with pytest.raises(NotImplementedError, match="item 11"):
+        _port_engine(s, mesh=abstract_mesh((2, 2), ("data", "model")))
+    with pytest.raises(TypeError, match="runtime.mesh.Mesh"):
         _port_engine(s, mesh=object())
     # the SLO controller is ported: on the CPU a controller engine builds
     from repro_torch.runtime.controller import SLOController
