@@ -364,6 +364,32 @@ alone (``AB_SAME``) give the same bits in both trees. Without it:
    (a report: the two partial sums round in another order). Prints per
    rank the launch counts, decode ms/step, admission ms, collectives and
    their time per decode step, and peak device memory.
+9m. (k) Serving on a (data=2, model=2) mesh (``check_dp_serving``): four
+   ranks spawned on the one card over gloo (every number labelled "4
+   ranks sharing one H100, gloo"); rank (d, m) holds model shard m and
+   replica d's two slots of the ring cache or half of the page pool.
+   Each rank draws the serving weights from --seed (the same tree as item
+   3) in turn on the card and keeps its shard. At --layers in bf16 the
+   ring engine with ``mesh=`` serves the six staggered requests: fails
+   unless budget 1.0 == a mesh mode="base" engine and staggered == solo
+   bit for bit, admissions landed on both replicas, ``compile_counts()``
+   is prefill 0 / decode 1 and the decode step's kernel calls the same at
+   every budget on each rank, flash, fused_mlp and decode_attention
+   launched on each rank, each rank's heaviest call of each replayed
+   against the plain version and every launch statement equal to its
+   launcher's. The paged engine on the same mesh (page 16, the pool split
+   into two replica ranges; ``DP_PAGED_LAYERS`` deep, printed): staggered
+   == solo, budget 1.0 == a paged base engine, two requests with a
+   common 256-token prefix share its pages on one replica, and on each
+   rank paged_decode_attention launched at (2, 1, 14, 128) over its
+   local pool with its heaviest calls replayed. At 2 layers in f32 (full
+   width) the greedy tokens equal a one-rank engine's on the same
+   weights for the ring and the paged (2, 2) engines and across a live
+   re-mesh (2, 2) -> (1, 2) -> None with every request in flight,
+   ``compile_counts()`` restarting at prefill 0 / decode 1 after each.
+   Prints per rank the launch counts, decode ms/step, admission ms, the
+   model-axis and data-axis collectives (count, bytes, host ms), peak
+   device memory and the phase's seconds.
 10. Prints one JSON line of per-kernel results (launches by path), one of
    the accounting (``{"accounting": {"decode_mfu", "decode_hbm_share",
    "train_mfu", "train_hbm_share", ...}}``), the card line again, and as
@@ -477,6 +503,9 @@ PATH_KERNELS = {
     "grok_serving": ("flash_attention", "moe_gmm", "decode_attention"),
     # (j) each rank of the tensor-parallel ring engine
     "tp_serving": ("flash_attention", "fused_mlp", "decode_attention"),
+    # (k) each rank of the (data, model) ring and paged engines
+    "dp_serving": ("flash_attention", "fused_mlp", "decode_attention"),
+    "dp_paged_serving": ("fused_mlp", "paged_decode_attention"),
 }
 
 
@@ -6112,6 +6141,421 @@ def check_tp_serving(args, dev, device_line, ring_tokens) -> dict:
             for r, out in enumerate(ranks)}
 
 
+# ------------------ (k) serving on a (data, model) mesh ---------------------
+
+DP_SHAPE = (2, 2)       # the (data, model) mesh of phase (k)
+DP_LABEL = "4 ranks sharing one H100, gloo"
+DP_PAGED_LAYERS = 4     # the paged mesh engine's depth (chunks are eager)
+DP_TIMEOUT_S = 900      # a collective that a rank never joins raises
+
+
+def dp_serve(engine, requests, stagger: bool):
+    """``serve`` that also returns each request's replica."""
+    seen = {}
+    tokens = serve(engine, requests, stagger,
+                   after_step=lambda hs: seen.update(hs=hs))
+    return tokens, [engine.scheduler.replica_of(h.slot) for h in seen["hs"]]
+
+
+def dp_shard(mesh, rank, cfg, init_cfg, spec, seed, dev):
+    """The rank's shard of the weights drawn from ``seed`` on the card
+    (``init_cfg`` deep, cut to ``cfg``'s layers) and the whole routers.
+    The ranks draw one at a time: a whole tree beside the others' shards
+    would not fit the one card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import model_init, router_init
+    from repro_torch.runtime import sharding as SH
+    shard = rp = None
+    for turn in range(mesh.size):
+        if turn == rank:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            params = model_init(gen, init_cfg, spec, device=dev)
+            rp = cut(router_init(gen, init_cfg, spec, device=dev),
+                     cfg.n_layers)
+            shard = SH.shard_params(cut(params, cfg.n_layers), mesh)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return shard, rp
+
+
+def dp_engine(params, rp, cfg, spec, dev, mesh, mode="infer", **kw):
+    from repro_torch.training import ServingEngine
+    return ServingEngine(params, rp, cfg, spec, mode=mode, batch_size=4,
+                         max_seq=1024, device=dev, mesh=mesh, **kw)
+
+
+def dp_f32_check(mesh, rank, dev, spec, seed, say):
+    """At 2 layers in f32, full width: the greedy tokens of the ring and
+    the paged (2, 2) engines, and of a ring engine re-meshed live (2, 2)
+    -> (1, 2) -> None after two steps with every request in flight, equal
+    a one-rank engine's on the same weights (rank 0 runs the one-rank
+    references on the whole tree first); ``compile_counts()`` restarts at
+    prefill 0 / decode 1 after each re-mesh."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import remesh
+    from repro_torch.models import model_init, router_init
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.training import GenRequest
+    cfg = dataclasses.replace(get_config("qwen2-7b"),
+                              n_layers=TP_F32_LAYERS, dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    params = model_init(gen, cfg, spec, device=dev)
+    rp = router_init(gen, cfg, spec, device=dev)
+    reqs, _ = tp_requests(cfg.vocab_size, seed + 1)
+    reqs = [(p[:128], 8, b) for p, b in [(r[0], r[2]) for r in reqs[:4]]]
+    paged = dict(kv_layout="paged", page_size=PAGE_SIZE)
+    one = {}
+    if rank == 0:
+        one["ring"] = serve(dp_engine(params, rp, cfg, spec, dev, None),
+                            reqs, stagger=True)
+        one["paged"] = serve(dp_engine(params, rp, cfg, spec, dev, None,
+                                       **paged), reqs, stagger=True)
+    shard = SH.shard_params(params, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = {"ring": serve(dp_engine(shard, rp, cfg, spec, dev, mesh), reqs,
+                         stagger=True),
+           "paged": serve(dp_engine(shard, rp, cfg, spec, dev, mesh,
+                                    **paged), reqs, stagger=True)}
+    eng = dp_engine(shard, rp, cfg, spec, dev, mesh)
+    hs = [eng.submit(GenRequest(p, n, budget=b)) for p, n, b in reqs]
+    eng.step()
+    eng.step()
+    counts, t0 = [], time.perf_counter()
+    eng.reshard(remesh(mesh, (1, DP_SHAPE[1])))
+    remesh_s = [time.perf_counter() - t0]
+    if not eng.left:
+        eng.step()
+        eng.step()
+        counts.append(eng.compile_counts())
+        t0 = time.perf_counter()
+        eng.reshard(None)
+        remesh_s.append(time.perf_counter() - t0)
+    if not eng.left:
+        while eng.has_work:
+            eng.step()
+        counts.append(eng.compile_counts())
+        got["remesh"] = [list(h.output) for h in hs]
+    if rank == 0:
+        one["remesh"] = one["ring"]
+        want = {"prefill": 0, "decode": 1}
+        say(f"f32, {TP_F32_LAYERS} layers, full width: the (2, 2) ring and "
+            f"paged engines' and the live re-mesh (2, 2) -> (1, 2) -> None's "
+            f"greedy tokens of {len(reqs)} requests "
+            f"{({k: got[k] == one[k] for k in one})} against one rank's; "
+            f"compile_counts after each re-mesh {counts}; the re-meshes "
+            f"took {[round(x, 3) for x in remesh_s]} s [{DP_LABEL}]")
+        for k in one:
+            if got[k] != one[k]:
+                fail(f"(k) f32 {k}: greedy tokens {got[k]} != one rank's "
+                     f"{one[k]}")
+        if counts != [want, want]:
+            fail(f"(k) compile_counts after the re-meshes {counts}, want "
+                 f"prefill 0 / decode 1 after each")
+    return {"f32_tokens": got["ring"], "remesh_s": remesh_s}
+
+
+def dp_collectives(c) -> str:
+    return (f"model axis {c['all_reduce'] + c['all_gather']} calls "
+            f"{c['bytes'] / 1e6:.1f} MB {c['seconds'] * 1e3:.1f} ms, data "
+            f"axis {c['data_calls']} calls {c['data_bytes']} B "
+            f"{c['data_seconds'] * 1e3:.1f} ms")
+
+
+def dp_paged(rank, dev, spec, a, mesh, shard, rp, requests, say):
+    """The paged engine on the mesh at ``DP_PAGED_LAYERS`` (cut from the
+    served depth): the staggered run with its paged_decode_attention calls
+    recorded and replayed, budget 1.0 == a paged base engine, staggered
+    == solo, prefix sharing on one replica."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import collectives as C
+    from repro_torch.training import GenRequest
+    n = min(DP_PAGED_LAYERS, a["layers"])
+    cfg = dataclasses.replace(get_config("qwen2-7b"), n_layers=n)
+    params = cut(shard, n)
+    mk = lambda mode="infer": dp_engine(params, rp, cfg, spec, dev, mesh,
+                                        mode, kv_layout="paged",
+                                        page_size=PAGE_SIZE)
+    engine = mk()
+    pool = engine._caches["layers"][0]["attn"]["kp"]
+    say(f"paged engine on the mesh at {n} of {a['layers']} layers (cut: "
+        f"every prefill chunk is an eager model call with its collectives), "
+        f"page {PAGE_SIZE}, {engine.pool.n_pages} pages in 2 replica ranges "
+        f"of {engine.pool.pages_per_replica}; this rank's pool "
+        f"{tuple(pool.shape)} [{DP_LABEL}]")
+    ops.reset_launch_counts()
+    C.reset_stats()
+    with PathCalls("paged_decode_attention") as rec:
+        tokens, replicas = dp_serve(engine, requests, stagger=True)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    coll = C.stats()
+    check_launches("dp_paged_serving", launches)
+    H, K, Dh = cfg.n_heads // DP_SHAPE[1], cfg.n_kv_heads // DP_SHAPE[1], \
+        cfg.d_head
+    local = (engine.pool.n_pages // DP_SHAPE[0], PAGE_SIZE, K, Dh)
+    shapes = {(c["q"][1], c["kp"][1]) for c in
+              rec.calls["paged_decode_attention"]}
+    want = {((2, 1, H, Dh), local), ((PAGE_SIZE, 1, H, Dh), local)}
+    tables = max(int(c["table"].max()) for c in
+                 rec.calls["paged_decode_attention"])
+    if shapes != want or tables >= local[0]:
+        fail(f"(k) paged rank {rank}: paged_decode_attention at {shapes}, "
+             f"table ids up to {tables}; want {want}, ids below {local[0]}")
+    st = engine.paged_stats()
+    if st["allocated"] != 0 or set(replicas) != {0, 1}:
+        fail(f"(k) paged rank {rank}: {st['allocated']} pages held after "
+             f"the run, replicas {replicas}")
+    res = Results()
+    check_paged_calls(res, dev, rec.paged_cases(),
+                      {2: "decode step", PAGE_SIZE: "prefill chunk"})
+    teacher = serve(mk("base"), requests, stagger=True)
+    for i, r in enumerate(requests):
+        if r[2] == 1.0 and tokens[i] != teacher[i]:
+            fail(f"(k) paged budget-1.0 request {i} differs from the paged "
+                 f"base engine: {tokens[i]} vs {teacher[i]}")
+    solo = serve(mk(), [requests[4]], stagger=False)[0]
+    if solo != tokens[4]:
+        fail(f"(k) paged request 4 alone {solo} != staggered {tokens[4]}")
+    # prefix sharing: a budget-1.0 request fills replica 0, then two
+    # budget-0.5 requests with a common 256-token prefix both go to the
+    # less loaded replica 1
+    rng = np.random.default_rng(a["seed"] + 3)
+    V = cfg.vocab_size
+    pre = rng.integers(0, V, 256).astype(np.int32)
+    pair = [np.concatenate([pre, rng.integers(0, V, 64).astype(np.int32)])
+            for _ in range(2)]
+    eng = mk()
+    hs = [eng.submit(GenRequest(requests[0][0], 16, budget=1.0))]
+    for p in pair:
+        eng.step()
+        hs.append(eng.submit(GenRequest(p, 16, budget=0.5)))
+    eng.step()
+    shared = eng.paged_stats()["shared"]
+    reps = [eng.scheduler.replica_of(h.slot) for h in hs]
+    while not all(h.done for h in hs):
+        if eng.step() == 0:
+            fail("(k) paged engine stalled (prefix sharing)")
+    if shared != 256 // PAGE_SIZE or reps[1] != reps[2] or \
+            eng.paged_stats()["allocated"] != 0:
+        fail(f"(k) prefix sharing: {shared} shared pages (want "
+             f"{256 // PAGE_SIZE}), replicas {reps}, "
+             f"{eng.paged_stats()['allocated']} pages left")
+    say(f"paged: staggered == solo (request 4), budget 1.0 == the paged "
+        f"base engine, replicas {replicas}, prefix sharing {shared} pages "
+        f"on replica {reps[1]}, pools drained; paged_decode_attention at "
+        f"{sorted(shapes)} with local ids: ok; launches {dict(launches)}; "
+        f"collectives of the staggered run: {dp_collectives(coll)} "
+        f"[{DP_LABEL}]")
+    return {"paged_launches": {k: int(v) for k, v in launches.items()},
+            "paged_max_abs_err": {k: v["max_abs_err"]
+                                  for k, v in res.rows.items()}}
+
+
+def dp_rank(rank, port, outdir, a):
+    """One rank of phase (k), in its own process: the f32 agreement with
+    one rank (ring, paged, the live re-mesh), then the bf16 ring path at
+    --layers and the paged path at ``DP_PAGED_LAYERS`` with every gate;
+    writes its numbers to ``outdir/rank{rank}.json``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import destroy, make_mesh
+    from repro_torch.runtime import collectives as C
+    from repro_torch.training import serve as serve_mod
+
+    t_rank = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    say = lambda msg: print(f"[rank {rank}] {msg}", flush=True)
+    mesh = make_mesh(DP_SHAPE, ("data", "model"), backend="gloo", rank=rank,
+                     init_method=f"tcp://localhost:{port}", device=dev,
+                     timeout=DP_TIMEOUT_S)
+    out = {}
+    try:
+        spec = slice_spec()
+        out.update(dp_f32_check(mesh, rank, dev, spec, a["seed"], say))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        full = get_config("qwen2-7b")
+        cfg = dataclasses.replace(full, n_layers=a["layers"])
+        init_cfg = dataclasses.replace(
+            full, n_layers=max(a["layers"], a["train_layers"]))
+        shard, rp = dp_shard(mesh, rank, cfg, init_cfg, spec, a["seed"], dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        requests, budgets = tp_requests(cfg.vocab_size, a["seed"])
+        say(f"replica {mesh.data_rank}, model shard {mesh.model_rank}: wq "
+            f"{tuple(shard['layers'][0]['attn']['wq'].shape)}, wi "
+            f"{tuple(shard['layers'][0]['mlp']['wi'].shape)} [{DP_LABEL}]")
+
+        sigs, run = {}, ["staggered"]
+        real_step = serve_mod.decode_step
+
+        def recording_step(*sa, **kw):
+            with ops.recording(cost=False) as calls:
+                res = real_step(*sa, **kw)
+            sigs.setdefault(run[0], set()).update(
+                map(ops.call_signature, calls))
+            return res
+
+        engine = dp_engine(shard, rp, cfg, spec, dev, mesh)
+        serve_mod.decode_step = recording_step
+        try:
+            ops.reset_launch_counts()            # the main path, this rank
+            C.reset_stats()
+            with PathCalls("flash_attention", "decode_attention",
+                           "fused_mlp") as rec:
+                tokens, replicas = dp_serve(engine, requests, stagger=True)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            tm, coll = dict(engine.timing), C.stats()
+            for b in TP_SIG_BUDGETS:        # one request on each replica
+                run[0] = b
+                serve(engine, [(requests[0][0], 4, b),
+                               (requests[2][0], 4, b)], stagger=False)
+        finally:
+            serve_mod.decode_step = real_step
+        check_launches("dp_serving", launches)
+        counts = engine.compile_counts()
+        differ = [b for b in TP_SIG_BUDGETS
+                  if sigs.get(b) != sigs.get("staggered")]
+        if differ or not sigs.get("staggered") or \
+                counts != {"prefill": 0, "decode": 1} or \
+                set(replicas) != {0, 1}:
+            fail(f"(k) rank {rank}: decode signatures at budgets {differ} "
+                 f"differ from the staggered run's, or compile_counts "
+                 f"{counts} != prefill 0 / decode 1, or admissions on "
+                 f"replicas {replicas} only")
+        for toks in tokens:
+            if len(toks) != 16 or not all(0 <= x < cfg.vocab_size
+                                          for x in toks):
+                fail(f"(k): bad generated tokens {toks}")
+        teacher = serve(dp_engine(shard, rp, cfg, spec, dev, mesh, "base"),
+                        requests, stagger=True)
+        for i, b in enumerate(budgets):
+            if b == 1.0 and tokens[i] != teacher[i]:
+                fail(f"(k) budget-1.0 request {i} differs from the mesh "
+                     f"teacher: {tokens[i]} vs {teacher[i]}")
+        solo = serve(dp_engine(shard, rp, cfg, spec, dev, mesh),
+                     [requests[4]], stagger=False)[0]
+        if solo != tokens[4]:
+            fail(f"(k) request 4 alone {solo} != staggered {tokens[4]}")
+        say(f"ring: budget 1.0 == the mesh teacher bit for bit, staggered "
+            f"== solo (request 4), replicas {replicas}, one decode "
+            f"signature set across budgets {TP_SIG_BUDGETS} (a request on "
+            f"each replica at each), compile_counts "
+            f"{counts}: ok [{DP_LABEL}]")
+
+        # warm: one admission, then 8 decode steps timed on the host
+        h = engine.submit(serve_mod.GenRequest(requests[1][0], 17,
+                                               budget=0.75))
+        p0 = engine.timing["prefill_s"]
+        engine.step()
+        admit_ms = (engine.timing["prefill_s"] - p0) * 1e3
+        C.reset_stats()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            engine.step()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 8
+        warm = C.stats()
+        while not h.done:
+            engine.step()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        say(f"launches {dict(launches)}; first run {tm['decode_steps']} "
+            f"decode steps at {tm['decode_s'] * 1e3 / tm['decode_steps']:.2f}"
+            f" ms/step, {tm['prefill_tokens']} prompt tokens in "
+            f"{tm['prefill_s'] * 1e3:.1f} ms of admissions, collectives "
+            f"{dp_collectives(coll)}; warm: decode {step_ms:.2f} ms/step "
+            f"(a replica with one live slot), a 512-token admission "
+            f"{admit_ms:.1f} ms, collectives per decode step "
+            f"{dp_collectives({k: v / 8 for k, v in warm.items()})}; peak "
+            f"device memory {peak:.2f} GiB [{DP_LABEL}; {a['device_line']}]")
+
+        res = Results()
+        check_path_calls(res, dev, f"DP rank {rank}", rec)
+        check_geometry(((n, recorded_args(c, dev))
+                        for n, c in PathCalls.signatures.values()),
+                       f"{DP_LABEL}, rank {rank}")
+        first = [next((j for j, (x, y) in enumerate(zip(t1, t2)) if x != y),
+                      None) for t1, t2 in zip(tokens, a["ring_tokens"])]
+        if rank == 0:
+            say(f"bf16, {cfg.n_layers} layers: tokens against item 3's "
+                f"one-rank run, first divergence per request {first} (None: "
+                f"all 16 equal; a report: the partial sums round in another "
+                f"order) [{DP_LABEL}]")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(dp_paged(rank, dev, spec, a, mesh, shard, rp, requests,
+                            say))
+        out.update(
+            launches={k: int(v) for k, v in launches.items()},
+            first_divergence=first, decode_ms=step_ms, admit_ms=admit_ms,
+            first_decode_ms=tm["decode_s"] * 1e3 / tm["decode_steps"],
+            collectives_first_run=coll,
+            collectives_per_step={k: v / 8 for k, v in warm.items()},
+            peak_gib=peak, replicas=replicas,
+            max_abs_err={k: v["max_abs_err"] for k, v in res.rows.items()},
+            seconds=time.perf_counter() - t_rank)
+    finally:
+        destroy(mesh)
+    (Path(outdir) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def check_dp_serving(args, dev, device_line, ring_tokens) -> dict:
+    """(k) Runs the phase: spawns the four ranks, waits for them (a failed
+    rank fails the phase) and returns each rank's launch counts as paths
+    (its ring and its paged run)."""
+    import socket
+    import tempfile
+    import torch.multiprocessing as mp
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    outdir = tempfile.mkdtemp(prefix="dp_")
+    a = dict(seed=args.seed, layers=args.layers,
+             train_layers=args.train_layers, device_line=device_line,
+             ring_tokens=ring_tokens)
+    n = DP_SHAPE[0] * DP_SHAPE[1]
+    print(f"(k) serving on a (data, model) = {DP_SHAPE} mesh, Qwen2-7B at "
+          f"{args.layers} layers (ring), {min(DP_PAGED_LAYERS, args.layers)} "
+          f"(paged) [{DP_LABEL}; {device_line}]:", flush=True)
+    try:
+        mp.start_processes(dp_rank, args=(port, outdir, a), nprocs=n,
+                           start_method="spawn")
+    except Exception as e:          # a rank raised or exited non-zero
+        fail(f"(k) serving on a (data, model) mesh: {e}")
+    ranks = [json.loads((Path(outdir) / f"rank{r}.json").read_text())
+             for r in range(n)]
+    if any(r["f32_tokens"] != ranks[0]["f32_tokens"] for r in ranks):
+        fail("(k) the ranks' f32 tokens differ")
+    for r, out in enumerate(ranks):
+        print(f"  rank {r}: decode {out['decode_ms']:.2f} ms/step warm "
+              f"({out['first_decode_ms']:.2f} first run), admission "
+              f"{out['admit_ms']:.1f} ms, per decode step "
+              f"{dp_collectives(out['collectives_per_step'])}, peak "
+              f"{out['peak_gib']:.2f} GiB, {out['seconds']:.1f} s "
+              f"[{DP_LABEL}; {device_line}]")
+    paths = {f"dp_serving_rank{r}": out["launches"]
+             for r, out in enumerate(ranks)}
+    paths.update({f"dp_paged_serving_rank{r}": out["paged_launches"]
+                  for r, out in enumerate(ranks)})
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=28,
@@ -6344,6 +6788,8 @@ def main() -> int:
     done("(i) analysis and accounting")
     paths.update(check_tp_serving(args, dev, device_line, ring["tokens"]))
     done("(j) tensor-parallel serving")
+    paths.update(check_dp_serving(args, dev, device_line, ring["tokens"]))
+    done("(k) serving on a (data, model) mesh")
     kernels = [dict(name=n, route="cuda", source=SOURCES[n][0],
                     replaces=SOURCES[n][1],
                     launches=sum(p[n] for p in paths.values()),

@@ -7,8 +7,8 @@ unless ``device="cpu"``. Passes never invent their own call signatures:
 the serving arguments come from ``ServingEngine.entry_points()``, built by
 the code paths a live call uses, so a refactor that changes the contract
 changes what gets linted. The counterpart of the JAX package's
-``analysis/graphs.py``, without the mesh (one card; SPMD serving is ROADMAP
-item 11).
+``analysis/graphs.py``, without the mesh (one card; the mesh's passes,
+``sharding_lint`` among them, are ROADMAP item 14).
 
 An entry point is recorded once (``GraphBundle.trace``): it runs on copies
 of the tensors it writes in place (the engine's own buffers stay as they

@@ -7,7 +7,7 @@ caller asks for more (the JAX package pads every full config to 16, its
 TPU pod's ``model`` axis). Padded q-heads compute what the JAX package
 computes on the CPU (``models/attention.py``), but the attention kernels'
 head -> kv-group map does not fit them, so on the card they raise until
-ROADMAP Queue A item 11 brings padded heads to the kernels; the port's
+ROADMAP Queue A item 11 (part 7) brings padded heads to the kernels; the port's
 tensor parallelism shards unpadded heads that divide the ``model`` axis.
 """
 from __future__ import annotations

@@ -15,9 +15,10 @@ keep their codes and their f32 ``{name}_scale`` siblings, leaf for leaf.
 Serving state comes over too: a JAX ring cache or paged KV pool tree, with
 an int8 cache's ``kscale``/``vscale`` leaves (``caches_from_numpy``).
 Given a ``mesh`` (``runtime/mesh.py``), the base params and the caches
-keep the rank's slice by the tensor-parallel rules
-(``runtime/sharding.py``); routers, norms and LoRA stay whole, as the JAX
-package's default ``P()`` rule keeps them.
+keep the rank's slice by the sharding rules (``runtime/sharding.py``):
+the params their model shard (whole over the data axes), the caches the
+replica's slot rows or pages at the rank's kv-heads; routers, norms and
+LoRA stay whole, as the JAX package's default ``P()`` rule keeps them.
 The context families add leaves beside the layer stack (``in_proj``, the
 ``vlm`` router) and inside it (an ``xattn`` layer's ``xnorm``/``xattn``
 params and its context cache), which come over like any other, and an
@@ -232,7 +233,7 @@ def caches_from_numpy(tree: dict, cfg, *, device=None, mesh=None) -> dict:
     ``pos``; paged: ``kp``, ``vp``, ``pvalid``; int8: ``kscale`` and
     ``vscale`` beside them), bit for bit. The JAX caches stack by the
     layer pattern alone (no elastic spec). ``mesh``: the rank's slice by
-    the cache rules (its kv-heads)."""
+    the cache rules (its replica's slot rows or pages, its kv-heads)."""
     device = resolve_device(device)
     _, P, _ = build_pattern(cfg, None)
     caches = {"layers": _layers_from(_tree_to_torch(tree, device), P)}

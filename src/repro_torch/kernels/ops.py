@@ -914,6 +914,41 @@ def paged_decode_attention(q, kp, vp, table, t, pvalid, kscale=None,
     return out
 
 
+def page_offset(n_local_pages: int, mesh=None) -> int:
+    """The first global page id of this rank's slice of the page pool: its
+    replica times the ``n_local_pages`` it holds (0 off a mesh or on a
+    data axis of 1). The pool's page axis splits over the data axes, and
+    the serving engine hands a slot pages of its own replica's contiguous
+    range only (``runtime/pagedkv.PagePool``)."""
+    from repro_torch.runtime.mesh import active_mesh
+    mesh = mesh if mesh is not None else active_mesh()
+    return 0 if mesh is None else mesh.data_rank * int(n_local_pages)
+
+
+def rebase_pages(ids: torch.Tensor, offset: int) -> torch.Tensor:
+    """Global page ids as ids into the rank's slice of the pool: ``-1``
+    (an unused table entry) stays ``-1``, never a valid id."""
+    if not offset:
+        return ids
+    return torch.where(ids >= 0, ids - offset, torch.full_like(ids, -1))
+
+
+def paged_decode_attention_sharded(q, kp, vp, table, t, pvalid, kscale=None,
+                                   vscale=None, *, backend=None, mesh=None):
+    """The per-rank paged decode of a (data, model) mesh: the counterpart
+    of the JAX package's ``ops.paged_decode_attention_sharded``
+    (``kernels/ops.py:385-437``), whose shard body this is. The rank holds
+    its replica's slots (q: (B/D, 1, H/M, Dh)), its replica's pages and
+    kv-heads of the pool (kp, vp: (N/D, ps, K/M, Dh); pvalid (N/D, ps);
+    scale pools (N/D, ps, K/M)); ``table`` holds GLOBAL page ids, rebased
+    here by the replica's page offset (``-1`` stays ``-1``), and the
+    paged kernel runs on the local operands. Off a mesh it is
+    ``paged_decode_attention``."""
+    table = rebase_pages(table, page_offset(kp.shape[0], mesh))
+    return paged_decode_attention(q, kp, vp, table, t, pvalid, kscale,
+                                  vscale, backend=backend)
+
+
 # ----------------------- cost and launch statements ---------------------------
 #
 # ``kernel_cost`` is the work a call must do on its data (the bound of every

@@ -16,27 +16,38 @@ per-request latency and slot occupancy):
         --budget 0.5,0.75,1.0 --arrival-rate 4 --kv-layout paged \\
         --kv-dtype bf16 --weight-dtype bf16
 
-Tensor-parallel (a (data=1, model=M) mesh: M ranks spawned with
-``torch.multiprocessing``, each serving its shard of the same weights in
-lockstep; rank 0 prints the report):
+On a (data, model) mesh (D*M ranks spawned with ``torch.multiprocessing``,
+each serving its shard of the same weights in lockstep: TP over ``model``,
+the slot array split into D replicas the scheduler packs; rank 0 prints
+the report, with the per-replica lines in the open loop):
     python -m repro_torch.launch.serve --arch toy-lm --device cpu \
-        --mesh 1,2 --backend gloo --requests 4 --max-new 8
+        --mesh 2,2 --backend gloo --requests 8 --max-new 8
+
+A live re-mesh (``--remesh-at N``: after the N-th submission of the open
+loop the engine moves onto ``--remesh-to``, or the next
+``valid_mesh_shapes`` entry; in-flight requests keep their tokens, the
+ranks outside the new shape drain and leave):
+    python -m repro_torch.launch.serve --arch toy-lm --device cpu \
+        --mesh 2,2 --backend gloo --arrival-rate 8 --requests 8 \
+        --remesh-at 4 --remesh-to 1,2
 
 ``--backend`` names the collectives' backend: ``gloo`` (CPU ranks, or
 ranks that share one card: NCCL refuses two ranks on one device) or
 ``nccl`` (one card per rank; untested). On the card every rank takes
-``cuda:(rank % cards)``.
+``cuda:(rank % cards)``. On a mesh the open loop's arrivals are counted
+on rank 0's clock and broadcast each iteration, so every rank submits
+the same requests at the same step.
 
 This is the JAX package's ``launch/serve.py`` with the same flags and
-report lines, and ``--device`` and ``--backend``. A data axis above 1
-(``--mesh D,M`` with D > 1), ``--remesh-at`` and ``--remesh-to`` parse as
-there and are then refused until the second half of the mesh slice
-(ROADMAP Queue A item 11); the per-replica report has one replica.
+report lines, and ``--device`` and ``--backend``. A controller on a mesh
+is refused: each rank would degrade on its own wall clock and leave the
+lockstep.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import socket
 import time
 
@@ -49,12 +60,13 @@ from repro_torch.launch.mesh import BACKENDS, destroy, make_mesh
 from repro_torch.launch.workloads import arrival_times, latency_stats, replay
 from repro_torch.models import model_init, router_init
 from repro_torch.optim.optimizer import tree_map
+from repro_torch.runtime.elastic import valid_mesh_shapes
 from repro_torch.runtime.sharding import shard_params
 from repro_torch.training import GenRequest, ServingEngine
 
-ITEM_11 = "ROADMAP Queue A item 11"
-
 __all__ = ["open_loop", "latency_stats", "replica_report", "main"]
+
+TIMEOUT_S = 900     # seconds before a collective a rank never joins raises
 
 
 def _budget_list(s: str):
@@ -89,13 +101,17 @@ def open_loop(engine, requests, rate: float, seed: int = 0, arrive=None,
     elapsed_seconds). Each handle's ``t_submit`` is pinned to its
     *scheduled* arrival, so ``latency`` measures arrival -> last token
     (queueing included). The loop is ``workloads.replay`` on the wall
-    clock, so the engine must stamp its handles on the wall clock too.
-    ``remesh_at`` (a live re-mesh onto ``remesh_to``) is refused until
-    the second half of the mesh slice."""
-    if remesh_at is not None:
-        raise NotImplementedError(
-            f"open_loop(remesh_at=): a live re-mesh onto a (data, model) "
-            f"mesh arrives with {ITEM_11}")
+    clock, so the engine must stamp its handles on the wall clock too; on
+    a mesh every rank runs it in lockstep.
+
+    ``remesh_at=N`` (a mesh engine): after the N-th submission, re-mesh
+    the LIVE engine onto the ``remesh_to`` (data, model) shape; in-flight
+    requests keep decoding the same tokens, and a rank outside the new
+    shape drains and returns."""
+    if remesh_at is not None and getattr(engine, "mesh", None) is None:
+        raise ValueError("open_loop(remesh_at=): a live re-mesh moves a "
+                         "mesh engine over its process world; build the "
+                         "engine on a mesh (--mesh)")
     if getattr(engine, "_clock", time.perf_counter) is not time.perf_counter:
         raise ValueError(
             "open_loop runs on the wall clock (time.perf_counter) and this "
@@ -104,15 +120,21 @@ def open_loop(engine, requests, rate: float, seed: int = 0, arrive=None,
     if arrive is None:
         rng = np.random.default_rng(seed)
         arrive = np.cumsum(rng.exponential(1.0 / rate, len(requests)))
-    handles, elapsed, _ = replay(engine, requests, arrive)
+    handles, elapsed, info = replay(engine, requests, arrive,
+                                    remesh_at=remesh_at, remesh_to=remesh_to)
+    if info.get("remesh") is not None and (engine.mesh is None
+                                           or engine.mesh.rank == 0):
+        n, secs, active = info["remesh"]
+        print(f"[serve] re-meshed live to (data, model)={remesh_to} after "
+              f"{n} submissions ({secs:.2f}s, {active} requests in flight)")
     return handles, elapsed
 
 
 def replica_report(engine, handles) -> str:
     """Per-replica occupancy + mean latency lines for the open-loop report
-    (a handle's replica = the data shard its final slot lived on; the port
-    has one). After a re-mesh the window is "since the re-mesh": requests
-    that finished before it are excluded."""
+    (a handle's replica = the data shard its final slot lived on). After a
+    live re-mesh the window is "since the re-mesh": the occupancy counters
+    restart there, so requests that finished before it are excluded."""
     sched = engine.scheduler
     t0 = engine.remeshed_at
     hs_all = [h for h in handles if h is not None and h.slot is not None
@@ -197,41 +219,57 @@ def main(argv=None):
     ap.add_argument("--eos", type=int, default=None,
                     help="stop token id (default: config eos_id)")
     ap.add_argument("--mesh", type=_mesh_shape, default=None,
-                    help=f"tensor-parallel serving on a 'data,model' mesh: "
-                         f"1,M spawns M ranks; a data axis above 1 arrives "
-                         f"with {ITEM_11}")
+                    help="serve on a 'data,model' mesh (e.g. 2,2): D*M "
+                         "ranks, TP over `model`, the slot array split into "
+                         "`data` replicas the scheduler packs")
     ap.add_argument("--backend", choices=BACKENDS, default=None,
                     help="the collectives' backend of --mesh (gloo: CPU "
                          "ranks or ranks sharing one card; nccl: one card "
                          "per rank)")
     ap.add_argument("--remesh-at", type=int, default=None,
-                    help=f"live re-mesh after this many submissions: "
-                         f"arrives with {ITEM_11}")
+                    help="after this many submissions, re-mesh the LIVE "
+                         "engine (open loop on a mesh; in-flight requests "
+                         "resume with identical tokens)")
     ap.add_argument("--remesh-to", type=_mesh_shape, default=None,
-                    help=f"target 'data,model' shape for --remesh-at: "
-                         f"arrives with {ITEM_11}")
+                    help="target 'data,model' shape for --remesh-at "
+                         "(default: the next valid_mesh_shapes entry)")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the CPU (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.mesh is not None and args.mesh[0] > 1:
-        ap.error(f"--mesh: a data axis above 1 arrives with {ITEM_11}")
+    if args.mesh is not None and args.batch % args.mesh[0]:
+        ap.error(f"--batch {args.batch} must be a multiple of the mesh data "
+                 f"axis {args.mesh[0]}")
     if args.remesh_at is not None or args.remesh_to is not None:
-        ap.error(f"--remesh-at/--remesh-to: a live re-mesh arrives with "
-                 f"{ITEM_11}")
-    if args.mesh is not None and args.mesh[1] > 1:
+        if args.mesh is None or args.arrival_rate is None \
+                or args.remesh_at is None:
+            ap.error("--remesh-at requires --mesh and --arrival-rate "
+                     "(--remesh-to names its shape)")
+        if args.remesh_to is None:
+            cands = [s for s in valid_mesh_shapes(math.prod(args.mesh),
+                                                  args.mesh[1])
+                     if s != tuple(args.mesh) and args.batch % s[0] == 0]
+            if not cands:
+                ap.error(f"no alternative mesh shape for {args.mesh} whose "
+                         f"data axis divides --batch {args.batch}")
+            args.remesh_to = cands[0]
+        elif args.batch % args.remesh_to[0] \
+                or math.prod(args.remesh_to) > math.prod(args.mesh):
+            ap.error(f"--remesh-to {args.remesh_to} must fit the mesh's "
+                     f"{math.prod(args.mesh)} ranks with a data axis that "
+                     f"divides --batch {args.batch}")
+    if args.mesh is not None and math.prod(args.mesh) > 1:
         if args.backend is None:
             ap.error("--mesh: name the collectives' backend with --backend "
                      "(gloo or nccl)")
-        if args.arrival_rate is not None or args.controller \
-                or args.slo_p95_ms is not None:
-            # each rank would admit or degrade on its own wall clock and
-            # leave the lockstep the collectives need
-            ap.error(f"--mesh serves closed loop: an open loop or a "
-                     f"controller on a mesh arrives with {ITEM_11}")
+        if args.controller or args.slo_p95_ms is not None:
+            # each rank would degrade on its own wall clock and leave the
+            # lockstep the collectives need
+            ap.error("--mesh: a controller on a mesh would degrade on each "
+                     "rank's own wall clock; serve a mesh without one")
         resolve_device(args.device)
         import torch.multiprocessing as mp
         mp.spawn(_rank_main, args=(args, _free_port()),
-                 nprocs=args.mesh[1], join=True)
+                 nprocs=math.prod(args.mesh), join=True)
         return
     _serve(args)
 
@@ -243,7 +281,7 @@ def _free_port() -> int:
 
 
 def _rank_main(rank: int, args, port: int) -> None:
-    """One rank of ``--mesh 1,M``: its mesh, then ``_serve`` on it (the
+    """One rank of ``--mesh D,M``: its mesh, then ``_serve`` on it (the
     report printed by rank 0 only)."""
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -251,7 +289,7 @@ def _rank_main(rank: int, args, port: int) -> None:
         torch.cuda.set_device(device)
     mesh = make_mesh(args.mesh, ("data", "model"), backend=args.backend,
                      rank=rank, init_method=f"tcp://localhost:{port}",
-                     device=device)
+                     device=device, timeout=TIMEOUT_S)
     try:
         _serve(args, mesh)
     finally:
@@ -326,7 +364,10 @@ def _serve(args, mesh=None) -> None:
         engine.generate([reqs[0]])
         engine.scheduler.reset_stats()
         handles, dt = open_loop(engine, reqs, args.arrival_rate,
-                                arrive=arrive)
+                                arrive=arrive, remesh_at=args.remesh_at,
+                                remesh_to=args.remesh_to)
+        if engine.left:             # outside the re-meshed shape: no report
+            return
         n_tok = sum(len(h.output) for h in handles)
         st = latency_stats(handles)
         say(f"open loop: {len(reqs)} requests @ {args.arrival_rate} req/s "
@@ -349,6 +390,8 @@ def _serve(args, mesh=None) -> None:
                 f"served {served}, shed {engine.n_rejected}, expired "
                 f"{engine.n_expired} (slo p95 ttft "
                 f"{controller.target_for('default').p95_ttft_ms:.0f} ms)")
+        if engine.scheduler.n_replicas > 1 or mesh is not None:
+            say(replica_report(engine, handles))
     else:
         t0 = time.perf_counter()
         outs = engine.generate(reqs)

@@ -165,7 +165,8 @@ def replay(engine, reqs: list, arrive: np.ndarray, *,
            fallback_shapes: Sequence[tuple] = (),
            injector=None, watchdog=None,
            straggle_at: Sequence[int] = (), straggle_s: float = 0.0,
-           clock: Optional[StepClock] = None):
+           clock: Optional[StepClock] = None,
+           remesh_at: Optional[int] = None, remesh_to=None):
     """Open-loop trace replay with fault drills: submit each request at its
     arrival time (handles' ``t_submit`` pinned to the schedule), step the
     engine continuously, and keep serving through injected faults —
@@ -181,8 +182,21 @@ def replay(engine, reqs: list, arrive: np.ndarray, *,
     nothing sleeps. The watchdog still times each step on
     the wall clock.
 
+    A mesh engine (``engine.mesh``) runs the loop on every rank in
+    lockstep: the count of arrivals due is taken on mesh rank 0's clock
+    and broadcast each iteration (``collectives.broadcast_int``, which
+    returns it as it is off a mesh). ``remesh_at=N``: after the N-th
+    submission, re-mesh the live engine onto the (data, model) shape
+    ``remesh_to`` (``launch.mesh.remesh``); in-flight requests keep
+    their tokens. A rank that a re-mesh leaves out (``engine.left``)
+    returns.
+
     Returns (handles, elapsed, info) — elapsed on the schedule's clock;
-    info carries steps/restarts/escalations/queue_peak."""
+    info carries steps/restarts/escalations/queue_peak and ``remesh``:
+    (submissions, seconds, requests in flight) of the ``remesh_at``
+    re-mesh, or None."""
+    from repro_torch.launch.mesh import remesh
+    from repro_torch.runtime import collectives as C
     from repro_torch.runtime.fault_tolerance import (SimulatedFailure,
                                                      maybe_escalate,
                                                      remesh_fallback)
@@ -192,14 +206,24 @@ def replay(engine, reqs: list, arrive: np.ndarray, *,
     i = 0
     steps = restarts = escalations = 0
     queue_peak = 0
+    remeshed = None
     straggle_at = set(straggle_at)
     t0 = now_of()
-    while i < len(reqs) or engine.has_work:
-        now = now_of() - t0
-        while i < len(reqs) and arrive[i] <= now:
+    while ((i < len(reqs) or engine.has_work)
+           and not getattr(engine, "left", False)):
+        due = C.broadcast_int(np.searchsorted(arrive, now_of() - t0,
+                                              side="right"),
+                              getattr(engine, "mesh", None))
+        while i < min(due, len(reqs)):
             handles[i] = engine.submit(reqs[i])
             handles[i].t_submit = t0 + arrive[i]
             i += 1
+        if remesh_at is not None and remeshed is None and i >= remesh_at:
+            ts = time.perf_counter()
+            engine.reshard(remesh(engine.mesh, remesh_to))
+            remeshed = (i, time.perf_counter() - ts, engine.scheduler.active)
+            if engine.left:
+                break
         if maybe_escalate(engine, shapes):
             escalations += 1
         try:
@@ -225,7 +249,8 @@ def replay(engine, reqs: list, arrive: np.ndarray, *,
                 time.sleep(min(wait, 0.05))
     return handles, now_of() - t0, {
         "steps": steps, "restarts": restarts,
-        "escalations": escalations, "queue_peak": queue_peak}
+        "escalations": escalations, "queue_peak": queue_peak,
+        "remesh": remeshed}
 
 
 # --------------------------------- metrics ------------------------------------

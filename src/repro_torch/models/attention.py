@@ -9,10 +9,14 @@ the CPU). Both keep f32 probabilities where the JAX package's
 
 Tensor parallelism (``with mesh:``, ``runtime/mesh.py``): each rank holds
 q-heads ``[r*Hp/M, (r+1)*Hp/M)`` and kv-heads ``[r*K/M, ...)`` of the
-projections and of its ring cache, runs the kernels on them (per-head
-work needs no collective: the counterpart of the JAX package's
+projections and of its ring cache or page pool, runs the kernels on them
+(per-head work needs no collective: the counterpart of the JAX package's
 ``decode_attention_sharded``), and ``all_reduce_sum`` completes the
-``wo`` projection's partial sum. The LoRA q delta and the head-routing
+``wo`` projection's partial sum. On a data axis the rank holds its
+replica's slots and its replica's pages of the pool: the page table and
+the trash pages carry global ids, which the paged paths rebase by the
+replica's page offset (``ops.paged_decode_attention_sharded``, the JAX
+package's shard body) for the write and the read. The LoRA q delta and the head-routing
 weights are computed whole and sliced to the rank's heads.
 
 Padded q-heads (``cfg.n_heads_p != cfg.n_heads``, the JAX package's
@@ -67,13 +71,14 @@ def check_kernel_ok(cfg, t: Optional[torch.Tensor] = None) -> None:
         raise NotImplementedError(
             f"head_pad={cfg.head_pad} pads {cfg.n_heads} q-heads to "
             f"{cfg.n_heads_p}: padded q-heads on the attention kernels arrive "
-            f"with ROADMAP Queue A item 11 (padded heads on the kernels)")
+            f"with ROADMAP Queue A item 11 (part 7, padded heads on the "
+            f"kernels)")
     _, m = C.tp_rank_size()
     if m > 1 and (cfg.n_heads_p % m or cfg.n_kv_heads % m):
         raise NotImplementedError(
             f"{cfg.n_heads_p} q-heads and {cfg.n_kv_heads} kv-heads over a "
             f"model axis of {m}: heads that do not divide it arrive with "
-            f"ROADMAP Queue A item 11 (padded heads on the kernels)")
+            f"ROADMAP Queue A item 11 (part 7, padded heads on the kernels)")
 
 
 def _pad_heads(t, cfg, axis: int):
@@ -440,7 +445,9 @@ def attn_decode_paged(p, x, cache, t, table, trash, *, cfg,
     # is all -1, so it lands on the trash page either way)
     ent = (t // ps).long().clamp(max=P - 1)
     entries = table.gather(1, ent[:, None])[:, 0]
-    pages = torch.where(entries >= 0, entries, trash).long()
+    # global ids (the table's, the trash pages') into the rank's pool
+    pages = torch.where(entries >= 0, entries, trash).long() \
+        - OPS.page_offset(cache["kp"].shape[0])
     offs = torch.remainder(t, ps).long()
     for name, new in _stored(cache, "kp", "vp", k_new, v_new):
         c = cache[name]
@@ -448,10 +455,9 @@ def attn_decode_paged(p, x, cache, t, table, trash, *, cfg,
         keep = wr.reshape((B,) + (1,) * (old.dim() - 1))
         c[pages, offs] = torch.where(keep, new[:, 0].to(c.dtype), old)
     cache["pvalid"][pages, offs] = wr
-    ctx = OPS.paged_decode_attention(q, *_read_kv(cache, "kp", "vp", cfg),
-                                     table, t, cache["pvalid"],
-                                     *_read_scales(cache, cfg),
-                                     backend=backend)
+    ctx = OPS.paged_decode_attention_sharded(
+        q, *_read_kv(cache, "kp", "vp", cfg), table, t, cache["pvalid"],
+        *_read_scales(cache, cfg), backend=backend)
     return _out_proj(p, ctx, head_weights, cfg), cache
 
 
@@ -486,13 +492,14 @@ def attn_chunk(p, x, cache, write_page, table_row, pos0, plen, *, cfg,
     wr = torch.ones((B, C), dtype=torch.bool, device=x.device) \
         if keep is None else keep
     wr = wr & (positions < plen)
-    wp = as_index(write_page, x.device)
+    wp = as_index(write_page, x.device) \
+        - OPS.page_offset(cache["kp"].shape[0])
     for name, new in _stored(cache, "kp", "vp", k_new, v_new):
         cache[name].index_copy_(0, wp, new.to(cache[name].dtype))
     cache["pvalid"].index_copy_(0, wp, wr)
     table = table_row.reshape(1, -1).expand(C, -1)
     H = q.shape[2]
-    ctx = OPS.paged_decode_attention(
+    ctx = OPS.paged_decode_attention_sharded(
         q.reshape(C, 1, H, Dh), *_read_kv(cache, "kp", "vp", cfg), table,
         positions[0], cache["pvalid"], *_read_scales(cache, cfg),
         backend=backend)

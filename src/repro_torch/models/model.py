@@ -38,6 +38,7 @@ from repro_torch.models.blocks import (block_apply, block_cache_init,
                                        block_router_init, cache_row_insert)
 from repro_torch.models.layers import dense_init, dtype_of, norm_apply, norm_init
 from repro_torch.runtime import collectives as C
+from repro_torch.runtime.mesh import active_mesh
 
 
 class PatternPos(NamedTuple):
@@ -191,26 +192,23 @@ def _logits(params, cfg, x):
     return logits
 
 
-def check_mesh(cfg, spec, paged: bool = False) -> None:
-    """What tensor-parallel serving covers under an active mesh (ROADMAP
-    Queue A item 11, first half): decoder-only self-attention stacks with
-    dense MLPs, on the ring layout. Refuses the rest, each naming the
-    part of item 11 that brings it."""
-    _, m = C.tp_rank_size()
-    if m == 1:
+def check_mesh(cfg, spec) -> None:
+    """What serving on a (data, model) mesh covers under an active mesh
+    (ROADMAP Queue A item 11): decoder-only self-attention stacks with
+    dense MLPs, on the ring and the paged layout. Refuses the rest,
+    naming the part of item 11 that brings it."""
+    mesh = active_mesh()
+    if mesh is None or mesh.size == 1:
         return
     later = "arrives with ROADMAP Queue A item 11"
     bad = sorted({k for k in cfg.layer_kinds if k != "attn"})
     if bad or cfg.encoder is not None or cfg.family in ("vlm", "encoder"):
         raise NotImplementedError(
-            f"tensor parallelism over {bad or cfg.family!r} layers {later} "
-            f"(the recurrent and context families on a mesh)")
+            f"serving {bad or cfg.family!r} layers on a mesh {later} (the "
+            f"recurrent and context families on a mesh)")
     if cfg.moe is not None or (spec is not None and spec.mlp_n_experts):
-        raise NotImplementedError(f"experts on a mesh {later} (expert "
-                                  f"parallelism)")
-    if paged:
-        raise NotImplementedError(f"the paged layout on a mesh {later} (the "
-                                  f"paged layout under a mesh)")
+        raise NotImplementedError(f"experts on a mesh {later} (part 5, "
+                                  f"expert parallelism)")
 
 
 def _layer_policies(pol, n_layers: int) -> list:
@@ -422,7 +420,7 @@ def decode_step(params, rparams, token, caches, t, cfg, ecfg=None,
     slice is indexed with the same page ids). Returns (logits (B,V),
     caches)."""
     spec, pol = as_spec_policy(ecfg, policy)
-    check_mesh(cfg, spec, paged=table is not None)
+    check_mesh(cfg, spec)
     x = _embed(params, token)
     has_rp = rparams is not None and mode != "base"
     pols = _layer_policies(pol, cfg.n_layers)
@@ -467,7 +465,7 @@ def prefill_chunk_step(params, rparams, tokens, caches, write_page,
     updated in place. Returns (logits (1, V) at the chunk's LAST REAL
     position, and the caches)."""
     spec, pol = as_spec_policy(ecfg, policy)
-    check_mesh(cfg, spec, paged=True)
+    check_mesh(cfg, spec)
     x = _embed(params, tokens)
     has_rp = rparams is not None and mode != "base"
     pols = _layer_policies(pol, cfg.n_layers)

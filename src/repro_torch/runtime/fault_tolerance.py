@@ -15,11 +15,13 @@ Single-controller view of what runs per host at scale:
   * FailureInjector — deterministic fault injection for tests/drills.
 
 This is the JAX package's ``runtime/fault_tolerance.py``, copied so that
-the port depends on nothing of that package. The port serves on one
-device: a fallback shape of one device, or the exhausted list, re-meshes
-with ``engine.reshard(None)`` (drain, keep every slot, capture the entry
-points again); a larger shape is refused by the engine until the live
-re-mesh (ROADMAP Queue A item 11's second half) and skipped like any
+the port depends on nothing of that package. A fallback shape is a
+``(data, model)`` tuple (``runtime/elastic.valid_mesh_shapes`` lists the
+real ones): a mesh engine re-meshes onto it over its own process world
+(``launch.mesh.remesh``, every rank in lockstep), a shape of one device or
+the exhausted list re-meshes with ``engine.reshard(None)``, and a shape
+the engine cannot take (more ranks than its world, a batch its data axis
+does not divide, a one-device engine without a world) is skipped like any
 unusable shape.
 """
 from __future__ import annotations
@@ -110,24 +112,27 @@ def run_resilient(
 
 def remesh_fallback(engine, shapes: list):
     """Drain + re-mesh ``engine`` onto the first usable shape popped from
-    ``shapes`` (mutated in place). A `(data, model)` shape of one device
-    re-meshes with ``engine.reshard(None)``; a larger one raises in the
-    engine (the live re-mesh arrives with ROADMAP Queue A item 11) and,
-    like any unusable shape, is skipped rather than allowed to kill the
-    server — the exhausted list still ends at the single-device fallback.
-    Raises only when even the single-device fallback fails."""
+    ``shapes`` (mutated in place). An unusable shape (more ranks than the
+    engine's process world, a batch its data axis does not divide, no
+    world at all) is skipped rather than allowed to kill the server — the
+    exhausted list still ends at the single-device fallback (``None``).
+    Returns the mesh re-meshed to (``None`` for one device). Raises only
+    when even the single-device fallback fails."""
+    from repro_torch.launch.mesh import remesh
     while True:
         shape = shapes.pop(0) if shapes else None
-        try:      # more than one device: the engine refuses until item 11
-            engine.reshard(None if shape is None or math.prod(shape) == 1
-                           else shape)
+        try:
+            mesh = (remesh(engine.mesh, shape)
+                    if shape is not None and math.prod(shape) > 1
+                    else None)
+            engine.reshard(mesh)
         except Exception as fe:
             if shape is None:         # even 1 device failed: give up
                 raise
             log.warning("fallback shape %s unusable (%s); trying "
                         "the next", shape, fe)
             continue
-        return
+        return mesh
 
 
 def maybe_escalate(engine, shapes: list) -> bool:
@@ -146,9 +151,9 @@ def maybe_escalate(engine, shapes: list) -> bool:
                     else "paged engine cannot reshard live")
         ctrl.notify_remeshed()
         return False
-    remesh_fallback(engine, shapes)
-    log.warning("controller saturated at floor budget; re-meshed to 1 "
-                "device")
+    mesh = remesh_fallback(engine, shapes)
+    log.warning("controller saturated at floor budget; escalated to %s",
+                "1 device" if mesh is None else dict(mesh.shape))
     ctrl.notify_remeshed()
     return True
 
@@ -190,7 +195,8 @@ def serve_resilient(
             restarts += 1
             if restarts > max_restarts:
                 raise
-            remesh_fallback(engine, shapes)
+            mesh = remesh_fallback(engine, shapes)
             log.warning("serving step %d failed (%s); drained + "
-                        "re-meshed to 1 device", steps, e)
+                        "re-meshed to %s", steps, e,
+                        "1 device" if mesh is None else dict(mesh.shape))
     return steps, restarts

@@ -11,30 +11,29 @@ host-side bookkeeping around that array:
   ``runtime/controller.py``).
 
 * ``SlotScheduler`` — admission of queued requests into free slots, packed
-  against a per-step FLOP budget: each request costs its compute budget
-  (the roofline active-FLOP fraction its ``ElasticPolicy`` was solved for;
-  1.0 = full teacher row), and a request is admitted while the occupied
-  cost sum stays within ``flop_budget``. Low-budget requests therefore
-  co-schedule more densely. Requests queue per tenant class (FIFO within a
-  class, earliest arrival across classes, so a single class is one global
-  FIFO), carry optional queue deadlines (expired entries are dropped
-  before they burn a prefill, finish reason ``deadline_exceeded``), and
-  can be shed under overload (finish reason ``rejected`` + a Retry-After
-  hint on the handle). ``flop_budget=None`` means "one full-budget row per
-  slot" (admission limited only by free slots).
+  against a per-replica, per-step FLOP budget: each request costs its
+  compute budget (the roofline active-FLOP fraction its ``ElasticPolicy``
+  was solved for; 1.0 = full teacher row), and a request is placed on the
+  least-loaded replica whose occupied cost sum stays within
+  ``flop_budget``. Low-budget requests therefore co-schedule more densely.
+  Requests queue per tenant class (FIFO within a class, earliest arrival
+  across classes, so a single class is one global FIFO), carry optional
+  queue deadlines (expired entries are dropped before they burn a
+  prefill, finish reason ``deadline_exceeded``), and can be shed under
+  overload (finish reason ``rejected`` + a Retry-After hint on the
+  handle). Under a (data, model) mesh the slot array carries a
+  data-parallel replica axis (flat slot i -> replica i //
+  slots_per_replica); ``n_replicas=1`` (the default) is one device or a
+  tensor-parallel engine. ``flop_budget=None`` means "one full-budget row
+  per slot" (admission limited only by free slots).
 
-This is the single-replica form of the JAX package's
-``runtime/scheduler.py`` (the same admission order, packing, deadlines,
-shedding and repricing, the paged engine's ``page_check`` and
-``requeue_front`` included), copied so that the port depends on nothing
-of that package. The replica helpers (``n_replicas``, ``replica_of``,
-``free_slots_in``, ``replica_occupancy``) exist for the engine's and the
-serving CLI's calls, with ``n_replicas`` always 1: a tensor-parallel
-engine on a (data=1, model=M) mesh is one replica, and the data axis
-arrives with the second half of the mesh slice (ROADMAP Queue A item
-11). The
-scheduler imports no array library; the engine calls ``admit()`` /
-``free()`` / ``tick()`` around its steps.
+This is the JAX package's ``runtime/scheduler.py`` (the same admission
+order, replica placement, packing, deadlines, shedding and repricing, the
+paged engine's ``page_check`` and ``requeue_front`` included), copied so
+that the port depends on nothing of that package. Every rank of a mesh
+runs the same scheduler over all B flat slots, so its decisions agree on
+every rank. The scheduler imports no array library; the engine calls
+``admit()`` / ``free()`` / ``tick()`` around its steps.
 """
 from __future__ import annotations
 
@@ -177,25 +176,39 @@ class _QEntry:
 
 
 class SlotScheduler:
-    """Admission into a fixed slot array under a per-step FLOP budget.
+    """Admission into a fixed slot array under a per-replica FLOP budget.
 
     ``cost`` of a request = its compute-budget fraction (1.0 for
-    budget-None / teacher rows). Requests queue FIFO **within** their
-    tenant class and the earliest-arrival live head **across** classes goes
-    first. A head that cannot be placed (FLOP budget, or the paged
-    engine's ``page_check``) blocks only its own class — another class's
-    head may still fit — but within a class nothing jumps the queue. A
-    request is placed in the lowest free slot while the occupied cost sum
-    stays within ``flop_budget``; if nothing is running and the oldest head
+    budget-None / teacher rows). The slot array carries a data-parallel
+    replica axis: flat slot ``i`` belongs to replica ``i // (n_slots //
+    n_replicas)``, exactly the slot rows a (data, model) mesh places on
+    data coordinate ``i // spr``, so admission placement IS device
+    placement.
+
+    Requests queue FIFO **within** their tenant class and the
+    earliest-arrival live head **across** classes goes first. A head that
+    cannot be placed (FLOP budget, or the paged engine's ``page_check``)
+    blocks only its own class — another class's head may still fit — but
+    within a class nothing jumps the queue. Each admitted request is placed
+    on the least-loaded replica that has a free slot and whose occupied
+    cost sum stays within ``flop_budget`` (a PER-REPLICA budget), ties to
+    the lowest replica; if nothing is running anywhere and the oldest head
     alone exceeds the budget it is admitted anyway (progress guarantee).
+    ``n_replicas=1`` packs one slot array.
     """
 
-    def __init__(self, n_slots: int, flop_budget: Optional[float] = None):
+    def __init__(self, n_slots: int, flop_budget: Optional[float] = None,
+                 n_replicas: int = 1):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        if n_replicas < 1 or n_slots % n_replicas:
+            raise ValueError(f"n_slots={n_slots} must be a positive "
+                             f"multiple of n_replicas={n_replicas}")
         self.n_slots = n_slots
-        self.flop_budget = (float(n_slots) if flop_budget is None
-                            else float(flop_budget))
+        self.n_replicas = n_replicas
+        self._budget_explicit = flop_budget is not None
+        self.flop_budget = (float(n_slots // n_replicas)
+                            if flop_budget is None else float(flop_budget))
         self.slots: List[Optional[RequestHandle]] = [None] * n_slots
         self.costs: List[float] = [0.0] * n_slots
         self._queues: Dict[str, Deque[_QEntry]] = {}
@@ -203,20 +216,45 @@ class SlotScheduler:
         self._n_pending = 0
         self._seq = itertools.count()
         self._front_seq = -1            # requeue_front goes before seq 0
-        self.n_replicas = 1             # no data axis (item 11)
         # occupancy accounting (slot-steps used / slot-steps available)
         self.reset_stats()
 
-    # ---- the replica axis (one replica) ----
+    # ---- the replica axis ----
     @property
     def slots_per_replica(self) -> int:
-        return self.n_slots
+        return self.n_slots // self.n_replicas
 
     def replica_of(self, slot: int) -> int:
         return slot // self.slots_per_replica
 
+    def replica_used_cost(self, replica: int) -> float:
+        spr = self.slots_per_replica
+        lo = replica * spr
+        return sum(c for s, c in zip(self.slots[lo:lo + spr],
+                                     self.costs[lo:lo + spr])
+                   if s is not None)
+
     def free_slots_in(self, replica: int) -> List[int]:
-        return self.free_slots() if replica == 0 else []
+        spr = self.slots_per_replica
+        lo = replica * spr
+        return [lo + i for i, s in enumerate(self.slots[lo:lo + spr])
+                if s is None]
+
+    def set_replicas(self, n_replicas: int) -> None:
+        """Re-mesh: re-derive the replica axis over the SAME flat slot
+        array. Running requests keep their flat slots (the live cache rows
+        move with them); the slot-limited default budget re-scales to the
+        new slots-per-replica, an explicit budget is kept. The per-replica
+        occupancy counters restart (the axis they were counted over is
+        gone); the global occupancy accounting continues."""
+        if n_replicas < 1 or self.n_slots % n_replicas:
+            raise ValueError(f"n_slots={self.n_slots} must be a positive "
+                             f"multiple of n_replicas={n_replicas}")
+        self.n_replicas = n_replicas
+        if not self._budget_explicit:
+            self.flop_budget = float(self.slots_per_replica)
+        self.replica_steps = 0
+        self.replica_slot_steps = [0] * n_replicas
 
     # ---- queue ----
     @property
@@ -325,13 +363,16 @@ class SlotScheduler:
     def admit(self, page_check=None, cost_cap: Optional[float] = None,
               cost_scale: Optional[float] = None
               ) -> List[Tuple[int, RequestHandle]]:
-        """Pop queued requests into free slots under the FLOP budget;
-        returns [(slot, handle)] for the engine to prefill.
+        """Pop queued requests into free slots under the per-replica FLOP
+        budget; returns [(slot, handle)] for the engine to prefill. Each
+        admitted request goes to the least-loaded replica that can take it
+        (lowest occupied cost, ties to the lowest replica index), so
+        admissions spread across the replica axis.
 
         ``page_check(handle, replica) -> bool`` (optional) is the paged
-        engine's joint-packing hook: a head is admitted only when the pool
-        also has the free KV pages its prompt needs. A head that cannot get
-        its pages waits, and nothing of its class jumps it.
+        engine's joint-packing hook: a replica is a candidate only when it
+        also has the free KV pages the request's prompt needs. A head that
+        no replica can page waits, and nothing of its class jumps it.
 
         ``cost_cap`` (optional) is the SLO controller's degraded admission
         budget: each admission is charged ``min(cost, cost_cap)``, the price
@@ -342,12 +383,14 @@ class SlotScheduler:
         fraction TIMES the depth fraction; admission packs on that composed
         cost, what the engine reprices the slot to after the prefill."""
         out: List[Tuple[int, RequestHandle]] = []
-        used = self.used_cost
+        used = [self.replica_used_cost(r) for r in range(self.n_replicas)]
         while True:
             heads = self._live_heads()
-            free = self.free_slots()
-            if not heads or not free:
+            if not heads:
                 break
+            if not any(self.free_slots_in(r)
+                       for r in range(self.n_replicas)):
+                break                       # every replica is slot-full
             placed = False
             for k, entry in enumerate(heads):
                 cost = entry.cost
@@ -355,16 +398,26 @@ class SlotScheduler:
                     cost = max(MIN_COST, min(cost, float(cost_cap)))
                 if cost_scale is not None:
                     cost = max(MIN_COST, cost * float(cost_scale))
-                if page_check is not None and not page_check(entry.handle, 0):
-                    continue                # this class waits for page frees
-                if used + cost > self.flop_budget + 1e-9 and not (
-                        k == 0 and self.active == 0 and not out):
-                    continue                # wait for running work to drain
-                slot = free[0]
+                cands = [r for r in range(self.n_replicas)
+                         if self.free_slots_in(r)]
+                if page_check is not None:
+                    cands = [r for r in cands
+                             if page_check(entry.handle, r)]
+                    if not cands:
+                        continue            # this class waits for page frees
+                fit = [r for r in cands
+                       if used[r] + cost <= self.flop_budget + 1e-9]
+                if not fit:
+                    if k == 0 and self.active == 0 and not out:
+                        fit = cands         # idle engine: progress guarantee
+                    else:
+                        continue            # wait for running work to drain
+                r = min(fit, key=lambda i: (used[i], i))
+                slot = self.free_slots_in(r)[0]
                 self._remove(entry)
                 self.slots[slot], self.costs[slot] = entry.handle, cost
                 entry.handle.slot, entry.handle.status = slot, RUNNING
-                used += cost
+                used[r] += cost
                 out.append((slot, entry.handle))
                 placed = True
                 break
@@ -387,11 +440,18 @@ class SlotScheduler:
         """Record one engine step for occupancy accounting."""
         self.steps += 1
         self.active_slot_steps += self.active
+        self.replica_steps += 1
+        spr = self.slots_per_replica
+        for r in range(self.n_replicas):
+            self.replica_slot_steps[r] += sum(
+                s is not None for s in self.slots[r * spr:(r + 1) * spr])
 
     def reset_stats(self):
         """Zero the occupancy counters (e.g. between benchmark windows)."""
         self.steps = 0
         self.active_slot_steps = 0
+        self.replica_steps = 0          # restarts on a re-mesh too
+        self.replica_slot_steps = [0] * self.n_replicas
 
     @property
     def occupancy(self) -> float:
@@ -402,8 +462,9 @@ class SlotScheduler:
 
     @property
     def replica_occupancy(self) -> List[float]:
-        """Per-replica mean active-slot fraction since the last reset —
-        the open-loop report's balance check. One replica: ``occupancy``
-        (the JAX scheduler restarts this window on a re-mesh; the port's
-        ``reshard(None)`` keeps one replica and its window)."""
-        return [self.occupancy]
+        """Per-replica mean active-slot fraction since the last re-mesh or
+        reset: the open-loop report's balance check."""
+        if self.replica_steps == 0:
+            return [0.0] * self.n_replicas
+        return [s / (self.replica_steps * self.slots_per_replica)
+                for s in self.replica_slot_steps]

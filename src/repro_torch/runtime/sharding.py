@@ -15,20 +15,28 @@ What the JAX package gets from GSPMD the port does by hand in the model
 (``runtime/collectives.py``): each rank holds q-heads ``[r*H/M,
 (r+1)*H/M)`` and kv-heads ``[r*K/M, ...)``, the MLP's ``F/M`` columns and
 the vocabulary's ``V/M`` rows, and the partial sums are all-reduced.
+Parameters and routers replicate over the data axes; a cache's slot rows
+(and a page pool's pages with their scale pools) split over them, so the
+rank at (d, m) holds replica d's ``B/D`` slots or ``N/D`` pages.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Optional
 
 import torch
 
+from repro_torch.runtime.mesh import DATA_AXES
+
 MODEL = "model"
-BATCH_AXES = ("pod", "data")
 
 
 def batch_axes(mesh) -> tuple:
-    return tuple(a for a in BATCH_AXES if a in mesh.axis_names)
+    """The data axes of ``mesh`` (none without a mesh)."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in DATA_AXES if a in mesh.axis_names)
 
 
 def _batch_entry(mesh):
@@ -39,14 +47,9 @@ def _batch_entry(mesh):
 
 
 def data_axis_size(mesh) -> int:
-    """Product of the data axes' sizes: the data-parallel replica count
-    (1 without a mesh)."""
-    if mesh is None:
-        return 1
-    n = 1
-    for a in batch_axes(mesh):
-        n *= mesh.shape.get(a, 1)
-    return n
+    """The data-parallel replica count, ``Mesh.data_size`` (1 without a
+    mesh)."""
+    return 1 if mesh is None else mesh.data_size
 
 
 def model_axis_size(mesh) -> int:
@@ -192,6 +195,14 @@ def cache_specs_tree(caches, cfg, mesh):
     return _map(caches, spec)
 
 
+def slot_spec(ndim: int, dim: int, mesh) -> tuple:
+    """The spec of a per-slot tensor whose ``dim`` indexes the serving
+    slots (the engine's last tokens, a live policy leaf): that dim over
+    the data axes, the rest replicated."""
+    return tuple(_batch_entry(mesh) if i == dim else None
+                 for i in range(ndim))
+
+
 # ---------------------------- taking a slice --------------------------------
 
 def split_dim(spec: tuple, axis: str = MODEL) -> Optional[int]:
@@ -202,21 +213,53 @@ def split_dim(spec: tuple, axis: str = MODEL) -> Optional[int]:
     return None
 
 
+def _splits(spec: tuple, mesh):
+    """(dim, axis count, this rank's index over them) of every split dim
+    of ``spec`` on ``mesh`` whose axes are above 1 (several axes on one dim
+    combine row-major, as a PartitionSpec tuple does)."""
+    out = []
+    for d, ax in enumerate(spec):
+        if ax is None:
+            continue
+        n, i = 1, 0
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            size = mesh.shape.get(a, 1)
+            n, i = n * size, i * size + mesh.coord(a)
+        if n > 1:
+            out.append((d, n, i))
+    return out
+
+
 def shard_leaf(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """The rank's slice of ``x`` along its ``model`` dim, contiguous (a
-    copy, so the full tensor can be freed); ``x`` itself when the leaf is
-    replicated. A data axis above 1 is refused (ROADMAP Queue A item 11,
-    the data axis)."""
-    if data_axis_size(mesh) > 1:
-        raise NotImplementedError(
-            "a data axis above 1 arrives with ROADMAP Queue A item 11 "
-            "(the data axis and the scheduler's replicas)")
-    d = split_dim(spec)
-    m = model_axis_size(mesh)
-    if d is None or m == 1:
+    """The rank's slice of ``x`` along every split dim of ``spec`` (the
+    ``model`` dim by its model coordinate, a batch or page dim by its
+    replica), contiguous (a copy, so the full tensor can be freed); ``x``
+    itself when the leaf is replicated."""
+    if mesh is None:
         return x
-    n = x.shape[d] // m
-    return x.narrow(d, mesh.model_rank * n, n).contiguous()
+    out = x
+    for d, n, i in _splits(spec, mesh):
+        k = x.shape[d] // n
+        out = out.narrow(d, i * k, k)
+    return x if out is x else out.contiguous()
+
+
+def unshard_leaf(shards: list, spec: tuple, mesh) -> torch.Tensor:
+    """The whole tensor from every rank's slice (``shards[r]`` is world
+    rank r's ``shard_leaf`` on ``mesh``, r in ``[0, mesh.size)``): the
+    inverse of ``shard_leaf``. Replicated dims take rank 0's copy."""
+    ranks = [dataclasses.replace(mesh, rank=r) for r in range(mesh.size)]
+    splits = [_splits(spec, m) for m in ranks]
+    shape = list(shards[0].shape)
+    for d, n, _ in splits[0]:
+        shape[d] *= n
+    full = shards[0].new_empty(shape)
+    for r, sh in zip(range(mesh.size), shards):
+        view = full
+        for d, n, i in splits[r]:
+            view = view.narrow(d, i * sh.shape[d], sh.shape[d])
+        view.copy_(sh)
+    return full
 
 
 def shard_tree(tree, specs, mesh, device=None):

@@ -85,29 +85,45 @@ so no stage captures anything new, and its shed stage rejects queued
 requests with a Retry-After hint. Every request timestamp comes from one
 injected ``clock`` (default ``time.perf_counter``), so a fake clock gives
 a deterministic budget trajectory; ``timing`` stays on the wall clock.
-``reshard(None)`` drains the engine and drops its graphs (the JAX
-engine's re-mesh onto one device); ``runtime/fault_tolerance`` drives it
-on a failure or an escalation.
+``reshard`` re-meshes the engine live (below; on one device a drain that
+drops its graphs); ``runtime/fault_tolerance`` drives it on a failure or
+an escalation.
 
-``mesh`` (a ``runtime.mesh.Mesh`` of shape (data=1, model=M)): tensor-
-parallel serving on the ring layout in ``infer`` / ``base`` mode. Every
-rank builds its own engine over its shard of the weights, taken on the
-host before the engine is built (``runtime/sharding.shard_params``,
-``interop.params_from_numpy(mesh=)``; a whole tree raises), and over
-its slice of the ring cache (its kv-heads), submits the same requests
-at the same steps and steps in lockstep: the scheduler's decisions are
-the host's and deterministic, and the sampled tokens agree because the
-logits are all-gathered over the vocabulary. (Admissions or degradations driven by each rank's own
-wall clock would break the lockstep: give a controller on a mesh one
-injected clock.)
-Every model call runs under ``with mesh:`` (the collectives,
-``runtime/collectives.py``). Collectives cannot be captured in a CUDA
-graph, so a mesh engine runs eagerly (``cuda_graphs=True`` raises);
-``compile_counts()`` still counts the decode step's forms, whose launch
-signatures do not change across budgets, slots or sampling settings.
-The paged layout, ``mode="train"``, int8 weights, a data axis above 1 and
-``reshard`` on a mesh raise, each naming the part of ROADMAP Queue A item
-11 that brings it.
+``mesh`` (a ``runtime.mesh.Mesh`` of shape (data=D, model=M)): serving on
+a mesh, ring or paged, in ``infer`` / ``base`` mode, the JAX engine's SPMD
+contract. Every rank builds its own engine over its shard of the weights,
+taken on the host before the engine is built
+(``runtime/sharding.shard_params``, ``interop.params_from_numpy(mesh=)``;
+a whole tree raises); the rank at (d, m) holds model shard m and replica
+d's ``B/D`` slots of the ring cache, or replica d's ``N/D`` pages of the
+pool (its trash page included), at its kv-heads. Every rank submits the
+same requests at the same steps and runs the same host scheduler over
+all B flat slots (flat slot i lives on replica i // (B/D)), so admission,
+page and preemption decisions agree on every rank; the page pool's
+bookkeeping (``paged_stats``) is host state every rank holds whole. A
+rank makes model calls only for its own replica's slots: an admission
+prefills on its replica's ranks while the other replicas go on, and the
+model-axis collectives run on the replica's own model group. The sampled
+tokens cross the replicas once per decode step (``collectives.exchange``
+over the data group: each slot's token and its ``active`` flag, which
+every rank checks against its own), and on a step that admits, with the
+first tokens: on the ring once after the step's admissions, which the
+replicas prefill side by side; on the paged layout once after each
+admission, since a first token can end its request and free its pages
+before the next admission allocates, as the JAX engine appends it (the
+pool's counts, ``peak_allocated`` too, follow that order). Sampling is keyed on (seed, position), so a token does not
+depend on the replica that drew it. (Admissions or degradations driven by
+each rank's own wall clock would break the lockstep: give a controller on
+a mesh one injected clock.) Every model call runs under ``with mesh:``
+(the collectives, ``runtime/collectives.py``). Collectives cannot be
+captured in a CUDA graph, so a mesh engine runs eagerly
+(``cuda_graphs=True`` raises); ``compile_counts()`` still counts the
+decode step's forms, whose launch signatures do not change across
+budgets, slots or sampling settings. ``reshard(mesh)`` re-meshes live
+onto another shape of the same process world, or onto one device
+(``None``), moving every in-flight request's cache rows. ``mode="train"``
+and int8 weights on a mesh raise (ROADMAP Queue A item 11, part 4), as do
+graphed decode (part 6).
 
 Decode runs the ElastiFormer threshold path (§B.1). Each slot samples with
 its request's temperature, top-k and seed (``sample_tokens``): the noise
@@ -141,6 +157,8 @@ from repro_torch.models.quant import (check_kv_dtype, check_weight_dtype,
 from repro_torch.models.model import (cache_init, check_mesh, decode_step,
                                      paged_cache_init, prefill_chunk_step,
                                      prefill_into_slot)
+from repro_torch.runtime import collectives as C
+from repro_torch.runtime import elastic as EL
 from repro_torch.runtime import sharding as SH
 from repro_torch.runtime.pagedkv import (PagePool, copy_page_in_tree,
                                         n_pages_for, prefix_keys)
@@ -241,6 +259,11 @@ def _leaf_paths(tree, prefix=()) -> list:
     return [p for k, v in items for p in _leaf_paths(v, prefix + (k,))]
 
 
+def _policy_leaves(pol) -> dict:
+    """{field: tensor} of a live (B,)- or (L, B)-leaf policy."""
+    return {f.name: getattr(pol, f.name) for f in dataclasses.fields(pol)}
+
+
 class ServingEngine:
     """Continuous-batching generation over a frozen base model + routers.
 
@@ -273,8 +296,8 @@ class ServingEngine:
                  weight_dtype: str = "fp32", controller=None, clock=None,
                  device=None, cuda_graphs: Optional[bool] = None):
         if mesh is not None:
-            self._check_mesh(mesh, cfg, elastic, kv_layout, mode,
-                             weight_dtype, cuda_graphs)
+            self._check_mesh(mesh, cfg, elastic, mode, weight_dtype,
+                             cuda_graphs)
             cuda_graphs = False
         if kv_layout not in ("ring", "paged"):
             raise ValueError(f"kv_layout must be 'ring' or 'paged', "
@@ -328,41 +351,47 @@ class ServingEngine:
         self._use_policy = self.spec is not None and mode != "base"
 
         B = batch_size
-        self.scheduler = SlotScheduler(B, step_flop_budget)
+        self.scheduler = SlotScheduler(B, step_flop_budget,
+                                       self._replicas_for(mesh))
+        self.left = False                  # left the mesh at a re-mesh
         self.pool: Optional[PagePool] = None
-        # the per-slot state every decode step reads: host mirrors that are
-        # views of one staging buffer, and their device copies, which the
-        # compiled step reads (never rebound)
-        fields = [("seeds", np.int64, (B,)),      # uint32 values
-                  ("temp", np.float32, (B,)), ("topk", np.int32, (B,)),
-                  ("t", np.int32, (B,)),          # per-slot decode position
-                  ("active", np.bool_, (B,))]
         if kv_layout == "paged":
+            R_ = self.scheduler.n_replicas
             self.pages_per_slot = n_pages_for(max_seq, self.page_size)
             if n_pages is None:
                 # ring-equivalent memory: every slot at full length, plus
-                # the trash page for masked writes
-                n_pages = B * self.pages_per_slot + 1
-            self.pool = PagePool(n_pages, self.page_size)
+                # one trash page per replica for masked writes
+                n_pages = B * self.pages_per_slot + R_
+            self.pool = PagePool(n_pages, self.page_size, n_replicas=R_)
             self._caches = paged_cache_init(cfg, n_pages, self.page_size,
                                             device=self.device,
                                             kv_dtype=self.kv_dtype)
-            fields += [("table", np.int32, (B, self.pages_per_slot)),
-                       ("trash", np.int32, (B,))]
             self._admit_counter = itertools.count()
             self._admit_seq = np.full((B,), -1, np.int64)
         else:
             self._caches = cache_init(cfg, B, max_seq, device=self.device,
                                       kv_dtype=self.kv_dtype)
-            if mesh is not None:                  # the rank's kv-heads
-                self._caches = SH.shard_caches(self._caches, cfg, mesh)
-        self._stage_host, self._stage_dev, host, self._dev = _staging(
-            fields, self.device)
-        self._seeds, self._temp, self._topk = (host["seeds"], host["temp"],
-                                               host["topk"])
-        self._t, self._active = host["t"], host["active"]
+        if mesh is not None:      # the rank's slots (or pages) and kv-heads
+            self._caches = SH.shard_caches(self._caches, cfg, mesh)
+        # the per-slot state every decode step reads: host mirrors of all
+        # B slots and the device copies of the rank's own, which the
+        # compiled step reads (never rebound off a mesh)
+        self._fields = [("seeds", np.int64, ()),      # uint32 values
+                        ("temp", np.float32, ()), ("topk", np.int32, ()),
+                        ("t", np.int32, ()),          # decode position
+                        ("active", np.bool_, ())]
         if kv_layout == "paged":
-            self._table, self._trash = host["table"], host["trash"]
+            self._fields += [("table", np.int32, (self.pages_per_slot,)),
+                             ("trash", np.int32, ())]
+        self._set_local(mesh)
+        self._h = None
+        self._stage()
+        self._seeds, self._temp, self._topk = (self._h["seeds"],
+                                               self._h["temp"],
+                                               self._h["topk"])
+        self._t, self._active = self._h["t"], self._h["active"]
+        if kv_layout == "paged":
+            self._table, self._trash = self._h["table"], self._h["trash"]
             self._table[:] = -1
             self._trash[:] = [self.pool.trash_page(
                 self.scheduler.replica_of(s)) for s in range(B)]
@@ -380,9 +409,10 @@ class ServingEngine:
                 (1, cfg.padded_vocab), dtype=dtype_of(cfg), device=self.device)
             self._chunk_policy = (ElasticPolicy.uniform(1.0, static=True).to(
                 self.device) if self._use_policy else None)
-        self._live_policy = (self._base_policy.broadcast_rows(B).to(
-            self.device) if self._use_policy else None)
-        self._tok = torch.zeros((B,), dtype=torch.int64, device=self.device)
+        self._live_policy = (self._base_policy.broadcast_rows(
+            self._bl).to(self.device) if self._use_policy else None)
+        self._tok = torch.zeros((self._bl,), dtype=torch.int64,
+                                device=self.device)
         self._ngen = np.zeros((B,), np.int64)
         # per-slot budget bookkeeping for in-flight degradation: the budget
         # the slot was ADMITTED at (None = engine default / base policy),
@@ -408,32 +438,76 @@ class ServingEngine:
                        "decode_tokens": 0}
 
     @staticmethod
-    def _check_mesh(mesh, cfg, elastic, kv_layout, mode, weight_dtype,
+    def _check_mesh(mesh, cfg, elastic, mode, weight_dtype,
                     cuda_graphs) -> None:
         """What a mesh engine serves (module docstring); the rest raises,
         naming the part of ROADMAP Queue A item 11 that brings it."""
         if not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a runtime.mesh.Mesh, got "
                             f"{type(mesh).__name__}")
-        if SH.data_axis_size(mesh) > 1:
-            raise _todo("serving on a data axis above 1 (replicas)",
-                        "item 11 (the data axis and the scheduler's "
-                        "replicas)")
-        if kv_layout == "paged":
-            raise _todo("the paged layout on a mesh",
-                        "item 11 (the paged layout under a mesh)")
         if mode == "train":
             raise _todo("train-mode serving on a mesh",
-                        "item 11 (training on a mesh)")
+                        "item 11 (part 4, training on a mesh)")
         if weight_dtype == "int8":
-            raise _todo("int8 weights on a mesh", "item 11 (training on a "
-                        "mesh, with gradient compression and int8 shards)")
+            raise _todo("int8 weights on a mesh", "item 11 (part 4, "
+                        "training on a mesh, with gradient compression and "
+                        "int8 shards)")
         if cuda_graphs:
             raise _todo("graphed decode on a mesh (gloo collectives cannot "
-                        "be captured)", "item 11 (graphed decode under TP)")
+                        "be captured)", "item 11 (part 6, graphed decode "
+                        "under TP)")
         with mesh:
             check_mesh(cfg, as_spec_policy(elastic)[0])
             check_kernel_ok(cfg)
+
+    def _replicas_for(self, mesh) -> int:
+        """The replica count: the mesh's data axes (1 without a mesh); the
+        slot array must split evenly over them."""
+        r = SH.data_axis_size(mesh)
+        if self.B % r:
+            raise ValueError(f"batch_size={self.B} must be a multiple of "
+                             f"the replica count {r}")
+        return r
+
+    def _set_local(self, mesh) -> None:
+        """The rank's flat slots ``[_lo, _lo + _bl)`` (its replica's; all B
+        off a mesh or on a data axis of 1) and the first global id of its
+        pages (``_page0``)."""
+        r = SH.data_axis_size(mesh)
+        self._bl = self.B // r
+        d = mesh.data_rank if mesh is not None else 0
+        self._lo = d * self._bl
+        self._page0 = (d * self.pool.pages_per_replica
+                       if self.pool is not None else 0)
+
+    def _stage(self) -> None:
+        """(Re)build the staging of the rank's per-slot state: one host
+        buffer (pinned on the card) and its device twin, laid out by
+        ``_fields`` at the rank's ``_bl`` slots. Off a mesh the host views
+        ARE the engine's host mirrors (``_h``); on a mesh the mirrors hold
+        all B slots and ``_stage_local`` copies the rank's rows in before
+        each step's copy."""
+        fields = [(n, dt, (self._bl,) + tail) for n, dt, tail in self._fields]
+        self._stage_host, self._stage_dev, self._hl, self._dev = _staging(
+            fields, self.device)
+        if self._h is None:
+            self._h = self._hl if self.mesh is None else {
+                n: np.zeros((self.B,) + tail, dt)
+                for n, dt, tail in self._fields}
+
+    def _stage_local(self) -> None:
+        """The rank's rows of the host mirrors into the staging buffer (a
+        no-op off a mesh, where they are the same arrays)."""
+        if self._hl is self._h:
+            return
+        for n, v in self._hl.items():
+            v[...] = self._h[n][self._lo:self._lo + self._bl]
+
+    def _local(self, slot: int) -> Optional[int]:
+        """``slot``'s row in the rank's device state, or None when another
+        replica holds it."""
+        i = int(slot) - self._lo
+        return i if 0 <= i < self._bl else None
 
     @staticmethod
     def _check_shard(params, cfg, mesh) -> None:
@@ -649,7 +723,10 @@ class ServingEngine:
 
     @property
     def has_work(self) -> bool:
-        return self.scheduler.active > 0 or self.scheduler.pending > 0
+        """Requests running or queued (a rank that left the mesh has
+        none)."""
+        return not self.left and (self.scheduler.active > 0
+                                  or self.scheduler.pending > 0)
 
     @property
     def occupancy(self) -> float:
@@ -657,31 +734,59 @@ class ServingEngine:
 
     # ------------------------------ stepping ---------------------------------
 
-    def _admit_one(self, slot: int, handle: RequestHandle) -> None:
+    def _admit_one(self, slot: int, handle: RequestHandle):
+        """Ring admission of ``handle`` into ``slot``: the slot's host
+        state on every rank, and, on the ranks of the slot's replica, the
+        eager one-request prefill (the cache row, the context caches too,
+        and the policy row spliced in place). Returns the first token as a
+        device tensor on those ranks, None on the others."""
         req = handle.request
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
-        t0 = time.perf_counter()
-        tokens = torch.as_tensor(prompt[None], device=self.device)
-        b_eff = self._effective_budget(req)
-        d_eff = self._depth_cap()
-        pol_row = self._policy_for(b_eff, depth=d_eff)
-        # eager (one form per prompt length would need its own graph); the
-        # cache row (the context caches too) and the policy row are spliced
-        # in place
-        batch = {"tokens": tokens, **self._extras.pop(handle.id, {})}
-        args, kw = self._admit_args(batch, slot, pol_row)
-        with self._on_mesh():
-            logits, _, _ = prefill_into_slot(*args, **kw)
-        tok0 = self._first_token(logits, slot, req, prompt.size)
-        self._tok[slot] = tok0
-        tok0 = int(tok0)                          # waits for the device
-        self.timing["prefill_s"] += time.perf_counter() - t0
-        self.timing["prefill_tokens"] += int(prompt.size)
+        self._set_sampling(slot, req)
         self._t[slot] = prompt.size
         self._active[slot] = True
         self._ngen[slot] = 0
-        self._append(slot, handle, tok0)
-        self._note_admitted(slot, handle, b_eff, d_eff)
+        extras = self._extras.pop(handle.id, {})
+        i = self._local(slot)
+        if i is None:
+            return None
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(prompt[None], device=self.device)
+        pol_row = self._policy_for(self._effective_budget(req),
+                                   depth=self._depth_cap())
+        args, kw = self._admit_args({"tokens": tokens, **extras}, i, pol_row)
+        with self._on_mesh():
+            logits, _, _ = prefill_into_slot(*args, **kw)
+        tok0 = self._sample_first(logits, slot, prompt.size)
+        self._tok[i] = tok0
+        self.timing["prefill_s"] += time.perf_counter() - t0
+        self.timing["prefill_tokens"] += int(prompt.size)
+        return tok0
+
+    def _admitted(self, pending: list) -> None:
+        """The first tokens of admissions ``pending`` ((slot, handle,
+        tok0), tok0 a device tensor on the ranks of the slot's replica,
+        else None) reach every rank's host (one ``exchange`` on a data
+        axis above 1), then each admission is appended and noted, in
+        admission order."""
+        if not pending:
+            return
+        if self._bl == self.B:
+            toks = [int(tok0) for _, _, tok0 in pending]
+        else:
+            t0 = time.perf_counter()
+            local = torch.full((self._bl,), -1, dtype=torch.int64)
+            for slot, _, tok0 in pending:
+                if tok0 is not None:
+                    local[self._local(slot)] = int(tok0)
+            allt = C.exchange(local, self.mesh)
+            toks = [int(allt[slot]) for slot, _, _ in pending]
+            self.timing["prefill_s"] += time.perf_counter() - t0
+        for (slot, handle, _), tok in zip(pending, toks):
+            self._append(slot, handle, tok)
+            self._note_admitted(slot, handle,
+                                self._effective_budget(handle.request),
+                                self._depth_cap())
 
     def _admit_args(self, batch: dict, slot: int, pol_row) -> tuple:
         """(args, kwargs) of the ring admission's ``prefill_into_slot``:
@@ -719,14 +824,16 @@ class ServingEngine:
                 handle.tenant, self.scheduler.replica_of(slot),
                 handle.ttft * 1e3, t=handle.t_first)
 
-    def _first_token(self, logits, slot: int, req: GenRequest, plen: int):
-        """Records the request's sampling settings in ``slot`` and samples
-        its first token (position ``plen``) from the prefill's logits
-        (eager)."""
+    def _set_sampling(self, slot: int, req: GenRequest) -> None:
+        """Records the request's sampling settings in ``slot``."""
         self._temp[slot] = req.temperature
         self._topk[slot] = req.top_k
         self._seeds[slot] = int(req.seed) & 0xFFFFFFFF
-        if req.temperature <= 0:
+
+    def _sample_first(self, logits, slot: int, plen: int):
+        """The first token (position ``plen``) from the prefill's logits,
+        with the slot's sampling settings (eager)."""
+        if self._temp[slot] <= 0:
             return sample_tokens(logits)[0]
         dev, sl = self.device, [slot]
         return sample_tokens(
@@ -752,14 +859,17 @@ class ServingEngine:
             self.pool.free(pages)
         self._table[slot] = -1
 
-    def _admit_one_paged(self, slot: int, handle: RequestHandle) -> bool:
+    def _admit_one_paged(self, slot: int, handle: RequestHandle) -> tuple:
         """Paged admission: match shared prefix pages, allocate the rest,
         then stream the prompt through ``prefill_chunk_step``, one page of
         tokens per call. Fully shared chunks are skipped — except the FINAL
         chunk, which always runs (its activations give the first token);
         when that chunk's page is shared, its write goes to the trash page
-        while attention reads the real shared page. Returns False when the
-        pool cannot back the prompt right now (the caller re-queues)."""
+        while attention reads the real shared page. The pool's bookkeeping
+        runs on every rank, the chunks on the ranks of the slot's replica.
+        Returns (False, None) when the pool cannot back the prompt right
+        now (the caller re-queues), else (True, the first token as a
+        device tensor on the slot's replica, None elsewhere)."""
         req = handle.request
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         plen, ps = prompt.size, self.page_size
@@ -783,19 +893,37 @@ class ServingEngine:
             shared = [int(p) for p in row[:matched]]
             if shared:
                 self.pool.free(shared)
-            return False
+            return False, None
         for j, pg in enumerate(fresh):
             row[matched + j] = pg
         self._table[slot] = row
-        b_eff = self._effective_budget(req)
-        d_eff = self._depth_cap()
-        pol_row = self._policy_for(b_eff, depth=d_eff)
-        trash = self.pool.trash_page(r)
+        self._set_sampling(slot, req)
+        self._t[slot] = plen
+        self._active[slot] = True
+        self._ngen[slot] = 0
+        self._admit_seq[slot] = next(self._admit_counter)
+        li = self._local(slot)
+        tok0 = None
+        if li is not None:                   # the slot's replica prefills
+            tok0 = self._prefill_chunks(slot, li, req, prompt, row, matched,
+                                        self.pool.trash_page(r))
+        for i in range(matched, n_full):     # freshly written full pages
+            self.pool.register_prefix(keys[i], int(row[i]))
+        return True, tok0
+
+    def _prefill_chunks(self, slot: int, li: int, req: GenRequest, prompt,
+                        row, matched: int, trash: int):
+        """The device side of a paged admission: stage every chunk it runs
+        (the chunks past the ``matched`` shared pages, or the last one) in
+        one copy, replay the captured chunk once per chunk from its row of
+        the staging, splice the policy row into the rank's row ``li`` and
+        sample the first token (a device tensor)."""
+        plen, ps, P = prompt.size, self.page_size, self.pages_per_slot
+        n_chunks = n_pages_for(plen, ps)
+        pol_row = self._policy_for(self._effective_budget(req),
+                                   depth=self._depth_cap())
         t0 = time.perf_counter()
-        # stage every chunk this admission runs in one copy, then replay
-        # the captured chunk once per chunk from its row of the staging
         runs = list(range(matched, n_chunks)) or [n_chunks - 1]
-        P = self.pages_per_slot
         stage = self._chunk_host.numpy()
         for j, c in enumerate(runs):
             lo = c * ps
@@ -812,21 +940,12 @@ class ServingEngine:
             self._chunk_in.copy_(self._chunk_dev[j])
             self._run_form("prefill", "chunk", self._chunk_body)
         if self._live_policy is not None and pol_row is not None:
-            self._live_policy.set_row_(slot, pol_row)
-        tok0 = self._first_token(self._chunk_logits, slot, req, plen)
-        self._tok[slot] = tok0
-        tok0 = int(tok0)                          # waits for the device
+            self._live_policy.set_row_(li, pol_row)
+        tok0 = self._sample_first(self._chunk_logits, slot, plen)
+        self._tok[li] = tok0
         self.timing["prefill_s"] += time.perf_counter() - t0
         self.timing["prefill_tokens"] += int(plen)
-        for i in range(matched, n_full):     # freshly written full pages
-            self.pool.register_prefix(keys[i], int(row[i]))
-        self._t[slot] = plen
-        self._active[slot] = True
-        self._ngen[slot] = 0
-        self._admit_seq[slot] = next(self._admit_counter)
-        self._append(slot, handle, tok0)
-        self._note_admitted(slot, handle, b_eff, d_eff)
-        return True
+        return tok0
 
     def _pick_victim(self, replica: int) -> Optional[int]:
         """Preemption order: the LATEST-admitted active slot of the replica
@@ -933,8 +1052,10 @@ class ServingEngine:
             if (want == self._slot_applied_key[s]
                     and dcap == self._slot_applied_depth[s]):
                 continue
-            self._live_policy.set_row_(s, self._policy_for(want, depth=dcap),
-                                       floor=c.floor)
+            li = self._local(s)
+            if li is not None:                # the rank's own rows only
+                self._live_policy.set_row_(
+                    li, self._policy_for(want, depth=dcap), floor=c.floor)
             self._slot_applied_key[s] = want
             self._slot_applied_depth[s] = dcap
             cost = self._composed_cost(want, dcap)
@@ -977,44 +1098,64 @@ class ServingEngine:
         together (``_page_check``); an admission that runs out of pages
         inside the batch is re-queued at the front; before the decode,
         slots crossing into a new page get one, preempting under page
-        pressure.
+        pressure. On a data axis each first token reaches every rank
+        before the next paged admission allocates (a first token that
+        ends its request frees its pages first, as in the JAX engine); the
+        ring's first tokens cross once, after the step's admissions.
 
         With an ``SLOController``: expired queue deadlines are dropped
         before admission, admissions are capped at the degraded budget
         (cost AND policy row), and the controller evaluates at the end of
         the step, after the inter-token samples of its decode."""
+        if self.left:
+            raise RuntimeError("this rank left the mesh at a re-mesh: it "
+                               "serves no more")
         paged = self.kv_layout == "paged"
         expired = self._expire()
         cap = (self.controller.admission_cap()
                if self.controller is not None else None)
         dcap = self._depth_cap()
-        if paged:
-            admitted = []
-            for slot, handle in self.scheduler.admit(
-                    page_check=self._page_check, cost_cap=cap,
-                    cost_scale=dcap):
-                if self._admit_one_paged(slot, handle):
-                    admitted.append((slot, handle))
-                else:
+        # paged: a first token can end its request and free pages, so it
+        # is appended before the next admission allocates (JAX's order);
+        # ring: the replicas prefill side by side, then one exchange
+        n_admitted, pending = 0, []
+        for slot, handle in self.scheduler.admit(
+                page_check=self._page_check if paged else None,
+                cost_cap=cap, cost_scale=dcap):
+            if paged:
+                self._admitted(pending)
+                pending = []
+                ok, tok0 = self._admit_one_paged(slot, handle)
+                if not ok:
                     cost = self.scheduler.costs[slot]
                     self.scheduler.free(slot)
                     self.scheduler.requeue_front(handle, cost)
+                    continue
+            else:
+                tok0 = self._admit_one(slot, handle)
+            n_admitted += 1
+            pending.append((slot, handle, tok0))
+        self._admitted(pending)
+        if paged:
             self._ensure_decode_pages()       # may preempt: before `live`
-        else:
-            admitted = self.scheduler.admit(cost_cap=cap, cost_scale=dcap)
-            for slot, handle in admitted:
-                self._admit_one(slot, handle)
         if not self._active.any():
-            return len(admitted) + expired + self._control()
+            return n_admitted + expired + self._control()
         live = [(s, h) for s, h in enumerate(self.scheduler.slots)
                 if h is not None and self._active[s]]
         t0 = time.perf_counter()
-        # the per-slot state in one copy; the greedy-only or sampling form
-        self._stage_dev.copy_(self._stage_host, non_blocking=True)
+        # greedy-only or sampling: decided over every live slot, so every
+        # rank builds the same forms
         sampling = bool((self._temp[self._active] > 0).any())
-        self._run_form("decode", "sampling" if sampling else "greedy",
-                       lambda: self._decode_body(sampling))
-        toks = self._tok.cpu().numpy()            # waits for the device
+        if self._active[self._lo:self._lo + self._bl].any():
+            # the rank's per-slot state in one copy
+            self._stage_local()
+            self._stage_dev.copy_(self._stage_host, non_blocking=True)
+            self._run_form("decode", "sampling" if sampling else "greedy",
+                           lambda: self._decode_body(sampling))
+            toks = self._tok.cpu()                # waits for the device
+        else:                       # a replica with no live slot exchanges
+            toks = torch.zeros((self._bl,), dtype=torch.int64)
+        toks = self._exchange_tokens(toks)
         self.timing["decode_s"] += time.perf_counter() - t0
         self.timing["decode_steps"] += 1
         self.timing["decode_tokens"] += len(live)
@@ -1029,7 +1170,27 @@ class ServingEngine:
                         handle.tenant, self.scheduler.replica_of(slot),
                         (handle.t_tokens[-1] - handle.t_tokens[-2]) * 1e3,
                         t=handle.t_tokens[-1])
-        return len(admitted) + len(live) + expired + self._control()
+        return n_admitted + len(live) + expired + self._control()
+
+    def _exchange_tokens(self, toks: torch.Tensor) -> np.ndarray:
+        """The step's sampled tokens of all B slots on every rank: the
+        rank's own (``toks``, its ``_bl`` rows) all-gathered with its
+        ``active`` flags over the data axis (``collectives.exchange``);
+        every rank checks the gathered flags against its own host state,
+        so replicas whose schedulers parted raise instead of serving on.
+        Off a data axis ``toks`` itself."""
+        if self._bl == self.B:
+            return toks.numpy()
+        lo, bl = self._lo, self._bl
+        mine = torch.stack([toks, torch.from_numpy(
+            self._active[lo:lo + bl].astype(np.int64))], dim=1)
+        both = C.exchange(mine, self.mesh).numpy()
+        if not np.array_equal(both[:, 1].astype(bool), self._active):
+            raise RuntimeError(
+                f"rank {self.mesh.rank}: the replicas' schedulers parted "
+                f"(active slots {both[:, 1].tolist()} gathered, "
+                f"{self._active.astype(int).tolist()} here)")
+        return both[:, 0]
 
     # --------------------------- compiled entry points ------------------------
 
@@ -1168,30 +1329,92 @@ class ServingEngine:
         return dict(self._compiles)
 
     def reshard(self, mesh) -> None:
-        """Drain and re-mesh, the JAX engine's live ``reshard``. On one
-        device (``mesh=None``) it is a drain that keeps every slot's cache,
-        policy row and the queue: the device finishes its work, the
-        captured graphs and their pool are dropped and ``compile_counts()``
-        restarts, as the JAX engine's fresh jit wrappers do; the next step
-        captures again and every in-flight request continues with the same
-        tokens. A live re-mesh onto a mesh, or off one, arrives with
-        ROADMAP Queue A item 11 (the live re-mesh); a paged engine refuses,
-        as the JAX engine does."""
-        if mesh is not None or self.mesh is not None:
-            raise _todo("a live re-mesh (reshard onto or off a mesh)",
-                        "item 11 (the live re-mesh)")
+        """LIVE re-mesh, the JAX engine's ``reshard``: the engine moves onto
+        ``mesh`` (a ``Mesh`` of another (data, model) shape over the same
+        process world, from ``launch.mesh.remesh``) or onto one device
+        (``None``: the world's rank 0 serves on), without a restart.
+        Every rank of the current mesh calls it with the same shape.
+
+        The device drains; the slot caches (every in-flight request), the
+        live policy rows and the last tokens are gathered over the mesh
+        through the host (``collectives.gather_mesh``) and re-sliced by the
+        new mesh's cache rules, kv-heads included when the model axis
+        changes; the weights keep their shard when the model axis stays
+        (every rank keeps its model coordinate), else are gathered over
+        the mesh like the caches and re-sliced. Routers are
+        whole on every rank. The queue, the slot assignments and the host
+        state stay; the scheduler re-derives its replica axis
+        (``SlotScheduler.set_replicas``), ``remeshed_at`` is stamped and
+        ``compile_counts()`` restarts. A rank outside the new mesh drains
+        and leaves the lockstep (``left``; it serves no more). Every
+        in-flight request continues with the tokens of an uninterrupted
+        run. On one device (no mesh before or after) it is a drain that
+        keeps every slot and drops the captured graphs. A paged engine
+        refuses, as the JAX engine does; a one-device engine has no
+        process world to move onto a mesh (ValueError)."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a runtime.mesh.Mesh or None, got "
+                            f"{type(mesh).__name__}")
         if self.kv_layout == "paged":
             raise NotImplementedError(
                 "live reshard of a paged engine is not supported: page ids "
                 "are replica-local (the pool freelists and trash pages are "
                 "derived from the data-axis size at construction)")
+        if self.left:
+            raise RuntimeError("this rank left the mesh at a re-mesh")
+        old = self.mesh
+        if old is None and mesh is not None:
+            raise ValueError(
+                "a one-device engine has no process world to re-mesh onto: "
+                "build the engines on a mesh (launch.mesh.make_mesh) and "
+                "re-mesh between shapes of its world")
+        n_rep = self._replicas_for(mesh)
+        if mesh is not None:
+            if mesh.group is None and mesh.member:
+                raise RuntimeError("a re-mesh onto an abstract mesh (no "
+                                   "process group): build it with "
+                                   "launch.mesh.remesh")
+            with mesh:
+                check_mesh(self.cfg, self.spec)
+                check_kernel_ok(self.cfg)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # drain the in-flight step
+        if old is not None:
+            self._move_state(old, mesh)
+        self.scheduler.set_replicas(n_rep)
         self._forms = {}
         self._compiles = {"prefill": 0, "decode": 0}
         if self.cuda_graphs:
             self._graph_pool = torch.cuda.graph_pool_handle()
         self.remeshed_at = self._clock()          # stats-window boundary
+
+    def _move_state(self, old: Mesh, new: Optional[Mesh]) -> None:
+        """The device state of every slot from ``old``'s layout to
+        ``new``'s (``reshard``): the weights and caches through
+        ``elastic.rescale_serving_state``, the last tokens and the live
+        policy rows gathered and re-sliced over the slots; a rank outside
+        ``new`` keeps nothing and leaves."""
+        meta = cache_init(self.cfg, self.B, self.max_seq, device="meta",
+                          kv_dtype=self.kv_dtype)
+        self.params, self.rp, self._caches = EL.rescale_serving_state(
+            self.params, self.rp, self._caches, self.cfg, old, new,
+            template=meta, device=self.device)
+        rows = [self._tok] + ([] if self._live_policy is None else list(
+            _policy_leaves(self._live_policy).values()))
+        spec = lambda mesh, t: SH.slot_spec(t.dim(), t.dim() - 1, mesh)
+        rows = [EL.gather(t, spec(old, t), old) for t in rows]
+        self.mesh = new
+        if self._caches is None:              # outside the new mesh
+            self.left = True
+            self._live_policy = self._tok = None
+            return
+        rows = [EL.reshard(t, new, spec(new, t), self.device) for t in rows]
+        self._tok = rows[0]
+        if self._live_policy is not None:
+            self._live_policy = self._live_policy.replace(
+                **dict(zip(_policy_leaves(self._live_policy), rows[1:])))
+        self._set_local(new)
+        self._stage()
 
     # ------------------------------- fork ------------------------------------
 
@@ -1236,7 +1459,11 @@ class ServingEngine:
         # (n_keep = 0 masks every lane; src = dst copies nothing new)
         row[n_full] = dst
         src = int(self._table[s, n_full]) if rem else dst
-        copy_page_in_tree(self._caches, src, dst, rem)
+        ls, lc = self._local(s), self._local(cs)
+        if ls is not None:              # the replica's ranks copy the page
+            copy_page_in_tree(self._caches, src - self._page0,
+                              dst - self._page0, rem)
+            self._tok[lc] = self._tok[ls]
         self._table[cs] = row
         prompt = np.concatenate([np.asarray(req.prompt, np.int32).reshape(-1),
                                  np.asarray(handle.output, np.int32)])
@@ -1249,7 +1476,6 @@ class ServingEngine:
         child.budget_served = handle.budget_served
         self.scheduler.slots[cs] = child
         self.scheduler.costs[cs] = self.scheduler.costs[s]
-        self._tok[cs] = self._tok[s]
         self._t[cs] = t
         self._temp[cs] = creq.temperature
         self._topk[cs] = creq.top_k
@@ -1262,8 +1488,8 @@ class ServingEngine:
         b = req.budget if req.budget is not None else self.default_budget
         self._slot_budget_key[cs] = self._slot_applied_key[cs] = b
         self._slot_applied_depth[cs] = None
-        if self._live_policy is not None:
-            self._live_policy.set_row_(cs, self._policy_for(b))
+        if self._live_policy is not None and lc is not None:
+            self._live_policy.set_row_(lc, self._policy_for(b))
         return child
 
     def generate(self, requests: List[GenRequest],

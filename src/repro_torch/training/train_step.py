@@ -17,7 +17,7 @@ encoder routers train through it); an encoder (``family="encoder"``, a
 ViT over ``embeds``) distils its output embeddings by the cosine
 distance, the paper's objective for image encoders. The multi-GPU branch
 (vocab-sharded top-K candidates) and error-feedback gradient compression
-wait for the multi-GPU slice.
+wait for training on a mesh (ROADMAP Queue A item 11, part 4).
 """
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ from repro_torch.models import forward
 from repro_torch.optim.optimizer import (AdamWState, adamw_init, adamw_update,
                                          tree_leaves, tree_map)
 
-MULTI_GPU_TODO = "arrives with the multi-GPU slice (ROADMAP Queue A item 11)"
+MULTI_GPU_TODO = ("arrives with training on a mesh (ROADMAP Queue A item 11, "
+                  "part 4)")
 METRICS = ("loss", "distill", "aux_load", "aux_topk", "sel_rate")
 
 

@@ -319,7 +319,7 @@ def test_maybe_escalate_remeshes_ring_and_declines_paged():
     controller re-meshes a ring engine onto one device (the unusable shape
     skipped, the list consumed, the latch re-armed) and a paged engine
     declines (latch re-armed, no re-mesh); more than one device, or a
-    mesh, raises the item-11 refusal."""
+    mesh without a process world, raises."""
     side = Side(False, pair())
     ctrl = _saturated(TC)
     eng = side.engine(controller=ctrl)
@@ -332,7 +332,7 @@ def test_maybe_escalate_remeshes_ring_and_declines_paged():
     ctrl.update(2.0, queue_depth=100, capacity=2)
     assert not TF.maybe_escalate(eng, [])                # nothing left
     assert not ctrl.should_escalate
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="runtime.mesh.Mesh"):
         eng.reshard(object())
 
     ctrl = _saturated(TC)

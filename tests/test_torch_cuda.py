@@ -204,6 +204,86 @@ def test_paged_decode_kernel_matches_plain(cuda, case, dtype):
     assert not got[torch.from_numpy(dead).to(cuda)].any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_paged_decode_reads_the_rank_pool(cuda, dtype):
+    """A (data=2) mesh's per-rank paged decode: each replica holds half of
+    a 12-page pool (its trash page last) and its two slots; the table
+    carries GLOBAL page ids, rebased by the replica's offset (-1 stays -1:
+    an all -1 row gives exact zeros). The kernel on the rank's half equals
+    the plain version on the whole pool, and launches once per rank."""
+    from repro_torch.runtime.mesh import Mesh
+    N, ps, H, K, Dh = 12, 16, 28, 4, 128
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((4, 1, H, Dh), dtype=np.float32)
+    kp, vp = (rng.standard_normal((N, ps, K, Dh), dtype=np.float32)
+              for _ in range(2))
+    pvalid = rng.random((N, ps)) < 0.8
+    table = np.asarray([[3, 1, -1], [-1, -1, -1], [9, 6, 8], [10, -1, -1]],
+                       np.int32)
+    t = np.asarray([20, 5, 40, 15], np.int32)
+    dev = lambda a, **kw: as_t(a, device=cuda, **kw)
+    want = ops.paged_decode_attention(
+        dev(q, dtype=dtype), dev(kp, dtype=dtype), dev(vp, dtype=dtype),
+        dev(table), dev(t), dev(pvalid), backend="ref")
+    for d in range(2):
+        rows, pages = slice(2 * d, 2 * d + 2), slice(6 * d, 6 * d + 6)
+        mesh = Mesh({"data": 2, "model": 1}, rank=d)
+        n0 = ops.launch_counts()["paged_decode_attention"]
+        got = ops.paged_decode_attention_sharded(
+            dev(q[rows], dtype=dtype), dev(kp[pages], dtype=dtype),
+            dev(vp[pages], dtype=dtype), dev(table[rows]), dev(t[rows]),
+            dev(pvalid[pages]), mesh=mesh)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["paged_decode_attention"] == n0 + 1
+        torch.testing.assert_close(got.float(), want[rows].float(),
+                                   **CUDA_TOL[dtype])
+    assert not want[1].any()
+
+
+def _exchange_rank(rank: int, port: int, out: str) -> None:
+    """One rank of a (data=2, model=1) gloo mesh on the card: its slots'
+    tokens and flags (a CUDA tensor) exchanged over the data axis."""
+    from repro_torch.launch.mesh import destroy, make_mesh
+    from repro_torch.runtime import collectives as C
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh((2, 1), ("data", "model"), backend="gloo", rank=rank,
+                     init_method=f"tcp://localhost:{port}", device=dev,
+                     timeout=120)
+    try:
+        mine = torch.tensor([[10 * rank + 1, 1], [10 * rank + 2, 0]],
+                            dtype=torch.int64, device=dev)
+        got = C.exchange(mine, mesh)
+        torch.save({"got": got.cpu(), "device": str(got.device),
+                    "stats": C.stats()}, f"{out}/rank{rank}.pt")
+    finally:
+        destroy(mesh)
+
+
+@pytest.mark.cuda
+def test_data_axis_exchange_on_the_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card exchange their slots' rows (a CUDA
+    tensor, staged through pinned host memory): every rank gets all four
+    rows in flat slot order, on its device, counted as one data-axis
+    call."""
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    mp.start_processes(_exchange_rank, args=(port, str(tmp_path)), nprocs=2,
+                       start_method="spawn")
+    want = torch.tensor([[1, 1], [2, 0], [11, 1], [12, 0]])
+    for r in range(2):
+        res = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert torch.equal(res["got"], want)
+        assert res["device"].startswith("cuda")
+        assert res["stats"]["data_calls"] == 1
+        assert res["stats"]["data_bytes"] == want.numel() * 8
+
+
 def long_ring(seed, t, L=1024, H=28, K=4, Dh=128):
     """Qwen2-7B heads over a 1024-slot ring (``ring``) and a query row per
     slot, as numpy."""
@@ -1321,7 +1401,7 @@ def test_reshard_captures_again_with_identical_tokens(cuda):
         assert eng.step() > 0
     assert [list(h.output) for h in hs] == want
     assert eng.compile_counts()["decode"] >= 1
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="runtime.mesh.Mesh"):
         eng.reshard(object())
     with pytest.raises(NotImplementedError):
         mk("paged").reshard(None)

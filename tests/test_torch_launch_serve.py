@@ -4,8 +4,10 @@ latency and per-replica reports on the same handle timestamps, the
 scheduler's occupancy window on the same trace, ``open_loop``'s greedy
 tokens on toy-lm (f32, JAX on its jnp oracles), ``main``'s report lines,
 ``--mesh 1,2`` (two gloo ranks on the CPU, spawned by ``main``) serving
-the one-device run's tokens, and the refusals of what waits for the
-second half of the mesh slice (a data axis above 1, the live re-mesh).
+the one-device run's tokens, and the CLI's refusals (a mesh without a
+backend or with a controller, ``--remesh-at`` without a mesh and an open
+loop, shapes that do not fit). ``--mesh 2,2`` and ``--remesh-at`` are
+served in tests/test_torch_dp.py.
 
 ``main``'s lines are compared by their heads (``open loop:``,
 ``latency:``, ...). JAX's toy-lm default elastic config moefies the MLP
@@ -33,8 +35,6 @@ from repro_torch.launch import workloads  # noqa: E402
 from repro_torch.runtime import scheduler as tsched  # noqa: E402
 from repro_torch.training import GenRequest, ServingEngine  # noqa: E402
 from tests.test_torch_interop import RouterMargins, toy_pair  # noqa: E402
-
-ITEM_11 = "ROADMAP Queue A item 11"
 
 
 def _outcome(fn, s):
@@ -202,7 +202,7 @@ def test_open_loop_poisson_schedule_is_jaxs(monkeypatch):
     """Without ``arrive`` both draw Poisson gaps from
     ``default_rng(seed)``: the same schedule reaches ``replay``."""
     seen = {}
-    monkeypatch.setattr(tserve, "replay", lambda eng, reqs, arrive: (
+    monkeypatch.setattr(tserve, "replay", lambda eng, reqs, arrive, **kw: (
         seen.setdefault("arrive", arrive), ([None] * len(reqs), 0.0, {}))[1])
     tserve.open_loop(object(), [None] * 6, 4.0, seed=3)
     want = np.cumsum(np.random.default_rng(3).exponential(0.25, 6))
@@ -211,18 +211,22 @@ def test_open_loop_poisson_schedule_is_jaxs(monkeypatch):
 
 def test_refusals_cite_item_11(setup, monkeypatch, capsys):
     s = setup
-    with pytest.raises(NotImplementedError, match=ITEM_11):
+    with pytest.raises(ValueError, match="mesh engine"):
         tserve.open_loop(object(), [], 1.0, remesh_at=2, remesh_to=(1, 1))
     eng = ServingEngine(s["tparams"], s["trp"], s["tcfg"], s["tspec"],
                         batch_size=2, max_seq=MAX_SEQ, device="cpu",
                         clock=workloads.StepClock(0.1))
     with pytest.raises(ValueError, match=r"replay\(.*clock="):
         tserve.open_loop(eng, [GenRequest(s["prompts"][0], 2)], 1.0)
-    for argv in (["--mesh", "2,4"], ["--remesh-at", "4"],
-                 ["--remesh-to", "1,2"]):
+    for argv, err in ((["--mesh", "2,4"], "--backend"),
+                      (["--remesh-at", "4"], "requires --mesh"),
+                      (["--remesh-to", "1,2"], "requires --mesh"),
+                      (["--mesh", "2,2", "--batch", "3"], "multiple"),
+                      (["--mesh", "2,2", "--arrival-rate", "8",
+                        "--remesh-at", "2", "--remesh-to", "4,2"], "fit")):
         with pytest.raises(SystemExit):
             tserve.main(argv + ["--device", "cpu"])
-        assert ITEM_11 in capsys.readouterr().err
+        assert err in capsys.readouterr().err
     with pytest.raises(SystemExit):        # parsed first, as in JAX
         tserve.main(["--mesh", "2"])
     assert "'data,model' int pair" in capsys.readouterr().err
@@ -262,6 +266,35 @@ def test_main_prints_jaxs_report_lines(monkeypatch, capsys, extra):
     assert ("open loop" in heads) == ("--arrival-rate" in extra)
 
 
+def test_mesh_2_2_serves_and_remeshes_live(capfd, monkeypatch):
+    """``--mesh 2,2 --backend gloo`` spawns four CPU ranks (two replicas of
+    two model shards) serving the one-device run's sample tokens; in the
+    open loop ``--remesh-at 2 --remesh-to 1,2`` re-meshes the live engine
+    once at least two requests are submitted (ranks 2 and 3 leave), and
+    rank 0 prints
+    the report with the per-replica window since the re-mesh."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")     # the spawned ranks'
+    argv = MAIN + ["--device", "cpu", "--max-new", "6"]
+    tserve.main(argv)
+    one = capfd.readouterr().out
+    mesh = argv + ["--mesh", "2,2", "--backend", "gloo"]
+    tserve.main(mesh)
+    four = capfd.readouterr().out
+    pick = lambda text, head: [ln for ln in text.splitlines()
+                               if ln.startswith(head)]
+    for head in ("sample output", "compiles"):
+        assert pick(four, head) == pick(one, head) != []
+    tserve.main(mesh + ["--arrival-rate", "50", "--remesh-at", "2",
+                        "--remesh-to", "1,2"])
+    out = capfd.readouterr().out
+    line = pick(out, "[serve] re-meshed live to (data, model)=(1, 2) after")
+    assert len(line) == 1 and int(line[0].split()[8]) >= 2
+    assert len(pick(out, "open loop:")) == 1
+    assert pick(out, "  (per-replica window: since the live re-mesh")
+    assert len(pick(out, "  replica ")) == 1          # one replica after
+    assert pick(out, "compiles") == pick(one, "compiles")
+
+
 def test_mesh_1_2_serves_the_one_device_tokens(capfd, monkeypatch):
     """``--mesh 1,2 --backend gloo`` spawns two CPU ranks, each serving its
     shard; rank 0 alone prints, the one-device run's sample tokens and
@@ -282,5 +315,5 @@ def test_mesh_1_2_serves_the_one_device_tokens(capfd, monkeypatch):
     assert "--backend" in capfd.readouterr().err
     with pytest.raises(SystemExit):        # ranks on their own clocks
         tserve.main(argv + ["--mesh", "1,2", "--backend", "gloo",
-                            "--arrival-rate", "8"])
-    assert ITEM_11 in capfd.readouterr().err
+                            "--controller"])
+    assert "controller on a mesh" in capfd.readouterr().err

@@ -165,8 +165,8 @@ def test_no_silent_cpu_fallback(setup):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(s["tparams"], s["trp"], s["tcfg"], s["tspec"])
-    # tensor-parallel serving is ported; a data axis still waits
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # serving on a (data, model) mesh is ported: it takes a rank's shard
+    with pytest.raises(ValueError, match="shard"):
         _port_engine(s, mesh=abstract_mesh((2, 2), ("data", "model")))
     with pytest.raises(TypeError, match="runtime.mesh.Mesh"):
         _port_engine(s, mesh=object())
@@ -175,8 +175,10 @@ def test_no_silent_cpu_fallback(setup):
     ctrl = SLOController()
     eng = _port_engine(s, controller=ctrl)
     assert eng.controller is ctrl and eng.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="runtime.mesh.Mesh"):
         eng.reshard(object())
+    with pytest.raises(ValueError, match="process world"):
+        eng.reshard(abstract_mesh((1, 2), ("data", "model")))
     # quantized serving is ported: on the CPU an int8 engine builds
     eng = _port_engine(s, kv_dtype="int8", weight_dtype="int8")
     attn = eng._caches["layers"][0]["attn"]

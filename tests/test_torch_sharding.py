@@ -171,19 +171,27 @@ def test_shard_tree_takes_each_ranks_slice(m):
 
 def test_mesh_helpers():
     """Row-major rank coordinates, the axis sizes the rules read, the
-    production shape the port states for H100s, a data axis above 1
-    refused, and ``valid_mesh_shapes`` as JAX's."""
+    production shape the port states for H100s (two nodes as data=2,
+    model=8), a leaf sliced over the data and the model axis and made
+    whole again, and ``valid_mesh_shapes`` as JAX's."""
     mesh = M.Mesh({"data": 2, "model": 4}, rank=6)
     assert (mesh.coord("data"), mesh.model_rank, mesh.size) == (1, 2, 8)
+    assert (mesh.data_rank, mesh.data_size, mesh.member) == (1, 2, True)
+    assert not M.Mesh({"data": 1, "model": 4}, rank=6).member
     assert (SH.data_axis_size(mesh), SH.model_axis_size(mesh)) == (2, 4)
     assert SH.model_axis_size(None) == SH.data_axis_size(None) == 1
-    assert LM.make_production_mesh() == ((1, 8), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        LM.make_mesh((2, 2), ("data", "model"), backend="gloo", rank=0)
+    assert LM.make_production_mesh() == ((2, 8), ("data", "model"))
     with pytest.raises(ValueError, match="backend"):
-        LM.make_mesh((1, 2), ("data", "model"), backend="mpi", rank=0)
-    with pytest.raises(NotImplementedError, match="data axis"):
-        SH.shard_leaf(torch.zeros(4), ("model",), mesh)
+        LM.make_mesh((2, 2), ("data", "model"), backend="mpi", rank=0)
+    with pytest.raises(ValueError, match="model axis must be the last"):
+        LM.make_mesh((2, 2), ("model", "data"), backend="gloo", rank=0)
+    x = torch.arange(64.0).reshape(4, 16)
+    assert torch.equal(SH.shard_leaf(x, ("data", "model"), mesh),
+                       x[2:4, 8:12])
+    assert SH.shard_leaf(x, (), mesh) is x
+    parts = [SH.shard_leaf(x, ("data", "model"), M.Mesh(mesh.shape, rank=r))
+             for r in range(mesh.size)]
+    assert torch.equal(SH.unshard_leaf(parts, ("data", "model"), mesh), x)
     assert M.active_mesh() is None
     with mesh:
         assert M.active_mesh() is mesh

@@ -431,7 +431,9 @@ def test_padded_heads_match_jax_on_one_process(tp):
 
 
 def test_mesh_engine_refusals(tp):
-    """What the next slice brings raises, naming its part of item 11."""
+    """What a later part of item 11 brings raises, naming its part; a data
+    axis and the paged layout build (tests/test_torch_dp.py serves them);
+    a live re-mesh needs a mesh built over a process world."""
     c = tp["inputs"]["main"]
     cfg, spec = c["cfg"], c["spec"]
     params, rp = params_from_numpy(c["flat"], cfg, spec, device="cpu")
@@ -440,12 +442,9 @@ def test_mesh_engine_refusals(tp):
                                               max_seq=MAX_SEQ, device="cpu",
                                               **kw)
     for kw, what in (
-            (dict(mesh=abstract_mesh((2, M), ("data", "model"))),
-             "data axis"),
-            (dict(mesh=mesh, kv_layout="paged"), "paged layout"),
-            (dict(mesh=mesh, mode="train"), "training on a mesh"),
-            (dict(mesh=mesh, weight_dtype="int8"), "int8"),
-            (dict(mesh=mesh, cuda_graphs=True), "graphed decode")):
+            (dict(mesh=mesh, mode="train"), "part 4, training on a mesh"),
+            (dict(mesh=mesh, weight_dtype="int8"), "part 4.*int8"),
+            (dict(mesh=mesh, cuda_graphs=True), "part 6, graphed decode")):
         with pytest.raises(NotImplementedError, match=f"item 11.*{what}"):
             mk(**kw)
     with pytest.raises(ValueError, match="shard"):
@@ -453,9 +452,15 @@ def test_mesh_engine_refusals(tp):
     eng = mk(SH.shard_params(params, mesh), mesh=mesh)
     assert eng.params["layers"][0]["attn"]["wq"].shape[1] == cfg.n_heads // M
     assert eng.scheduler.n_replicas == 1
-    for target in (mesh, None):
-        with pytest.raises(NotImplementedError, match="live re-mesh"):
-            eng.reshard(target)
+    dp = abstract_mesh((2, M), ("data", "model"))
+    for kw in (dict(mesh=dp), dict(mesh=dp, kv_layout="paged"),
+               dict(mesh=mesh, kv_layout="paged")):
+        e = mk(SH.shard_params(params, kw["mesh"]), **kw)
+        assert e.scheduler.n_replicas == kw["mesh"].shape["data"]
+    with pytest.raises(RuntimeError, match="abstract mesh"):
+        eng.reshard(mesh)        # no process group to gather over
+    with pytest.raises(TypeError, match="runtime.mesh.Mesh"):
+        eng.reshard(object())
     odd = dataclasses.replace(cfg, n_heads=3, n_kv_heads=3)
     with pytest.raises(NotImplementedError, match="padded heads"):
         with mesh:
